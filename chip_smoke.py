@@ -12,16 +12,19 @@ Phases, any failure exits non-zero:
      configuration) and cache it under build/chip_smoke/; generate 65,536
      reads (bench.py's count) and check that the threaded host fragmenter
      gives the same bytes as one thread;
-  3. hold every kernel of the MEM path against its plain PyTorch version on
-     the card, on the inputs the main path gives it (a 4096-read batch,
-     the depth-5 seed-table probes), integer outputs equal; time both;
+  3. hold every kernel of both paths against its plain PyTorch version on
+     the card, on the inputs the main path gives it (the depth-5
+     seed-table probes; the first 4,096-read batch of the MEM path for B,
+     C, D and of the Greedy path at -e 3 for E, F), integer outputs equal;
+     time both;
   4. classify the reads in batches of 4,096 (bench.py's batch) through
-     kaiju_tpu_torch.tools.kaiju.main with -a mem, counting each kernel's
-     launches (all must be > 0), and check 256 sampled TSV lines against
-     the port's host ExactClassifier; then classify them again with the
-     seed tables cached, untraced for the steady rate and the host seconds
-     of each stage, and traced by torch.profiler for the device's idle
-     share;
+     kaiju_tpu_torch.tools.kaiju.main, first with -a mem, then with the
+     default flags (Greedy), counting each kernel's launches in each run
+     (every kernel of the run's path must launch), and check 256 sampled
+     TSV lines of each run against the port's host ExactClassifier;
+  4b. for each path, classify the reads again with the seed tables cached,
+     untraced for the steady rate and the host seconds of each stage, and
+     traced by torch.profiler for the device's idle share;
   5. print the kernels' JSON line, then the result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
@@ -51,7 +54,16 @@ REPLACES = {
     "update_si": "kaiju_tpu/ops/device_index.py:333",
     "mem_extend": "kaiju_tpu/ops/fused_mem2.py:528",
     "mem_stats": "kaiju_tpu/ops/fused_mem2.py:921",
-    "read_lca": "kaiju_tpu/ops/fused_classify.py:153",
+    "read_lca": "kaiju_tpu/ops/fused_classify.py:298",
+    "greedy_search": "kaiju_tpu/ops/fused_greedy.py:298",
+    "ranges_lca": "kaiju_tpu/ops/fused_classify.py:153",
+}
+# the kernels each path launches, and the CLI flags that select the path
+PATHS = {
+    "mem": (("update_si", "mem_extend", "mem_stats", "read_lca"),
+            ["-a", "mem"]),
+    "greedy": (("update_si", "mem_extend", "greedy_search", "ranges_lca"),
+               []),
 }
 
 
@@ -163,7 +175,8 @@ def check_fragmenter(reads) -> None:
     import numpy as np
 
     from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
-    from kaiju_tpu_torch.engine.mem import MemPipeline, _bucket
+    from kaiju_tpu_torch.engine.mem import MemPipeline
+    from kaiju_tpu_torch.engine.pipeline import _bucket
 
     seen = []
     for threads in (2, 1):
@@ -202,14 +215,18 @@ def row_bytes(touched) -> tuple[int, int]:
 def check_kernels(index, reads):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note).  The bound
     counts each input byte once: the distinct record rows that the plain
-    version reads, plus the other inputs and the outputs."""
+    version reads, plus the other inputs and the outputs (E's per-position
+    and per-source scratch is its own, not counted)."""
     import numpy as np
     import torch
 
     from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
-    from kaiju_tpu_torch.engine.mem import MemPipeline, _bucket
+    from kaiju_tpu_torch.engine.greedy import GreedyPipeline
+    from kaiju_tpu_torch.engine.mem import MemPipeline
+    from kaiju_tpu_torch.engine.pipeline import _bucket
+    from kaiju_tpu_torch.index.alphabet import trans_table
     from kaiju_tpu_torch.io.taxonomy import Taxonomy
-    from kaiju_tpu_torch.ops import classify, device_index, search
+    from kaiju_tpu_torch.ops import classify, device_index, greedy, search
     from kaiju_tpu_torch.ops.kmer import NLET, KmerTables
 
     cuda = torch.device("cuda")
@@ -286,6 +303,39 @@ def check_kernels(index, reads):
     report("read_lca", rows, want, lambda: classify.read_lca(*tail),
            lambda: classify.read_lca_plain(*tail), touched,
            4 * B * S + 16 * B + F * (8 + 8 * T), f"{B:,} reads")
+
+    # E, F on the first batch of the Greedy path at the default flags
+    # (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
+    frag = NativeFragmenter2("greedy", 11, 65, True, False)
+    flat, chars, frag_off, n_frags, _k, rf_rows, _o = frag.run(
+        reads[:BATCH], GreedyPipeline.S_SLOTS, _bucket)
+    flat = put(flat[:chars])
+    frag_off = put(frag_off[: n_frags + 1])
+    rf_rows = put(rf_rows)
+    tables = tuple(put(a) for a in greedy.greedy_scoring_tables(
+        index.alphabet, trans_table(index.alphabet)))
+    lmap, T = 7, 20
+    (B, S), P, F = rf_rows.shape, chars, n_frags
+    lanes = search.mem_extend(dv.rec, dv.C, *seed, flat, frag_off, K, lmap - 1)
+    ge = (*lanes, flat, frag_off, rf_rows, dv.rec, dv.C, tables, lmap, 11, 65,
+          3, T, GreedyPipeline.VCAP)
+    found = greedy.greedy_search(*ge)
+    touched = []
+    want = greedy.greedy_search_plain(*ge, touched)
+    report("greedy_search", found, want, lambda: greedy.greedy_search(*ge),
+           lambda: greedy.greedy_search_plain(*ge), touched,
+           P * (12 + 1) + 4 * (F + 1) + 4 * B * S + B * (8 + 8 * T),
+           f"{B:,} reads, {P:,} lanes, -e 3")
+
+    gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.seq_tax,
+          par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq, dv.chpt_exp)
+    res = classify.ranges_lca(*gf)
+    touched = []
+    want = classify.ranges_lca_plain(*gf, touched)
+    report("ranges_lca", res, want, lambda: classify.ranges_lca(*gf),
+           lambda: classify.ranges_lca_plain(*gf), touched,
+           8 * B * T + 16 * B, f"{B:,} reads, {int((found[0] > 0).sum()):,} "
+           "with a best")
     torch.cuda.synchronize()
     del dv
     torch.cuda.empty_cache()
@@ -297,32 +347,33 @@ def check_kernels(index, reads):
 # ---------------------------------------------------------------------------
 
 
-def steady_stream(index, nodes, reads, warm) -> None:
-    """Classify the reads again, twice, each time with a new MemPipeline
-    (seed tables cached) warmed by one batch of other reads, so that the
-    host replay meets the reads afresh as in a real stream.  The untraced
-    pass gives the steady rate and the host seconds of each stage; the
-    pass under torch.profiler, tracing the card only, gives the device's
-    busy share and each kernel's total."""
+def steady_stream(index, nodes, reads, warm, mode: str) -> None:
+    """Classify the reads again, twice, each time with a new pipeline of
+    `mode` (seed tables cached) warmed by one batch of other reads, so that
+    the host replay meets the reads afresh as in a real stream.  The
+    untraced pass gives the steady rate and the host seconds of each
+    stage; the pass under torch.profiler, tracing the card only, gives the
+    device's busy share and each kernel's total."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kaiju_tpu_torch.engine import mem
-    from kaiju_tpu_torch.engine.config import KaijuConfig
+    from kaiju_tpu_torch.engine import greedy, mem
     from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
 
-    cfg = KaijuConfig(mode="mem", seg=True, use_Evalue=False)
+    engine = greedy if mode == "greedy" else mem
+    Pipeline = greedy.GreedyPipeline if mode == "greedy" else mem.MemPipeline
+    cfg = cli_config(mode)
     tax = Taxonomy(parse_nodes_dmp(nodes))
     batches = [reads[i:i + BATCH] for i in range(0, len(reads), BATCH)]
 
     def one_pass(traced: bool):
         t0 = time.perf_counter()
-        pipe = mem.MemPipeline(index, tax, cfg, kmer_cache_dir=index.source_dir)
+        pipe = Pipeline(index, tax, cfg, kmer_cache_dir=index.source_dir)
         pipe.classify_batch(warm)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        mem.reset_counts()
+        engine.reset_counts()
         trace = (profile(activities=[ProfilerActivity.CUDA]) if traced
                  else contextlib.nullcontext())
         with trace as prof:
@@ -333,26 +384,104 @@ def steady_stream(index, nodes, reads, warm) -> None:
         return n, wall, setup, prof
 
     n, wall, setup, _p = one_pass(False)
-    host = dict(mem.HOST_SECONDS)
-    log(f"steady: {n:,} reads in {wall:.3f} s = {n / wall:.1f} reads/s "
-        f"untraced (set-up and warm batch {setup:.2f} s not included)")
+    host = dict(engine.HOST_SECONDS)
+    log(f"steady {mode}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
+        f"reads/s untraced (set-up and warm batch {setup:.2f} s not "
+        "included)")
     host["other"] = wall - sum(host.values())
-    log("steady: host seconds " + ", ".join(
+    log(f"steady {mode}: host seconds " + ", ".join(
         f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items())
-        + f"; replayed {mem.HOST_REPLAY['flagged']} reads")
+        + f"; replayed {engine.HOST_REPLAY['flagged']} reads")
     _n, wall_t, _s, prof = one_pass(True)
     rows = [r for r in prof.key_averages()
             if r.device_type == DeviceType.CUDA]
     dev_us = sum(r.self_device_time_total for r in rows)
     if dev_us <= 0:
-        log("steady: device time not measured (the profiler saw none)")
+        log(f"steady {mode}: device time not measured (the profiler saw "
+            "none)")
         return
     busy = dev_us / 1e6 / wall_t
-    log(f"steady: traced pass {wall_t:.3f} s; device busy "
+    log(f"steady {mode}: traced pass {wall_t:.3f} s; device busy "
         f"{dev_us / 1e3:.3f} ms ({busy:.2%}); idle share {1 - busy:.2%}")
     for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:8]:
-        log(f"steady: device {r.self_device_time_total / 1e3:9.3f} ms "
+        log(f"steady {mode}: device {r.self_device_time_total / 1e3:9.3f} ms "
             f"x{r.count:<4d} {r.key[:70]}")
+
+
+def cli_config(mode: str):
+    """The KaijuConfig that tools.kaiju.main makes from the path's flags."""
+    from kaiju_tpu_torch.engine.config import KaijuConfig
+
+    if mode == "mem":
+        return KaijuConfig(mode="mem", seg=True, use_Evalue=False)
+    return KaijuConfig()  # the defaults: Greedy, -e 3, SEG, -E 0.01
+
+
+def run_cli(index, reads, ktx, nodes, fq, mode: str) -> dict:
+    """Classify the reads through tools.kaiju.main on the path `mode`,
+    the seed tables built afresh; fail unless every kernel of the path
+    launched, and unless 256 sampled TSV lines equal the ExactClassifier's.
+    Returns the launch counts of the run."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import greedy, mem
+    from kaiju_tpu_torch.engine.core import ExactClassifier, format_output_line
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.tools import kaiju
+
+    engine = greedy if mode == "greedy" else mem
+    path_kernels, flags = PATHS[mode]
+    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
+    out_tsv = os.path.join(os.path.dirname(ktx), f"out_{mode}.tsv")
+    kernels.reset_counts()
+    engine.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *flags,
+                     "-o", out_tsv, "-b", str(BATCH)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    replay = dict(engine.HOST_REPLAY)
+    if rc != 0:
+        raise AssertionError(f"kaiju main {flags} returned {rc}")
+    log(f"e2e {mode}: flags {flags}: {READS:,} reads in {dt:.2f} s = "
+        f"{READS / dt:.1f} reads/s (index load, upload, seed tables and "
+        "classification)")
+    log(f"e2e {mode}: host replay {replay['flagged']} of {replay['reads']} "
+        f"reads ({replay['flagged'] / max(replay['reads'], 1):.4%}); "
+        f"counts {json.dumps(replay)}")
+    log(f"e2e {mode}: launches {json.dumps(launches)}")
+    if replay["reads"] != READS:
+        raise AssertionError(f"classified {replay['reads']} of {READS} reads")
+    idle = [k for k in path_kernels if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels of the {mode} path did not launch: "
+                             f"{idle} ({launches})")
+
+    with open(out_tsv, "rb") as fh:
+        log(f"e2e {mode}: TSV sha256 "
+            f"{hashlib.sha256(fh.read()).hexdigest()[:16]}")
+    with open(out_tsv) as fh:
+        lines = fh.readlines()
+    if len(lines) != READS:
+        raise AssertionError(f"{len(lines)} TSV lines for {READS} reads")
+    pick = list(range(0, READS, READS // 256))[:256]
+    exact = ExactClassifier(index, Taxonomy(parse_nodes_dmp(nodes)),
+                            cli_config(mode))
+    t0 = time.perf_counter()
+    want = [format_output_line(*exact.classify_read(*reads[r]), False)
+            for r in pick]
+    diff = [r for r, w in zip(pick, want) if lines[r] != w]
+    log(f"check {mode}: {len(pick)} sampled TSV lines against "
+        f"ExactClassifier: {len(pick) - len(diff)} equal "
+        f"({sum(w.startswith('C') for w in want)} classified; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if diff:
+        r = diff[0]
+        raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
+    return {k: launches[k] for k in path_kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -367,11 +496,7 @@ def run(args) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from kaiju_tpu_torch import kernels
-    from kaiju_tpu_torch.engine import mem
-    from kaiju_tpu_torch.engine.config import KaijuConfig
-    from kaiju_tpu_torch.engine.core import ExactClassifier, format_output_line
-    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
-    from kaiju_tpu_torch.tools import kaiju, readgen
+    from kaiju_tpu_torch.tools import readgen
 
     # ---- 1. build ------------------------------------------------------
     secs = kernels.build(force=True, verbose=True)
@@ -405,54 +530,20 @@ def run(args) -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
-    # ---- 4. end to end through the CLI --------------------------------
-    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
-    out_tsv = os.path.join(os.path.dirname(ktx), "out.tsv")
-    kernels.reset_counts()
-    mem.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem",
-                     "-o", out_tsv, "-b", str(BATCH)])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    replay = dict(mem.HOST_REPLAY)
-    if rc != 0:
-        raise AssertionError(f"kaiju main returned {rc}")
-    log(f"e2e: {READS:,} reads in {dt:.2f} s = {READS / dt:.1f} "
-        f"reads/s (index load, upload, seed tables and classification)")
-    log(f"e2e: host replay {replay['flagged']} of {replay['reads']} reads "
-        f"({replay['flagged'] / max(replay['reads'], 1):.4%})")
-    log(f"e2e: launches {json.dumps(launches)}")
-    if replay["reads"] != READS:
-        raise AssertionError(f"classified {replay['reads']} of {READS} reads")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+    # ---- 4. end to end through the CLI, each path counted from 0 ------
+    launches = {name: 0 for name in REPLACES}
+    for mode in PATHS:
+        for name, n in run_cli(index, reads, ktx, nodes, fq, mode).items():
+            launches[name] += n
 
-    with open(out_tsv, "rb") as fh:
-        log(f"e2e: TSV sha256 {hashlib.sha256(fh.read()).hexdigest()[:16]}")
-    with open(out_tsv) as fh:
-        lines = fh.readlines()
-    if len(lines) != READS:
-        raise AssertionError(f"{len(lines)} TSV lines for {READS} reads")
-    pick = list(range(0, READS, READS // 256))[:256]
-    cfg = KaijuConfig(mode="mem", seg=True, use_Evalue=False)
-    exact = ExactClassifier(index, Taxonomy(parse_nodes_dmp(nodes)), cfg)
-    t0 = time.perf_counter()
-    want = [format_output_line(*exact.classify_read(*reads[r]), False)
-            for r in pick]
-    diff = [r for r, w in zip(pick, want) if lines[r] != w]
-    log(f"check: {len(pick)} sampled TSV lines against ExactClassifier: "
-        f"{len(pick) - len(diff)} equal "
-        f"({sum(w.startswith('C') for w in want)} classified; "
-        f"{time.perf_counter() - t0:.1f} s)")
-    if diff:
-        r = diff[0]
-        raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
-    steady_stream(index, nodes, reads, make_reads(args.seed + 1, records, BATCH))
+    # ---- 4b. where the time goes ----------------------------------------
+    warm = make_reads(args.seed + 1, records, BATCH)
+    for mode in PATHS:
+        steady_stream(index, nodes, reads, warm, mode)
 
     # ---- 5. result lines ----------------------------------------------
+    # launches: over the two main-path runs of phase 4 (A and B run in
+    # both)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"kaiju_tpu_torch/csrc/{name}.cu",

@@ -72,6 +72,38 @@ __device__ __forceinline__ int sa_walk(const int* __restrict__ rec, int nb1,
     return __ldg(sa_seq + idx);
 }
 
+// Warp helpers: every lane of the warp calls them.
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ int warp_max(int v) {
+    for (int o = 16; o > 0; o >>= 1)
+        v = max(v, __shfl_xor_sync(kFullMask, v, o));
+    return v;
+}
+
+// Inclusive prefix sum over the lanes (lane 0 first).
+__device__ __forceinline__ int warp_incl_sum(int v, int lane) {
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFullMask, v, o);
+        if (lane >= o) v += u;
+    }
+    return v;
+}
+
+// Inclusive prefix minimum over the lanes (lane 0 first).
+__device__ __forceinline__ int warp_incl_min(int v, int lane) {
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFullMask, v, o);
+        if (lane >= o) v = min(v, u);
+    }
+    return v;
+}
+
+// The lanes below this one, as a ballot mask.
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+    return (1u << lane) - 1u;
+}
+
 }  // namespace kt
 
 // Error text for a code returned by an entry point (each library has its

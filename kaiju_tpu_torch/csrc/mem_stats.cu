@@ -18,11 +18,7 @@
 
 namespace {
 
-__device__ __forceinline__ int warp_max(int v) {
-    for (int o = 16; o > 0; o >>= 1)
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
+using kt::warp_max;
 
 __global__ void mem_stats_kernel(const int* __restrict__ li,
                                  const int* __restrict__ ls0,

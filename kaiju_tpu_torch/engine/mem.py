@@ -20,21 +20,17 @@ lane capacities.
 from __future__ import annotations
 
 import time
-from collections import deque
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..index.core import KaijuIndex
 from ..io.taxonomy import Taxonomy
 from ..ops.classify import FLAG_NEED_MORE, FLAG_TIE_OVER, fused_mem_classify
-from ..ops.device_index import DeviceIndex, resolve_device
-from ..ops.kmer import KmerTables
 from ..ops.search import SEED_K, TIE_CAP
 from .config import KaijuConfig
-from .core import ClassifyResult, ExactClassifier
-from .fragments_native import NativeFragmenter2
+from .core import ClassifyResult
+from .pipeline import DevicePipeline, _bucket
 
 # reads classified and reads replayed on the host, over all pipelines
 HOST_REPLAY = {"reads": 0, "flagged": 0}
@@ -52,18 +48,7 @@ def reset_counts() -> None:
         HOST_SECONDS[k] = 0.0
 
 
-def _bucket(n: int, lo: int) -> int:
-    b = lo
-    while b < n:
-        b *= 2
-    return b
-
-
-class MemPipeline:
-    S_SLOTS = 16  # pop-order slots per read in the device slot table
-    R_BUDGET = 32  # SA positions resolved on the device per read
-    LOOKAHEAD = 2  # batches submitted ahead of the one being collected
-
+class MemPipeline(DevicePipeline):
     def __init__(
         self,
         index: KaijuIndex,
@@ -74,29 +59,8 @@ class MemPipeline:
     ):
         if config.mode != "mem" or config.verbose or taxonomy is None:
             raise ValueError("MemPipeline runs -a mem with a taxonomy, no -v")
-        self.cfg = config
-        self.index = index
-        self.tax = taxonomy
-        self.device = resolve_device(device)
-        self.dev = DeviceIndex(index, self.device)
-        self.seed_K = min(SEED_K, config.min_fragment_length)
-        kmer = KmerTables.load_or_build(index, kmer_cache_dir, self.seed_K,
-                                        device_index=self.dev)
-        self._seed = tuple(self._put(a) for a in kmer.planar_seed(self.seed_K))
-        par, dep = taxonomy.dense_arrays()
-        self._parent = self._put(par)
-        self._depth = self._put(dep)
-        self._fragmenter = NativeFragmenter2(
-            config.mode, config.min_fragment_length, config.min_score,
-            config.seg, config.input_is_protein,
-        )
-        self._exact = None  # host replay engine, made at first use
-
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        super().__init__(index, taxonomy, config, device, kmer_cache_dir,
+                         min(SEED_K, config.min_fragment_length))
 
     def submit_batch(self, reads):
         """Fragment a batch on the host and queue its device work; the
@@ -131,13 +95,7 @@ class MemPipeline:
         ).tolist()
         HOST_REPLAY["reads"] += len(reads)
         HOST_REPLAY["flagged"] += len(flagged)
-        redo = {}
-        if flagged:
-            if self._exact is None:
-                self._exact = ExactClassifier(self.index, self.tax, self.cfg)
-            sub = [reads[r] for r in flagged]
-            for r, (_n, res) in zip(flagged, self._exact.classify_batch(sub)):
-                redo[r] = res
+        redo = self._replay(reads, flagged)
         t2 = time.perf_counter()
         unclassified = ClassifyResult(False, 0)
         results = []
@@ -154,17 +112,3 @@ class MemPipeline:
         HOST_SECONDS["replay"] += t2 - t1
         HOST_SECONDS["results"] += time.perf_counter() - t2
         return results
-
-    def classify_batch(self, reads) -> list[tuple[str, ClassifyResult]]:
-        return self.collect_batch(self.submit_batch(reads))
-
-    def classify_stream(self, batches):
-        """Yield each batch's results in order, with up to LOOKAHEAD
-        batches queued on the device ahead of the one being collected."""
-        q: deque = deque()
-        for batch in batches:
-            q.append(self.submit_batch(batch))
-            if len(q) > self.LOOKAHEAD:
-                yield self.collect_batch(q.popleft())
-        while q:
-            yield self.collect_batch(q.popleft())

@@ -1,0 +1,86 @@
+"""What the device pipelines (``engine.mem.MemPipeline`` and
+``engine.greedy.GreedyPipeline``) share: the device index, seed tables and
+taxonomy on the card, the native fragmenter, uploads, the host replay of
+flagged reads, and the stream with its lookahead.  Each pipeline keeps its
+own counters (``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
+``submit_batch`` and ``collect_batch``."""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..index.core import KaijuIndex
+from ..io.taxonomy import Taxonomy
+from ..ops.device_index import DeviceIndex, resolve_device
+from ..ops.kmer import KmerTables
+from .config import KaijuConfig
+from .core import ExactClassifier
+from .fragments_native import NativeFragmenter2
+
+
+def _bucket(n: int, lo: int) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+class DevicePipeline:
+    S_SLOTS = 16  # pop-order slots per read in the device slot table
+    R_BUDGET = 32  # SA positions resolved on the device per read
+    LOOKAHEAD = 2  # batches submitted ahead of the one being collected
+
+    def __init__(self, index: KaijuIndex, taxonomy: Taxonomy,
+                 config: KaijuConfig, device, kmer_cache_dir: Optional[str],
+                 seed_K: int):
+        self.cfg = config
+        self.index = index
+        self.tax = taxonomy
+        self.device = resolve_device(device)
+        self.dev = DeviceIndex(index, self.device)
+        self.seed_K = seed_K
+        kmer = KmerTables.load_or_build(index, kmer_cache_dir, seed_K,
+                                        device_index=self.dev)
+        self._seed = tuple(self._put(a) for a in kmer.planar_seed(seed_K))
+        par, dep = taxonomy.dense_arrays()
+        self._parent = self._put(par)
+        self._depth = self._put(dep)
+        self._fragmenter = NativeFragmenter2(
+            config.mode, config.min_fragment_length, config.min_score,
+            config.seg, config.input_is_protein,
+        )
+        self._exact = None  # host replay engine, made at first use
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _replay(self, reads, flagged: list[int]) -> dict:
+        """ExactClassifier's result for each read index in `flagged`."""
+        if not flagged:
+            return {}
+        if self._exact is None:
+            self._exact = ExactClassifier(self.index, self.tax, self.cfg)
+        sub = [reads[r] for r in flagged]
+        return {r: res for r, (_n, res)
+                in zip(flagged, self._exact.classify_batch(sub))}
+
+    def classify_batch(self, reads):
+        return self.collect_batch(self.submit_batch(reads))
+
+    def classify_stream(self, batches):
+        """Yield each batch's results in order, with up to LOOKAHEAD
+        batches queued on the device ahead of the one being collected."""
+        q: deque = deque()
+        for batch in batches:
+            q.append(self.submit_batch(batch))
+            if len(q) > self.LOOKAHEAD:
+                yield self.collect_batch(q.popleft())
+        while q:
+            yield self.collect_batch(q.popleft())

@@ -48,6 +48,15 @@ _SIGNATURES = {
     # seq_tax ntax parent depth maxtax | R cap nseq chpt_exp | out
     "read_lca": ("kt_read_lca",
                  "ppppi" "pii" "pippi" "pippi" "iiii" "p" "p"),
+    # g_s0 g_s1 B G | rec nb1 C sa_seq nsamp | seq_tax ntax parent depth
+    # maxtax | R cap nseq chpt_exp | lca n_ids need_more tie_order
+    "ranges_lca": ("kt_ranges_lca",
+                   "ppii" "pippi" "pippi" "iiii" "pppp" "p"),
+    # li ls0 ls1 flat frag_off F rf_rows B S | rec nb1 C | diag submat
+    # subcode subdiag | Lmap mfl min_score mismatches T vcap | node pincl
+    # src | best flags g_s0 g_s1
+    "greedy_search": ("kt_greedy_search",
+                      "ppppp" "ipii" "pip" "pppp" "iiiiii" "ppp" "pppp" "p"),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

@@ -1,5 +1,8 @@
-"""MEM classification of a batch of reads: kernel D (``read_lca``) and
-``fused_mem_classify``, which runs B -> C -> D.
+"""The classification tail: kernel F (``ranges_lca``, per-read SA ranges
+to the LCA), kernel D (``read_lca``, the MEM form over per-fragment tie
+statistics) and ``fused_mem_classify``, which runs B -> C -> D.  D and F
+share their tail: one device function (``csrc/lca_common.cuh``) and one
+plain version (``ranges_lca_plain``).
 
 ``fused_mem_classify`` returns what rows 0..B-1 of
 ``kaiju_tpu.ops.fused_classify.fused_mem_classify`` hold: (lca, score,
@@ -21,31 +24,19 @@ from .search import mem_extend, mem_stats
 
 FLAG_TIE_OVER = 1  # a contributing fragment had more ties than T
 FLAG_NEED_MORE = 2  # position budget R exhausted before the id cap
-MAX_R = 1024  # positions a read: kernel D keeps them in shared memory
+MAX_R = 1024  # positions a read: kernels D and F keep them in shared memory
 
 
-def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
-                   sa_off, seq_tax, parent, depth, R, cap, nseq, chpt_exp,
-                   touched=None):
+def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
+                     depth, R, cap, nseq, chpt_exp, touched=None):
     """touched: None, or a list that receives the record rows read."""
-    dev = maxl.device
-    F, T = tie_s0.shape
-    B, S = rf_rows.shape
+    dev = g_s0.device
+    B, G = g_s0.shape
     i32 = torch.int32
     if B == 0:
-        return torch.zeros((0, 4), dtype=i32, device=dev)
-    # ---- the read's longest over its slots, and the contributing ties --
-    rf = torch.where(rf_rows >= 0, rf_rows, F).long()
-    zero = torch.zeros(1, dtype=i32, device=dev)
-    slot_maxl = torch.cat([maxl, zero])[rf]
-    longest = slot_maxl.max(1).values
-    contrib = (rf_rows >= 0) & (slot_maxl == longest[:, None]) & (
-        longest[:, None] > 0)
-    tie_over = (contrib & (torch.cat([tie_cnt, zero])[rf] > T)).any(1)
-    zrow = torch.zeros((1, T), dtype=i32, device=dev)
-    t_s0 = torch.cat([tie_s0, zrow])[rf].reshape(B, S * T)
-    t_s1 = torch.cat([tie_s1, zrow])[rf].reshape(B, S * T)
-    sizes = torch.where(contrib.repeat_interleave(T, dim=1), t_s1 - t_s0, 0)
+        z = torch.zeros(0, dtype=i32, device=dev)
+        return z, z, z, z
+    sizes = torch.clamp(g_s1 - g_s0, min=0)
     csum = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
                       torch.cumsum(sizes, 1, dtype=i32)], 1)
     total = csum[:, -1]
@@ -54,13 +45,14 @@ def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
     # start is <= r -------------------------------------------------------
     rr = torch.arange(R, dtype=i32, device=dev)
     seg = (csum[:, None, :] <= rr[None, :, None]).sum(2) - 1
-    seg = torch.clamp(seg, 0, S * T - 1)
+    seg = torch.clamp(seg, 0, max(G - 1, 0))
     valid = rr[None, :] < torch.clamp(total, max=R)[:, None]
-    k = t_s0.gather(1, seg) + rr[None, :] - csum.gather(1, seg)
-    iseq, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp, k[valid],
-                         touched)
     tax = torch.full((B, R), -1, dtype=i32, device=dev)
-    tax[valid] = seq_tax[torch.clamp(iseq, 0, seq_tax.shape[0] - 1).long()]
+    if G:
+        k = g_s0.gather(1, seg) + rr[None, :] - csum.gather(1, seg)
+        iseq, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp,
+                             k[valid], touched)
+        tax[valid] = seq_tax[torch.clamp(iseq, 0, seq_tax.shape[0] - 1).long()]
 
     # ---- capped unique-id set ------------------------------------------
     eq = (tax[:, :, None] == tax[:, None, :]) & valid[:, :, None] & valid[:, None, :]
@@ -69,7 +61,10 @@ def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
     prior = torch.cumsum(uniq, 1, dtype=i32) - uniq.to(i32)
     included = uniq & (prior <= cap)
     n_ids = included.sum(1, dtype=i32)
-    need_more = (total > R) & (uniq.sum(1, dtype=i32) <= cap)
+    n_uniq = uniq.sum(1, dtype=i32)
+    need_more = (total > R) & (n_uniq <= cap)
+    cut = (n_uniq > cap + 1) | ((total > R) & (n_uniq > cap))
+    tie_order = ((sizes > 0).sum(1) > 1) & cut
 
     # ---- LCA: drop taxa outside the tree, lift to the shallowest, then
     # climb in lock step ----------------------------------------------
@@ -96,8 +91,74 @@ def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
     lca = torch.where(present.any(1), ids[:, 0].to(i32), 0)
     first_uid = tax.gather(1, included.to(i32).argmax(1, keepdim=True))[:, 0]
     lca = torch.where(n_ids == 1, first_uid, lca)
-    lca = torch.where((n_ids > 0) & (longest > 0), lca, 0)
-    flags = tie_over.to(i32) * FLAG_TIE_OVER + need_more.to(i32) * FLAG_NEED_MORE
+    lca = torch.where(n_ids > 0, lca, 0)
+    return lca, n_ids, need_more.to(i32), tie_order.to(i32)
+
+
+def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,
+               R, cap, nseq, chpt_exp):
+    """(lca, n_ids, need_more, tie_order) int32 [B] per read from its SA
+    ranges g_s0, g_s1 int32 [B, G] (range g contributes when g_s1 > g_s0).
+    tie_order is 1 where more than one range contributes and the id cap
+    may have cut the read's taxa, so that the result depends on the order
+    of the ranges.  Kernel F for CUDA tensors, the plain version for CPU
+    tensors."""
+    if g_s0.device.type == "cpu":
+        return ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax,
+                                parent, depth, R, cap, nseq, chpt_exp)
+    dev = g_s0.device
+    for t, what, nd in ((g_s0, "g_s0", 2), (g_s1, "g_s1", 2), (rec, "rec", 2),
+                        (C, "C", 1), (sa_seq, "sa_seq", 1),
+                        (seq_tax, "seq_tax", 1), (parent, "parent", 1),
+                        (depth, "depth", 1)):
+        kernels.check(t, what, torch.int32, dev, nd)
+    if g_s1.shape != g_s0.shape:
+        raise ValueError("g_s0 and g_s1 differ in shape")
+    _check_tail(parent, depth, R)
+    B, G = g_s0.shape
+    out = torch.empty((4, B), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch("ranges_lca", g_s0, g_s1, B, G, rec, rec.shape[0], C,
+                       sa_seq, sa_seq.shape[0], seq_tax, seq_tax.shape[0],
+                       parent, depth, parent.shape[0], R, cap, nseq, chpt_exp,
+                       out[0], out[1], out[2], out[3])
+    return out[0], out[1], out[2], out[3]
+
+
+def _check_tail(parent, depth, R):
+    if parent.shape != depth.shape:
+        raise ValueError("parent and depth differ in size")
+    if not 0 < R <= MAX_R:
+        raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+
+
+def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
+                   sa_off, seq_tax, parent, depth, R, cap, nseq, chpt_exp,
+                   touched=None):
+    """touched: None, or a list that receives the record rows read."""
+    dev = maxl.device
+    F, T = tie_s0.shape
+    B, S = rf_rows.shape
+    i32 = torch.int32
+    if B == 0:
+        return torch.zeros((0, 4), dtype=i32, device=dev)
+    # ---- the read's longest over its slots, and the contributing ties --
+    rf = torch.where(rf_rows >= 0, rf_rows, F).long()
+    zero = torch.zeros(1, dtype=i32, device=dev)
+    slot_maxl = torch.cat([maxl, zero])[rf]
+    longest = slot_maxl.max(1).values
+    contrib = (rf_rows >= 0) & (slot_maxl == longest[:, None]) & (
+        longest[:, None] > 0)
+    tie_over = (contrib & (torch.cat([tie_cnt, zero])[rf] > T)).any(1)
+    zrow = torch.zeros((1, T), dtype=i32, device=dev)
+    keep = contrib.repeat_interleave(T, dim=1)
+    t_s0 = torch.where(keep, torch.cat([tie_s0, zrow])[rf].reshape(B, S * T), 0)
+    t_s1 = torch.where(keep, torch.cat([tie_s1, zrow])[rf].reshape(B, S * T), 0)
+    lca, n_ids, need_more, _order = ranges_lca_plain(
+        t_s0, t_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth, R, cap,
+        nseq, chpt_exp, touched)
+    lca = torch.where(longest > 0, lca, 0)
+    flags = tie_over.to(i32) * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
     return torch.stack([lca, longest, flags, n_ids], 1).to(i32)
 
 
@@ -121,10 +182,7 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
         kernels.check(t, what, torch.int32, dev, nd)
     if maxl.shape[0] != F or tie_cnt.shape[0] != F or tie_s1.shape != (F, T):
         raise ValueError("maxl, tie_cnt, tie_s0 and tie_s1 disagree on F or T")
-    if parent.shape != depth.shape:
-        raise ValueError("parent and depth differ in size")
-    if not 0 < R <= MAX_R:
-        raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+    _check_tail(parent, depth, R)
     B, S = rf_rows.shape
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
     if B:

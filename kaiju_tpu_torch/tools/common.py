@@ -25,9 +25,10 @@ def open_output(path: str | None):
 
 
 def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
-    """The engine for the configuration.  This port runs MEM with a
-    taxonomy and without -v on the device; the other modes raise
-    NotImplementedError naming the ROADMAP.md item that ports them."""
+    """The engine for the configuration.  This port runs Greedy (the
+    default) and MEM with a taxonomy and without -v on the device; the
+    other modes raise NotImplementedError naming the ROADMAP.md item that
+    ports them."""
     if getattr(args, "mesh_index", 0) or (getattr(args, "dist_nprocs", 0) or 0) > 1:
         raise NotImplementedError(
             "--mesh-index / --dist-*: multi-GPU is ROADMAP.md queue 1 item 10"
@@ -40,18 +41,16 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
         )
     if cfg.verbose:
         raise NotImplementedError("-v: ROADMAP.md queue 1 item 7")
-    if cfg.mode != "mem":
-        raise NotImplementedError(
-            "Greedy (the default -a greedy): ROADMAP.md queue 1 items 5-6; "
-            "this port runs -a mem"
-        )
     kmer_dir = os.environ.get("KAIJU_TPU_CACHE") or getattr(
         index, "source_dir", None
     )
-    from ..engine.mem import MemPipeline
+    if cfg.mode == "greedy":
+        from ..engine.greedy import GreedyPipeline as Pipeline
+    else:
+        from ..engine.mem import MemPipeline as Pipeline
 
-    return MemPipeline(index, taxonomy, cfg, device=device,
-                       kmer_cache_dir=kmer_dir)
+    return Pipeline(index, taxonomy, cfg, device=device,
+                    kmer_cache_dir=kmer_dir)
 
 
 def classify_stream(runner, reads_iter, out, cfg: KaijuConfig, batch_size=4096):

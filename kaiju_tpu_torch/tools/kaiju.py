@@ -1,10 +1,11 @@
 """kaiju (PyTorch/CUDA port): taxonomic read classification CLI.
 
 Flag surface of the reference `kaiju` binary (src/kaiju.cpp:427-451).
-This port classifies `-a mem` with a taxonomy on the GPU:
+This port classifies Greedy (the default) and `-a mem` with a taxonomy on
+the GPU:
 
     python -m kaiju_tpu_torch.tools.kaiju -t nodes.dmp -f db.fmi \
-        -i reads.fastq -a mem -o out.tsv
+        -i reads.fastq -o out.tsv
 """
 
 from __future__ import annotations

@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
-from kaiju_tpu_torch.engine.mem import _bucket
+from kaiju_tpu_torch.engine.pipeline import _bucket
 from kaiju_tpu_torch.index import py_builder
+from kaiju_tpu_torch.index.alphabet import trans_table
 from kaiju_tpu_torch.io.taxonomy import Taxonomy
-from kaiju_tpu_torch.ops import classify, search
+from kaiju_tpu_torch.ops import classify, greedy, search
 from kaiju_tpu_torch.ops import device_index as tdev
 from kaiju_tpu_torch.ops.kmer import KmerTables
 from kaiju_tpu_torch.tools.readgen import make_reads, reverse_translate
@@ -56,17 +57,20 @@ def env():
     for t in range(10):  # periodic motifs: more ties than T
         st = rng.randrange(0, 100)
         reads.append((f"rep{t}", reverse_translate(rng, ("W" + base[st : st + 14]) * 9), None))
+    reads += [(f"short{i}", "ACGTTG" * (i % 3), None) for i in range(6)]
     kt = KmerTables.build(idx, search.SEED_K)
     par, dep = Taxonomy(NODES).dense_arrays()
+    tables = greedy.greedy_scoring_tables(idx.alphabet, trans_table(idx.alphabet))
     return {
         "idx": idx, "reads": reads, "dv": tdev.DeviceIndex(idx, "cpu"),
         "seed": tuple(torch.from_numpy(a) for a in kt.planar_seed(search.SEED_K)),
         "par": torch.from_numpy(par), "dep": torch.from_numpy(dep),
+        "tables": tuple(torch.from_numpy(a) for a in tables),
     }
 
 
-def _batch(env, S):
-    frag = NativeFragmenter2("mem", MIN_LEN, 65, True, False)
+def _batch(env, S, mode="mem"):
+    frag = NativeFragmenter2(mode, MIN_LEN, 65, True, False)
     flat, chars, frag_off, n_frags, _k, rf_rows, _o = frag.run(
         env["reads"], S, _bucket)
     return (torch.from_numpy(flat[:chars]),
@@ -150,6 +154,76 @@ def test_batch_without_fragments(env, cuda):
     assert not want.any()
 
 
+def _greedy_args(env, reads, mismatches, dev, vcap=greedy.VCAP):
+    """fused_greedy_classify's arguments at the main path's settings
+    (K = 5, Lmap = 7, -m 11, -s 65, T = 20, R = 32, cap = 20)."""
+    env = dict(env, reads=reads)
+    flat, frag_off, rf_rows = _batch(env, 16, "greedy")
+    dv = env["dv"]
+
+    def to(t):
+        return t.to(dev)
+
+    return (to(dv.rec), to(dv.C), tuple(to(a) for a in env["seed"]),
+            to(flat), to(frag_off), to(rf_rows), to(dv.sa_seq), to(dv.sa_off),
+            to(dv.seq_tax), to(env["par"]), to(env["dep"]),
+            tuple(to(a) for a in env["tables"]), search.SEED_K, 7, MIN_LEN, 65,
+            mismatches, 20, 32, CAP, dv.nseq, dv.chpt_exp, vcap)
+
+
+@pytest.mark.parametrize("mismatches,vcap", [(0, greedy.VCAP), (1, greedy.VCAP),
+                                             (3, greedy.VCAP), (5, greedy.VCAP),
+                                             (3, 1)])
+def test_greedy_kernels_match_plain(env, cuda, mismatches, vcap):
+    """E and F each against their plain version on the same inputs, then
+    the whole B -> E -> F batch; vcap = 1 makes reads outgrow E's
+    scratch."""
+    cpu = _greedy_args(env, env["reads"], mismatches, "cpu", vcap)
+    gpu = _greedy_args(env, env["reads"], mismatches, cuda, vcap)
+    (rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off, seq_tax, par,
+     dep, tables, K, lmap, mfl, min_score, e, T, R, cap, nseq, chpt_exp,
+     vc) = gpu
+    lanes = search.mem_extend(rec, C, *seed, flat, frag_off, K, lmap - 1)
+    e_args = (flat, frag_off, rf_rows, rec, C, tables, lmap, mfl, min_score,
+              e, T, vc)
+    got = greedy.greedy_search(*lanes, *e_args)
+    want = greedy.greedy_search_plain(
+        *(t.cpu() for t in lanes), *(a.cpu() if isinstance(a, torch.Tensor)
+                                     else a for a in e_args[:5]),
+        tuple(t.cpu() for t in tables), *e_args[6:])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    f_args = (rec, C, sa_seq, sa_off, seq_tax, par, dep, R, cap, nseq, chpt_exp)
+    got_f = classify.ranges_lca(got[2], got[3], *f_args)
+    want_f = classify.ranges_lca_plain(
+        want[2], want[3], *(a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in f_args))
+    torch.cuda.synchronize()
+    for g, w in zip(got_f, want_f):
+        assert torch.equal(g.cpu(), w)
+    rows = greedy.fused_greedy_classify(*gpu)
+    want_rows = greedy.fused_greedy_classify(*cpu)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), want_rows)
+    assert (want_rows[:, 1] > 0).sum() > 100
+    assert not want_rows[-6:].any()  # the reads without a fragment
+    if vcap == 1:
+        assert (want_rows[:, 2] & greedy.FLAG_SCRATCH).any()
+    elif mismatches >= 3:
+        assert (want_rows[:, 2] & (greedy.FLAG_TIE_OVER
+                                   | greedy.FLAG_NEED_MORE)).any()
+
+
+def test_greedy_batch_without_fragments(env, cuda):
+    reads = [(f"s{i}", "ACGTTG" * (i % 5), None) for i in range(40)]
+    got = greedy.fused_greedy_classify(*_greedy_args(env, reads, 3, cuda))
+    want = greedy.fused_greedy_classify(*_greedy_args(env, reads, 3, "cpu"))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert not want.any()
+
+
 def test_wrappers_refuse_bad_cuda_inputs(env, cuda):
     dv = env["dv"]
     rec, C = dv.rec.to(cuda), dv.C.to(cuda)
@@ -159,3 +233,26 @@ def test_wrappers_refuse_bad_cuda_inputs(env, cuda):
     k32 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="on cpu"):
         tdev.update_si(rec, C, k32, k32, k32)
+    args = list(_greedy_args(env, env["reads"][:8], 3, cuda))
+    lanes = search.mem_extend(*args[:2], *args[2], *args[3:5], 5, 6)
+    e_args = [*lanes, *args[3:6], *args[:2], args[11], 7, MIN_LEN, 65, 3, 20]
+    bad = list(e_args)
+    bad[0] = lanes[0].long()
+    with pytest.raises(TypeError, match="int32"):
+        greedy.greedy_search(*bad)
+    bad = list(e_args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError, match="on cpu"):
+        greedy.greedy_search(*bad)
+    bad = list(e_args)
+    bad[5] = torch.full((8, 33), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="slots"):
+        greedy.greedy_search(*bad)
+    g = torch.zeros((4, 20), dtype=torch.int32, device=cuda)
+    f_args = [*args[:2], *args[6:11], 32, CAP, args[20], args[21]]
+    with pytest.raises(ValueError, match="shape"):
+        classify.ranges_lca(g, g[:, :10].contiguous(), *f_args)
+    with pytest.raises(ValueError, match="not contiguous"):
+        classify.ranges_lca(g[:, ::2], g[:, ::2], *f_args)
+    with pytest.raises(ValueError, match="R must"):
+        classify.ranges_lca(g, g, *f_args[:7], 4096, *f_args[8:])

@@ -129,7 +129,7 @@ def test_cli_main_on_saved_ktx(env):
     with open(out) as fh:
         got = fh.read()
     assert got == exact, _diff(got, exact)
-    for other in ([], ["-a", "mem", "-v"], ["-a", "mem", "-d"]):
+    for other in (["-v"], ["-a", "mem", "-v"], ["-a", "mem", "-d"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *other],
                         device="cpu")
