@@ -8,24 +8,34 @@ Phases, any failure exits non-zero:
      build seconds and the card's name and power limit (nvidia-smi);
   2. generate a uniform synthetic protein database from --seed (the
      generator and size of bench.py) with a matching nodes.dmp, index it
-     with the port's native builder without a text copy (the .fmi
-     configuration) and cache it under build/chip_smoke/; generate 65,536
-     reads (bench.py's count) and check that the threaded host fragmenter
-     gives the same bytes as one thread;
+     once with the port's native builder and save it twice under
+     build/chip_smoke/: without a text copy (db.ktx, the .fmi
+     configuration) and with it (db_text.ktx, what tools.mkdb writes);
+     fill the two Bloom bitmaps of the text index (m = 11 for MEM, 7 for
+     Greedy) into its cache; generate 65,536 reads (bench.py's count) and
+     check that the threaded host fragmenter gives the same bytes as one
+     thread;
   3. hold every kernel of both paths against its plain PyTorch version on
-     the card, on the inputs the main path gives it (the depth-5
-     seed-table probes; the first 4,096-read batch of the MEM path for B,
-     C, D and of the Greedy path at -e 3 for E, F), integer outputs equal;
-     time both;
+     the card, on the inputs the main path gives it, on each index: the
+     depth-5 seed-table probes for A; the first 4,096-read batch of the
+     MEM path for B, C, D (and G) and of the Greedy path at -e 3 for B, E,
+     F.  On the text index B screens its lanes, G finishes the narrow
+     ones, E runs its last-level hybrid and D, F read virtual rows.
+     Integer outputs equal; time both;
   4. classify the reads in batches of 4,096 (bench.py's batch) through
-     kaiju_tpu_torch.tools.kaiju.main, first with -a mem, then with the
-     default flags (Greedy), counting each kernel's launches in each run
-     (every kernel of the run's path must launch), and check 256 sampled
-     TSV lines of each run against the port's host ExactClassifier;
-  4b. for each path, classify the reads again with the seed tables cached,
-     untraced for the steady rate and the host seconds of each stage, and
-     traced by torch.profiler for the device's idle share;
-  5. print the kernels' JSON line, then the result line.
+     kaiju_tpu_torch.tools.kaiju.main, with -a mem and with the default
+     flags (Greedy), on each index, counting each kernel's launches in
+     each run (every kernel of the run's path must launch; on the text
+     index B's screen and, for MEM, G too; on db.ktx G never), check 256
+     sampled TSV lines of each run against the port's host
+     ExactClassifier, and each path's whole TSV from db_text.ktx against
+     its TSV from db.ktx, byte for byte;
+  4b. for each path, on the text index and then on db.ktx, classify the
+     reads again with the seed tables and bitmaps cached, untraced for the
+     steady rate and the host seconds of each stage, and traced by
+     torch.profiler for the device's idle share;
+  5. print the kernels' JSON line (the text index's measurements; the
+     launches of all four runs of phase 4), then the result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -57,14 +67,17 @@ REPLACES = {
     "read_lca": "kaiju_tpu/ops/fused_classify.py:298",
     "greedy_search": "kaiju_tpu/ops/fused_greedy.py:298",
     "ranges_lca": "kaiju_tpu/ops/fused_classify.py:153",
+    "text_extend": "kaiju_tpu/ops/fused_mem2.py:426",
 }
-# the kernels each path launches, and the CLI flags that select the path
+# the kernels each path launches on an index without text (the text index
+# adds G to MEM), and the CLI flags that select the path
 PATHS = {
     "mem": (("update_si", "mem_extend", "mem_stats", "read_lca"),
             ["-a", "mem"]),
     "greedy": (("update_si", "mem_extend", "greedy_search", "ranges_lca"),
                []),
 }
+BLOOM_M = {"mem": 11, "greedy": 7}  # -m 11; Lmap = min(-l 7, -m 11)
 
 
 def log(msg: str) -> None:
@@ -101,6 +114,10 @@ def max_abs_err(got, want) -> int:
         got, want = (got,), (want,)
     err = 0
     for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise AssertionError("an output is missing on one side")
+        if g is None:
+            continue
         if g.shape != w.shape:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
@@ -139,17 +156,22 @@ def make_reads(seed: int, records, n: int = READS):
 
 
 def make_db(seed: int, letters: int):
-    """(index, protein records, ktx dir, nodes.dmp) of the uniform DB."""
+    """(protein records, nodes.dmp, {"fmi": ktx dir without text, "text":
+    ktx dir with text}) of the uniform DB; the text index's cache holds
+    its two Bloom bitmaps."""
     from kaiju_tpu_torch.index import native_builder
     from kaiju_tpu_torch.index.core import KaijuIndex
+    from kaiju_tpu_torch.ops import bloom
 
     cache = os.path.join(ROOT, "build", "chip_smoke",
                          f"db{letters}_seed{seed}")
-    ktx = os.path.join(cache, "db.ktx")
+    ktx = {"fmi": os.path.join(cache, "db.ktx"),
+           "text": os.path.join(cache, "db_text.ktx")}
     nodes = os.path.join(cache, "nodes.dmp")
     names, codes, starts, ends, records = make_records(seed, letters)
-    if os.path.exists(os.path.join(ktx, "meta.json")):
-        return KaijuIndex.load(ktx), records, ktx, nodes
+    if all(os.path.exists(os.path.join(k, "meta.json"))
+           for k in ktx.values()):
+        return records, nodes, ktx
     os.makedirs(cache, exist_ok=True)
     with open(nodes, "w") as fh:
         fh.write("1\t|\t1\t|\tno rank\t|\n")
@@ -160,11 +182,20 @@ def make_db(seed: int, letters: int):
     index = native_builder.build_index_from_codes(
         names, [codes[s:e] for s, e in zip(starts, ends)]
     )
-    index.text = None  # the reference .fmi carries no text copy
-    index.save(ktx)
     log(f"db: indexed {int(ends[-1]):,} letters, {len(ends):,} sequences "
         f"in {time.perf_counter() - t0:.1f} s")
-    return KaijuIndex.load(ktx), records, ktx, nodes
+    index.save(ktx["text"])  # what tools.mkdb writes: with the text copy
+    text = index.text
+    index.text = None  # the reference .fmi carries no text copy
+    index.save(ktx["fmi"])
+    tidx = KaijuIndex.load(ktx["text"])
+    for mode, m in BLOOM_M.items():
+        t0 = time.perf_counter()
+        words, _m, lb = bloom.load_words(tidx, ktx["text"], m)
+        log(f"bloom {mode}: m {m}, lb {lb}: {words.nbytes:,} bytes filled "
+            f"from {text.nbytes:,} text bytes and cached in "
+            f"{time.perf_counter() - t0:.2f} s")
+    return records, nodes, ktx
 
 
 def check_fragmenter(reads) -> None:
@@ -212,11 +243,14 @@ def row_bytes(touched) -> tuple[int, int]:
     return 256 * int(torch.unique(allrows).numel()), int(allrows.numel())
 
 
-def check_kernels(index, reads):
-    """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note).  The bound
-    counts each input byte once: the distinct record rows that the plain
-    version reads, plus the other inputs and the outputs (E's per-position
-    and per-source scratch is its own, not counted)."""
+def check_kernels(index, reads, ktx_dir):
+    """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
+    index at ktx_dir; with a text copy, B screens (its bitmaps cached in
+    ktx_dir), G finishes the narrow MEM lanes, E runs its last-level hybrid
+    and D, F read the virtual rows.  The bound counts each input byte once:
+    the distinct record rows that the plain version reads, plus the other
+    inputs and the outputs (E's per-position and per-source scratch is its
+    own, not counted)."""
     import numpy as np
     import torch
 
@@ -226,11 +260,16 @@ def check_kernels(index, reads):
     from kaiju_tpu_torch.engine.pipeline import _bucket
     from kaiju_tpu_torch.index.alphabet import trans_table
     from kaiju_tpu_torch.io.taxonomy import Taxonomy
-    from kaiju_tpu_torch.ops import classify, device_index, greedy, search
+    from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
+                                     search)
+    from kaiju_tpu_torch.ops.bloom import BloomScreen
     from kaiju_tpu_torch.ops.kmer import NLET, KmerTables
 
     cuda = torch.device("cuda")
     dv = device_index.DeviceIndex(index, cuda)
+    text = dv.has_text
+    screens = {mode: BloomScreen.load_or_build(index, ktx_dir, m, cuda).args
+               if text else None for mode, m in BLOOM_M.items()}
     out = {}
 
     def report(name, got, want, fn, plain_fn, touched, other_bytes, note):
@@ -262,7 +301,8 @@ def check_kernels(index, reads):
            want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
            update_si_plain, touched, n * (12 + 9), f"{n:,} probes")
 
-    # B, C, D on the first batch of the main path
+    # B (screened, stopping the narrow lanes), G, C, D on the first batch
+    # of the MEM path
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
 
@@ -275,14 +315,49 @@ def check_kernels(index, reads):
     seed = tuple(put(a) for a in kt.planar_seed(search.SEED_K))
     K, j0, min_len, T = search.SEED_K, 10, 11, search.TIE_CAP
     P, F = chars, n_frags
+    sw_len = K + hybrid.S1_STEPS
 
+    def extend_report(name, mode, ext, kw, note):
+        """B on ext with kw; (its lanes, the lanes it evaluated)."""
+        lanes = search.mem_extend(*ext, **kw)
+        touched = []
+        want = search.mem_extend_plain(*ext, touched, **kw)
+        pos, _f, base, flen = search._lane_fragments(ext[6], P_[mode])
+        usable = int(((pos - base >= ext[8]) & (pos - base < flen)).sum())
+        evaluated = int((lanes[0] <= pos - base).sum())
+        report(name, lanes, want, lambda: search.mem_extend(*ext, **kw),
+               lambda: search.mem_extend_plain(*ext, **kw), touched,
+               P_[mode] * (1 + 12) + 4 * (F_[mode] + 1)
+               + (4 * usable if kw["bloom"] is not None else 0)
+               + 9 * evaluated,
+               f"{note}, {P_[mode]:,} lanes, {usable:,} usable, "
+               f"{evaluated:,} evaluated")
+        return lanes
+
+    P_, F_ = {"mem": P}, {"mem": F}
     ext = (dv.rec, dv.C, *seed, flat, frag_off, K, j0)
-    lanes = search.mem_extend(*ext)
-    touched = []
-    want = search.mem_extend_plain(*ext, touched)
-    report("mem_extend", lanes, want, lambda: search.mem_extend(*ext),
-           lambda: search.mem_extend_plain(*ext), touched,
-           P * (1 + 9 + 12) + 4 * (F + 1), f"{P:,} lanes, {F:,} fragments")
+    kw = dict(bloom=screens["mem"],
+              sw_steps=hybrid.S1_STEPS if text else 0)
+    lanes = extend_report("mem_extend", "mem", ext, kw,
+                          "MEM batch" + (", screened (m 11)" if text else ""))
+    sw_ids = None
+    if text:
+        g = (*lanes, flat, frag_off, sw_len, dv.text, dv.rank_start, dv.rec,
+             dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
+        sw = hybrid.switched(*lanes, frag_off, sw_len)
+        nsw, nocc = int(sw.sum()), int((lanes[2] - lanes[1])[sw].sum())
+        res = hybrid.text_extend(*g)
+        touched = []
+        want = hybrid.text_extend_plain(*g, touched)
+        ext_len = int((lanes[0] - res[0])[sw].sum())
+        n_ids = int((res[2] - res[1])[sw].sum())
+        report("text_extend", res, want, lambda: hybrid.text_extend(*g),
+               lambda: hybrid.text_extend_plain(*g), touched,
+               P * 24 + 4 * (F + 1) + nocc * 12
+               + 2 * (ext_len + nsw) + 4 * n_ids,
+               f"{nsw:,} switched lanes of {P:,}, {nocc:,} occurrences, "
+               f"{ext_len:,} letters extended, {n_ids:,} ids")
+        lanes, sw_ids = res[:3], res[3]
 
     st = (*lanes, frag_off, min_len, T)
     stats = search.mem_stats(*st)
@@ -297,15 +372,18 @@ def check_kernels(index, reads):
     tail = (*stats[:2], *stats[3:], rf_rows, dv.rec, dv.C, dv.sa_seq,
             dv.sa_off, dv.seq_tax, par, dep, MemPipeline.R_BUDGET, 20,
             dv.nseq, dv.chpt_exp)
-    rows = classify.read_lca(*tail)
+    virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
+    rows = classify.read_lca(*tail, sw_ids=sw_ids)
     touched = []
-    want = classify.read_lca_plain(*tail, touched)
-    report("read_lca", rows, want, lambda: classify.read_lca(*tail),
-           lambda: classify.read_lca_plain(*tail), touched,
-           4 * B * S + 16 * B + F * (8 + 8 * T), f"{B:,} reads")
+    want = classify.read_lca_plain(*tail, touched, sw_ids=sw_ids)
+    report("read_lca", rows, want,
+           lambda: classify.read_lca(*tail, sw_ids=sw_ids),
+           lambda: classify.read_lca_plain(*tail, sw_ids=sw_ids), touched,
+           4 * B * S + 16 * B + F * (8 + 8 * T),
+           f"{B:,} reads, {virt:,} virtual tie rows")
 
-    # E, F on the first batch of the Greedy path at the default flags
-    # (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
+    # B (screened), E, F on the first batch of the Greedy path at the
+    # default flags (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
     frag = NativeFragmenter2("greedy", 11, 65, True, False)
     flat, chars, frag_off, n_frags, _k, rf_rows, _o = frag.run(
         reads[:BATCH], GreedyPipeline.S_SLOTS, _bucket)
@@ -316,28 +394,40 @@ def check_kernels(index, reads):
         index.alphabet, trans_table(index.alphabet)))
     lmap, T = 7, 20
     (B, S), P, F = rf_rows.shape, chars, n_frags
-    lanes = search.mem_extend(dv.rec, dv.C, *seed, flat, frag_off, K, lmap - 1)
+    P_["greedy"], F_["greedy"] = P, F
+    ext = (dv.rec, dv.C, *seed, flat, frag_off, K, lmap - 1)
+    kw = dict(bloom=screens["greedy"], sw_steps=0)
+    if text:  # logged, not in the kernels line: MEM's B stands there
+        lanes = extend_report("mem_extend (Greedy batch)", "greedy", ext, kw,
+                              "Greedy batch, screened (m 7)")
+    else:
+        lanes = search.mem_extend(*ext, **kw)
+    hyb = ((dv.text, dv.rank_start, dv.sa_seq, dv.sa_off, dv.nseq,
+            dv.chpt_exp) if text else None)
     ge = (*lanes, flat, frag_off, rf_rows, dv.rec, dv.C, tables, lmap, 11, 65,
           3, T, GreedyPipeline.VCAP)
-    found = greedy.greedy_search(*ge)
+    found = greedy.greedy_search(*ge, hyb=hyb)
     touched = []
-    want = greedy.greedy_search_plain(*ge, touched)
-    report("greedy_search", found, want, lambda: greedy.greedy_search(*ge),
-           lambda: greedy.greedy_search_plain(*ge), touched,
+    want = greedy.greedy_search_plain(*ge, touched, hyb=hyb)
+    virt = int((found[2] >= hybrid.VBASE).sum())
+    report("greedy_search", found, want,
+           lambda: greedy.greedy_search(*ge, hyb=hyb),
+           lambda: greedy.greedy_search_plain(*ge, hyb=hyb), touched,
            P * (12 + 1) + 4 * (F + 1) + 4 * B * S + B * (8 + 8 * T),
-           f"{B:,} reads, {P:,} lanes, -e 3")
+           f"{B:,} reads, {P:,} lanes, -e 3, {virt:,} virtual tie rows")
 
     gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.seq_tax,
           par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq, dv.chpt_exp)
-    res = classify.ranges_lca(*gf)
+    res = classify.ranges_lca(*gf, sw_ids=found[4])
     touched = []
-    want = classify.ranges_lca_plain(*gf, touched)
-    report("ranges_lca", res, want, lambda: classify.ranges_lca(*gf),
-           lambda: classify.ranges_lca_plain(*gf), touched,
+    want = classify.ranges_lca_plain(*gf, touched, sw_ids=found[4])
+    report("ranges_lca", res, want,
+           lambda: classify.ranges_lca(*gf, sw_ids=found[4]),
+           lambda: classify.ranges_lca_plain(*gf, sw_ids=found[4]), touched,
            8 * B * T + 16 * B, f"{B:,} reads, {int((found[0] > 0).sum()):,} "
            "with a best")
     torch.cuda.synchronize()
-    del dv
+    del dv, screens
     torch.cuda.empty_cache()
     return out
 
@@ -347,13 +437,13 @@ def check_kernels(index, reads):
 # ---------------------------------------------------------------------------
 
 
-def steady_stream(index, nodes, reads, warm, mode: str) -> None:
+def steady_stream(index, nodes, reads, warm, mode: str, tag: str) -> None:
     """Classify the reads again, twice, each time with a new pipeline of
-    `mode` (seed tables cached) warmed by one batch of other reads, so that
-    the host replay meets the reads afresh as in a real stream.  The
-    untraced pass gives the steady rate and the host seconds of each
-    stage; the pass under torch.profiler, tracing the card only, gives the
-    device's busy share and each kernel's total."""
+    `mode` (seed tables and bitmaps cached) warmed by one batch of other
+    reads, so that the host replay meets the reads afresh as in a real
+    stream.  The untraced pass gives the steady rate and the host seconds
+    of each stage; the pass under torch.profiler, tracing the card only,
+    gives the device's busy share and each kernel's total."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,6 +456,7 @@ def steady_stream(index, nodes, reads, warm, mode: str) -> None:
     cfg = cli_config(mode)
     tax = Taxonomy(parse_nodes_dmp(nodes))
     batches = [reads[i:i + BATCH] for i in range(0, len(reads), BATCH)]
+    name = f"{mode} {tag}"
 
     def one_pass(traced: bool):
         t0 = time.perf_counter()
@@ -385,11 +476,11 @@ def steady_stream(index, nodes, reads, warm, mode: str) -> None:
 
     n, wall, setup, _p = one_pass(False)
     host = dict(engine.HOST_SECONDS)
-    log(f"steady {mode}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
+    log(f"steady {name}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
         f"reads/s untraced (set-up and warm batch {setup:.2f} s not "
         "included)")
     host["other"] = wall - sum(host.values())
-    log(f"steady {mode}: host seconds " + ", ".join(
+    log(f"steady {name}: host seconds " + ", ".join(
         f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items())
         + f"; replayed {engine.HOST_REPLAY['flagged']} reads")
     _n, wall_t, _s, prof = one_pass(True)
@@ -397,14 +488,14 @@ def steady_stream(index, nodes, reads, warm, mode: str) -> None:
             if r.device_type == DeviceType.CUDA]
     dev_us = sum(r.self_device_time_total for r in rows)
     if dev_us <= 0:
-        log(f"steady {mode}: device time not measured (the profiler saw "
+        log(f"steady {name}: device time not measured (the profiler saw "
             "none)")
         return
     busy = dev_us / 1e6 / wall_t
-    log(f"steady {mode}: traced pass {wall_t:.3f} s; device busy "
+    log(f"steady {name}: traced pass {wall_t:.3f} s; device busy "
         f"{dev_us / 1e3:.3f} ms ({busy:.2%}); idle share {1 - busy:.2%}")
     for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:8]:
-        log(f"steady {mode}: device {r.self_device_time_total / 1e3:9.3f} ms "
+        log(f"steady {name}: device {r.self_device_time_total / 1e3:9.3f} ms "
             f"x{r.count:<4d} {r.key[:70]}")
 
 
@@ -417,11 +508,12 @@ def cli_config(mode: str):
     return KaijuConfig()  # the defaults: Greedy, -e 3, SEG, -E 0.01
 
 
-def run_cli(index, reads, ktx, nodes, fq, mode: str) -> dict:
+def run_cli(index, reads, ktx, nodes, fq, mode: str, tag: str):
     """Classify the reads through tools.kaiju.main on the path `mode`,
-    the seed tables built afresh; fail unless every kernel of the path
-    launched, and unless 256 sampled TSV lines equal the ExactClassifier's.
-    Returns the launch counts of the run."""
+    the seed tables built afresh (bitmaps as cached); fail unless every
+    kernel of the path launched (on a text index B's screen and, for MEM,
+    G too; without text G never), and unless 256 sampled TSV lines equal
+    the ExactClassifier's.  Returns (the launch counts, the TSV path)."""
     import torch
 
     from kaiju_tpu_torch import kernels
@@ -432,8 +524,12 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str) -> dict:
 
     engine = greedy if mode == "greedy" else mem
     path_kernels, flags = PATHS[mode]
+    text = index.text is not None
+    if text and mode == "mem":
+        path_kernels = path_kernels + ("text_extend",)
+    name = f"{mode} {tag}"
     shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
-    out_tsv = os.path.join(os.path.dirname(ktx), f"out_{mode}.tsv")
+    out_tsv = os.path.join(os.path.dirname(ktx), f"out_{mode}_{tag}.tsv")
     kernels.reset_counts()
     engine.reset_counts()
     torch.cuda.synchronize()
@@ -443,25 +539,34 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    screened = kernels.SCREENED["mem_extend"]
     replay = dict(engine.HOST_REPLAY)
     if rc != 0:
         raise AssertionError(f"kaiju main {flags} returned {rc}")
-    log(f"e2e {mode}: flags {flags}: {READS:,} reads in {dt:.2f} s = "
-        f"{READS / dt:.1f} reads/s (index load, upload, seed tables and "
-        "classification)")
-    log(f"e2e {mode}: host replay {replay['flagged']} of {replay['reads']} "
+    log(f"e2e {name}: flags {flags}: {READS:,} reads in {dt:.2f} s = "
+        f"{READS / dt:.1f} reads/s (index load, upload, seed tables, "
+        "bitmaps and classification)")
+    log(f"e2e {name}: host replay {replay['flagged']} of {replay['reads']} "
         f"reads ({replay['flagged'] / max(replay['reads'], 1):.4%}); "
         f"counts {json.dumps(replay)}")
-    log(f"e2e {mode}: launches {json.dumps(launches)}")
+    log(f"e2e {name}: launches {json.dumps(launches)}; B screened "
+        f"{screened}")
     if replay["reads"] != READS:
         raise AssertionError(f"classified {replay['reads']} of {READS} reads")
     idle = [k for k in path_kernels if launches[k] <= 0]
     if idle:
-        raise AssertionError(f"kernels of the {mode} path did not launch: "
+        raise AssertionError(f"kernels of the {name} path did not launch: "
                              f"{idle} ({launches})")
+    if text and screened != launches["mem_extend"]:
+        raise AssertionError(f"{name}: B launched {launches['mem_extend']} "
+                             f"times, {screened} with its screen")
+    if not text and (screened or launches["text_extend"]):
+        raise AssertionError(f"{name}: a screen or G ran without text")
+    if mode == "greedy" and launches["text_extend"]:
+        raise AssertionError(f"{name}: G ran on the Greedy path")
 
     with open(out_tsv, "rb") as fh:
-        log(f"e2e {mode}: TSV sha256 "
+        log(f"e2e {name}: TSV sha256 "
             f"{hashlib.sha256(fh.read()).hexdigest()[:16]}")
     with open(out_tsv) as fh:
         lines = fh.readlines()
@@ -474,14 +579,14 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str) -> dict:
     want = [format_output_line(*exact.classify_read(*reads[r]), False)
             for r in pick]
     diff = [r for r, w in zip(pick, want) if lines[r] != w]
-    log(f"check {mode}: {len(pick)} sampled TSV lines against "
+    log(f"check {name}: {len(pick)} sampled TSV lines against "
         f"ExactClassifier: {len(pick) - len(diff)} equal "
         f"({sum(w.startswith('C') for w in want)} classified; "
         f"{time.perf_counter() - t0:.1f} s)")
     if diff:
         r = diff[0]
         raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
-    return {k: launches[k] for k in path_kernels}
+    return {k: launches[k] for k in REPLACES}, out_tsv
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +601,7 @@ def run(args) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.index.core import KaijuIndex
     from kaiju_tpu_torch.tools import readgen
 
     # ---- 1. build ------------------------------------------------------
@@ -513,44 +619,60 @@ def run(args) -> int:
 
     # ---- 2. database and reads ----------------------------------------
     t0 = time.perf_counter()
-    index, records, ktx, nodes = make_db(args.seed, args.db_letters)
+    records, nodes, ktx = make_db(args.seed, args.db_letters)
+    indexes = {tag: KaijuIndex.load(path) for tag, path in ktx.items()}
+    index = indexes["fmi"]
     log(f"db: {index.length:,} BWT positions, {index.nseq:,} sequences, "
-        f"ready in {time.perf_counter() - t0:.1f} s")
+        f"ready in {time.perf_counter() - t0:.1f} s (both indexes and "
+        "bitmaps)")
     reads = make_reads(args.seed, records)
-    fq = os.path.join(os.path.dirname(ktx), f"reads_{READS}.fastq")
+    fq = os.path.join(os.path.dirname(ktx["fmi"]), f"reads_{READS}.fastq")
     readgen.write_fastq([(n, s) for n, s, _ in reads], fq)
     check_fragmenter(reads)
 
     # ---- 3. kernels against their plain versions -----------------------
-    checks = check_kernels(index, reads)
-    for name, (err, ms, plain_ms, bound_ms, note) in checks.items():
-        log(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms "
-            f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) [{note}]")
-    bad = [n for n, v in checks.items() if v[0] != 0]
+    checks = {}
+    for tag in ("fmi", "text"):
+        checks[tag] = check_kernels(indexes[tag], reads, ktx[tag])
+        for name, (err, ms, plain_ms, bound_ms, note) in checks[tag].items():
+            log(f"kernel {name} [{tag}]: max_abs_err {err}, {ms:.4f} ms "
+                f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) "
+                f"[{note}]")
+    bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
-    # ---- 4. end to end through the CLI, each path counted from 0 ------
+    # ---- 4. end to end through the CLI, each run counted from 0 --------
     launches = {name: 0 for name in REPLACES}
     for mode in PATHS:
-        for name, n in run_cli(index, reads, ktx, nodes, fq, mode).items():
-            launches[name] += n
+        tsv = {}
+        for tag in ("text", "fmi"):
+            counts, tsv[tag] = run_cli(indexes[tag], reads, ktx[tag], nodes,
+                                       fq, mode, tag)
+            for name, n in counts.items():
+                launches[name] += n
+        with open(tsv["text"], "rb") as a, open(tsv["fmi"], "rb") as b:
+            same = a.read() == b.read()
+        log(f"e2e {mode}: the whole TSV from db_text.ktx "
+            f"{'equals' if same else 'DIFFERS FROM'} the one from db.ktx")
+        if not same:
+            raise AssertionError(f"{mode}: the text index changed the TSV")
 
     # ---- 4b. where the time goes ----------------------------------------
     warm = make_reads(args.seed + 1, records, BATCH)
-    for mode in PATHS:
-        steady_stream(index, nodes, reads, warm, mode)
+    for tag in ("text", "fmi"):
+        for mode in PATHS:
+            steady_stream(indexes[tag], nodes, reads, warm, mode, tag)
 
     # ---- 5. result lines ----------------------------------------------
-    # launches: over the two main-path runs of phase 4 (A and B run in
-    # both)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"kaiju_tpu_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
-        for name, (err, ms, plain_ms, bound_ms, _n) in checks.items()
+        for name, (err, ms, plain_ms, bound_ms, _n) in checks["text"].items()
+        if name in REPLACES
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

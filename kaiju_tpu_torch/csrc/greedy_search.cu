@@ -5,8 +5,10 @@
 // and planned-node rules, node scores, the variant levels with the 19-way
 // BLOSUM62 fan-out and the UpdateSI probe, the tie rows) and
 // _extend_two_stage (K14: the resumed extension of the substituted
-// variants), with the rank of K1.  The search funnel before it is kernel
-// B; the tail after it (SA walks, capped ids, LCA) is kernel F.
+// variants), with the rank of K1, and the last level's text-compare
+// hybrid (K8: _switch_pool with _text_extend and K4's _walk_pos, called at
+// fused_greedy.py:488-505).  The search funnel before it is kernel B; the
+// tail after it (SA walks, capped ids, LCA) is kernel F.
 //
 // Semantics per read, as ops/greedy.py states them:
 //   level 0  jstop = the highest j >= j0 whose match reaches i <= 1;
@@ -22,12 +24,19 @@
 //            reference's descending order, kept while the new score bound
 //            is at least max(the read's best after level k - 1,
 //            min_score); each variant probes UpdateSI and resumes the
-//            backward extension (bwt.c:298-336);
+//            backward extension (bwt.c:298-336).  With a text copy
+//            (sw_ids given), a variant of the last level whose probe
+//            interval holds at most kSwWcap occurrences, with letters left,
+//            finishes by text comparison instead (text_common.cuh): the
+//            same start, and the achieving occurrences' ids in place of
+//            the interval;
 //   ties     eval events at the read's final best (> 0) in the JAX order:
 //            level, then at level 0 the strip nodes (j >= flen - 4) before
 //            the others, each in fragment order then ascending j, and at a
 //            variant level the source order then the column.  The first T
-//            are written; flag 1 when there are more.
+//            are written; flag 1 when there are more.  A switched tie's
+//            row is virtual: kVBase + slot .. + n with slot = (b T + r) 8
+//            for tie r of read b, its n ids in sw_ids[slot ..].
 // A read keeps at most vcap sources a level in scratch; one that needs
 // more gets flag 4 and a zero row, and the host replays it.  Nothing is
 // dropped silently.
@@ -45,7 +54,7 @@
 // through ballots, which keeps the JAX order.  Per position, node flags and
 // diagonal prefix sums live in scratch the wrapper allocates; the length
 // histogram of the planned-node rule lives in shared memory.
-#include "fm_common.cuh"
+#include "text_common.cuh"
 
 namespace {
 
@@ -80,15 +89,24 @@ struct Args {
     int* pincl;     // per position: inclusive diagonal prefix sum
     int* src;       // [B, 2, vcap, kSrcInts]
     int *best, *flags, *g_s0, *g_s1;
+    // the last level's hybrid: off when sw_ids is null
+    const uint8_t* text;
+    const int *rank_start, *sa_seq, *sa_off;
+    int nsamp, nseq, chpt_exp;
+    int* sw_ids;  // [B, T, kSwWcap]
 };
 
 // The read's running best and its tie list, in event order.  Every lane
 // of the warp calls add() with its event (ev false for none), in the order
-// of the events.
+// of the events; an event with nid > 0 ids is a switched interval, whose
+// tie row becomes virtual (sw: the read's [T, kSwWcap] id slots, slot0:
+// their offset from sw_ids' start).
 struct Ties {
     int best, cnt, T;
-    int *s0, *s1;
-    __device__ void add(bool ev, int score, int a0, int a1, int lane) {
+    int *s0, *s1, *sw;
+    int slot0;
+    __device__ void add(bool ev, int score, int a0, int a1, int lane,
+                        const int* ids = nullptr, int nid = 0) {
         const int m = warp_max(ev ? score : 0);
         if (m > best) {  // a new best: the earlier ties no longer count
             best = m;
@@ -98,6 +116,11 @@ struct Ties {
         const unsigned bal = __ballot_sync(kFull, tie);
         const int r = cnt + __popc(bal & lanes_below(lane));
         if (tie && r < T) {
+            if (nid > 0) {
+                for (int q = 0; q < nid; ++q) sw[r * kt::kSwWcap + q] = ids[q];
+                a0 = kt::kVBase + slot0 + r * kt::kSwWcap;
+                a1 = a0 + nid;
+            }
             s0[r] = a0;
             s1[r] = a1;
         }
@@ -213,7 +236,9 @@ __global__ void greedy_search_kernel(Args a) {
     }
 
     // ---- level 0: node events and level-1 sources, in node order ----------
-    Ties ties{0, 0, a.T, a.g_s0 + (size_t)b * a.T, a.g_s1 + (size_t)b * a.T};
+    Ties ties{0, 0, a.T, a.g_s0 + (size_t)b * a.T, a.g_s1 + (size_t)b * a.T,
+              a.sw_ids ? a.sw_ids + (size_t)b * a.T * kt::kSwWcap : nullptr,
+              b * a.T * kt::kSwWcap};
     int* X = a.src + (size_t)b * 2 * a.vcap * kSrcInts;  // this level's
     int* Xn = X + (size_t)a.vcap * kSrcInts;             // the next level's
     int nsrc = 0;
@@ -301,6 +326,7 @@ __global__ void greedy_search_kernel(Args a) {
                 const int voc = __shfl_sync(kFull, oc, sl);
                 bool has_si = false, ev = false;
                 int score = 0, i = 0, n0 = 0, n1 = 0, ndel = 0, ndif = 0;
+                int ids[kt::kSwWcap], nid = 0;
                 if (v < total) {
                     const int e = voc * kNSub + col;
                     const int code = a.subcode[e];
@@ -311,9 +337,17 @@ __global__ void greedy_search_kernel(Args a) {
                     // extension with code at the substituted position
                     n0 = kt::rank(a.rec, a.nb1, a.C, code, vs0);
                     n1 = kt::rank(a.rec, a.nb1, a.C, code, vs1);
-                    if (n0 < n1) {
+                    i = veff - ml1;
+                    if (n0 < n1 && last && a.sw_ids != nullptr &&
+                        n1 - n0 <= kt::kSwWcap && i > 0) {
+                        // the probe took the substitution at qi - 1 = i:
+                        // the letters left are the query's own
+                        i -= kt::switch_serial(
+                            a.rec, a.nb1, a.C, a.sa_seq, a.sa_off, a.nsamp,
+                            a.nseq, a.chpt_exp, a.text, a.rank_start, a.flat,
+                            n0, n1, vbase + i, i, ids, &nid);
+                    } else if (n0 < n1) {
                         const int pos = vqi - 1;
-                        i = veff - ml1;
                         while (i > 0) {
                             const int x = i - 1;
                             const int c = x == pos ? code : a.flat[vbase + x];
@@ -324,6 +358,8 @@ __global__ void greedy_search_kernel(Args a) {
                             n1 = m1;
                             --i;
                         }
+                    }
+                    if (n0 < n1) {
                         const int mlen = veff - i;
                         has_si = mlen >= (last ? a.mfl : ml1);
                         if (has_si) {
@@ -334,7 +370,7 @@ __global__ void greedy_search_kernel(Args a) {
                         }
                     }
                 }
-                ties.add(ev, score, n0, n1, lane);
+                ties.add(ev, score, n0, n1, lane, ids, nid);
                 if (!last)
                     nnext = push_src(Xn, nnext, a.vcap, has_si, lane, vf, i,
                                      veff, n0, n1, ndel, ndif, veff - i);
@@ -352,6 +388,15 @@ __global__ void greedy_search_kernel(Args a) {
     // ---- the read's row ------------------------------------------------------
     __syncwarp();
     const int kept = over ? 0 : min(ties.cnt, a.T);
+    // id slots: a kept virtual row's ids, zeros elsewhere (a tie that a
+    // later best replaced may have left ids behind)
+    for (int x = lane; ties.sw != nullptr && x < a.T * kt::kSwWcap; x += 32) {
+        const int t = x / kt::kSwWcap;
+        const bool virt = t < kept && ties.s0[t] >= kt::kVBase;
+        if (!virt || x % kt::kSwWcap >= ties.s1[t] - ties.s0[t])
+            ties.sw[x] = 0;
+    }
+    __syncwarp();
     for (int t = kept + lane; t < a.T; t += 32) {
         ties.s0[t] = 0;
         ties.s1[t] = 0;
@@ -370,12 +415,15 @@ KT_EXPORT int kt_greedy_search(
     const int* rec, int nb1, const int* C, const int* diag, const int* submat,
     const int* subcode, const int* subdiag, int Lmap, int mfl, int min_score,
     int mismatches, int T, int vcap, uint8_t* node, int* pincl, int* src,
-    int* best, int* flags, int* g_s0, int* g_s1, cudaStream_t stream) {
+    int* best, int* flags, int* g_s0, int* g_s1, const uint8_t* text,
+    const int* rank_start, const int* sa_seq, const int* sa_off, int nsamp,
+    int nseq, int chpt_exp, int* sw_ids, cudaStream_t stream) {
     (void)F;  // the slot table names the fragment rows
     const Args a{li, ls0, ls1, flat, frag_off, rf_rows, B, S, rec, nb1, C,
                  diag, submat, subcode, subdiag, Lmap, mfl, min_score,
                  mismatches, T, vcap, node, pincl, src, best, flags, g_s0,
-                 g_s1};
+                 g_s1, text, rank_start, sa_seq, sa_off, nsamp, nseq,
+                 chpt_exp, sw_ids};
     const int blocks = (B + kWarps - 1) / kWarps;
     greedy_search_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,11 @@
 // Replaces the second half of kaiju_tpu/ops/fused_classify.py:ranges_lca
 // (K11) with the SA walk _sa_walk_local (K4) under it:
 //   * the first R SA positions of the read's ranges, in range order;
-//   * one SA walk per position to its sequence, seq_tax to its taxon;
+//   * one SA walk per position to its sequence, seq_tax to its taxon; with
+//     sw_ids (the text-compare hybrid's virtual rows, text_common.cuh) a
+//     position k >= kVBase takes its sequence from sw_ids[k - kVBase]
+//     instead (fused_classify.py:192-227); without, every position is
+//     walked;
 //   * the capped unique set: a taxon is kept when it is new and fewer than
 //     cap + 1 new taxa came before it (ConsumerThread.cpp:799-845);
 //   * the LCA (util.cpp:194-263): one kept taxon is returned as it is;
@@ -23,7 +27,7 @@
 // sequential cap and LCA logic.
 #pragma once
 
-#include "fm_common.cuh"
+#include "text_common.cuh"
 
 namespace kt {
 
@@ -42,7 +46,8 @@ __device__ LcaResult ranges_lca_warp(
     const int* __restrict__ sa_seq, int nsamp,
     const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
-    int maxtax, int R, int cap, int nseq, int chpt_exp) {
+    int maxtax, int R, int cap, int nseq, int chpt_exp,
+    const int* __restrict__ sw_ids, int nsw) {
     const int lane = threadIdx.x & 31;
     int total = 0, n_ranges = 0;
     for (int g0 = 0; g0 < G; g0 += 32) {
@@ -58,8 +63,11 @@ __device__ LcaResult ranges_lca_warp(
     __syncwarp();  // every lane's positions are visible to the warp
 
     for (int r = lane; r < n; r += 32) {
-        const int iseq = sa_walk(rec, nb1, C, sa_seq, nsamp, nseq, chpt_exp,
-                                 pos[r]);
+        const int k = pos[r];
+        const int iseq =
+            sw_ids != nullptr && k >= kVBase
+                ? __ldg(sw_ids + min(k - kVBase, nsw - 1))
+                : sa_walk(rec, nb1, C, sa_seq, nsamp, nseq, chpt_exp, k);
         pos[r] = seq_tax[min(max(iseq, 0), ntax - 1)];
     }
     __syncwarp();

@@ -8,8 +8,8 @@
 // Replaces kaiju_tpu/ops/fused_classify.py:ranges_lca (K11 in its per-read
 // range form, the tail of the fused Greedy program) with the SA walk
 // _sa_walk_local (K4) under it, through the tail that kernel D shares
-// (lca_common.cuh).  The hybrid's virtual pre-resolved rows (sw_ids) are
-// not on this path: an index without a text copy has no hybrid.
+// (lca_common.cuh).  sw_ids (null: none) holds the ids of kernel E's
+// virtual tie rows, those of the last level's text-compare hybrid.
 //
 // Bound: the SA walks, one random 256-byte record row per LF step, plus
 // the ranges in and 12 bytes a read out; device-memory bytes at 3.35 TB/s.
@@ -35,8 +35,9 @@ __global__ void ranges_lca_kernel(
     const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
-    int* __restrict__ out_lca, int* __restrict__ out_n_ids,
-    int* __restrict__ out_need_more, int* __restrict__ out_tie_order) {
+    const int* __restrict__ sw_ids, int nsw, int* __restrict__ out_lca,
+    int* __restrict__ out_n_ids, int* __restrict__ out_need_more,
+    int* __restrict__ out_tie_order) {
     extern __shared__ int smem[];
     const int w = threadIdx.x >> 5;
     const int b = blockIdx.x * kWarps + w;
@@ -45,7 +46,7 @@ __global__ void ranges_lca_kernel(
     const ReadRanges ranges{g_s0 + (size_t)b * G, g_s1 + (size_t)b * G};
     const kt::LcaResult res = kt::ranges_lca_warp(
         ranges, G, pos, pos + R, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax,
-        parent, depth, maxtax, R, cap, nseq, chpt_exp);
+        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if ((threadIdx.x & 31) != 0) return;
     out_lca[b] = res.lca;
     out_n_ids[b] = res.n_ids;
@@ -60,13 +61,14 @@ KT_EXPORT int kt_ranges_lca(const int* g_s0, const int* g_s1, int B, int G,
                             const int* sa_seq, int nsamp, const int* seq_tax,
                             int ntax, const int* parent, const int* depth,
                             int maxtax, int R, int cap, int nseq, int chpt_exp,
-                            int* out_lca, int* out_n_ids, int* out_need_more,
+                            const int* sw_ids, int nsw, int* out_lca,
+                            int* out_n_ids, int* out_need_more,
                             int* out_tie_order, cudaStream_t stream) {
     const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
     const int blocks = (B + kWarps - 1) / kWarps;
     ranges_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
         g_s0, g_s1, B, G, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax, parent,
-        depth, maxtax, R, cap, nseq, chpt_exp, out_lca, out_n_ids,
-        out_need_more, out_tie_order);
+        depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw, out_lca,
+        out_n_ids, out_need_more, out_tie_order);
     return static_cast<int>(cudaGetLastError());
 }

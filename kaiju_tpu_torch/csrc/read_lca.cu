@@ -6,6 +6,7 @@
 // -1 = pad) and the slots that reach it; their tie ranges, in slot order
 // then tie order (T ties a slot), go through the shared tail
 // kt::ranges_lca_warp (lca_common.cuh: SA walks, capped id set, LCA).
+// sw_ids (null: none) holds the ids of kernel G's virtual tie rows.
 // flags: 1 = a contributing fragment had more than T ties, 2 = the R
 // positions ran out before the id cap.  The host replays flagged reads
 // exactly.
@@ -42,7 +43,7 @@ __global__ void read_lca_kernel(
     const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
-    int* __restrict__ out) {
+    const int* __restrict__ sw_ids, int nsw, int* __restrict__ out) {
     extern __shared__ int smem[];
     const int w = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -60,7 +61,7 @@ __global__ void read_lca_kernel(
     const SlotTies ties{rf, maxl, tie_s0, tie_s1, T, longest};
     const kt::LcaResult res = kt::ranges_lca_warp(
         ties, S * T, pos, pos + R, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax,
-        parent, depth, maxtax, R, cap, nseq, chpt_exp);
+        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if (lane != 0) return;
     int* o = out + (size_t)b * 4;
     o[0] = longest > 0 ? res.lca : 0;
@@ -77,13 +78,13 @@ KT_EXPORT int kt_read_lca(const int* maxl, const int* tie_cnt,
                           int nb1, const int* C, const int* sa_seq, int nsamp,
                           const int* seq_tax, int ntax, const int* parent,
                           const int* depth, int maxtax, int R, int cap,
-                          int nseq, int chpt_exp, int* out,
-                          cudaStream_t stream) {
+                          int nseq, int chpt_exp, const int* sw_ids,
+                          int nsw, int* out, cudaStream_t stream) {
     const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
     const int blocks = (B + kWarps - 1) / kWarps;
     read_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
         maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, rec, nb1, C, sa_seq,
         nsamp, seq_tax, ntax, parent, depth, maxtax, R, cap, nseq, chpt_exp,
-        out);
+        sw_ids, nsw, out);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,104 @@
+// Device functions of the text-compare hybrid, shared by kernel G
+// (text_extend.cu, the MEM funnel) and kernel E (greedy_search.cu, the
+// last variant level).
+//
+// A backward search whose SA interval is narrow (at most kSwWcap
+// occurrences) stops stepping the FM index: each occurrence is walked to
+// its text position (walk_pos), and the rest of the extension is a direct
+// comparison of the database text with the query (text_extend).  The
+// occurrences that reach the longest extension are exactly the FM interval
+// the steps would have ended on, in SA order, so their sequence ids stand
+// in for it as a virtual row: positions kVBase + slot .. + n, whose ids
+// sit in sw_ids[slot ..].
+#pragma once
+
+#include "fm_common.cuh"
+
+namespace kt {
+
+constexpr int kSwWcap = 8;         // widest interval that switches (SW_WCAP)
+constexpr int kVBase = 1 << 30;    // virtual rows start here (VBASE)
+
+struct WalkPos {
+    int iseq, pos;
+};
+
+// K4's _walk_pos (kaiju_tpu/ops/fused_mem2.py:345-416): get_suffix
+// (bwt.c:105-121) returning the content rank of the sequence and the
+// offset in it.  LF-walks from SA position k until a sampled slot, where
+// the sample gives (sa_seq, sa_off + steps), or a terminator, where the LF
+// result is the content rank and the offset the steps taken.
+__device__ __forceinline__ WalkPos walk_pos(
+    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
+    const int* __restrict__ sa_seq, const int* __restrict__ sa_off,
+    int nsamp, int nseq, int chpt_exp, int k) {
+    const int check = (1 << chpt_exp) - 1;
+    int steps = 0;
+    while (k & check) {
+        const int* row = rec + (size_t)min(k >> 7, nb1 - 1) * 64;
+        const int off = k & 127;
+        const int c = (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
+        const int kn = rank(rec, nb1, C, c, k);
+        if (c == 0) return {kn, steps};
+        k = kn;
+        ++steps;
+    }
+    int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
+    idx = min(max(idx, 0), nsamp - 1);
+    return {__ldg(sa_seq + idx), __ldg(sa_off + idx) + steps};
+}
+
+// K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274): the longest u
+// with text[p-1-t] == flat[qg-1-t] for every t < u, stopping at t = avail,
+// at t = p (the text's start) and at a text code of 0 (a separator).  The
+// bytes go 8 at a time: their 16 loads are issued together, so a chunk
+// costs one memory latency, not eight.
+__device__ __forceinline__ int text_extend(const uint8_t* __restrict__ text,
+                                           const uint8_t* __restrict__ flat,
+                                           int p, int qg, int avail) {
+    constexpr int kChunk = 8;
+    const int lim = min(avail, p);
+    for (int u = 0; u < lim; u += kChunk) {
+        const int n = min(kChunk, lim - u);
+        int t[kChunk], q[kChunk];
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+            t[k] = k < n ? __ldg(text + p - 1 - u - k) : 0;
+            q[k] = k < n ? __ldg(flat + qg - 1 - u - k) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k)
+            if (k >= n || t[k] == 0 || t[k] != q[k]) return u + k;
+    }
+    return lim;
+}
+
+// The whole switch of one interval on one thread: walk each occurrence
+// s0 + q (q < s1 - s0 <= kSwWcap) to its text start, compare backwards
+// from query position qg with avail letters left, and keep the
+// occurrences that reach the longest extension.  Returns that extension;
+// ids[0, *n) receives their sequence ids in SA order.
+__device__ __forceinline__ int switch_serial(
+    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
+    const int* __restrict__ sa_seq, const int* __restrict__ sa_off,
+    int nsamp, int nseq, int chpt_exp, const uint8_t* __restrict__ text,
+    const int* __restrict__ rank_start, const uint8_t* __restrict__ flat,
+    int s0, int s1, int qg, int avail, int* ids, int* n) {
+    int best = -1;
+    *n = 0;
+    for (int k = s0; k < s1; ++k) {
+        const WalkPos w = walk_pos(rec, nb1, C, sa_seq, sa_off, nsamp, nseq,
+                                   chpt_exp, k);
+        const int p =
+            __ldg(rank_start + min(max(w.iseq, 0), nseq - 1)) + w.pos;
+        const int e = text_extend(text, flat, p, qg, avail);
+        if (e > best) {
+            best = e;
+            *n = 0;
+        }
+        if (e == best) ids[(*n)++] = w.iseq;
+    }
+    return best;
+}
+
+}  // namespace kt

@@ -14,9 +14,11 @@ every output line equals the reference's.
 
 This is ``kaiju_tpu.engine.greedy_device.GreedyDevicePipeline`` without the
 JAX path's static-shape machinery (shape buckets, learned lane capacities
-and their retry): the kernels take any shape.  On an index without a text
-copy the JAX pipeline turns its Bloom screen and text-compare hybrid off,
-and neither changes a result; this pipeline has neither.
+and their retry): the kernels take any shape.  On an index with a text
+copy (what ``tools.mkdb`` writes) B screens its lanes with the Lmap-mer
+Bloom bitmap and E finishes the last level's narrow variants by text
+comparison, as the JAX pipeline does; on an index without, both are off.
+Neither changes a result.
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ class GreedyPipeline(DevicePipeline):
         # may not reach below it
         self.lmap = min(config.seed_length, config.min_fragment_length)
         super().__init__(index, taxonomy, config, device, kmer_cache_dir,
-                         min(SEED_K, config.seed_length, self.lmap))
+                         min(SEED_K, config.seed_length, self.lmap), self.lmap)
         self._tables = tuple(self._put(a) for a in greedy_scoring_tables(
             index.alphabet, trans_table(index.alphabet)))
 
@@ -113,6 +115,7 @@ class GreedyPipeline(DevicePipeline):
             self._tables, self.seed_K, self.lmap, cfg.min_fragment_length,
             cfg.min_score, cfg.mismatches, cfg.max_matches_SI, self.R_BUDGET,
             cfg.max_match_ids, self.dev.nseq, self.dev.chpt_exp, self.VCAP,
+            bloom=self._bloom, hyb=self._hyb,
         )
         HOST_SECONDS["fragment"] += t1 - t0
         HOST_SECONDS["submit"] += time.perf_counter() - t1

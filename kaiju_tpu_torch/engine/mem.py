@@ -11,6 +11,11 @@ whose fragments overflow their S slots, and reads the device flags
 ``ExactClassifier``, so every output line equals the reference's
 (ConsumerThread.cpp:543-628, :799-845, util.cpp:194-263).
 
+On an index with a text copy (what ``tools.mkdb`` writes), B screens its
+lanes with the m-mer Bloom bitmap (m = -m) and kernel G finishes the
+narrow ones by text comparison (B -> G -> C -> D), as ``kaiju_tpu`` does;
+neither changes a result.
+
 This is the device-tail path of ``kaiju_tpu.engine.mem_fast``.  The JAX
 path's static-shape machinery (shape buckets, learned lane capacities and
 their retry) has no counterpart: the kernels take any shape and have no
@@ -60,7 +65,8 @@ class MemPipeline(DevicePipeline):
         if config.mode != "mem" or config.verbose or taxonomy is None:
             raise ValueError("MemPipeline runs -a mem with a taxonomy, no -v")
         super().__init__(index, taxonomy, config, device, kmer_cache_dir,
-                         min(SEED_K, config.min_fragment_length))
+                         min(SEED_K, config.min_fragment_length),
+                         config.min_fragment_length)
 
     def submit_batch(self, reads):
         """Fragment a batch on the host and queue its device work; the
@@ -79,7 +85,7 @@ class MemPipeline(DevicePipeline):
             self.dev.seq_tax, self._parent, self._depth, self.seed_K,
             cfg.min_fragment_length - 1, cfg.min_fragment_length, TIE_CAP,
             self.R_BUDGET, cfg.max_match_ids, self.dev.nseq,
-            self.dev.chpt_exp,
+            self.dev.chpt_exp, bloom=self._bloom, hyb=self._hyb,
         )
         HOST_SECONDS["fragment"] += t1 - t0
         HOST_SECONDS["submit"] += time.perf_counter() - t1

@@ -1,6 +1,7 @@
 """What the device pipelines (``engine.mem.MemPipeline`` and
 ``engine.greedy.GreedyPipeline``) share: the device index, seed tables and
-taxonomy on the card, the native fragmenter, uploads, the host replay of
+taxonomy on the card, the Bloom screen and the text-compare hybrid of an
+index with a text copy, the native fragmenter, uploads, the host replay of
 flagged reads, and the stream with its lookahead.  Each pipeline keeps its
 own counters (``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
 ``submit_batch`` and ``collect_batch``."""
@@ -15,7 +16,9 @@ import torch
 
 from ..index.core import KaijuIndex
 from ..io.taxonomy import Taxonomy
+from ..ops.bloom import BloomScreen
 from ..ops.device_index import DeviceIndex, resolve_device
+from ..ops.hybrid import VBASE
 from ..ops.kmer import KmerTables
 from .config import KaijuConfig
 from .core import ExactClassifier
@@ -36,7 +39,13 @@ class DevicePipeline:
 
     def __init__(self, index: KaijuIndex, taxonomy: Taxonomy,
                  config: KaijuConfig, device, kmer_cache_dir: Optional[str],
-                 seed_K: int):
+                 seed_K: int, bloom_m: int):
+        """bloom_m: the window of kernel B's screen, the shortest match the
+        path records.  As in kaiju_tpu, the screen is loaded from
+        kmer_cache_dir or the index's directory, or built from the first
+        text source there is (None without one), and the hybrid is on
+        exactly when the index has a text copy and fewer than VBASE
+        positions; neither changes a result."""
         self.cfg = config
         self.index = index
         self.tax = taxonomy
@@ -46,6 +55,11 @@ class DevicePipeline:
         kmer = KmerTables.load_or_build(index, kmer_cache_dir, seed_K,
                                         device_index=self.dev)
         self._seed = tuple(self._put(a) for a in kmer.planar_seed(seed_K))
+        screen = BloomScreen.load_or_build(
+            index, kmer_cache_dir or index.source_dir, bloom_m, self.device)
+        self._bloom = None if screen is None else screen.args
+        self._hyb = ((self.dev.text, self.dev.rank_start)
+                     if self.dev.has_text and index.length < VBASE else None)
         par, dep = taxonomy.dense_arrays()
         self._parent = self._put(par)
         self._depth = self._put(dep)

@@ -11,7 +11,8 @@ imported, so the CPU tests import everything without a CUDA toolkit.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.  Wrappers
 count their launches in ``LAUNCHES`` (one per kernel launch, nowhere
-else), so a run can show that it went through the kernels.
+else), and kernel B's launches with its Bloom screen in ``SCREENED`` too,
+so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,26 +41,36 @@ _SIGNATURES = {
     # rec nb1 C | c s0 s1 n | n0 n1 ok
     "update_si": ("kt_update_si", "pip" "pppi" "ppp" "p"),
     # rec nb1 C | seed_s0 seed_s1 seed_d nseed | flat P frag_off F K j0 |
-    # i s0 s1
-    "mem_extend": ("kt_mem_extend", "pip" "pppi" "pipiii" "ppp" "p"),
+    # words m lb sw_steps | i s0 s1
+    "mem_extend": ("kt_mem_extend", "pip" "pppi" "pipiii" "piii" "ppp" "p"),
     # i s0 s1 frag_off F min_len T | maxl tie_cnt tie_j tie_s0 tie_s1
     "mem_stats": ("kt_mem_stats", "ppppiii" "ppppp" "p"),
     # maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | rec nb1 C sa_seq nsamp |
-    # seq_tax ntax parent depth maxtax | R cap nseq chpt_exp | out
+    # seq_tax ntax parent depth maxtax | R cap nseq chpt_exp | sw_ids nsw |
+    # out
     "read_lca": ("kt_read_lca",
-                 "ppppi" "pii" "pippi" "pippi" "iiii" "p" "p"),
+                 "ppppi" "pii" "pippi" "pippi" "iiii" "pi" "p" "p"),
     # g_s0 g_s1 B G | rec nb1 C sa_seq nsamp | seq_tax ntax parent depth
-    # maxtax | R cap nseq chpt_exp | lca n_ids need_more tie_order
+    # maxtax | R cap nseq chpt_exp | sw_ids nsw | lca n_ids need_more
+    # tie_order
     "ranges_lca": ("kt_ranges_lca",
-                   "ppii" "pippi" "pippi" "iiii" "pppp" "p"),
+                   "ppii" "pippi" "pippi" "iiii" "pi" "pppp" "p"),
     # li ls0 ls1 flat frag_off F rf_rows B S | rec nb1 C | diag submat
     # subcode subdiag | Lmap mfl min_score mismatches T vcap | node pincl
-    # src | best flags g_s0 g_s1
+    # src | best flags g_s0 g_s1 | text rank_start sa_seq sa_off nsamp nseq
+    # chpt_exp sw_ids
     "greedy_search": ("kt_greedy_search",
-                      "ppppp" "ipii" "pip" "pppp" "iiiiii" "ppp" "pppp" "p"),
+                      "ppppp" "ipii" "pip" "pppp" "iiiiii" "ppp" "pppp"
+                      "pppp" "iii" "p" "p"),
+    # rec nb1 C sa_seq sa_off nsamp nseq chpt_exp | text rank_start | flat
+    # P frag_off F sw_len | i s0 s1 | out_i out_s0 out_s1 sw_ids
+    "text_extend": ("kt_text_extend",
+                    "pip" "ppiii" "pp" "pipii" "ppp" "pppp" "p"),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+# launches of kernel B with its Bloom screen (each counted in LAUNCHES too)
+SCREENED = {"mem_extend": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -68,6 +79,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SCREENED["mem_extend"] = 0
 
 
 def _nvcc() -> str:

@@ -29,6 +29,7 @@ def build_library(force: bool = False) -> str:
         os.path.join(d, "bigsais.cpp"),
         os.path.join(d, "seg.cpp"),
         os.path.join(d, "fragments2.cpp"),
+        os.path.join(d, "bloom.cpp"),
     ]
     if not force and os.path.exists(so):
         newest_src = max(os.path.getmtime(s) for s in srcs)
@@ -65,6 +66,11 @@ def get_lib():
                 ctypes.c_void_p,                                   # keys
                 ctypes.c_void_p, ctypes.c_void_p,                  # rf/oflow
                 ctypes.c_void_p,                                   # counts
+            ]
+            lib.kt_bloom_fill.restype = None
+            lib.kt_bloom_fill.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_void_p,
             ]
             lib.kt_build_bwt_big.restype = ctypes.c_int
             lib.kt_build_bwt_big.argtypes = [

@@ -1,8 +1,12 @@
 """The classification tail: kernel F (``ranges_lca``, per-read SA ranges
 to the LCA), kernel D (``read_lca``, the MEM form over per-fragment tie
-statistics) and ``fused_mem_classify``, which runs B -> C -> D.  D and F
-share their tail: one device function (``csrc/lca_common.cuh``) and one
-plain version (``ranges_lca_plain``).
+statistics) and ``fused_mem_classify``, which runs B -> C -> D, or
+B -> G -> C -> D with the text-compare hybrid.  D and F share their tail:
+one device function (``csrc/lca_common.cuh``) and one plain version
+(``ranges_lca_plain``).  Given ``sw_ids``, a position >= VBASE is a
+virtual row of the hybrid (``ops/hybrid.py``) and takes its sequence from
+sw_ids[k - VBASE] instead of an SA walk; without, every position is
+walked, whatever its value.
 
 ``fused_mem_classify`` returns what rows 0..B-1 of
 ``kaiju_tpu.ops.fused_classify.fused_mem_classify`` hold: (lca, score,
@@ -20,6 +24,7 @@ import torch
 
 from .. import kernels
 from .device_index import sa_walk
+from .hybrid import S1_STEPS, VBASE, text_extend
 from .search import mem_extend, mem_stats
 
 FLAG_TIE_OVER = 1  # a contributing fragment had more ties than T
@@ -28,7 +33,8 @@ MAX_R = 1024  # positions a read: kernels D and F keep them in shared memory
 
 
 def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
-                     depth, R, cap, nseq, chpt_exp, touched=None):
+                     depth, R, cap, nseq, chpt_exp, touched=None,
+                     sw_ids=None):
     """touched: None, or a list that receives the record rows read."""
     dev = g_s0.device
     B, G = g_s0.shape
@@ -49,9 +55,16 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
     valid = rr[None, :] < torch.clamp(total, max=R)[:, None]
     tax = torch.full((B, R), -1, dtype=i32, device=dev)
     if G:
-        k = g_s0.gather(1, seg) + rr[None, :] - csum.gather(1, seg)
-        iseq, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp,
-                             k[valid], touched)
+        k = (g_s0.gather(1, seg) + rr[None, :] - csum.gather(1, seg))[valid]
+        virt = (k >= VBASE if sw_ids is not None
+                else torch.zeros_like(k, dtype=torch.bool))
+        iseq = torch.empty_like(k)
+        walked, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp,
+                               k[~virt], touched)
+        iseq[~virt] = walked
+        if sw_ids is not None:
+            iseq[virt] = sw_ids[torch.clamp(k[virt] - VBASE, max=max(
+                sw_ids.shape[0] - 1, 0)).long()]
         tax[valid] = seq_tax[torch.clamp(iseq, 0, seq_tax.shape[0] - 1).long()]
 
     # ---- capped unique-id set ------------------------------------------
@@ -96,16 +109,17 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
 
 
 def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,
-               R, cap, nseq, chpt_exp):
+               R, cap, nseq, chpt_exp, sw_ids=None):
     """(lca, n_ids, need_more, tie_order) int32 [B] per read from its SA
     ranges g_s0, g_s1 int32 [B, G] (range g contributes when g_s1 > g_s0).
     tie_order is 1 where more than one range contributes and the id cap
     may have cut the read's taxa, so that the result depends on the order
-    of the ranges.  Kernel F for CUDA tensors, the plain version for CPU
-    tensors."""
+    of the ranges.  sw_ids: None, or the ids of the virtual rows (int32).
+    Kernel F for CUDA tensors, the plain version for CPU tensors."""
     if g_s0.device.type == "cpu":
         return ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax,
-                                parent, depth, R, cap, nseq, chpt_exp)
+                                parent, depth, R, cap, nseq, chpt_exp,
+                                sw_ids=sw_ids)
     dev = g_s0.device
     for t, what, nd in ((g_s0, "g_s0", 2), (g_s1, "g_s1", 2), (rec, "rec", 2),
                         (C, "C", 1), (sa_seq, "sa_seq", 1),
@@ -114,27 +128,33 @@ def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,
         kernels.check(t, what, torch.int32, dev, nd)
     if g_s1.shape != g_s0.shape:
         raise ValueError("g_s0 and g_s1 differ in shape")
-    _check_tail(parent, depth, R)
+    _check_tail(parent, depth, R, sw_ids, dev)
     B, G = g_s0.shape
     out = torch.empty((4, B), dtype=torch.int32, device=dev)
     if B:
         kernels.launch("ranges_lca", g_s0, g_s1, B, G, rec, rec.shape[0], C,
                        sa_seq, sa_seq.shape[0], seq_tax, seq_tax.shape[0],
                        parent, depth, parent.shape[0], R, cap, nseq, chpt_exp,
-                       out[0], out[1], out[2], out[3])
+                       sw_ids, _nsw(sw_ids), out[0], out[1], out[2], out[3])
     return out[0], out[1], out[2], out[3]
 
 
-def _check_tail(parent, depth, R):
+def _check_tail(parent, depth, R, sw_ids, dev):
     if parent.shape != depth.shape:
         raise ValueError("parent and depth differ in size")
     if not 0 < R <= MAX_R:
         raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+    if sw_ids is not None:
+        kernels.check(sw_ids, "sw_ids", torch.int32, dev, 1)
+
+
+def _nsw(sw_ids):
+    return 0 if sw_ids is None else sw_ids.shape[0]
 
 
 def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
                    sa_off, seq_tax, parent, depth, R, cap, nseq, chpt_exp,
-                   touched=None):
+                   touched=None, sw_ids=None):
     """touched: None, or a list that receives the record rows read."""
     dev = maxl.device
     F, T = tie_s0.shape
@@ -156,22 +176,23 @@ def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
     t_s1 = torch.where(keep, torch.cat([tie_s1, zrow])[rf].reshape(B, S * T), 0)
     lca, n_ids, need_more, _order = ranges_lca_plain(
         t_s0, t_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth, R, cap,
-        nseq, chpt_exp, touched)
+        nseq, chpt_exp, touched, sw_ids)
     lca = torch.where(longest > 0, lca, 0)
     flags = tie_over.to(i32) * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
     return torch.stack([lca, longest, flags, n_ids], 1).to(i32)
 
 
 def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
-             seq_tax, parent, depth, R, cap, nseq, chpt_exp):
+             seq_tax, parent, depth, R, cap, nseq, chpt_exp, sw_ids=None):
     """(lca, score, flags, n_ids) int32 [B, 4] per read from the
     per-fragment statistics (maxl, tie_cnt [F]; tie_s0, tie_s1 [F, T]) and
-    the pop-order slot table rf_rows int32 [B, S] (-1 = pad).  Kernel D
-    for CUDA tensors, the plain version for CPU tensors."""
+    the pop-order slot table rf_rows int32 [B, S] (-1 = pad); sw_ids:
+    None, or the ids of the virtual tie rows.  Kernel D for CUDA tensors,
+    the plain version for CPU tensors."""
     if maxl.device.type == "cpu":
         return read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C,
                               sa_seq, sa_off, seq_tax, parent, depth, R, cap,
-                              nseq, chpt_exp)
+                              nseq, chpt_exp, sw_ids=sw_ids)
     dev = maxl.device
     F, T = tie_s0.shape
     for t, what, nd in ((maxl, "maxl", 1), (tie_cnt, "tie_cnt", 1),
@@ -182,25 +203,35 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
         kernels.check(t, what, torch.int32, dev, nd)
     if maxl.shape[0] != F or tie_cnt.shape[0] != F or tie_s1.shape != (F, T):
         raise ValueError("maxl, tie_cnt, tie_s0 and tie_s1 disagree on F or T")
-    _check_tail(parent, depth, R)
+    _check_tail(parent, depth, R, sw_ids, dev)
     B, S = rf_rows.shape
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
     if B:
         kernels.launch("read_lca", maxl, tie_cnt, tie_s0, tie_s1, T,
                        rf_rows, B, S, rec, rec.shape[0], C, sa_seq,
                        sa_seq.shape[0], seq_tax, seq_tax.shape[0], parent,
-                       depth, parent.shape[0], R, cap, nseq, chpt_exp, out)
+                       depth, parent.shape[0], R, cap, nseq, chpt_exp,
+                       sw_ids, _nsw(sw_ids), out)
     return out
 
 
 def fused_mem_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off,
                        seq_tax, parent, depth, K, j0, min_len, T, R, cap,
-                       nseq, chpt_exp):
-    """The whole MEM batch, B -> C -> D: flat uint8 [P] fragment codes,
-    frag_off int32 [F+1], rf_rows int32 [B, S] fragment row per (read,
-    pop-order slot), seed = (s0, s1, d) K-mer tables.  Returns int32
-    [B, 4] rows (lca, score, flags, n_ids)."""
-    i, s0, s1 = mem_extend(rec, C, *seed, flat, frag_off, K, j0)
+                       nseq, chpt_exp, bloom=None, hyb=None):
+    """The whole MEM batch, B -> C -> D (B -> G -> C -> D with the
+    hybrid): flat uint8 [P] fragment codes, frag_off int32 [F+1], rf_rows
+    int32 [B, S] fragment row per (read, pop-order slot), seed = (s0, s1,
+    d) K-mer tables; bloom = None or the screen (words, m, lb); hyb = None
+    or the hybrid's (text, rank_start).  Returns int32 [B, 4] rows (lca,
+    score, flags, n_ids)."""
+    i, s0, s1 = mem_extend(rec, C, *seed, flat, frag_off, K, j0, bloom=bloom,
+                           sw_steps=S1_STEPS if hyb is not None else 0)
+    sw_ids = None
+    if hyb is not None:
+        i, s0, s1, sw_ids = text_extend(i, s0, s1, flat, frag_off,
+                                        K + S1_STEPS, *hyb, rec, C, sa_seq,
+                                        sa_off, nseq, chpt_exp)
     stats = mem_stats(i, s0, s1, frag_off, min_len, T)
     return read_lca(*stats[:2], *stats[3:], rf_rows, rec, C, sa_seq, sa_off,
-                    seq_tax, parent, depth, R, cap, nseq, chpt_exp)
+                    seq_tax, parent, depth, R, cap, nseq, chpt_exp,
+                    sw_ids=sw_ids)

@@ -53,9 +53,14 @@ class DeviceIndex:
     """The tensors of one index shard on one device: ``rec`` int32
     [nb+1, 64], ``C`` int32 [alen+1], the SA samples ``sa_seq``/``sa_off``
     int32 [nsamples] and ``seq_tax`` int32 [nseq] (taxon of each
-    content-ranked sequence)."""
+    content-ranked sequence).  An index with a text copy also has ``text``
+    uint8 [N] (letter codes, a 0 after each sequence, input order) and
+    ``rank_start`` int32 [nseq] (the text start of the content-rank-r
+    sequence), which the text-compare hybrid reads; both are None
+    otherwise."""
 
     def __init__(self, index: KaijuIndex, device=None):
+        has_text = index.text is not None
         self._set(
             resolve_device(device),
             build_fused_records(index),
@@ -65,21 +70,28 @@ class DeviceIndex:
             np.asarray(index.seq_taxids, dtype=np.int32),
             int(index.nseq),
             int(index.chpt_exp),
+            np.asarray(index.text, dtype=np.uint8) if has_text else None,
+            index.rank_text_starts() if has_text else None,
         )
 
     @classmethod
     def from_arrays(cls, rec, C, sa_seq, sa_off, seq_tax, device, *, nseq,
-                    chpt_exp) -> "DeviceIndex":
+                    chpt_exp, text=None, rank_start=None) -> "DeviceIndex":
         """A DeviceIndex over given arrays (anything np.asarray takes),
         e.g. those of another implementation, so that both compute on the
-        same index."""
+        same index; text and rank_start come together or not at all."""
+        if (text is None) != (rank_start is None):
+            raise ValueError("text and rank_start come together")
         self = cls.__new__(cls)
         arrs = [np.asarray(a, dtype=np.int32)
                 for a in (rec, C, sa_seq, sa_off, seq_tax)]
-        self._set(resolve_device(device), *arrs, int(nseq), int(chpt_exp))
+        self._set(resolve_device(device), *arrs, int(nseq), int(chpt_exp),
+                  None if text is None else np.asarray(text, dtype=np.uint8),
+                  rank_start)
         return self
 
-    def _set(self, device, rec, C, sa_seq, sa_off, seq_tax, nseq, chpt_exp):
+    def _set(self, device, rec, C, sa_seq, sa_off, seq_tax, nseq, chpt_exp,
+             text, rank_start):
         def put(a):
             a = np.ascontiguousarray(a)
             if not a.flags.writeable:  # e.g. a read-only memory map
@@ -94,6 +106,13 @@ class DeviceIndex:
         self.seq_tax = put(seq_tax)
         self.nseq = nseq
         self.chpt_exp = chpt_exp
+        self.text = None if text is None else put(text)
+        self.rank_start = (None if rank_start is None else
+                           put(np.asarray(rank_start, dtype=np.int32)))
+
+    @property
+    def has_text(self) -> bool:
+        return self.text is not None
 
 
 # ---------------------------------------------------------------------------

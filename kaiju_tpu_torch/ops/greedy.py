@@ -26,6 +26,14 @@ read:
             the substitution's column.  The first T are kept;
             FLAG_TIE_OVER when there are more.
 
+With the text-compare hybrid (an index with a text copy,
+``ops/hybrid.py``), a variant of the last level whose probe interval holds
+at most SW_WCAP occurrences, with letters left, finishes by text
+comparison instead of FM steps (fused_greedy.py:488-505); a tie it makes
+is a virtual row (VBASE + slot, VBASE + slot + n), slot = (b T + r) 8 for
+tie r of read b, whose n ids sit in SA order in sw_ids [B, T, 8] (zeros
+elsewhere).
+
 F (``classify.ranges_lca``) resolves the kept ties to the LCA.  The JAX
 program's capacities, compaction buffers, burn-in, windows and retry have
 no counterpart.  A read keeps its sources of one level in VCAP slots of
@@ -44,7 +52,8 @@ from .. import kernels
 from ..constants import AA_TO_INT, BLOSUM62, BLOSUM62_DIAG, BLOSUM_SUBST
 from .classify import FLAG_NEED_MORE, FLAG_TIE_OVER, ranges_lca
 from .device_index import rank
-from .search import _lane_fragments, mem_extend
+from .hybrid import VBASE, switch_plain
+from .search import SW_WCAP, _lane_fragments, mem_extend
 
 FLAG_SCRATCH = 4  # the read's sources outgrew VCAP (port only): replay
 # more than one tie and the id cap may have cut the read's taxa: the result
@@ -109,7 +118,7 @@ def _resume(rec, C, flat, base, pos, code, start, n0, n1, act, touched):
 
 def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
                         Lmap, mfl, min_score, mismatches, T, vcap=VCAP,
-                        touched=None):
+                        touched=None, hyb=None):
     """touched: None, or a list that receives the record rows read."""
     dev = flat.device
     i32, i64 = torch.int32, torch.int64
@@ -121,8 +130,10 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
     g_s0 = torch.zeros((B, T), dtype=i32, device=dev)
     g_s1 = torch.zeros((B, T), dtype=i32, device=dev)
     flags = torch.zeros(B, dtype=i32, device=dev)
+    sw_ids = (torch.zeros((B, T, SW_WCAP), dtype=i32, device=dev)
+              if hyb is not None else None)
     if B == 0 or P == 0:
-        return best[:B], flags, g_s0, g_s1
+        return best[:B], flags, g_s0, g_s1, _flat(sw_ids)
 
     # read of each fragment row (B: no read), diag prefix sums
     frag_rid = torch.full((F,), B, dtype=i64, device=dev)
@@ -163,7 +174,11 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
     n_score = torch.clamp(pref(n_f, n_effL) - pref(n_f, n_qi), min=0)
     n_ev = (n_ql >= mfl) & (n_score >= min_score)
     best.scatter_reduce_(0, n_rid, torch.where(n_ev, n_score, 0), "amax")
-    events = [(n_rid, s0[nodes], s1[nodes], n_ev, n_score)]
+    # events: (read, s0, s1, eval, score, ids of a switched interval, how
+    # many: 0 for an FM interval)
+    no_ids = torch.zeros((nodes.shape[0], SW_WCAP), dtype=i32, device=dev)
+    events = [(n_rid, s0[nodes], s1[nodes], n_ev, n_score, no_ids,
+               torch.zeros_like(n_rid))]
 
     gkey = n_f * QLCAP + torch.clamp(n_ql, max=QLCAP - 1)
     _u, inv, cnt = torch.unique(gkey, return_inverse=True, return_counts=True)
@@ -200,8 +215,23 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
         n0 = rank(rec, C, code, ss0[r], touched)
         n1 = rank(rec, C, code, ss1[r], touched)
         p_ok = n0 < n1
+        v_start = veff - ml1
+        sw = torch.zeros_like(p_ok)
+        if last and hyb is not None:
+            sw = p_ok & (n1 - n0 <= SW_WCAP) & (v_start > 0)
         i_end, r0, r1 = _resume(rec, C, flat, start[vf], vqi - 1, code,
-                                veff - ml1, n0, n1, p_ok, touched)
+                                v_start, n0, n1, p_ok & ~sw, touched)
+        ids = torch.zeros((r.shape[0], SW_WCAP), dtype=i32, device=dev)
+        nid = torch.zeros_like(vrid)
+        if bool(sw.any()):
+            text, rank_start, sa_seq, sa_off, nseq, chpt_exp = hyb
+            st = v_start[sw]
+            maxext, n_ach, sw_i = switch_plain(
+                n0[sw], n1[sw], (start[vf[sw]] + st).to(i32), st, flat, text,
+                rank_start, rec, C, sa_seq, sa_off, nseq, chpt_exp, touched)
+            i_end[sw] = st - maxext
+            ids[sw] = sw_i
+            nid[sw] = n_ach.long()
         i_res = torch.where(p_ok, i_end, 1)
         vml = veff - i_res
         has_si = p_ok & (vml >= (mfl if last else ml1))
@@ -209,7 +239,7 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
                             min=0)
         ev = has_si & (vml >= mfl) & (score >= min_score)
         best.scatter_reduce_(0, vrid, torch.where(ev, score, 0), "amax")
-        events.append((vrid, r0, r1, ev, score))
+        events.append((vrid, r0, r1, ev, score, ids, nid))
         if last:
             break
         fr = [t[has_si] for t in (vf, vrid, i_res, veff, r0, r1, vdel, vdif,
@@ -217,41 +247,61 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
         over |= torch.bincount(fr[1], minlength=B + 1) > vcap
 
     # ---- ties: the eval events at the read's final best, in order --------
-    e_rid, e_s0, e_s1, e_ev, e_score = (torch.cat(c) for c in zip(*events))
+    e_rid, e_s0, e_s1, e_ev, e_score, e_ids, e_nid = (
+        torch.cat(c) for c in zip(*events))
     tie = e_ev & (e_score == best[e_rid]) & (e_score > 0)
     t_rid = e_rid[tie]
     order = torch.sort(t_rid, stable=True).indices
     t_rid, t_s0, t_s1 = t_rid[order], e_s0[tie][order], e_s1[tie][order]
+    t_ids, t_nid = e_ids[tie][order], e_nid[tie][order]
     cnt = torch.bincount(t_rid, minlength=B + 1)
     rank_in_read = torch.arange(t_rid.shape[0], device=dev) - (
         torch.cumsum(cnt, 0) - cnt)[t_rid]
     k = rank_in_read < T
-    g_s0[t_rid[k], rank_in_read[k]] = t_s0[k]
-    g_s1[t_rid[k], rank_in_read[k]] = t_s1[k]
+    t_rid, r_k = t_rid[k], rank_in_read[k]
+    t_s0, t_s1, t_ids, t_nid = t_s0[k], t_s1[k], t_ids[k], t_nid[k]
+    virt = t_nid > 0
+    vrow = (VBASE + (t_rid * T + r_k) * SW_WCAP).to(i32)
+    g_s0[t_rid, r_k] = torch.where(virt, vrow, t_s0)
+    g_s1[t_rid, r_k] = torch.where(virt, vrow + t_nid.to(i32), t_s1)
+    if sw_ids is not None:
+        sw_ids[t_rid[virt], r_k[virt]] = t_ids[virt]
     flags = (cnt[:B] > T).to(i32) * FLAG_TIE_OVER
     over = over[:B]
     best = torch.where(over, 0, best[:B])
     flags = torch.where(over, FLAG_SCRATCH, flags)
     g_s0[over] = 0
     g_s1[over] = 0
-    return best, flags, g_s0, g_s1
+    if sw_ids is not None:
+        sw_ids[over] = 0
+    return best, flags, g_s0, g_s1, _flat(sw_ids)
+
+
+def _flat(sw_ids):
+    return None if sw_ids is None else sw_ids.reshape(-1)
 
 
 def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
-                  mfl, min_score, mismatches, T, vcap=VCAP):
+                  mfl, min_score, mismatches, T, vcap=VCAP, hyb=None):
     """Per read: the best score (int32 [B]), flags (int32 [B]:
     FLAG_TIE_OVER, FLAG_SCRATCH) and the first T ties' SA ranges g_s0, g_s1
     (int32 [B, T], zeros past the last), from B's lanes (i, s0, s1 int32
     [P]), the flat codes (uint8 [P]), frag_off (int32 [F+1]), the slot
     table rf_rows (int32 [B, S], -1 = pad) and the scoring tables of
-    greedy_scoring_tables.  Kernel E (csrc/greedy_search.cu) for CUDA
-    tensors, the plain version for CPU tensors."""
+    greedy_scoring_tables; then sw_ids, int32 [B T 8], the ids of the
+    virtual tie rows (None without hyb).  hyb: None, or the last level's
+    text-compare hybrid (text, rank_start, sa_seq, sa_off, nseq,
+    chpt_exp).  Kernel E (csrc/greedy_search.cu) for CUDA tensors, the
+    plain version for CPU tensors."""
     if Lmap < 1 or mismatches < 0 or T < 1 or vcap < 1:
         raise ValueError("need Lmap >= 1, mismatches >= 0, T >= 1, vcap >= 1")
+    B = rf_rows.shape[0]
+    if hyb is not None and VBASE + B * T * SW_WCAP >= 1 << 31:
+        raise ValueError(f"{B} reads of {T} ties: virtual rows pass 2^31")
     if flat.device.type == "cpu":
         return greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C,
                                    tables, Lmap, mfl, min_score, mismatches,
-                                   T, vcap)
+                                   T, vcap, hyb=hyb)
     dev = flat.device
     P = flat.shape[0]
     for t, what in ((i, "i"), (s0, "s0"), (s1, "s1")):
@@ -276,6 +326,15 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
     if S > MAX_S:
         raise ValueError(f"rf_rows: {S} slots a read, at most {MAX_S}")
     F = frag_off.shape[0] - 1
+    text, rank_start, sa_seq, sa_off, nseq, chpt_exp = (
+        hyb if hyb is not None else (None, None, None, None, 0, 0))
+    if hyb is not None:
+        kernels.check(text, "text", torch.uint8, dev, 1)
+        for t, what in ((rank_start, "rank_start"), (sa_seq, "sa_seq"),
+                        (sa_off, "sa_off")):
+            kernels.check(t, what, torch.int32, dev, 1)
+    sw_ids = (torch.zeros(B * T * SW_WCAP, dtype=torch.int32, device=dev)
+              if hyb is not None else None)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     flags = torch.empty(B, dtype=torch.int32, device=dev)
     g = torch.empty((2, B, T), dtype=torch.int32, device=dev)
@@ -287,26 +346,32 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
         kernels.launch("greedy_search", i, s0, s1, flat, frag_off, F, rf_rows,
                        B, S, rec, rec.shape[0], C, diag, submat, subcode,
                        subdiag, Lmap, mfl, min_score, mismatches, T, vcap,
-                       node, pincl, src, best, flags, g[0], g[1])
-    return best, flags, g[0], g[1]
+                       node, pincl, src, best, flags, g[0], g[1], text,
+                       rank_start, sa_seq, sa_off,
+                       0 if sa_seq is None else sa_seq.shape[0], nseq,
+                       chpt_exp, sw_ids)
+    return best, flags, g[0], g[1], sw_ids
 
 
 def fused_greedy_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq,
                           sa_off, seq_tax, parent, depth, tables, K, Lmap,
                           mfl, min_score, mismatches, T, R, cap, nseq,
-                          chpt_exp, vcap=VCAP):
+                          chpt_exp, vcap=VCAP, bloom=None, hyb=None):
     """The whole Greedy batch, B -> E -> F: flat uint8 [P] fragment codes,
     frag_off int32 [F+1], rf_rows int32 [B, S] fragment row per (read,
     pop-order slot), seed = (s0, s1, d) K-mer tables, tables = the scoring
-    tables (greedy_scoring_tables).  Returns int32 [B, 4] rows (lca, best,
-    flags, n_ids)."""
-    i, s0, s1 = mem_extend(rec, C, *seed, flat, frag_off, K, Lmap - 1)
-    best, flags, g_s0, g_s1 = greedy_search(
+    tables (greedy_scoring_tables); bloom = None or B's screen (words, m,
+    lb), m = Lmap; hyb = None or the last level's hybrid (text,
+    rank_start).  Returns int32 [B, 4] rows (lca, best, flags, n_ids)."""
+    i, s0, s1 = mem_extend(rec, C, *seed, flat, frag_off, K, Lmap - 1,
+                           bloom=bloom)
+    best, flags, g_s0, g_s1, sw_ids = greedy_search(
         i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap, mfl,
-        min_score, mismatches, T, vcap)
+        min_score, mismatches, T, vcap,
+        hyb=None if hyb is None else (*hyb, sa_seq, sa_off, nseq, chpt_exp))
     lca, n_ids, need_more, tie_order = ranges_lca(
         g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth, R, cap,
-        nseq, chpt_exp)
+        nseq, chpt_exp, sw_ids=sw_ids)
     lca = torch.where(best > 0, lca, 0)
     flags = flags | need_more * FLAG_NEED_MORE | tie_order * FLAG_TIE_ORDER
     return torch.stack([lca, best, flags, n_ids], 1)

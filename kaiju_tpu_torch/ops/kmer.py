@@ -22,6 +22,16 @@ from ..index.core import KaijuIndex
 from .device_index import update_si
 
 NLET = 20  # letter codes 1..20 (makedb alphabet)
+
+
+def default_depth(index: KaijuIndex) -> int:
+    """Deep enough that a random k-mer is likely absent (kills junk lanes
+    at seed time), capped by table memory (20^K * 16 B): the depth
+    ``tools.mkdb --kmer`` builds."""
+    import math
+
+    k = math.ceil(math.log(max(index.length, 2), NLET)) + 1
+    return max(4, min(6, k))
 DEVICE_CHUNK = 1 << 22  # UpdateSI probes a launch while building
 
 

@@ -6,13 +6,19 @@ fragments laid out flat (codes ``flat`` uint8 [P], offsets ``frag_off``
 int32 [F+1], monotone), the per-fragment greedyExact statistics (maxl,
 tie_cnt, tie_j[T], tie_s0[T], tie_s1[T]).
 
-B evaluates every lane (fragment, end j >= j0) to its maximal backward
-extension: seed from the K-mer tables, then FM steps.  The JAX program
-evaluates a subset (a Bloom-screened strip, then the unresolved
-remainder) and proves the statistics equal on any superset
-(fused_mem2.py:23-31); C reads every lane, so the statistics are the same
-with or without screening.  B's results are in flat layout: lane p is
-position j = p - frag_off[f] of the fragment f that owns p.
+B evaluates every usable lane (fragment, end j >= j0) to its maximal
+backward extension: seed from the K-mer tables, then FM steps.  With a
+Bloom bitmap (``ops/bloom.py``, on an index with a text copy) it first
+drops the lanes whose trailing m-mer is absent from the database; they
+return the length-0 result of a lane not evaluated.  The JAX program
+evaluates a subset too (a Bloom-screened strip, then the unresolved
+remainder) and proves the statistics equal on any superset of the lanes
+with a match of length >= m (fused_mem2.py:23-31); C reads every lane, so
+the statistics are the same with or without the screen.  With the
+text-compare hybrid B stops its narrow lanes after the seed and
+S1_STEPS steps, and kernel G (``ops/hybrid.py``) finishes them.  B's
+results are in flat layout: lane p is position j = p - frag_off[f] of the
+fragment f that owns p.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .bloom import probe_plain
 from .device_index import rank
 
 SEED_K = 5  # seed-table depth of the MEM search
@@ -43,8 +50,11 @@ def _lane_fragments(frag_off, P):
 # ---------------------------------------------------------------------------
 
 
+SW_WCAP = 8  # the hybrid switches intervals of at most this many occurrences
+
+
 def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
-                     touched=None):
+                     touched=None, bloom=None, sw_steps=0):
     """touched: None, or a list that receives the record rows read."""
     P = flat.shape[0]
     if P == 0:
@@ -54,6 +64,8 @@ def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
     j = pos - base
     c32 = flat.to(torch.int32)
     valid = (j >= j0) & (j < flen)
+    if bloom is not None:
+        valid &= probe_plain(flat, pos, valid, *bloom)
     kid = torch.zeros(P, dtype=torch.int32, device=flat.device)
     for t in range(K):
         kid += (c32[torch.clamp(pos - t, min=0).long()] - 1) * NLET**t
@@ -63,6 +75,7 @@ def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
     s0 = torch.where(valid, seed_s0[kid], 0)
     s1 = torch.where(valid, seed_s1[kid], 0)
     live = torch.nonzero(valid & (d == K) & (i > 0)).squeeze(1)
+    steps = 0
     while live.numel():
         li, a0, a1 = i[live], s0[live], s1[live]
         c = c32[(base[live] + li - 1).long()]
@@ -74,18 +87,29 @@ def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
         s1[live] = n1[ok]
         i[live] = li[ok] - 1
         live = live[i[live] > 0]
+        steps += 1
+        if steps == sw_steps:  # the hybrid's narrow lanes stop here
+            live = live[s1[live] - s0[live] > SW_WCAP]
     return i, s0, s1
 
 
-def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0):
+def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
+               bloom=None, sw_steps=0):
     """Maximal backward extension (i, s0, s1), int32 [P] each, of every
-    flat position (see csrc/mem_extend.cu for the contract).  Kernel B for
-    CUDA tensors, the plain version for CPU tensors."""
+    flat position (see csrc/mem_extend.cu for the contract).  bloom: None,
+    or the screen (words int32 [2^(lb-5)], m, lb) with m <= j0 + 1;
+    sw_steps: 0, or the steps after which the hybrid's narrow lanes stop.
+    Kernel B for CUDA tensors, the plain version for CPU tensors."""
     if K < 1 or j0 < K - 1:
         raise ValueError(f"need K >= 1 and j0 >= K - 1 (K={K}, j0={j0})")
+    if bloom is not None and not 1 <= bloom[1] <= j0 + 1:
+        raise ValueError(f"need 1 <= m <= j0 + 1 (m={bloom[1]}, j0={j0})")
+    if sw_steps < 0:
+        raise ValueError(f"sw_steps must be >= 0, got {sw_steps}")
     if flat.device.type == "cpu":
         return mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat,
-                                frag_off, K, j0)
+                                frag_off, K, j0, bloom=bloom,
+                                sw_steps=sw_steps)
     dev = flat.device
     kernels.check(rec, "rec", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
@@ -99,11 +123,19 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0):
     P, F = flat.shape[0], frag_off.shape[0] - 1
     if P and F < 1:
         raise ValueError("flat codes without a fragment to own them")
+    words, m, lb = bloom if bloom is not None else (None, 0, 0)
+    if words is not None:
+        kernels.check(words, "bloom words", torch.int32, dev, 1)
+        if words.shape[0] != 1 << (lb - 5):
+            raise ValueError(f"bloom words: {words.shape[0]}, expected "
+                             f"2^{lb - 5}")
     out = torch.empty((3, P), dtype=torch.int32, device=dev)
     if P:
         kernels.launch("mem_extend", rec, rec.shape[0], C, seed_s0, seed_s1,
                        seed_d, seed_d.shape[0], flat, P, frag_off, F, K, j0,
-                       out[0], out[1], out[2])
+                       words, m, lb, sw_steps, out[0], out[1], out[2])
+        if words is not None:
+            kernels.SCREENED["mem_extend"] += 1
     return out[0], out[1], out[2]
 
 

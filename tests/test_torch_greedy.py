@@ -204,7 +204,7 @@ def test_ranges_lca_plain_matches_jax(env):
     i, a0, a1 = mem_extend(td.rec, td.C, *(_t(a) for a in env["seed"]),
                            _t(flat[:chars]), _t(frag_off[: n_frags + 1]), K,
                            LMAP - 1)
-    _b, _f, t_s0, t_s1 = greedy.greedy_search(
+    _b, _f, t_s0, t_s1, _sw = greedy.greedy_search(
         i, a0, a1, _t(flat[:chars]), _t(frag_off[: n_frags + 1]), _t(rf),
         td.rec, td.C, tuple(_t(a) for a in env["tables"]), LMAP, MFL,
         MIN_SCORE, 3, T)

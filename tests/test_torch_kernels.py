@@ -17,7 +17,7 @@ from kaiju_tpu_torch.engine.pipeline import _bucket
 from kaiju_tpu_torch.index import py_builder
 from kaiju_tpu_torch.index.alphabet import trans_table
 from kaiju_tpu_torch.io.taxonomy import Taxonomy
-from kaiju_tpu_torch.ops import classify, greedy, search
+from kaiju_tpu_torch.ops import bloom, classify, greedy, hybrid, search
 from kaiju_tpu_torch.ops import device_index as tdev
 from kaiju_tpu_torch.ops.kmer import KmerTables
 from kaiju_tpu_torch.tools.readgen import make_reads, reverse_translate
@@ -192,7 +192,8 @@ def test_greedy_kernels_match_plain(env, cuda, mismatches, vcap):
                                      else a for a in e_args[:5]),
         tuple(t.cpu() for t in tables), *e_args[6:])
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    assert got[4] is None and want[4] is None  # no hybrid, no id slots
+    for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g.cpu(), w)
     f_args = (rec, C, sa_seq, sa_off, seq_tax, par, dep, R, cap, nseq, chpt_exp)
     got_f = classify.ranges_lca(got[2], got[3], *f_args)
@@ -256,3 +257,125 @@ def test_wrappers_refuse_bad_cuda_inputs(env, cuda):
         classify.ranges_lca(g[:, ::2], g[:, ::2], *f_args)
     with pytest.raises(ValueError, match="R must"):
         classify.ranges_lca(g, g, *f_args[:7], 4096, *f_args[8:])
+
+
+# ---------------------------------------------------------------------------
+# the text-carrying index: B's Bloom screen, G, and D/E/F with virtual rows
+# ---------------------------------------------------------------------------
+
+
+def _screen(env, m, dev):
+    idx = env["idx"]
+    lb = bloom.bloom_lb(idx.length)
+    return bloom.BloomScreen(bloom.fill_from_text(idx.text, m, lb), m, lb,
+                             dev).args
+
+
+def _to(a, dev):
+    return a.to(dev) if isinstance(a, torch.Tensor) else a
+
+
+@pytest.mark.parametrize("m,mode", [(11, "mem"), (7, "greedy")])
+def test_bloom_screen_kernel_matches_plain(env, cuda, m, mode):
+    """B with the screen at the main path's windows (MEM -m 11, Greedy
+    Lmap 7) against its plain version; the screen drops lanes."""
+    dv = env["dv"]
+    flat, frag_off, _rf = _batch(env, 16, mode)
+    ext = (dv.rec, dv.C, *env["seed"], flat, frag_off, search.SEED_K, m - 1)
+    want = search.mem_extend_plain(*ext, bloom=_screen(env, m, "cpu"))
+    got = search.mem_extend(*(_to(a, cuda) for a in ext),
+                            bloom=_screen(env, m, cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    unscreened = search.mem_extend_plain(*ext)
+    assert (want[2] - want[1] < unscreened[2] - unscreened[1]).any()
+
+
+def test_text_extend_kernel_matches_plain(env, cuda):
+    """G on the lanes that B stops after the seed and S1_STEPS steps:
+    every output equal, ids included; the virtual rows hold the ids of the
+    intervals that the FM steps end on."""
+    dv = env["dv"]
+    flat, frag_off, _rf = _batch(env, 16)
+    K = search.SEED_K
+    scr = _screen(env, MIN_LEN, "cpu")
+    lanes = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat,
+                                    frag_off, K, MIN_LEN - 1, bloom=scr,
+                                    sw_steps=hybrid.S1_STEPS)
+    g_args = (flat, frag_off, K + hybrid.S1_STEPS, dv.text, dv.rank_start,
+              dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
+    sw = hybrid.switched(*lanes, frag_off, K + hybrid.S1_STEPS)
+    assert sw.sum() > 50
+    want = hybrid.text_extend_plain(*lanes, *g_args)
+    got = hybrid.text_extend(*(_to(a, cuda) for a in (*lanes, *g_args)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    fm = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat, frag_off,
+                                 K, MIN_LEN - 1, bloom=scr)
+    assert torch.equal(want[0], fm[0])
+    assert torch.equal(want[2] - want[1], fm[2] - fm[1])
+
+
+@pytest.mark.parametrize("S,R", [(16, 32), (2, 4)])
+def test_fused_mem_classify_hybrid_kernels_match_plain(env, cuda, S, R):
+    """B (screened) -> G -> C -> D with virtual rows, against the plain
+    versions, and against the rows without screen and hybrid."""
+    dv = env["dv"]
+    flat, frag_off, rf_rows = _batch(env, S)
+
+    def run(dev):
+        return classify.fused_mem_classify(
+            *_args(env, flat, frag_off, rf_rows, R, dev),
+            bloom=_screen(env, MIN_LEN, dev),
+            hyb=(dv.text.to(dev), dv.rank_start.to(dev)))
+
+    want = run("cpu")
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    plain = classify.fused_mem_classify(
+        *_args(env, flat, frag_off, rf_rows, R, "cpu"))
+    assert torch.equal(want, plain)
+
+
+@pytest.mark.parametrize("mismatches", [1, 3])
+def test_greedy_hybrid_kernels_match_plain(env, cuda, mismatches):
+    """E with its last-level hybrid and F with the virtual rows, each
+    against its plain version, then B (screened) -> E -> F whole, equal to
+    the rows without screen and hybrid."""
+    dv = env["dv"]
+    gpu = _greedy_args(env, env["reads"], mismatches, cuda)
+    (rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off, seq_tax, par,
+     dep, tables, K, lmap, mfl, min_score, e, T, R, cap, nseq, chpt_exp,
+     vc) = gpu
+    text, rank_start = dv.text.to(cuda), dv.rank_start.to(cuda)
+    lanes = search.mem_extend(rec, C, *seed, flat, frag_off, K, lmap - 1,
+                              bloom=_screen(env, lmap, cuda))
+    e_args = (flat, frag_off, rf_rows, rec, C, tables, lmap, mfl, min_score,
+              e, T, vc)
+    hyb = (text, rank_start, sa_seq, sa_off, nseq, chpt_exp)
+    got = greedy.greedy_search(*lanes, *e_args, hyb=hyb)
+    want = greedy.greedy_search_plain(
+        *(_to(a, "cpu") for a in (*lanes, *e_args[:5])),
+        tuple(t.cpu() for t in tables), *e_args[6:],
+        hyb=tuple(_to(a, "cpu") for a in hyb))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (want[2] >= hybrid.VBASE).any()  # virtual tie rows exercised
+    f_args = (rec, C, sa_seq, sa_off, seq_tax, par, dep, R, cap, nseq,
+              chpt_exp)
+    got_f = classify.ranges_lca(got[2], got[3], *f_args, sw_ids=got[4])
+    want_f = classify.ranges_lca_plain(
+        want[2], want[3], *(_to(a, "cpu") for a in f_args), sw_ids=want[4])
+    torch.cuda.synchronize()
+    for g, w in zip(got_f, want_f):
+        assert torch.equal(g.cpu(), w)
+    rows = greedy.fused_greedy_classify(
+        *gpu, bloom=_screen(env, lmap, cuda), hyb=(text, rank_start))
+    plain_rows = greedy.fused_greedy_classify(
+        *_greedy_args(env, env["reads"], mismatches, "cpu"))
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), plain_rows)
