@@ -21,7 +21,13 @@ Phases, any failure exits non-zero:
      MEM path for B, C, D (and G) and of the Greedy path at -e 3 for B, E,
      F.  On the text index B screens its lanes, G finishes the narrow
      ones, E runs its last-level hybrid and D, F read virtual rows.
-     Integer outputs equal; time both;
+     Then the verbose paths' kernels: one batch of each -v pipeline on
+     the card records the inputs of its first launch of H (the SA
+     positions of the MEM batch's ties), K (B's lanes of the Greedy batch,
+     Lmap 7, screened on the text index) and I (the first co-simulation
+     round's variant lanes, also run in the code-row form), and J gets
+     the MEM batch's fragments as a padded matrix.  Integer outputs
+     equal; time both;
   4. classify the reads in batches of 4,096 (bench.py's batch) through
      kaiju_tpu_torch.tools.kaiju.main, with -a mem and with the default
      flags (Greedy), on each index, counting each kernel's launches in
@@ -34,8 +40,22 @@ Phases, any failure exits non-zero:
      reads again with the seed tables and bitmaps cached, untraced for the
      steady rate and the host seconds of each stage, and traced by
      torch.profiler for the device's idle share;
+  4c. the verbose paths: tools.kaiju.main with -a mem -v and with -v on
+     the first 16,384 reads (four batches) of db_text.ktx and on one batch
+     of db.ktx, counting launches (MEM -v must launch A, B, C, H, Greedy
+     -v A, B, K, I, H; on the text index every B screened, G never), each
+     line's first three columns equal to phase 4's line of the same read,
+     path and index, 256 sampled lines equal to ExactClassifier's with
+     verbose=True, and on the text index the steady -v rate beside phase
+     4b's with the host seconds of each stage, and the device's idle share
+     of a traced pass; then a small
+     constructed index whose read has a fragment with nine ties (more
+     than TIE_CAP) through MEM -v: J must launch, equal its plain version
+     on the inputs of each of its calls there, and every line equal
+     ExactClassifier's;
   5. print the kernels' JSON line (the text index's measurements; the
-     launches of all four runs of phase 4), then the result line.
+     launches of every run of phases 4 and 4c, each counted from 0), then
+     the result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -68,6 +88,10 @@ REPLACES = {
     "greedy_search": "kaiju_tpu/ops/fused_greedy.py:298",
     "ranges_lca": "kaiju_tpu/ops/fused_classify.py:153",
     "text_extend": "kaiju_tpu/ops/fused_mem2.py:426",
+    "sa_lookup": "kaiju_tpu/ops/device_index.py:411",
+    "extend_from": "kaiju_tpu/ops/device_index.py:348",
+    "extend_all": "kaiju_tpu/ops/device_index.py:216",
+    "greedy_map": "kaiju_tpu/ops/fused_mem2.py:1011",
 }
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), and the CLI flags that select the path
@@ -78,6 +102,15 @@ PATHS = {
                []),
 }
 BLOOM_M = {"mem": 11, "greedy": 7}  # -m 11; Lmap = min(-l 7, -m 11)
+# the kernels each verbose path launches (J only on a fragment with more
+# than TIE_CAP ties), and its flags
+VERBOSE_PATHS = {
+    "mem": (("update_si", "mem_extend", "mem_stats", "sa_lookup"),
+            ["-a", "mem", "-v"]),
+    "greedy": (("update_si", "mem_extend", "greedy_map", "extend_from",
+                "sa_lookup"), ["-v"]),
+}
+V_READS = 4 * BATCH  # reads of the verbose runs on the text index
 
 
 def log(msg: str) -> None:
@@ -243,6 +276,18 @@ def row_bytes(touched) -> tuple[int, int]:
     return 256 * int(torch.unique(allrows).numel()), int(allrows.numel())
 
 
+def measure(got, want, fn, plain_fn, touched, other_bytes, note):
+    """(max_abs_err, ms, plain_ms, bound_ms, note) of a kernel whose
+    outputs `got` its plain version gave as `want`: fn and plain_fn timed
+    on the card, the bound from the distinct record rows in `touched` and
+    `other_bytes`."""
+    rb, nrows = row_bytes(touched)
+    return (max_abs_err(got, want), cuda_ms(fn),
+            cuda_ms(plain_fn, reps=3, warm=1),
+            (rb + other_bytes) / HBM_BYTES_PER_S * 1e3,
+            f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
+
+
 def check_kernels(index, reads, ktx_dir):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
     index at ktx_dir; with a text copy, B screens (its bitmaps cached in
@@ -272,12 +317,8 @@ def check_kernels(index, reads, ktx_dir):
                if text else None for mode, m in BLOOM_M.items()}
     out = {}
 
-    def report(name, got, want, fn, plain_fn, touched, other_bytes, note):
-        rb, nrows = row_bytes(touched)
-        out[name] = (max_abs_err(got, want), cuda_ms(fn),
-                     cuda_ms(plain_fn, reps=3, warm=1),
-                     (rb + other_bytes) / HBM_BYTES_PER_S * 1e3,
-                     f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
+    def report(name, *args):
+        out[name] = measure(*args)
 
     # A at the seed-table build's last depth: 20 * 20^4 probes
     kt = KmerTables.build_device(index, search.SEED_K, dv)
@@ -432,6 +473,131 @@ def check_kernels(index, reads, ktx_dir):
     return out
 
 
+def check_verbose_kernels(index, nodes, reads, ktx_dir):
+    """H, I, J and K against their plain versions on the inputs the -v
+    paths give them, on the index at ktx_dir: one batch through each -v
+    pipeline on the card records the first launch of H (MEM: the SA
+    positions of the batch's ties), K (Greedy: B's lanes, Lmap 7) and I
+    (Greedy: the first co-simulation round's variant lanes); J takes the
+    MEM batch's fragments as a 0-padded code matrix.  I runs its code-row
+    form on the same lanes too (each lane's parent codes with its
+    substitution), which must agree.  Same tuple as check_kernels."""
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch.engine import greedy_fast, mem_fast
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.ops import device_index, search
+
+    seen = {}
+    patched = [(mem_fast, "sa_lookup"), (greedy_fast, "greedy_map"),
+               (greedy_fast, "extend_from")]
+    real = {name: getattr(mod, name) for mod, name in patched}
+
+    def spy(name):
+        def call(*args):
+            seen.setdefault(name, args)
+            return real[name](*args)
+        return call
+
+    tax = Taxonomy(parse_nodes_dmp(nodes))
+    try:
+        for mod, name in patched:
+            setattr(mod, name, spy(name))
+        mem_pipe = mem_fast.MemFastPipeline(index, tax, cli_config("mem", True),
+                                            kmer_cache_dir=ktx_dir)
+        mem_pipe.classify_batch(reads[:BATCH])
+        greedy_fast.GreedyFastPipeline(
+            index, tax, cli_config("greedy", True),
+            kmer_cache_dir=ktx_dir).classify_batch(reads[:BATCH])
+    finally:
+        for mod, name in patched:
+            setattr(mod, name, real[name])
+    missing = {"sa_lookup", "greedy_map", "extend_from"} - set(seen)
+    if missing:
+        raise AssertionError(f"the -v batches launched no {sorted(missing)}")
+    out = {}
+
+    def report(name, *args):
+        out[name] = measure(*args)
+
+    # H on the SA positions of the MEM batch's first resolution round
+    h = seen["sa_lookup"]
+    n = h[-1].shape[0]
+    touched = []
+    want = device_index.sa_lookup_plain(*h, touched)
+    report("sa_lookup", device_index.sa_lookup(*h), want,
+           lambda: device_index.sa_lookup(*h),
+           lambda: device_index.sa_lookup_plain(*h), touched, n * (4 + 8 + 8),
+           f"{n:,} SA positions of the MEM -v batch's ties")
+
+    # I on the first co-simulation round's variant lanes; its code-row
+    # form on the same lanes
+    i_args = seen["extend_from"]
+    rec, C, flat, base, pos, sub, start, s0, s1, act = i_args
+    n = base.shape[0]
+    got = device_index.extend_from(*i_args)
+    touched = []
+    want = device_index.extend_from_plain(*i_args, touched)
+    L = max(int(start.max()), 1)
+    x = torch.arange(L, device=flat.device, dtype=torch.int32)
+    codes = flat[torch.clamp(base[:, None] + x, max=flat.shape[0] - 1).long()]
+    codes = torch.where(x == pos[:, None], sub[:, None].to(torch.uint8), codes)
+    rows = device_index.extend_rows(rec, C, codes.contiguous(), start, s0, s1,
+                                    act)
+    if max_abs_err(rows, got):
+        raise AssertionError("I: the code-row form differs from the flat form")
+    steps = int((start - got[0])[act].sum())
+    report("extend_from", got, want, lambda: device_index.extend_from(*i_args),
+           lambda: device_index.extend_from_plain(*i_args), touched,
+           n * (25 + 12) + steps + n,
+           f"{n:,} variant lanes of the first Greedy -v round, {steps:,} "
+           "steps; the code-row form agrees")
+
+    # J on the MEM batch's fragments
+    enc = [mem_pipe._encode(f) for f in mem_pipe._frags]
+    F, L = len(enc), max(len(e) for e in enc)
+    codes = np.zeros((F, L), dtype=np.uint8)
+    for t, e in enumerate(enc):
+        codes[t, : len(e)] = e
+    flen = np.asarray([len(e) for e in enc], dtype=np.int32)
+    j_args = (mem_pipe.dev.rec, mem_pipe.dev.C,
+              torch.from_numpy(codes).to(rec.device),
+              torch.from_numpy(flen).to(rec.device))
+    touched = []
+    want = device_index.extend_all_plain(*j_args, touched)
+    report("extend_all", device_index.extend_all(*j_args), want,
+           lambda: device_index.extend_all(*j_args),
+           lambda: device_index.extend_all_plain(*j_args), touched,
+           F * L * (1 + 12) + 4 * F,
+           f"{F:,} fragments of the MEM -v batch as [{F:,}, {L}] codes")
+
+    # K on B's lanes of the Greedy batch: i of every lane, s0 and s1 of
+    # each lane that makes a row, and the rows
+    k_args = seen["greedy_map"]
+    rows, n_rows = search.greedy_map(*k_args)
+    want, n_want = search.greedy_map_plain(*k_args)
+    nr = int(n_rows)
+    if nr != int(n_want):
+        raise AssertionError(f"K: {nr} rows, the plain version {int(n_want)}")
+
+    def order(r):
+        r = r.cpu().numpy()
+        return torch.from_numpy(r[np.lexsort((-r[:, 1], r[:, 0]))])
+
+    P, F = k_args[0].shape[0], k_args[3].shape[0] - 1
+    report("greedy_map", order(rows[:nr]), order(want),
+           lambda: search.greedy_map(*k_args),
+           lambda: search.greedy_map_plain(*k_args), [],
+           4 * P + 4 * (F + 1) + (8 + 20) * nr + 4,
+           f"{P:,} lanes of {F:,} fragments of the Greedy -v batch, "
+           f"Lmap {k_args[4]}, {nr:,} rows (compared as sorted sets)")
+    del mem_pipe
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4b: where the time goes
 # ---------------------------------------------------------------------------
@@ -443,9 +609,9 @@ def steady_stream(index, nodes, reads, warm, mode: str, tag: str) -> None:
     reads, so that the host replay meets the reads afresh as in a real
     stream.  The untraced pass gives the steady rate and the host seconds
     of each stage; the pass under torch.profiler, tracing the card only,
-    gives the device's busy share and each kernel's total."""
+    gives the device's busy share and each kernel's total.  Returns the
+    untraced pass's reads/s."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from kaiju_tpu_torch.engine import greedy, mem
@@ -484,6 +650,15 @@ def steady_stream(index, nodes, reads, warm, mode: str, tag: str) -> None:
         f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items())
         + f"; replayed {engine.HOST_REPLAY['flagged']} reads")
     _n, wall_t, _s, prof = one_pass(True)
+    log_device_time(name, prof, wall_t)
+    return n / wall
+
+
+def log_device_time(name: str, prof, wall: float, top: int = 8) -> None:
+    """Print the device's busy and idle share of a pass of `wall` seconds
+    traced by `prof` (torch.profiler, card only) and its `top` kernels."""
+    from torch.autograd import DeviceType
+
     rows = [r for r in prof.key_averages()
             if r.device_type == DeviceType.CUDA]
     dev_us = sum(r.self_device_time_total for r in rows)
@@ -491,21 +666,24 @@ def steady_stream(index, nodes, reads, warm, mode: str, tag: str) -> None:
         log(f"steady {name}: device time not measured (the profiler saw "
             "none)")
         return
-    busy = dev_us / 1e6 / wall_t
-    log(f"steady {name}: traced pass {wall_t:.3f} s; device busy "
+    busy = dev_us / 1e6 / wall
+    log(f"steady {name}: traced pass {wall:.3f} s; device busy "
         f"{dev_us / 1e3:.3f} ms ({busy:.2%}); idle share {1 - busy:.2%}")
-    for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:8]:
+    for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:top]:
         log(f"steady {name}: device {r.self_device_time_total / 1e3:9.3f} ms "
             f"x{r.count:<4d} {r.key[:70]}")
 
 
-def cli_config(mode: str):
-    """The KaijuConfig that tools.kaiju.main makes from the path's flags."""
+def cli_config(mode: str, verbose: bool = False):
+    """The KaijuConfig that tools.kaiju.main makes from the path's flags
+    (with -v: verbose)."""
     from kaiju_tpu_torch.engine.config import KaijuConfig
 
     if mode == "mem":
-        return KaijuConfig(mode="mem", seg=True, use_Evalue=False)
-    return KaijuConfig()  # the defaults: Greedy, -e 3, SEG, -E 0.01
+        return KaijuConfig(mode="mem", seg=True, use_Evalue=False,
+                           verbose=verbose)
+    # the defaults: Greedy, -e 3, SEG, -E 0.01
+    return KaijuConfig(verbose=verbose)
 
 
 def run_cli(index, reads, ktx, nodes, fq, mode: str, tag: str):
@@ -590,6 +768,216 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str, tag: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the verbose paths
+# ---------------------------------------------------------------------------
+
+
+def run_verbose_cli(index, reads, ktx, nodes, mode, tag, n_reads, base_tsv,
+                    base_rate):
+    """Classify the first n_reads reads through tools.kaiju.main on the
+    verbose path `mode` (seed tables built afresh, bitmaps as cached);
+    fail unless every kernel of the path launched (on a text index every
+    B with its screen; G never), unless each line's first three columns
+    equal phase 4's line of the same read (base_tsv), and unless 256
+    sampled lines equal ExactClassifier's with verbose=True.  Then, on the
+    text index, classify the reads again on a new pipeline warmed by one
+    batch of other reads, untraced for the steady -v rate beside the
+    path's steady rate of phase 4b (base_rate) and the host seconds of
+    each stage, and once more under
+    torch.profiler for the device's idle share.  Returns the launch
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import greedy_fast, mem_fast
+    from kaiju_tpu_torch.engine.core import ExactClassifier, format_output_line
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.tools import kaiju, readgen
+
+    path_kernels, flags = VERBOSE_PATHS[mode]
+    text = index.text is not None
+    name = f"{mode} -v {tag}"
+    fq = os.path.join(os.path.dirname(ktx), f"reads_{n_reads}.fastq")
+    if not os.path.exists(fq):
+        readgen.write_fastq([(n, s) for n, s, _ in reads[:n_reads]], fq)
+    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
+    out_tsv = os.path.join(os.path.dirname(ktx), f"out_{mode}_v_{tag}.tsv")
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *flags,
+                     "-o", out_tsv, "-b", str(BATCH)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    screened = kernels.SCREENED["mem_extend"]
+    if rc != 0:
+        raise AssertionError(f"kaiju main {flags} returned {rc}")
+    log(f"e2e {name}: flags {flags}: {n_reads:,} reads in {dt:.2f} s = "
+        f"{n_reads / dt:.1f} reads/s with set-up")
+    log(f"e2e {name}: launches {json.dumps(launches)}; B screened "
+        f"{screened}")
+    idle = [k for k in path_kernels if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels of the {name} path did not launch: "
+                             f"{idle} ({launches})")
+    if text and screened != launches["mem_extend"]:
+        raise AssertionError(f"{name}: B launched {launches['mem_extend']} "
+                             f"times, {screened} with its screen")
+    if not text and screened:
+        raise AssertionError(f"{name}: a screen ran without text")
+    tail = ("text_extend", "read_lca", "greedy_search", "ranges_lca")
+    if any(launches[k] for k in tail):
+        raise AssertionError(f"{name}: a device-tail kernel ran ({launches})")
+
+    with open(out_tsv) as fh:
+        lines = fh.readlines()
+    with open(base_tsv) as fh:
+        base = [next(fh) for _ in range(n_reads)]
+    if len(lines) != n_reads:
+        raise AssertionError(f"{len(lines)} TSV lines for {n_reads} reads")
+    cut = [r for r in range(n_reads)
+           if "\t".join(lines[r].rstrip("\n").split("\t")[:3])
+           != base[r].rstrip("\n")]
+    log(f"check {name}: first three columns of {n_reads:,} lines against "
+        f"phase 4's TSV: {n_reads - len(cut):,} equal")
+    if cut:
+        r = cut[0]
+        raise AssertionError(f"read {r}: {lines[r]!r} against {base[r]!r}")
+    pick = list(range(0, n_reads, n_reads // 256))[:256]
+    tax = Taxonomy(parse_nodes_dmp(nodes))
+    exact = ExactClassifier(index, tax, cli_config(mode, True))
+    t0 = time.perf_counter()
+    want = [format_output_line(*exact.classify_read(*reads[r]), True)
+            for r in pick]
+    diff = [r for r, w in zip(pick, want) if lines[r] != w]
+    log(f"check {name}: {len(pick)} sampled lines against ExactClassifier "
+        f"(verbose): {len(pick) - len(diff)} equal "
+        f"({sum(w.startswith('C') for w in want)} classified; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if diff:
+        r = diff[0]
+        raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
+
+    if text:
+        engine = greedy_fast if mode == "greedy" else mem_fast
+        Pipeline = (greedy_fast.GreedyFastPipeline if mode == "greedy"
+                    else mem_fast.MemFastPipeline)
+        batches = [reads[i:i + BATCH] for i in range(0, n_reads, BATCH)]
+
+        def one_pass(traced: bool):
+            pipe = Pipeline(index, tax, cli_config(mode, True),
+                            kmer_cache_dir=index.source_dir)
+            pipe.classify_batch(reads[-BATCH:])
+            torch.cuda.synchronize()
+            engine.reset_counts()
+            trace = (profile(activities=[ProfilerActivity.CUDA]) if traced
+                     else contextlib.nullcontext())
+            with trace as prof:
+                t0 = time.perf_counter()
+                n = sum(len(r) for r in pipe.classify_stream(batches))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return n, wall, prof
+
+        n, wall, _p = one_pass(False)
+        host = dict(engine.HOST_SECONDS)
+        log(f"steady {name}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
+            f"reads/s untraced; without -v {base_rate:.1f} reads/s "
+            f"(phase 4b): -v costs {base_rate * wall / n:.2f}x the time")
+        host["other"] = wall - sum(host.values())
+        log(f"steady {name}: host seconds " + ", ".join(
+            f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items()))
+        _n, wall_t, prof = one_pass(True)
+        log_device_time(name, prof, wall_t, top=6)
+    return {k: launches[k] for k in REPLACES}
+
+
+def check_tie_overflow(nodes, seed: int):
+    """A small index of nine 12-letter peptides P1..P9 (and random
+    proteins), and reads whose fragment is P1 W P2 W .. P9: nine ties of
+    the longest length, more than TIE_CAP, so MEM -v recomputes the
+    fragment's map through J.  J must launch, equal its plain version on
+    the inputs of every call the run made, and every TSV line equal
+    ExactClassifier's.  Returns (the launch counts of the run, J's
+    max_abs_err)."""
+    import numpy as np
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import mem_fast
+    from kaiju_tpu_torch.engine.core import ExactClassifier, format_output_line
+    from kaiju_tpu_torch.index import native_builder
+    from kaiju_tpu_torch.index.core import KaijuIndex
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.ops import device_index
+    from kaiju_tpu_torch.tools import kaiju, readgen
+
+    rng = np.random.default_rng(seed + 2)
+    aa = np.frombuffer(AA.replace("W", "").encode(), dtype=np.uint8)
+    peps = [rng.choice(aa, 12).tobytes().decode() for _ in range(9)]
+    records = [(f"PEP{i}.1_{100 + i}", p) for i, p in enumerate(peps)]
+    records += [(f"RND{i}.1_150", rng.choice(aa, 300).tobytes().decode())
+                for i in range(40)]
+    work = os.path.join(ROOT, "build", "chip_smoke", "tie")
+    ktx = os.path.join(work, "tie.ktx")
+    os.makedirs(work, exist_ok=True)
+    native_builder.build_index(records).save(ktx)
+    index = KaijuIndex.load(ktx)
+    prng = random.Random(seed + 3)
+    reads = [(f"tie{t}", readgen.reverse_translate(prng, "W".join(peps)),
+              None) for t in range(4)]
+    reads += [(n, s, None) for n, s in readgen.make_reads(
+        prng, records[9:], n=60)]
+    fq = os.path.join(work, "reads.fastq")
+    readgen.write_fastq([(n, s) for n, s, _ in reads], fq)
+    out_tsv = os.path.join(work, "out_mem_v.tsv")
+    calls = []
+    real = mem_fast.extend_all
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    mem_fast.extend_all = spy
+    try:
+        kernels.reset_counts()
+        rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem", "-v",
+                         "-o", out_tsv])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        mem_fast.extend_all = real
+    if rc != 0:
+        raise AssertionError(f"kaiju main -a mem -v returned {rc}")
+    with open(out_tsv) as fh:
+        got = fh.readlines()
+    exact = ExactClassifier(index, Taxonomy(parse_nodes_dmp(nodes)),
+                            cli_config("mem", True))
+    want = [format_output_line(*exact.classify_batch([r])[0], True)
+            for r in reads]
+    same = sum(g == w for g, w in zip(got, want))
+    ties = got[0].split("\t")[5].rstrip(",").split(",") if got else []
+    log(f"e2e mem -v tie: {len(reads)} reads, {len(ties)} accessions on the "
+        f"first line; launches {json.dumps(launches)}; {same} of "
+        f"{len(want)} lines equal ExactClassifier's")
+    if launches["extend_all"] <= 0 or not calls:
+        raise AssertionError("J did not launch on the nine-tie read")
+    err = max(max_abs_err(device_index.extend_all(*a),
+                          device_index.extend_all_plain(*a)) for a in calls)
+    log(f"kernel extend_all [tie]: max_abs_err {err} on the inputs of the "
+        f"run's {len(calls)} call(s), codes "
+        f"{[tuple(a[2].shape) for a in calls]}")
+    if err:
+        raise AssertionError("J differs from its plain version on the "
+                             "nine-tie run's inputs")
+    if len(got) != len(want) or same != len(want):
+        raise AssertionError("the nine-tie TSV differs from ExactClassifier's")
+    if len(ties) != 9:
+        raise AssertionError(f"the nine-tie read matched {ties}")
+    return {k: launches[k] for k in REPLACES}, err
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -634,6 +1022,8 @@ def run(args) -> int:
     checks = {}
     for tag in ("fmi", "text"):
         checks[tag] = check_kernels(indexes[tag], reads, ktx[tag])
+        checks[tag].update(check_verbose_kernels(indexes[tag], nodes, reads,
+                                                 ktx[tag]))
         for name, (err, ms, plain_ms, bound_ms, note) in checks[tag].items():
             log(f"kernel {name} [{tag}]: max_abs_err {err}, {ms:.4f} ms "
                 f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) "
@@ -644,8 +1034,9 @@ def run(args) -> int:
 
     # ---- 4. end to end through the CLI, each run counted from 0 --------
     launches = {name: 0 for name in REPLACES}
+    tsvs = {}
     for mode in PATHS:
-        tsv = {}
+        tsv = tsvs[mode] = {}
         for tag in ("text", "fmi"):
             counts, tsv[tag] = run_cli(indexes[tag], reads, ktx[tag], nodes,
                                        fq, mode, tag)
@@ -660,9 +1051,26 @@ def run(args) -> int:
 
     # ---- 4b. where the time goes ----------------------------------------
     warm = make_reads(args.seed + 1, records, BATCH)
+    rates = {}
     for tag in ("text", "fmi"):
         for mode in PATHS:
-            steady_stream(indexes[tag], nodes, reads, warm, mode, tag)
+            rates[mode, tag] = steady_stream(indexes[tag], nodes, reads, warm,
+                                             mode, tag)
+
+    # ---- 4c. the verbose paths, each run counted from 0 ----------------
+    for mode in VERBOSE_PATHS:
+        for tag, n_reads in (("text", V_READS), ("fmi", BATCH)):
+            counts = run_verbose_cli(indexes[tag], reads, ktx[tag], nodes,
+                                     mode, tag, n_reads, tsvs[mode][tag],
+                                     rates[mode, tag])
+            for name, n in counts.items():
+                launches[name] += n
+    tie_counts, tie_err = check_tie_overflow(nodes, args.seed)
+    for name, n in tie_counts.items():
+        launches[name] += n
+    # J's error over both of its comparisons (phase 3 and the nine-tie run)
+    err, *rest = checks["text"]["extend_all"]
+    checks["text"]["extend_all"] = (max(err, tie_err), *rest)
 
     # ---- 5. result lines ----------------------------------------------
     log(json.dumps({"kernels": [

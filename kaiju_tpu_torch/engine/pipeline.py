@@ -1,9 +1,12 @@
-"""What the device pipelines (``engine.mem.MemPipeline`` and
-``engine.greedy.GreedyPipeline``) share: the device index, seed tables and
-taxonomy on the card, the Bloom screen and the text-compare hybrid of an
-index with a text copy, the native fragmenter, uploads, the host replay of
-flagged reads, and the stream with its lookahead.  Each pipeline keeps its
-own counters (``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
+"""What the pipelines on the card share.  ``DeviceSetup``: the device
+index, the seed tables and kernel B's Bloom screen, and uploads; the
+host-tail pipelines of -v (``engine.mem_fast``, ``engine.greedy_fast``)
+build on it alone.  ``DevicePipeline`` adds what the device pipelines
+(``engine.mem.MemPipeline`` and ``engine.greedy.GreedyPipeline``) share:
+the taxonomy on the card, the text-compare hybrid of an index with a text
+copy, the native fragmenter, the host replay of flagged reads, and the
+stream with its lookahead.  Each pipeline keeps its own counters
+(``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
 ``submit_batch`` and ``collect_batch``."""
 
 from __future__ import annotations
@@ -32,20 +35,14 @@ def _bucket(n: int, lo: int) -> int:
     return b
 
 
-class DevicePipeline:
-    S_SLOTS = 16  # pop-order slots per read in the device slot table
-    R_BUDGET = 32  # SA positions resolved on the device per read
-    LOOKAHEAD = 2  # batches submitted ahead of the one being collected
-
-    def __init__(self, index: KaijuIndex, taxonomy: Taxonomy,
+class DeviceSetup:
+    def __init__(self, index: KaijuIndex, taxonomy: Optional[Taxonomy],
                  config: KaijuConfig, device, kmer_cache_dir: Optional[str],
                  seed_K: int, bloom_m: int):
         """bloom_m: the window of kernel B's screen, the shortest match the
         path records.  As in kaiju_tpu, the screen is loaded from
         kmer_cache_dir or the index's directory, or built from the first
-        text source there is (None without one), and the hybrid is on
-        exactly when the index has a text copy and fewer than VBASE
-        positions; neither changes a result."""
+        text source there is (None without one); it changes no result."""
         self.cfg = config
         self.index = index
         self.tax = taxonomy
@@ -58,6 +55,29 @@ class DevicePipeline:
         screen = BloomScreen.load_or_build(
             index, kmer_cache_dir or index.source_dir, bloom_m, self.device)
         self._bloom = None if screen is None else screen.args
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def classify_batch(self, reads):
+        return self.collect_batch(self.submit_batch(reads))
+
+
+class DevicePipeline(DeviceSetup):
+    S_SLOTS = 16  # pop-order slots per read in the device slot table
+    R_BUDGET = 32  # SA positions resolved on the device per read
+    LOOKAHEAD = 2  # batches submitted ahead of the one being collected
+
+    def __init__(self, index: KaijuIndex, taxonomy: Taxonomy,
+                 config: KaijuConfig, device, kmer_cache_dir: Optional[str],
+                 seed_K: int, bloom_m: int):
+        """The hybrid is on exactly when the index has a text copy and
+        fewer than VBASE positions; it changes no result."""
+        super().__init__(index, taxonomy, config, device, kmer_cache_dir,
+                         seed_K, bloom_m)
         self._hyb = ((self.dev.text, self.dev.rank_start)
                      if self.dev.has_text and index.length < VBASE else None)
         par, dep = taxonomy.dense_arrays()
@@ -69,12 +89,6 @@ class DevicePipeline:
         )
         self._exact = None  # host replay engine, made at first use
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _replay(self, reads, flagged: list[int]) -> dict:
         """ExactClassifier's result for each read index in `flagged`."""
         if not flagged:
@@ -84,9 +98,6 @@ class DevicePipeline:
         sub = [reads[r] for r in flagged]
         return {r: res for r, (_n, res)
                 in zip(flagged, self._exact.classify_batch(sub))}
-
-    def classify_batch(self, reads):
-        return self.collect_batch(self.submit_batch(reads))
 
     def classify_stream(self, batches):
         """Yield each batch's results in order, with up to LOOKAHEAD

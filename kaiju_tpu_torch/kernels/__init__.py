@@ -66,6 +66,14 @@ _SIGNATURES = {
     # P frag_off F sw_len | i s0 s1 | out_i out_s0 out_s1 sw_ids
     "text_extend": ("kt_text_extend",
                     "pip" "ppiii" "pp" "pipii" "ppp" "pppp" "p"),
+    # rec nb1 C | sa_seq sa_off nsamp nseq chpt_exp | k n | iseq pos
+    "sa_lookup": ("kt_sa_lookup", "pip" "ppiii" "pi" "pp" "p"),
+    # rec nb1 C flat | base pos sub start_i s0 s1 act n | i s0 s1
+    "extend_from": ("kt_extend_from", "pipp" "pppppppi" "ppp" "p"),
+    # rec nb1 C | codes flen F L | start si0 si1
+    "extend_all": ("kt_extend_all", "pip" "ppii" "ppp" "p"),
+    # i s0 s1 frag_off F lmap | rows n_rows
+    "greedy_map": ("kt_greedy_map", "ppppii" "pp" "p"),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

@@ -28,6 +28,7 @@ def build_library(force: bool = False) -> str:
         os.path.join(d, "sais.cpp"),
         os.path.join(d, "bigsais.cpp"),
         os.path.join(d, "seg.cpp"),
+        os.path.join(d, "fragments.cpp"),
         os.path.join(d, "fragments2.cpp"),
         os.path.join(d, "bloom.cpp"),
     ]
@@ -53,6 +54,19 @@ def get_lib():
             lib.kt_seg_intervals.restype = ctypes.c_int
             lib.kt_seg_intervals.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ]
+            lib.kt_fragment_batch.restype = ctypes.c_int
+            lib.kt_fragment_batch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # seqs
+                ctypes.c_void_p, ctypes.c_void_p,                  # seqs2
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,    # flags
+                ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_int64,                   # frag buf
+                ctypes.c_void_p, ctypes.c_int64,                   # frag off
+                ctypes.c_void_p, ctypes.c_int64,                   # uids
+                ctypes.c_void_p,                                   # read off
+                ctypes.c_void_p,                                   # frag keys
+                ctypes.c_void_p,                                   # counts
             ]
             lib.kt_fragment_batch2.restype = ctypes.c_int
             lib.kt_fragment_batch2.argtypes = [

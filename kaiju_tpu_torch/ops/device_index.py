@@ -1,5 +1,6 @@
-"""Device-resident FM index, its rank, the SA walk and kernel A
-(``update_si``).
+"""Device-resident FM index, its rank, the SA walk, and the kernels that
+work on the index alone: A (``update_si``), H (``sa_lookup``), I
+(``extend_from``) and J (``extend_all``).
 
 The index sits on the card as fused rank records, one int32 row of 64
 words per 128-character BWT block (``build_fused_records``), so a rank
@@ -219,3 +220,149 @@ def update_si(rec, C, c, s0, s1):
         kernels.launch("update_si", rec, rec.shape[0], C, c, s0, s1, n,
                        n0, n1, ok)
     return n0, n1, ok
+
+
+def _check_lanes(dev, n, *named):
+    """Raise unless each (tensor, name, dtype) is a contiguous [n] tensor
+    of that dtype on dev."""
+    for t, what, dtype in named:
+        kernels.check(t, what, dtype, dev, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{what}: {t.shape[0]} lanes, expected {n}")
+
+
+def _check_index(dev, rec, C):
+    kernels.check(rec, "rec", torch.int32, dev, 2)
+    kernels.check(C, "C", torch.int32, dev, 1)
+    if rec.shape[1] != 64:
+        raise ValueError("rec: rows of 64 words expected")
+
+
+# ---------------------------------------------------------------------------
+# kernel H
+# ---------------------------------------------------------------------------
+
+
+sa_lookup_plain = sa_walk
+
+
+def sa_lookup(rec, C, sa_seq, sa_off, nseq, chpt_exp, k):
+    """Batched get_suffix: (iseq, pos) int32 [N] for the SA positions k
+    int32 [N] (see sa_walk).  Kernel H (csrc/sa_lookup.cu) for CUDA
+    tensors, the plain version for CPU tensors."""
+    if k.device.type == "cpu":
+        return sa_lookup_plain(rec, C, sa_seq, sa_off, nseq, chpt_exp, k)
+    dev = k.device
+    _check_index(dev, rec, C)
+    n = k.shape[0]
+    _check_lanes(dev, n, (k, "k", torch.int32))
+    kernels.check(sa_seq, "sa_seq", torch.int32, dev, 1)
+    kernels.check(sa_off, "sa_off", torch.int32, dev, 1)
+    if sa_seq.shape != sa_off.shape or sa_seq.shape[0] < 1:
+        raise ValueError("sa_seq, sa_off: one or more samples, equal lengths")
+    iseq = torch.empty(n, dtype=torch.int32, device=dev)
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("sa_lookup", rec, rec.shape[0], C, sa_seq, sa_off,
+                       sa_seq.shape[0], nseq, chpt_exp, k, n, iseq, pos)
+    return iseq, pos
+
+
+# ---------------------------------------------------------------------------
+# kernels I and J: backward extension
+# ---------------------------------------------------------------------------
+
+
+def extend_from_plain(rec, C, flat, base, pos, subcode, start_i, s0, s1, act,
+                      touched=None):
+    """touched: as for rank."""
+    i, s0, s1 = start_i.clone(), s0.clone(), s1.clone()
+    live = torch.nonzero(act & (i > 0)).squeeze(1)
+    while live.numel():
+        x = i[live] - 1
+        c = torch.where(x == pos[live], subcode[live],
+                        flat[(base[live] + x).long()].to(torch.int32))
+        n0 = rank(rec, C, c, s0[live], touched)
+        n1 = rank(rec, C, c, s1[live], touched)
+        ok = n0 < n1
+        live = live[ok]
+        s0[live] = n0[ok]
+        s1[live] = n1[ok]
+        i[live] = x[ok]
+        live = live[i[live] > 0]
+    return i, s0, s1
+
+
+def extend_from(rec, C, flat, base, pos, subcode, start_i, s0, s1, act):
+    """Resumed backward extension (maxMatches_withStart, bwt.c:298-336):
+    lane t reads the letter at x from flat[base[t] + x] (uint8), or
+    subcode[t] where x == pos[t] (-1: none), and an active lane extends
+    [s0, s1) from start_i while the interval stays non-empty and i > 0.
+    Returns the final (i, s0, s1) int32 [N]; inactive lanes (act False)
+    come back unchanged.  Kernel I (csrc/extend_from.cu) for CUDA tensors,
+    the plain version for CPU tensors."""
+    if flat.device.type == "cpu":
+        return extend_from_plain(rec, C, flat, base, pos, subcode, start_i,
+                                 s0, s1, act)
+    dev = flat.device
+    _check_index(dev, rec, C)
+    kernels.check(flat, "flat", torch.uint8, dev, 1)
+    n = start_i.shape[0]
+    _check_lanes(dev, n, (base, "base", torch.int32),
+                 (pos, "pos", torch.int32), (subcode, "subcode", torch.int32),
+                 (start_i, "start_i", torch.int32), (s0, "s0", torch.int32),
+                 (s1, "s1", torch.int32), (act, "act", torch.bool))
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("extend_from", rec, rec.shape[0], C, flat, base, pos,
+                       subcode, start_i, s0, s1, act, n, out[0], out[1],
+                       out[2])
+    return out[0], out[1], out[2]
+
+
+def extend_rows(rec, C, codes, start_i, s0, s1, act):
+    """extend_from over per-lane code rows, codes uint8 [N, L] (the form of
+    kaiju_tpu's extend_from_rec): lane t reads row t, no substitution."""
+    N, L = codes.shape
+    dev = codes.device
+    base = torch.arange(N, dtype=torch.int32, device=dev) * L
+    none = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    return extend_from(rec, C, codes.reshape(-1), base, none, none, start_i,
+                       s0, s1, act)
+
+
+def extend_all_plain(rec, C, codes, flen, touched=None):
+    """touched: as for rank."""
+    F, L = codes.shape
+    dev = codes.device
+    lane = torch.arange(F * L, dtype=torch.int32, device=dev)
+    f, j = lane // L, lane % L
+    valid = j < flen[f.long()]
+    c0 = torch.where(valid, codes.reshape(-1).to(torch.int32), 0).long()
+    s0 = torch.where(valid, C[c0], 0)
+    s1 = torch.where(valid, C[c0 + 1], 0)
+    none = torch.full_like(lane, -1)
+    i, s0, s1 = extend_from_plain(rec, C, codes.reshape(-1), f * L, none,
+                                  none, j, s0, s1, valid, touched)
+    return i.view(F, L), s0.view(F, L), s1.view(F, L)
+
+
+def extend_all(rec, C, codes, flen):
+    """The maximal backward extension of every (fragment f, end j) of
+    codes uint8 [F, L] (0-padded) with lengths flen int32 [F]:
+    (start, si0, si1) int32 [F, L], the match [start, j] and its SA
+    interval; lanes with j >= flen[f] give (j, 0, 0).  Kernel J
+    (csrc/extend_all.cu) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if codes.device.type == "cpu":
+        return extend_all_plain(rec, C, codes, flen)
+    dev = codes.device
+    _check_index(dev, rec, C)
+    kernels.check(codes, "codes", torch.uint8, dev, 2)
+    F, L = codes.shape
+    _check_lanes(dev, F, (flen, "flen", torch.int32))
+    out = torch.empty((3, F, L), dtype=torch.int32, device=dev)
+    if F * L:
+        kernels.launch("extend_all", rec, rec.shape[0], C, codes, flen, F, L,
+                       out[0], out[1], out[2])
+    return out[0], out[1], out[2]

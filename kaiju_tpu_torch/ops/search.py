@@ -1,4 +1,6 @@
-"""MEM search: kernel B (``mem_extend``) and kernel C (``mem_stats``).
+"""MEM search: kernel B (``mem_extend``) and kernel C (``mem_stats``),
+and the Greedy engine's level-0 map from B's lanes, kernel K
+(``greedy_map``).
 
 Together they compute what ``kaiju_tpu.ops.fused_mem2`` computes for MEM
 (``_search_phases`` + ``_staged_extend`` + ``_mem_stats``): for a batch of
@@ -202,3 +204,65 @@ def mem_stats(i, s0, s1, frag_off, min_len, T):
         kernels.launch("mem_stats", i, s0, s1, frag_off, F, min_len, T,
                        maxl, tie_cnt, ties[0], ties[1], ties[2])
     return maxl, tie_cnt, ties[0], ties[1], ties[2]
+
+
+def mem_search(rec, C, seed, flat, frag_off, K, j0, min_len, T, bloom=None):
+    """kaiju_tpu's fused_mem_search2 without the hybrid, B -> C: the
+    per-fragment (maxl, tie_cnt, tie_j, tie_s0, tie_s1) of the fragments in
+    flat/frag_off, seed = (seed_s0, seed_s1, seed_d).  B evaluates every
+    lane, so there is no capacity to retry."""
+    lanes = mem_extend(rec, C, *seed, flat, frag_off, K, j0, bloom=bloom)
+    return mem_stats(*lanes, frag_off, min_len, T)
+
+
+# ---------------------------------------------------------------------------
+# kernel K
+# ---------------------------------------------------------------------------
+
+
+def greedy_map_plain(i, s0, s1, frag_off, lmap):
+    F = frag_off.shape[0] - 1
+    dev = i.device
+    P = i.shape[0]
+    if F == 0 or P == 0:
+        return (torch.zeros((0, 5), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+    pos, f, base, flen = _lane_fragments(frag_off, P)
+    j = pos - base
+    valid = (j >= 0) & (j < flen)
+    fl = f.long()
+    stop = valid & (i <= 1)
+    jstop = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    jstop.scatter_reduce_(0, fl[stop], j[stop], "amax")
+    emit = torch.nonzero(valid & (j >= jstop[fl]) & (j - i + 1 >= lmap))
+    emit = emit.squeeze(1)
+    rows = torch.stack([f[emit], j[emit], i[emit], s0[emit], s1[emit]], 1)
+    n = torch.tensor([rows.shape[0]], dtype=torch.int32, device=dev)
+    return rows.to(torch.int32), n
+
+
+def greedy_map(i, s0, s1, frag_off, lmap):
+    """The level-0 candidate map of the Greedy engine from B's lanes: a
+    row (f, j, i, s0, s1) for every lane of fragment f with j >= jstop(f)
+    and j - i + 1 >= lmap (see csrc/greedy_map.cu).  Returns (rows, n):
+    rows int32 [>= n, 5], of which the first n (n: int32 [1], on the
+    device, so the call does not wait for the card) are the rows, in no
+    fixed order across fragments (the plain version's ascend in (f, j)).
+    Kernel K for CUDA tensors, the plain version for CPU tensors."""
+    if lmap < 1:
+        raise ValueError(f"lmap must be >= 1, got {lmap}")
+    if i.device.type == "cpu":
+        return greedy_map_plain(i, s0, s1, frag_off, lmap)
+    dev = i.device
+    P = i.shape[0]
+    for t, what in ((i, "i"), (s0, "s0"), (s1, "s1")):
+        kernels.check(t, what, torch.int32, dev, 1)
+        if t.shape[0] != P:
+            raise ValueError(f"{what}: {t.shape[0]} lanes, expected {P}")
+    kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
+    F = frag_off.shape[0] - 1
+    rows = torch.empty((P, 5), dtype=torch.int32, device=dev)
+    n = torch.zeros(1, dtype=torch.int32, device=dev)
+    if F > 0 and P > 0:
+        kernels.launch("greedy_map", i, s0, s1, frag_off, F, lmap, rows, n)
+    return rows, n

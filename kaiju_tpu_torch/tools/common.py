@@ -25,32 +25,71 @@ def open_output(path: str | None):
 
 
 def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
-    """The engine for the configuration.  This port runs Greedy (the
-    default) and MEM with a taxonomy and without -v on the device; the
-    other modes raise NotImplementedError naming the ROADMAP.md item that
-    ports them."""
+    """The engine for the configuration, as kaiju_tpu chooses it: -d runs
+    the host ExactClassifier (its per-fragment stderr trace interleaves as
+    in the reference's single-threaded run, ConsumerThread.cpp:437-470);
+    -v runs the host-tail pipelines on the device (engine.mem_fast,
+    engine.greedy_fast), whose lines carry the names and fragments; MEM and
+    Greedy otherwise run the device pipelines (engine.mem, engine.greedy).
+    The taxonomy-free tools and multi-GPU raise NotImplementedError naming
+    the ROADMAP.md item that ports them."""
     if getattr(args, "mesh_index", 0) or (getattr(args, "dist_nprocs", 0) or 0) > 1:
         raise NotImplementedError(
             "--mesh-index / --dist-*: multi-GPU is ROADMAP.md queue 1 item 10"
         )
-    if cfg.debug:
-        raise NotImplementedError("-d: ROADMAP.md queue 1 item 7")
     if cfg.taxonomy_free:
         raise NotImplementedError(
             "taxonomy-free tools (kaijux, kaijup): ROADMAP.md queue 1 item 8"
         )
-    if cfg.verbose:
-        raise NotImplementedError("-v: ROADMAP.md queue 1 item 7")
+    if cfg.debug:
+        from ..engine.core import ExactClassifier
+
+        return ExactClassifier(index, taxonomy, cfg)
     kmer_dir = os.environ.get("KAIJU_TPU_CACHE") or getattr(
         index, "source_dir", None
     )
-    if cfg.mode == "greedy":
+    if cfg.verbose and cfg.mode == "greedy":
+        from ..engine.greedy_fast import GreedyFastPipeline as Pipeline
+    elif cfg.verbose:
+        from ..engine.mem_fast import MemFastPipeline as Pipeline
+    elif cfg.mode == "greedy":
         from ..engine.greedy import GreedyPipeline as Pipeline
     else:
         from ..engine.mem import MemPipeline as Pipeline
 
     return Pipeline(index, taxonomy, cfg, device=device,
                     kmer_cache_dir=kmer_dir)
+
+
+def print_verbose_parameters(cfg: KaijuConfig, args, multi=False) -> None:
+    """-v startup parameter dump, line-identical to the reference
+    (reference: src/kaiju.cpp:204-221, kaiju-multi.cpp:205-219)."""
+    err = sys.stderr
+    err.write("Parameters: \n")
+    err.write(
+        f"  run mode: {'MEM' if cfg.mode == 'mem' else 'Greedy'}\n"
+    )
+    err.write(f"  minimum match length: {cfg.min_fragment_length}\n")
+    if cfg.mode == "greedy":
+        err.write(f"  seed length: {cfg.seed_length}\n")
+        err.write(
+            f"  minimum blosum62 score for matches: {cfg.min_score}\n"
+        )
+        err.write(f"  minimum E-value: {cfg.min_Evalue:g}\n")
+        err.write(
+            f"  max number of mismatches within a match: {cfg.mismatches}\n"
+        )
+    s = "s" if multi else ""
+    err.write(f"  input file{s} 1: {args.input1}\n")
+    if getattr(args, "input2", None):
+        err.write(f"  input file{s} 2: {args.input2}\n")
+    if multi:
+        err.write(f"  output files: {getattr(args, 'output', '') or ''}\n")
+    elif getattr(args, "output", None):
+        err.write(f"  output file: {args.output}\n")
+    else:
+        err.write("  output to STDOUT\n")
+    err.flush()
 
 
 def classify_stream(runner, reads_iter, out, cfg: KaijuConfig, batch_size=4096):

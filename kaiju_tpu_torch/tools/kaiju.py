@@ -2,10 +2,11 @@
 
 Flag surface of the reference `kaiju` binary (src/kaiju.cpp:427-451).
 This port classifies Greedy (the default) and `-a mem` with a taxonomy on
-the GPU:
+the GPU, with or without the verbose columns of `-v`; `-d` traces each
+read on stderr through the exact host engine:
 
     python -m kaiju_tpu_torch.tools.kaiju -t nodes.dmp -f db.fmi \
-        -i reads.fastq -o out.tsv
+        -i reads.fastq -o out.tsv [-a mem] [-v]
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .common import (
     load_index,
     make_runner,
     open_output,
+    print_verbose_parameters,
 )
 
 
@@ -42,6 +44,8 @@ def main(argv=None, device=None):
         print("Error: Protein input only supports one input file.", file=sys.stderr)
         return 1
     cfg = config_from_args(args)
+    if cfg.verbose:
+        print_verbose_parameters(cfg, args)
     index = load_index(args.fmi)
     tax = Taxonomy(parse_nodes_dmp(args.nodes))
     runner = make_runner(index, tax, cfg, args=args, device=device)

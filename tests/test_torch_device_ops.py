@@ -126,7 +126,8 @@ def test_kmer_tables_match(env, K):
 
 
 def test_port_imports_neither_jax_nor_kaiju_tpu():
-    """Every module of the port, and chip_smoke as a module, import
+    """Every module of the port (the verbose paths' engine.mem_fast and
+    engine.greedy_fast among them), and chip_smoke as a module, import
     without pulling in jax or any kaiju_tpu module."""
     code = r"""
 import importlib, pathlib, sys
@@ -135,6 +136,8 @@ pkg = pathlib.Path(sys.argv[1], "kaiju_tpu_torch")
 mods = [".".join(p.relative_to(pkg.parent).with_suffix("").parts)
         .removesuffix(".__init__") for p in sorted(pkg.rglob("*.py"))]
 assert len(mods) > 30, mods
+assert {"kaiju_tpu_torch.engine.mem_fast", "kaiju_tpu_torch.engine.greedy_fast",
+        "kaiju_tpu_torch.engine.fragments_native"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")

@@ -379,3 +379,121 @@ def test_greedy_hybrid_kernels_match_plain(env, cuda, mismatches):
         *_greedy_args(env, env["reads"], mismatches, "cpu"))
     torch.cuda.synchronize()
     assert torch.equal(rows.cpu(), plain_rows)
+
+
+# ---------------------------------------------------------------------------
+# the verbose paths: H (sa_lookup), I (extend_from), J (extend_all), K
+# (greedy_map)
+# ---------------------------------------------------------------------------
+
+
+def test_sa_lookup_kernel_matches_plain(env, cuda):
+    """H on random positions, every sampled slot, the terminator rows and
+    a sampled pad position: iseq and pos equal."""
+    idx, dv = env["idx"], env["dv"]
+    e = dv.chpt_exp
+    rng = np.random.default_rng(11)
+    k = torch.from_numpy(np.concatenate([
+        rng.integers(0, idx.length, 20000), np.arange(0, idx.length, 1 << e),
+        np.arange(idx.nseq), [((idx.nseq + (1 << e) - 1) >> e) << e],
+    ]).astype(np.int32))
+    args = (dv.rec, dv.C, dv.sa_seq, dv.sa_off)
+    want = tdev.sa_lookup_plain(*args, dv.nseq, e, k)
+    got = tdev.sa_lookup(*(a.to(cuda) for a in args), dv.nseq, e, k.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _extend_lanes(env, n, seed):
+    """Lanes over a MEM batch's flat codes: the interval of the letter at
+    j resumed at i = j, a substitution below i or none, some inactive."""
+    dv = env["dv"]
+    flat, frag_off, _rf = _batch(env, 16)
+    rng = np.random.default_rng(seed)
+    off = frag_off.numpy()
+    f = rng.integers(0, off.shape[0] - 1, n)
+    flen = off[f + 1] - off[f]
+    keep = flen > 0
+    f, flen = f[keep], flen[keep]
+    j = (rng.random(f.shape[0]) * flen).astype(np.int64)
+    base = off[f]
+    c = flat.numpy()[base + j].astype(np.int64)
+    C = dv.C.numpy()
+    pos = np.where(rng.random(f.shape[0]) < 0.5, -1,
+                   (rng.random(f.shape[0]) * np.maximum(j, 1)).astype(np.int64))
+    act = rng.random(f.shape[0]) < 0.9
+    cols = (base, pos, rng.integers(1, 21, f.shape[0]), j,
+            np.where(act, C[c], 0), np.where(act, C[c + 1], 1))
+    return (flat, *(torch.from_numpy(np.asarray(a, np.int32)) for a in cols),
+            torch.from_numpy(act))
+
+
+def test_extend_from_kernel_matches_plain(env, cuda):
+    """I in its flat form (substitutions, inactive lanes unchanged) and in
+    its code-row form."""
+    dv = env["dv"]
+    lanes = _extend_lanes(env, 30000, 12)
+    want = tdev.extend_from_plain(dv.rec, dv.C, *lanes)
+    got = tdev.extend_from(dv.rec.to(cuda), dv.C.to(cuda),
+                           *(a.to(cuda) for a in lanes))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    act = lanes[-1]
+    assert torch.equal(want[0][~act], lanes[4][~act])
+    assert (want[0][act] < lanes[4][act]).float().mean() > 0.5
+    codes = torch.randint(1, 21, (500, 40), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(13))
+    start = torch.full((500,), 40, dtype=torch.int32)
+    s0 = torch.zeros(500, dtype=torch.int32)
+    s1 = torch.full((500,), dv.rec.shape[0] * 128, dtype=torch.int32)
+    s1 = torch.clamp(s1, max=env["idx"].length)
+    act = torch.ones(500, dtype=torch.bool)
+    want = tdev.extend_rows(dv.rec, dv.C, codes, start, s0, s1, act)
+    got = tdev.extend_rows(*(a.to(cuda) for a in (dv.rec, dv.C, codes, start,
+                                                  s0, s1, act)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_extend_all_kernel_matches_plain(env, cuda):
+    """J on a MEM batch's fragments as a 0-padded code matrix."""
+    dv = env["dv"]
+    flat, frag_off, _rf = _batch(env, 16)
+    off = frag_off.numpy()
+    flen = np.diff(off).astype(np.int32)
+    L = int(flen.max()) + 3
+    codes = np.zeros((flen.shape[0], L), dtype=np.uint8)
+    for t in range(flen.shape[0]):
+        codes[t, : flen[t]] = flat.numpy()[off[t]:off[t + 1]]
+    codes, flen = torch.from_numpy(codes), torch.from_numpy(flen)
+    want = tdev.extend_all_plain(dv.rec, dv.C, codes, flen)
+    got = tdev.extend_all(dv.rec.to(cuda), dv.C.to(cuda), codes.to(cuda),
+                          flen.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("screened", [False, True])
+def test_greedy_map_kernel_matches_plain(env, cuda, screened):
+    """K on B's lanes of a Greedy batch (Lmap 7, screened or not): the
+    same row set (rows sorted by (f, -j)) and count."""
+    dv = env["dv"]
+    flat, frag_off, _rf = _batch(env, 16, "greedy")
+    ext = (dv.rec, dv.C, *env["seed"], flat, frag_off, search.SEED_K, 6)
+    scr = _screen(env, 7, "cpu") if screened else None
+    lanes = search.mem_extend_plain(*ext, bloom=scr)
+    want, n_want = search.greedy_map_plain(*lanes, frag_off, 7)
+    rows, n = search.greedy_map(*(t.to(cuda) for t in lanes),
+                                frag_off.to(cuda), 7)
+    torch.cuda.synchronize()
+    assert int(n) == int(n_want) == want.shape[0] > 100
+    got = rows[: int(n)].cpu().numpy()
+
+    def order(r):
+        return r[np.lexsort((-r[:, 1], r[:, 0]))]
+
+    np.testing.assert_array_equal(order(got), order(want.numpy()))

@@ -108,7 +108,7 @@ def test_mem_tsv_paired_reads(env):
 def test_cli_main_on_saved_ktx(env):
     """tools.kaiju.main(..., device="cpu") on a saved .ktx writes the
     ExactClassifier's TSV; the last batch holds only reads too short for
-    a fragment."""
+    a fragment.  Multi-GPU still raises, naming its ROADMAP.md item."""
     work = env["work"]
     ktx = str(work / "db.ktx")
     env["tidx"].save(ktx)
@@ -129,7 +129,8 @@ def test_cli_main_on_saved_ktx(env):
     with open(out) as fh:
         got = fh.read()
     assert got == exact, _diff(got, exact)
-    for other in (["-v"], ["-a", "mem", "-v"], ["-a", "mem", "-d"]):
+    for other in (["-a", "mem", "--mesh-index", "2"],
+                  ["-a", "mem", "--dist-nprocs", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *other],
                         device="cpu")
