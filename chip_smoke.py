@@ -53,9 +53,23 @@ Phases, any failure exits non-zero:
      than TIE_CAP) through MEM -v: J must launch, equal its plain version
      on the inputs of each of its calls there, and every line equal
      ExactClassifier's;
+  4d. the taxonomy-free tools on db.ktx, through their main and
+     engine.batch.BatchRunner: kaijux -a mem on 16,384 reads, kaijux
+     (Greedy) on 4,096, kaijup (Greedy) on 4,096 protein reads of
+     readgen's make_protein_reads, kaijux -v on 4,096; every kernel of the
+     path must launch (J and H for MEM, J, I, A and H for Greedy) and no
+     other, 256 sampled lines must equal ExactClassifier's with
+     taxonomy_free=True, and each kernel must equal its plain version on
+     the arguments of its first call there (timed, with its bound); the
+     two kaijux modes are timed again on a warm runner, untraced for the
+     steady rate and host seconds and traced for the idle share.  Then
+     kaiju-multi with the default flags on two samples (the first two
+     batches of phase 4's reads): each output must equal phase 4's Greedy
+     lines on db.ktx, and the stdout form their concatenation;
   5. print the kernels' JSON line (the text index's measurements; the
-     launches of every run of phases 4 and 4c, each counted from 0), then
-     the result line.
+     launches of every run of phases 4, 4c and 4d, each counted from 0;
+     each error the largest of all the kernel's comparisons), then the
+     result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -111,6 +125,19 @@ VERBOSE_PATHS = {
                 "sa_lookup"), ["-v"]),
 }
 V_READS = 4 * BATCH  # reads of the verbose runs on the text index
+# phase 4d, on db.ktx: each run of a taxonomy-free tool (tool, flags, kind
+# of reads, read count) and the kernels it must launch; the kernel wrappers
+# BatchRunner calls (engine.batch; extend_rows launches extend_from)
+X_SERVE = ("extend_all", "extend_from", "update_si", "sa_lookup")
+X_RUNS = {
+    "kaijux mem": ("kaijux", ["-a", "mem"], "dna", 4 * BATCH,
+                   ("extend_all", "sa_lookup")),
+    "kaijux greedy": ("kaijux", [], "dna", BATCH, X_SERVE),
+    "kaijup greedy": ("kaijup", [], "protein", BATCH, X_SERVE),
+    "kaijux -v": ("kaijux", ["-v"], "dna", BATCH, X_SERVE),
+}
+X_WRAPPERS = ("extend_all", "extend_rows", "update_si", "sa_lookup")
+X_STEADY = ("kaijux mem", "kaijux greedy")  # the runs timed again
 
 
 def log(msg: str) -> None:
@@ -978,6 +1005,280 @@ def check_tie_overflow(nodes, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the taxonomy-free tools (BatchRunner) and kaiju-multi
+# ---------------------------------------------------------------------------
+
+
+def x_config(name: str):
+    """The KaijuConfig that the tool of X_RUNS[name] makes from its flags."""
+    from kaiju_tpu_torch.engine.config import KaijuConfig
+
+    _tool, flags, kind, _n, _k = X_RUNS[name]
+    mode = "mem" if "mem" in flags else "greedy"
+    return KaijuConfig(mode=mode, use_Evalue=mode == "greedy",
+                       verbose="-v" in flags, taxonomy_free=True,
+                       input_is_protein=kind == "protein")
+
+
+def x_kernel_checks(first, name):
+    """Each kernel of BatchRunner against its plain version on the
+    arguments of the wrapper's first call in the run `name` (the warm-up's
+    first length group for J, the first round of the others): the
+    measure() tuple by kernel name."""
+    import torch
+
+    from kaiju_tpu_torch.ops import device_index as dvi
+
+    def rows_plain(rec, C, codes, start, s0, s1, act, touched=None):
+        N, L = codes.shape
+        base = torch.arange(N, dtype=torch.int32, device=codes.device) * L
+        none = torch.full_like(base, -1)
+        return dvi.extend_from_plain(rec, C, codes.reshape(-1), base, none,
+                                     none, start, s0, s1, act, touched)
+
+    out = {}
+    if "extend_all" in first:
+        a = first["extend_all"]
+        F, L = a[2].shape
+        touched = []
+        want = dvi.extend_all_plain(*a, touched)
+        out["extend_all"] = measure(
+            dvi.extend_all(*a), want, lambda: dvi.extend_all(*a),
+            lambda: dvi.extend_all_plain(*a), touched,
+            F * L * (1 + 12) + 4 * F,
+            f"{name}: the warm-up's first length group, [{F:,}, {L}] codes")
+    if "extend_rows" in first:
+        a = first["extend_rows"]
+        N, L = a[2].shape
+        got = dvi.extend_rows(*a)
+        touched = []
+        want = rows_plain(*a, touched)
+        steps = int((a[3] - got[0]).sum())
+        out["extend_from"] = measure(
+            got, want, lambda: dvi.extend_rows(*a), lambda: rows_plain(*a),
+            touched, N * (13 + 12) + steps + N,
+            f"{name}: the first round's {N:,} ExtendFrom lanes as [{N:,}, "
+            f"{L}] code rows, {steps:,} steps")
+    if "update_si" in first:
+        a = first["update_si"]
+        n = a[2].shape[0]
+        touched = []
+        want = dvi.update_si_plain(*a, touched)
+        out["update_si"] = measure(
+            dvi.update_si(*a), want, lambda: dvi.update_si(*a),
+            lambda: dvi.update_si_plain(*a), touched, n * (12 + 9),
+            f"{name}: the first round's {n:,} probes, "
+            f"{int((a[4] == a[3]).sum()):,} on empty intervals")
+    if "sa_lookup" in first:
+        a = first["sa_lookup"]
+        n = a[-1].shape[0]
+        touched = []
+        want = dvi.sa_lookup_plain(*a, touched)
+        out["sa_lookup"] = measure(
+            dvi.sa_lookup(*a), want, lambda: dvi.sa_lookup(*a),
+            lambda: dvi.sa_lookup_plain(*a), touched, n * (4 + 8 + 8),
+            f"{name}: the first round's {n:,} SA positions")
+    return out
+
+
+def x_items(records, reads, seed: int, kind: str, n: int, work: str):
+    """(the reads of a run as (name, seq, None), the file the tool reads):
+    the first n DNA reads of phase 4, or n protein reads of readgen's
+    make_protein_reads, parsed back from the FASTA as the tool parses
+    them."""
+    from kaiju_tpu_torch.io.fastx import read_reads
+    from kaiju_tpu_torch.tools import readgen
+
+    if kind == "dna":
+        path = os.path.join(work, f"reads_{n}.fastq")
+        if not os.path.exists(path):
+            readgen.write_fastq([(nm, s) for nm, s, _ in reads[:n]], path)
+        return reads[:n], path
+    path = os.path.join(work, f"proteins_{n}.faa")
+    readgen.write_reads_fasta(readgen.make_protein_reads(
+        random.Random(seed + 4), records, n=n), path)
+    return [(nm, s, None) for nm, s, _ in read_reads(path)], path
+
+
+def run_taxfree(index, ktx, items, fq, name):
+    """Run the tool of X_RUNS[name] through its main on db.ktx; fail
+    unless every kernel of the path launched and no other did, unless
+    every read went through BatchRunner, unless 256 sampled lines equal
+    ExactClassifier's (taxonomy_free=True), and unless each kernel equals
+    its plain version on the arguments of its first call.  Returns (the
+    launch counts, the kernel measurements, the TSV path)."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import batch
+    from kaiju_tpu_torch.engine.core import (ExactClassifier,
+                                             format_output_line_x)
+    from kaiju_tpu_torch.tools import kaijup, kaijux
+
+    tool, flags, _kind, n, path_kernels = X_RUNS[name]
+    main = (kaijux if tool == "kaijux" else kaijup).main
+    out_tsv = os.path.join(os.path.dirname(ktx),
+                           f"out_{name.replace(' ', '_')}.tsv")
+    first = {}
+    real = {w: getattr(batch, w) for w in X_WRAPPERS}
+
+    def spy(w):
+        def call(*args):
+            first.setdefault(w, args)
+            return real[w](*args)
+        return call
+
+    kernels.reset_counts()
+    batch.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for w in real:
+            setattr(batch, w, spy(w))
+        rc = main(["-f", ktx, "-i", fq, *flags, "-o", out_tsv,
+                   "-b", str(BATCH)])
+        torch.cuda.synchronize()
+    finally:
+        for w in real:
+            setattr(batch, w, real[w])
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    host, counts = dict(batch.HOST_SECONDS), dict(batch.COUNTS)
+    if rc != 0:
+        raise AssertionError(f"{tool} main {flags} returned {rc}")
+    log(f"e2e {name}: flags {flags}: {n:,} reads in {dt:.2f} s = "
+        f"{n / dt:.1f} reads/s with set-up; {counts['rounds']:,} rounds")
+    log(f"e2e {name}: launches {json.dumps(launches)}")
+    log(f"e2e {name}: host seconds " + ", ".join(
+        f"{k} {v:.3f} ({v / dt:.1%})" for k, v in host.items()))
+    if counts["reads"] != n:
+        raise AssertionError(f"{name}: BatchRunner classified "
+                             f"{counts['reads']} of {n} reads")
+    idle = [k for k in path_kernels if launches[k] <= 0]
+    stray = [k for k in REPLACES if k not in path_kernels and launches[k]]
+    if idle or stray:
+        raise AssertionError(f"{name}: kernels of the path that did not "
+                             f"launch {idle}, others that did {stray}")
+
+    with open(out_tsv) as fh:
+        lines = fh.readlines()
+    if len(lines) != n:
+        raise AssertionError(f"{len(lines)} TSV lines for {n} reads")
+    pick = list(range(0, n, n // 256))[:256]
+    exact = ExactClassifier(index, None, x_config(name))
+    t0 = time.perf_counter()
+    want = [format_output_line_x(*exact.classify_read(*items[r]))
+            for r in pick]
+    diff = [r for r, w in zip(pick, want) if lines[r] != w]
+    log(f"check {name}: {len(pick)} sampled lines against ExactClassifier "
+        f"(taxonomy-free): {len(pick) - len(diff)} equal "
+        f"({sum(w.startswith('C') for w in want)} classified; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if diff:
+        r = diff[0]
+        raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
+    checks = x_kernel_checks(first, name)
+    for k, (err, ms, plain_ms, bound_ms, note) in checks.items():
+        log(f"kernel {k} [{name}]: max_abs_err {err}, {ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms) [{note}]")
+    if any(v[0] for v in checks.values()):
+        raise AssertionError(f"{name}: a kernel differs from its plain "
+                             f"version on the run's inputs")
+    return {k: launches[k] for k in REPLACES}, checks, out_tsv
+
+
+def steady_taxfree(index, items, warm, name):
+    """Classify the run's reads again on a new BatchRunner warmed by one
+    batch of other reads, untraced for the steady rate, the host seconds
+    of each stage and the extension-map cache's size, then under
+    torch.profiler (card only) for the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaiju_tpu_torch.engine import batch
+
+    batches = [items[i:i + BATCH] for i in range(0, len(items), BATCH)]
+
+    def one_pass(traced: bool):
+        runner = batch.BatchRunner(index, None, x_config(name))
+        runner.classify_batch(warm)
+        torch.cuda.synchronize()
+        batch.reset_counts()
+        trace = (profile(activities=[ProfilerActivity.CUDA]) if traced
+                 else contextlib.nullcontext())
+        with trace as prof:
+            t0 = time.perf_counter()
+            n = sum(len(runner.classify_batch(b)) for b in batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return n, wall, prof, len(runner._ext_cache)
+
+    n, wall, _p, cached = one_pass(False)
+    host = dict(batch.HOST_SECONDS)
+    host["other"] = wall - sum(host.values())
+    log(f"steady {name}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
+        f"reads/s untraced, {batch.COUNTS['rounds']:,} rounds; extension-map "
+        f"cache {cached:,} fragments after the warm batch and the run")
+    log(f"steady {name}: host seconds " + ", ".join(
+        f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items()))
+    _n, wall_t, prof, _c = one_pass(True)
+    log_device_time(name, prof, wall_t, top=6)
+
+
+def run_multi(ktx, nodes, reads, base_tsv):
+    """kaiju_multi.main with the default flags on two samples, the first
+    two batches of the reads, the seed tables built afresh: every kernel
+    of the Greedy path must launch, each -o file must equal phase 4's
+    lines of its reads (base_tsv, Greedy on the same index), and the
+    stdout form their concatenation.  Returns the launch counts of the -o
+    run."""
+    import io
+
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.tools import kaiju_multi, readgen
+
+    work = os.path.dirname(ktx)
+    ins = [os.path.join(work, f"sample{s}.fastq") for s in range(2)]
+    outs = [os.path.join(work, f"out_multi{s}.tsv") for s in range(2)]
+    for s, path in enumerate(ins):
+        readgen.write_fastq([(n, q) for n, q, _ in
+                             reads[s * BATCH:(s + 1) * BATCH]], path)
+    with open(base_tsv) as fh:
+        base = [next(fh) for _ in range(2 * BATCH)]
+    argv = ["-t", nodes, "-f", ktx, "-i", ",".join(ins), "-b", str(BATCH)]
+    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)  # A runs
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = kaiju_multi.main(argv + ["-o", ",".join(outs)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"kaiju_multi main returned {rc}")
+    idle = [k for k in PATHS["greedy"][0] if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kaiju-multi: {idle} did not launch")
+    same = []
+    for s, path in enumerate(outs):
+        with open(path) as fh:
+            same.append(fh.readlines() == base[s * BATCH:(s + 1) * BATCH])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc2 = kaiju_multi.main(argv)
+    stdout_same = rc2 == 0 and buf.getvalue() == "".join(base)
+    log(f"e2e kaiju-multi: 2 samples of {BATCH:,} reads in {dt:.2f} s with "
+        f"set-up; launches {json.dumps(launches)}; -o files equal to phase "
+        f"4's lines: {same}; stdout form equal to their concatenation: "
+        f"{stdout_same}")
+    if not all(same) or not stdout_same:
+        raise AssertionError("kaiju-multi differs from phase 4's lines")
+    return {k: launches[k] for k in REPLACES}
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -1071,6 +1372,24 @@ def run(args) -> int:
     # J's error over both of its comparisons (phase 3 and the nine-tie run)
     err, *rest = checks["text"]["extend_all"]
     checks["text"]["extend_all"] = (max(err, tie_err), *rest)
+
+    # ---- 4d. the taxonomy-free tools and kaiju-multi, on db.ktx, each
+    # run counted from 0 ----------------------------------------------------
+    work = os.path.dirname(ktx["fmi"])
+    for name, (_t, _f, kind, n, _k) in X_RUNS.items():
+        items, xfq = x_items(records, reads, args.seed, kind, n, work)
+        counts, x_checks, _tsv = run_taxfree(index, ktx["fmi"], items, xfq,
+                                             name)
+        for k, c in counts.items():
+            launches[k] += c
+        for k, (x_err, *_r) in x_checks.items():  # errors over all checks
+            err, *rest = checks["text"][k]
+            checks["text"][k] = (max(err, x_err), *rest)
+        if name in X_STEADY:
+            steady_taxfree(index, items, warm, name)
+    for k, c in run_multi(ktx["fmi"], nodes, reads,
+                          tsvs["greedy"]["fmi"]).items():
+        launches[k] += c
 
     # ---- 5. result lines ----------------------------------------------
     log(json.dumps({"kernels": [

@@ -28,23 +28,25 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     """The engine for the configuration, as kaiju_tpu chooses it: -d runs
     the host ExactClassifier (its per-fragment stderr trace interleaves as
     in the reference's single-threaded run, ConsumerThread.cpp:437-470);
-    -v runs the host-tail pipelines on the device (engine.mem_fast,
+    the taxonomy-free tools (kaijux, kaijup), with or without -v, run the
+    coroutine runner engine.batch.BatchRunner on the device; -v runs the
+    host-tail pipelines on the device (engine.mem_fast,
     engine.greedy_fast), whose lines carry the names and fragments; MEM and
     Greedy otherwise run the device pipelines (engine.mem, engine.greedy).
-    The taxonomy-free tools and multi-GPU raise NotImplementedError naming
-    the ROADMAP.md item that ports them."""
+    Multi-GPU raises NotImplementedError naming the ROADMAP.md item that
+    ports it."""
     if getattr(args, "mesh_index", 0) or (getattr(args, "dist_nprocs", 0) or 0) > 1:
         raise NotImplementedError(
             "--mesh-index / --dist-*: multi-GPU is ROADMAP.md queue 1 item 10"
-        )
-    if cfg.taxonomy_free:
-        raise NotImplementedError(
-            "taxonomy-free tools (kaijux, kaijup): ROADMAP.md queue 1 item 8"
         )
     if cfg.debug:
         from ..engine.core import ExactClassifier
 
         return ExactClassifier(index, taxonomy, cfg)
+    if cfg.taxonomy_free:
+        from ..engine.batch import BatchRunner
+
+        return BatchRunner(index, taxonomy, cfg, device=device)
     kmer_dir = os.environ.get("KAIJU_TPU_CACHE") or getattr(
         index, "source_dir", None
     )
@@ -93,13 +95,17 @@ def print_verbose_parameters(cfg: KaijuConfig, args, multi=False) -> None:
 
 
 def classify_stream(runner, reads_iter, out, cfg: KaijuConfig, batch_size=4096):
-    """Stream reads in batches through the runner, writing TSV lines."""
-    from ..engine.core import format_output_line
+    """Stream reads in batches through the runner, writing TSV lines (the
+    taxonomy-free form for kaijux and kaijup)."""
+    from ..engine.core import format_output_line, format_output_line_x
     from ..io.fastx import prefetch_batches
 
     def emit(results):
         for name, res in results:
-            out.write(format_output_line(name, res, cfg.verbose))
+            if cfg.taxonomy_free:
+                out.write(format_output_line_x(name, res))
+            else:
+                out.write(format_output_line(name, res, cfg.verbose))
         out.flush()
 
     batches = prefetch_batches(reads_iter, batch_size)

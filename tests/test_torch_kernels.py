@@ -497,3 +497,124 @@ def test_greedy_map_kernel_matches_plain(env, cuda, screened):
         return r[np.lexsort((-r[:, 1], r[:, 0]))]
 
     np.testing.assert_array_equal(order(got), order(want.numpy()))
+
+
+# ---------------------------------------------------------------------------
+# the coroutine runner of the taxonomy-free tools (engine.batch): A, H, I
+# and J at the launch shapes BatchRunner gives them
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def runner_calls(env):
+    """The arguments of every kernel call of a taxonomy-free Greedy (-e 3)
+    and MEM run of BatchRunner on the CPU, by wrapper name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc)")
+    from kaiju_tpu_torch.engine import batch
+    from kaiju_tpu_torch.engine.config import KaijuConfig
+
+    names = ("extend_all", "extend_rows", "update_si", "sa_lookup")
+    calls = {n: [] for n in names}
+    real = {n: getattr(batch, n) for n in names}
+
+    def spy(name):
+        def call(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        return call
+
+    try:
+        for n in names:
+            setattr(batch, n, spy(n))
+        for mode in ("greedy", "mem"):
+            cfg = KaijuConfig(mode=mode, taxonomy_free=True,
+                              use_Evalue=mode == "greedy")
+            batch.BatchRunner(env["idx"], None, cfg, device="cpu") \
+                .classify_batch(env["reads"][:120])
+    finally:
+        for n in names:
+            setattr(batch, n, real[n])
+    assert all(calls[n] for n in names)
+    return calls
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_batch_extend_rows_kernel_matches_plain(runner_calls, cuda):
+    """I's code-row form on the runner's ExtendFrom lanes, and on the same
+    lanes with inactive ones, lanes from start_i 0 and lanes whose
+    interval is empty."""
+    for args in runner_calls["extend_rows"][:20]:
+        _same(tdev.extend_rows(*(a.to(cuda) for a in args)),
+              tdev.extend_rows(*args))
+    rec, C, codes, start, s0, s1, act = max(
+        runner_calls["extend_rows"], key=lambda a: a[2].shape[0])
+    act, start, s1 = act.clone(), start.clone(), s1.clone()
+    act[::3] = False
+    start[1::5] = 0
+    s1[2::7] = s0[2::7]
+    args = (rec, C, codes, start, s0, s1, act)
+    want = tdev.extend_rows(*args)
+    _same(tdev.extend_rows(*(a.to(cuda) for a in args)), want)
+    assert torch.equal(want[0][~act], start[~act])
+
+
+def test_batch_sa_lookup_kernel_matches_plain(env, runner_calls, cuda):
+    """H on the runner's SaLookup rounds, on one chunk of max_match_ids + 6
+    = 26 positions, and on sampled slots."""
+    dv = env["dv"]
+    calls = list(runner_calls["sa_lookup"])
+    e = dv.chpt_exp
+    for k in (torch.arange(1000, 1026, dtype=torch.int32),
+              torch.arange(0, env["idx"].length, 1 << e, dtype=torch.int32)):
+        calls.append((dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, e, k))
+    for rec, C, sa_seq, sa_off, nseq, chpt, k in calls:
+        want = tdev.sa_lookup_plain(rec, C, sa_seq, sa_off, nseq, chpt, k)
+        got = tdev.sa_lookup(*(a.to(cuda) for a in (rec, C, sa_seq, sa_off)),
+                             nseq, chpt, k.to(cuda))
+        _same(got, want)
+
+
+def test_batch_update_si_kernel_matches_plain(runner_calls, cuda):
+    """A on the runner's Probes rounds, and on the largest round with
+    empty intervals (s1 = s0) mixed in."""
+    for args in runner_calls["update_si"]:
+        _same(tdev.update_si(*(a.to(cuda) for a in args)),
+              tdev.update_si_plain(*args))
+    rec, C, c, s0, s1 = max(runner_calls["update_si"],
+                            key=lambda a: a[2].shape[0])
+    s1 = s1.clone()
+    s1[::2] = s0[::2]
+    want = tdev.update_si_plain(rec, C, c, s0, s1)
+    _same(tdev.update_si(*(a.to(cuda) for a in (rec, C, c, s0, s1))), want)
+    assert not want[2][::2].any()
+
+
+def test_batch_extend_all_kernel_matches_plain(runner_calls, cuda):
+    """J on each length-bucket group of the runner's warm-up: [F, Lmax]
+    codes, exact sizes."""
+    for args in runner_calls["extend_all"]:
+        _same(tdev.extend_all(*(a.to(cuda) for a in args)),
+              tdev.extend_all_plain(*args))
+    assert len(runner_calls["extend_all"]) > 1  # several buckets
+
+
+@pytest.mark.parametrize("mode", ["mem", "greedy"])
+def test_batch_runner_on_the_card_matches_cpu(env, cuda, mode):
+    """BatchRunner's taxonomy-free lines on the card equal its lines on
+    the CPU (the plain versions)."""
+    from kaiju_tpu_torch.engine.batch import BatchRunner
+    from kaiju_tpu_torch.engine.config import KaijuConfig
+
+    cfg = KaijuConfig(mode=mode, taxonomy_free=True,
+                      use_Evalue=mode == "greedy")
+    reads = env["reads"][:200]
+    want = BatchRunner(env["idx"], None, cfg, device="cpu") \
+        .classify_to_lines(reads)
+    got = BatchRunner(env["idx"], None, cfg).classify_to_lines(reads)
+    assert got == want
+    assert sum(ln.startswith("C") for ln in want) > 50

@@ -7,8 +7,8 @@ ExactClassifier with verbose=True (those cases, -p, paired reads, a forced
 flush of the fragment memo, a fragment with more than TIE_CAP ties that
 goes through kernel J, and an index with a text copy: screen on, hybrid
 off).  The CLI: `-v` prints kaiju_tpu's parameter dump on stderr, `-d`
-writes kaiju_tpu's stdout and stderr trace, and the modes not ported yet
-raise.
+writes kaiju_tpu's stdout and stderr trace, the multi-GPU flags raise, and
+make_runner sends the taxonomy-free tools to BatchRunner.
 
 The JAX pipelines run in one fresh subprocess, started with the module's
 fixture and read by the tests at the end of the file, so that its XLA:CPU
@@ -21,6 +21,7 @@ import sys
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from kaiju_tpu.engine.config import KaijuConfig
 from kaiju_tpu.engine.core import ExactClassifier, format_output_line
@@ -29,6 +30,7 @@ from kaiju_tpu.io.taxonomy import Taxonomy
 from kaiju_tpu.tools import common as jax_common
 from kaiju_tpu.tools import kaiju as jax_kaiju
 from kaiju_tpu_torch.engine import mem_fast
+from kaiju_tpu_torch.engine.batch import BatchRunner
 from kaiju_tpu_torch.engine.config import KaijuConfig as TorchConfig
 from kaiju_tpu_torch.engine.greedy_fast import GreedyFastPipeline
 from kaiju_tpu_torch.engine.pipeline import DevicePipeline
@@ -325,16 +327,25 @@ def test_cli_debug_trace_matches_jax(env, capsys, mode):
 
 
 @pytest.mark.parametrize("what, args, item", [
-    ({"taxonomy_free": True}, None, "item 8"),
-    ({"taxonomy_free": True, "verbose": True}, None, "item 8"),
-    ({"verbose": True}, SimpleNamespace(mesh_index=2), "item 10"),
+    ({"taxonomy_free": True}, None, "BatchRunner"),
+    ({"taxonomy_free": True, "verbose": True, "mode": "mem",
+      "use_Evalue": False}, None, "BatchRunner"),
+    ({"verbose": True, "taxonomy_free": True}, SimpleNamespace(mesh_index=2),
+     "item 10"),
     ({"debug": True}, SimpleNamespace(dist_nprocs=2), "item 10"),
 ])
 def test_make_runner_refuses_unported_modes(env, what, args, item):
-    """The taxonomy-free tools (kaijux, kaijup) and the multi-GPU flags are
-    not ported: make_runner raises, naming their ROADMAP.md item, before it
-    builds anything, with -v and -d too."""
-    cfg = TorchConfig(mode="greedy", **what)
+    """The multi-GPU flags are not ported: make_runner raises, naming their
+    ROADMAP.md item, before it builds anything, with -v, -d and the
+    taxonomy-free tools too.  The taxonomy-free tools (kaijux, kaijup), MEM
+    and Greedy, with or without -v, get the coroutine runner BatchRunner."""
+    cfg = TorchConfig(**{"mode": "greedy", **what})
+    if item == "BatchRunner":
+        runner = common.make_runner(env["index"]["fmi"], None, cfg, args=args,
+                                    device="cpu")
+        assert isinstance(runner, BatchRunner) and runner.cfg is cfg
+        assert runner.dev.device == torch.device("cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         common.make_runner(env["index"]["fmi"], TorchTaxonomy(env["nodes"]),
                            cfg, args=args, device="cpu")
