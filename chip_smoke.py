@@ -27,7 +27,13 @@ Phases, any failure exits non-zero:
      Lmap 7, screened on the text index) and I (the first co-simulation
      round's variant lanes, also run in the code-row form), and J gets
      the MEM batch's fragments as a padded matrix.  Integer outputs
-     equal; time both;
+     equal; time both.  Then each kernel that reads the index (A, J, H,
+     B, G, D) launched on the index in 2 and 4 shards (K16's sharded
+     instantiations) on the same inputs must equal the unsharded kernel,
+     and on the text index its plain version on the shards (timed).  Then
+     P1 and P2 through their benchmark, tools.bench_gather (250,000 rows of
+     512 bytes, 262,144 random rows): each equal to its plain version, bit
+     for bit, timed beside torch.index_select and tab[idx].sum(1);
   4. classify the reads in batches of 4,096 (bench.py's batch) through
      kaiju_tpu_torch.tools.kaiju.main, with -a mem and with the default
      flags (Greedy), on each index, counting each kernel's launches in
@@ -66,10 +72,20 @@ Phases, any failure exits non-zero:
      kaiju-multi with the default flags on two samples (the first two
      batches of phase 4's reads): each output must equal phase 4's Greedy
      lines on db.ktx, and the stdout form their concatenation;
-  5. print the kernels' JSON line (the text index's measurements; the
-     launches of every run of phases 4, 4c and 4d, each counted from 0;
-     each error the largest of all the kernel's comparisons), then the
-     result line.
+  4e. the index-sharded MEM path: tools.kaiju.main with -a mem
+     --mesh-index 2 and 4 on the first 16,384 reads of each index (seed
+     tables built afresh, on the shards): every sharded kernel of the path
+     must launch (A, B, D, and G on the text index) and no unsharded
+     kernel that reads the index, and the TSV must equal phase 4's MEM
+     lines of the same reads byte for byte; a steady pass on a warm
+     ShardedMemPipeline beside phase 4b's unsharded rate; then the sharded
+     primitives (J over the first MEM batch's fragments, H on their SA
+     positions) against the unsharded kernels;
+  5. print the kernels' JSON line (the text index's measurements, the
+     sharded kernels' on 4 shards; the launches of every run of phases 4,
+     4c, 4d and 4e, each counted from 0, and of P1 and P2's benchmark; each
+     error the largest of all the kernel's comparisons), then the result
+     line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -106,7 +122,23 @@ REPLACES = {
     "extend_from": "kaiju_tpu/ops/device_index.py:348",
     "extend_all": "kaiju_tpu/ops/device_index.py:216",
     "greedy_map": "kaiju_tpu/ops/fused_mem2.py:1011",
+    "gather_rows": "bench_pallas_gather.py:75",
+    "gather_sum": "bench_pallas_gather.py:125",
+    "update_si_sharded": "kaiju_tpu/parallel/sharded_index.py:102",
+    "extend_all_sharded": "kaiju_tpu/parallel/sharded_index.py:123",
+    "sa_lookup_sharded": "kaiju_tpu/parallel/sharded_index.py:185",
+    "mem_extend_sharded": "kaiju_tpu/parallel/sharded_fused.py:52",
+    "text_extend_sharded": "kaiju_tpu/parallel/sharded_fused.py:153",
+    "read_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:78",
 }
+# P1, P2: the one PyTorch call computing the same function, if any
+LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
+# the kernels that read the index, whose sharded instantiations (K16) the
+# index-sharded MEM path runs (A for the seed tables, H and J beside them)
+SHARDED = ("update_si", "extend_all", "sa_lookup", "mem_extend",
+           "text_extend", "read_lca")
+MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
+MESH_READS = 4 * BATCH  # reads of each phase 4e run
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), and the CLI flags that select the path
 PATHS = {
@@ -343,9 +375,12 @@ def check_kernels(index, reads, ktx_dir):
     screens = {mode: BloomScreen.load_or_build(index, ktx_dir, m, cuda).args
                if text else None for mode, m in BLOOM_M.items()}
     out = {}
+    inputs = {}  # name: (dv, args, kwargs, other bytes, note) of its check
 
-    def report(name, *args):
+    def report(name, *args, call=None):
         out[name] = measure(*args)
+        if call is not None:
+            inputs[name] = (dv, *call, args[-2], args[-1])
 
     # A at the seed-table build's last depth: 20 * 20^4 probes
     kt = KmerTables.build_device(index, search.SEED_K, dv)
@@ -367,7 +402,8 @@ def check_kernels(index, reads, ktx_dir):
     want = update_si_plain(touched)
     report("update_si", device_index.update_si(dv.rec, dv.C, c, s0, s1),
            want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
-           update_si_plain, touched, n * (12 + 9), f"{n:,} probes")
+           update_si_plain, touched, n * (12 + 9), f"{n:,} probes",
+           call=((dv.rec, dv.C, c, s0, s1), {}))
 
     # B (screened, stopping the narrow lanes), G, C, D on the first batch
     # of the MEM path
@@ -399,7 +435,7 @@ def check_kernels(index, reads, ktx_dir):
                + (4 * usable if kw["bloom"] is not None else 0)
                + 9 * evaluated,
                f"{note}, {P_[mode]:,} lanes, {usable:,} usable, "
-               f"{evaluated:,} evaluated")
+               f"{evaluated:,} evaluated", call=(ext, kw))
         return lanes
 
     P_, F_ = {"mem": P}, {"mem": F}
@@ -424,7 +460,8 @@ def check_kernels(index, reads, ktx_dir):
                P * 24 + 4 * (F + 1) + nocc * 12
                + 2 * (ext_len + nsw) + 4 * n_ids,
                f"{nsw:,} switched lanes of {P:,}, {nocc:,} occurrences, "
-               f"{ext_len:,} letters extended, {n_ids:,} ids")
+               f"{ext_len:,} letters extended, {n_ids:,} ids",
+               call=(g, {}))
         lanes, sw_ids = res[:3], res[3]
 
     st = (*lanes, frag_off, min_len, T)
@@ -448,7 +485,8 @@ def check_kernels(index, reads, ktx_dir):
            lambda: classify.read_lca(*tail, sw_ids=sw_ids),
            lambda: classify.read_lca_plain(*tail, sw_ids=sw_ids), touched,
            4 * B * S + 16 * B + F * (8 + 8 * T),
-           f"{B:,} reads, {virt:,} virtual tie rows")
+           f"{B:,} reads, {virt:,} virtual tie rows",
+           call=(tail, {"sw_ids": sw_ids}))
 
     # B (screened), E, F on the first batch of the Greedy path at the
     # default flags (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
@@ -497,7 +535,7 @@ def check_kernels(index, reads, ktx_dir):
     torch.cuda.synchronize()
     del dv, screens
     torch.cuda.empty_cache()
-    return out
+    return out, inputs
 
 
 def check_verbose_kernels(index, nodes, reads, ktx_dir):
@@ -544,9 +582,12 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir):
     if missing:
         raise AssertionError(f"the -v batches launched no {sorted(missing)}")
     out = {}
+    inputs = {}  # as check_kernels'
 
-    def report(name, *args):
+    def report(name, *args, call=None):
         out[name] = measure(*args)
+        if call is not None:
+            inputs[name] = (mem_pipe.dev, *call, args[-2], args[-1])
 
     # H on the SA positions of the MEM batch's first resolution round
     h = seen["sa_lookup"]
@@ -556,7 +597,7 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir):
     report("sa_lookup", device_index.sa_lookup(*h), want,
            lambda: device_index.sa_lookup(*h),
            lambda: device_index.sa_lookup_plain(*h), touched, n * (4 + 8 + 8),
-           f"{n:,} SA positions of the MEM -v batch's ties")
+           f"{n:,} SA positions of the MEM -v batch's ties", call=(h, {}))
 
     # I on the first co-simulation round's variant lanes; its code-row
     # form on the same lanes
@@ -597,7 +638,8 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir):
            lambda: device_index.extend_all(*j_args),
            lambda: device_index.extend_all_plain(*j_args), touched,
            F * L * (1 + 12) + 4 * F,
-           f"{F:,} fragments of the MEM -v batch as [{F:,}, {L}] codes")
+           f"{F:,} fragments of the MEM -v batch as [{F:,}, {L}] codes",
+           call=(j_args, {}))
 
     # K on B's lanes of the Greedy batch: i of every lane, s0 and s1 of
     # each lane that makes a row, and the rows
@@ -621,6 +663,89 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir):
            f"Lmap {k_args[4]}, {nr:,} rows (compared as sorted sets)")
     del mem_pipe
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, inputs
+
+
+def check_gather(seed: int):
+    """P1 and P2 through their benchmark, tools.bench_gather (NB = 250,000
+    rows of 512 bytes, N = 262,144 random rows): each against its plain
+    version, bit for bit, then timed beside torch.index_select and
+    tab[idx].sum(1).  Returns (the measure() tuple by kernel, the launch
+    counts of the run)."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.tools import bench_gather
+
+    kernels.reset_counts()
+    res = bench_gather.run(seed)
+    launches = {k: kernels.LAUNCHES[k] for k in res}
+    out = {}
+    for name, r in res.items():
+        lib = (f"{LIBRARY[name]} {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None
+               else "no single call; the plain tab[idx].sum(1) is two")
+        n = r["rows"]  # the bound if every one of the N rows moved
+        all_rows = (n * 512 * (2 if name == "gather_rows" else 1)
+                    + 4 * n * (1 if name == "gather_rows" else 2))
+        log(f"gather {name}: {r['ms']:.4f} ms = {r['m_rows_per_s']:.1f} M "
+            f"rows/s, {r['gb_per_s']:.1f} GB/s; bound {r['bound_ms']:.4f} ms "
+            f"over the {r['distinct_rows']:,} distinct rows "
+            f"({r['bound_ms'] / r['ms']:.1%} of the time; "
+            f"{all_rows / HBM_BYTES_PER_S * 1e3:.4f} ms counting all "
+            f"{n:,}); plain {r['plain_ms']:.4f} ms; {lib}; "
+            f"{launches[name]} launches")
+        out[name] = (r["max_abs_err"], r["ms"], r["plain_ms"], r["bound_ms"],
+                     f"{r['rows']:,} random rows ({r['distinct_rows']:,} "
+                     f"distinct) of a [{r['table_rows']:,}, 128] int32 table",
+                     r["library_ms"])
+    return out, launches
+
+
+def check_sharded(index, inputs, n_shards: int, timed: bool):
+    """Each kernel that reads the index (SHARDED) launched on the index in
+    n_shards shards, on the arguments of its phase 3 check with the index
+    arrays swapped for their shards: its outputs must equal the unsharded
+    kernel's; timed: also held against its plain version on the shards and
+    timed, with the unsharded check's bound.  Returns {kernel_sharded:
+    measure() tuple or (max_abs_err,)}."""
+    import torch
+
+    from kaiju_tpu_torch.ops import classify, device_index, hybrid, search
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    fns = {"update_si": (device_index.update_si, device_index.update_si_plain),
+           "extend_all": (device_index.extend_all,
+                          device_index.extend_all_plain),
+           "sa_lookup": (device_index.sa_lookup, device_index.sa_lookup_plain),
+           "mem_extend": (search.mem_extend, search.mem_extend_plain),
+           "text_extend": (hybrid.text_extend, hybrid.text_extend_plain),
+           "read_lca": (classify.read_lca, classify.read_lca_plain)}
+    sh = ShardedIndex(index, n_shards, torch.device("cuda"))
+    out = {}
+    for name in SHARDED:
+        if name not in inputs:  # G on an index without text
+            continue
+        dv, args, kw, other_bytes, note = inputs[name]
+        swap = {id(dv.rec): sh.rec, id(dv.sa_seq): sh.sa_seq,
+                id(dv.sa_off): sh.sa_off}
+        if dv.has_text:
+            swap[id(dv.text)] = sh.text
+        sargs = tuple(swap.get(id(a), a) for a in args)
+        fn, plain = fns[name]
+        got = fn(*sargs, **kw)
+        err = max_abs_err(got, fn(*args, **kw))
+        if timed:
+            touched = []
+            want = plain(*sargs, touched, **kw)
+            err_p, *rest = measure(
+                got, want, lambda: fn(*sargs, **kw),
+                lambda: plain(*sargs, **kw), touched, other_bytes,
+                f"{note}; {n_shards} shards of {sh.nb_s:,} blocks")
+            out[name + "_sharded"] = (max(err, err_p), *rest)
+        else:
+            out[name + "_sharded"] = (err,)
+    torch.cuda.synchronize()
+    del sh
     torch.cuda.empty_cache()
     return out
 
@@ -1279,6 +1404,155 @@ def run_multi(ktx, nodes, reads, base_tsv):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the index-sharded MEM path
+# ---------------------------------------------------------------------------
+
+
+def run_mesh(index, reads, ktx, nodes, tag, n_shards, base_tsv, base_rate,
+             warm):
+    """kaiju -a mem --mesh-index n_shards through tools.kaiju.main on the
+    first MESH_READS reads (seed tables built afresh, on the shards): every
+    sharded kernel of the path must launch (G on the text index), no
+    unsharded kernel that reads the index, and the TSV must equal phase 4's
+    MEM lines of the same reads (base_tsv) byte for byte.  Then a steady
+    pass on a new ShardedMemPipeline warmed by one batch of other reads,
+    beside phase 4b's unsharded rate (base_rate).  Returns the launch
+    counts."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import mem
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.parallel.sharded_fused import ShardedMemPipeline
+    from kaiju_tpu_torch.tools import kaiju, readgen
+
+    name = f"mem --mesh-index {n_shards} {tag}"
+    text = index.text is not None
+    path = ["update_si", "mem_extend", "read_lca"] + (["text_extend"]
+                                                      if text else [])
+    fq = os.path.join(os.path.dirname(ktx), f"reads_{MESH_READS}.fastq")
+    if not os.path.exists(fq):
+        readgen.write_fastq([(n, q) for n, q, _ in reads[:MESH_READS]], fq)
+    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
+    out_tsv = os.path.join(os.path.dirname(ktx),
+                           f"out_mem_mesh{n_shards}_{tag}.tsv")
+    kernels.reset_counts()
+    mem.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem",
+                     "--mesh-index", str(n_shards), "-o", out_tsv,
+                     "-b", str(BATCH)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"kaiju main --mesh-index {n_shards} returned "
+                             f"{rc}")
+    log(f"e2e {name}: {MESH_READS:,} reads in {dt:.2f} s = "
+        f"{MESH_READS / dt:.1f} reads/s with set-up; host replay "
+        f"{mem.HOST_REPLAY['flagged']} reads; launches {json.dumps(launches)}")
+    idle = [k + "_sharded" for k in path if launches[k + "_sharded"] <= 0]
+    idle += ["mem_stats"] if launches["mem_stats"] <= 0 else []
+    unsharded = [k for k in SHARDED if launches[k]]
+    stray = [k for k in SHARDED if k not in path and launches[k + "_sharded"]]
+    if idle or unsharded or stray:
+        raise AssertionError(f"{name}: kernels of the path that did not "
+                             f"launch {idle}, unsharded kernels that did "
+                             f"{unsharded}, others {stray}")
+    with open(out_tsv) as fh:
+        got = fh.readlines()
+    with open(base_tsv) as fh:
+        want = [next(fh) for _ in range(MESH_READS)]
+    same = sum(g == w for g, w in zip(got, want))
+    log(f"check {name}: {same:,} of {MESH_READS:,} lines equal phase 4's "
+        f"unsharded MEM lines ({sum(w.startswith('C') for w in want):,} "
+        "classified)")
+    if len(got) != MESH_READS or same != MESH_READS:
+        raise AssertionError(f"{name}: the TSV differs from phase 4's")
+
+    tax = Taxonomy(parse_nodes_dmp(nodes))
+    pipe = ShardedMemPipeline(index, tax, cli_config("mem"), n_shards,
+                              kmer_cache_dir=index.source_dir)
+    pipe.classify_batch(warm)
+    torch.cuda.synchronize()
+    mem.reset_counts()
+    batches = [reads[i:i + BATCH] for i in range(0, MESH_READS, BATCH)]
+    t0 = time.perf_counter()
+    n = sum(len(r) for r in pipe.classify_stream(batches))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = dict(mem.HOST_SECONDS)
+    host["other"] = wall - sum(host.values())
+    log(f"steady {name}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
+        f"reads/s untraced; unsharded {base_rate:.1f} reads/s (phase 4b, "
+        "65,536 reads); host seconds " + ", ".join(
+            f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items())
+        + f"; replayed {mem.HOST_REPLAY['flagged']} reads")
+    del pipe
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in REPLACES}
+
+
+def run_sharded_primitives(index, reads, n_shards):
+    """The sharded primitives of item 10a, which no CLI path reaches yet
+    (--mesh-index with -v or a taxonomy-free tool raises): on the index in
+    n_shards shards, sharded_extend_all (J) over the fragments of the first
+    MEM batch as a padded code matrix, then sharded_sa_lookup (H) on the
+    first SA position of every lane's match.  Counts from 0; then each
+    output must equal the unsharded kernel's.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
+    from kaiju_tpu_torch.engine.mem import MemPipeline
+    from kaiju_tpu_torch.engine.pipeline import _bucket
+    from kaiju_tpu_torch.ops import device_index
+    from kaiju_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                        sharded_extend_all,
+                                                        sharded_sa_lookup)
+
+    cuda = torch.device("cuda")
+    frag = NativeFragmenter2("mem", 11, 65, True, False)
+    flat, chars, off, nf, _k, _rf, _o = frag.run(reads[:BATCH],
+                                                 MemPipeline.S_SLOTS, _bucket)
+    flen = np.diff(off[:nf + 1]).astype(np.int32)
+    codes = np.zeros((nf, int(flen.max())), dtype=np.uint8)
+    for t in range(nf):
+        codes[t, :flen[t]] = flat[off[t]:off[t + 1]]
+    codes = torch.from_numpy(codes).to(cuda)
+    flen = torch.from_numpy(flen).to(cuda)
+    sh = ShardedIndex(index, n_shards, cuda)
+    kernels.reset_counts()
+    maps = sharded_extend_all(sh, codes, flen)
+    k = maps[1][maps[2] > maps[1]]
+    walks = sharded_sa_lookup(sh, k)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    dv = device_index.DeviceIndex(index, cuda)
+    err = max(max_abs_err(maps, device_index.extend_all(dv.rec, dv.C, codes,
+                                                        flen)),
+              max_abs_err(walks, device_index.sa_lookup(
+                  dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp,
+                  k)))
+    counts = {n: launches[n] for n in ("extend_all_sharded",
+                                       "sa_lookup_sharded")}
+    log(f"e2e sharded primitives, {n_shards} shards: J over [{nf:,}, "
+        f"{codes.shape[1]}] codes, H on {k.shape[0]:,} SA positions; "
+        f"max_abs_err {err} against the unsharded kernels; launches "
+        f"{json.dumps(counts)}")
+    if err:
+        raise AssertionError("a sharded primitive differs from the unsharded "
+                             "kernel")
+    if not (launches["extend_all_sharded"] and launches["sa_lookup_sharded"]):
+        raise AssertionError("the sharded primitives did not launch J and H")
+    del sh, dv
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in REPLACES}
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -1295,8 +1569,8 @@ def run(args) -> int:
 
     # ---- 1. build ------------------------------------------------------
     secs = kernels.build(force=True, verbose=True)
-    log(f"build: nvcc built {len(kernels.LAUNCHES)} kernel libraries in "
-        f"{secs:.1f} s")
+    log(f"build: nvcc built {len(kernels.SOURCES)} kernel libraries "
+        f"({len(kernels.LAUNCHES)} kernels) in {secs:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1322,16 +1596,36 @@ def run(args) -> int:
     # ---- 3. kernels against their plain versions -----------------------
     checks = {}
     for tag in ("fmi", "text"):
-        checks[tag] = check_kernels(indexes[tag], reads, ktx[tag])
-        checks[tag].update(check_verbose_kernels(indexes[tag], nodes, reads,
-                                                 ktx[tag]))
+        checks[tag], inputs = check_kernels(indexes[tag], reads, ktx[tag])
+        v_checks, v_inputs = check_verbose_kernels(indexes[tag], nodes,
+                                                   reads, ktx[tag])
+        checks[tag].update(v_checks)
+        inputs.update(v_inputs)
         for name, (err, ms, plain_ms, bound_ms, note) in checks[tag].items():
             log(f"kernel {name} [{tag}]: max_abs_err {err}, {ms:.4f} ms "
                 f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) "
                 f"[{note}]")
+        # the sharded instantiations on the same inputs; the line carries
+        # the text index's measurements at the most shards
+        for n_shards in MESH:
+            sharded = check_sharded(indexes[tag], inputs, n_shards,
+                                    timed=tag == "text")
+            for name, v in sharded.items():
+                log(f"kernel {name} [{tag}, {n_shards} shards]: max_abs_err "
+                    f"{v[0]} against the unsharded kernel"
+                    + (f" and its plain version; {v[1]:.4f} ms (plain "
+                       f"{v[2]:.3f} ms, bound {v[3]:.4f} ms) [{v[4]}]"
+                       if len(v) > 1 else ""))
+                err = max(v[0], checks[tag].get(name, (0,))[0])
+                checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
+                                            checks[tag].get(name, (0,))[1:]))
+        del inputs
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    gathers, g_launches = check_gather(args.seed)
+    if any(v[0] for v in gathers.values()):
+        raise AssertionError("P1 or P2 differs from its plain version")
 
     # ---- 4. end to end through the CLI, each run counted from 0 --------
     launches = {name: 0 for name in REPLACES}
@@ -1391,14 +1685,31 @@ def run(args) -> int:
                           tsvs["greedy"]["fmi"]).items():
         launches[k] += c
 
+    # ---- 4e. the index-sharded MEM path, each run counted from 0 ---------
+    for tag in ("text", "fmi"):
+        for n_shards in MESH:
+            for k, c in run_mesh(indexes[tag], reads, ktx[tag], nodes, tag,
+                                 n_shards, tsvs["mem"][tag],
+                                 rates["mem", tag], warm).items():
+                launches[k] += c
+            for k, c in run_sharded_primitives(indexes[tag], reads,
+                                               n_shards).items():
+                launches[k] += c
+    launches.update(g_launches)  # P1, P2: their benchmark's run
+
     # ---- 5. result lines ----------------------------------------------
+    rows = {name: (*v, None) for name, v in checks["text"].items()}
+    rows.update(gathers)
+    missing = [name for name in REPLACES if name not in rows]
+    if missing:
+        raise AssertionError(f"kernels without a measurement: {missing}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"kaiju_tpu_torch/csrc/{name}.cu",
+         "source": f"kaiju_tpu_torch/csrc/{kernels.source(name)}.cu",
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
-        for name, (err, ms, plain_ms, bound_ms, _n) in checks["text"].items()
+         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+        for name, (err, ms, plain_ms, bound_ms, _n, lib_ms) in rows.items()
         if name in REPLACES
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -15,12 +15,16 @@
 // once and 12 bytes a lane written; device-memory bytes at 3.35 TB/s.
 // Design: one thread per lane, the lanes of a fragment side by side in a
 // warp, so neighbouring threads read neighbouring code bytes.
+//
+// kt_extend_all_sharded runs the same on an index split into shards
+// (kt::ShardIx): K16b, kaiju_tpu/parallel/sharded_index.py:
+// make_sharded_extend_all (:123-182), K2 on the owner-computes rank.
 #include "extend_common.cuh"
 
 namespace {
 
-__global__ void extend_all_kernel(const int* __restrict__ rec, int nb1,
-                                  const int* __restrict__ C,
+template <class Ix>
+__global__ void extend_all_kernel(const Ix ix, const int* __restrict__ C,
                                   const uint8_t* __restrict__ codes,
                                   const int* __restrict__ flen, int F, int L,
                                   int* __restrict__ start,
@@ -33,12 +37,22 @@ __global__ void extend_all_kernel(const int* __restrict__ rec, int nb1,
     kt::Ext e{j, 0, 0};
     if (j < __ldg(flen + f)) {
         const int c = __ldg(codes + lane);
-        e = kt::extend_back(rec, nb1, C, codes, (int64_t)f * L, -1, 0, j,
+        e = kt::extend_back(ix, C, codes, (int64_t)f * L, -1, 0, j,
                             __ldg(C + c), __ldg(C + c + 1));
     }
     start[lane] = e.i;
     si0[lane] = e.s0;
     si1[lane] = e.s1;
+}
+
+template <class Ix>
+int launch(const Ix& ix, const int* C, const uint8_t* codes, const int* flen,
+           int F, int L, int* start, int* si0, int* si1, cudaStream_t stream) {
+    const int threads = 256;
+    const int64_t n = (int64_t)F * L;
+    extend_all_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                        stream>>>(ix, C, codes, flen, F, L, start, si0, si1);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -47,10 +61,13 @@ KT_EXPORT int kt_extend_all(const int* rec, int nb1, const int* C,
                             const uint8_t* codes, const int* flen, int F,
                             int L, int* start, int* si0, int* si1,
                             cudaStream_t stream) {
-    const int threads = 256;
-    const int64_t n = (int64_t)F * L;
-    extend_all_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                        stream>>>(rec, nb1, C, codes, flen, F, L, start, si0,
-                                  si1);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kt::FlatIx{rec, nb1, nullptr, nullptr, 0, nullptr}, C,
+                  codes, flen, F, L, start, si0, si1, stream);
+}
+
+KT_EXPORT int kt_extend_all_sharded(KT_SHARD_PARAMS, const int* C,
+                                    const uint8_t* codes, const int* flen,
+                                    int F, int L, int* start, int* si0,
+                                    int* si1, cudaStream_t stream) {
+    return launch(KT_SHARD_IX, C, codes, flen, F, L, start, si0, si1, stream);
 }

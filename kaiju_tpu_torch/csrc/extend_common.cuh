@@ -16,8 +16,8 @@ struct Ext {
 // `sub` where x == pos and codes[base + x] elsewhere (pos = -1: no
 // substitution).  Stops at i == 0 or where the next interval would be
 // empty, and returns the last non-empty one with its start.
-__device__ __forceinline__ Ext extend_back(const int* __restrict__ rec,
-                                           int nb1,
+template <class Ix>
+__device__ __forceinline__ Ext extend_back(const Ix& ix,
                                            const int* __restrict__ C,
                                            const uint8_t* __restrict__ codes,
                                            int64_t base, int pos, int sub,
@@ -25,8 +25,8 @@ __device__ __forceinline__ Ext extend_back(const int* __restrict__ rec,
     while (i > 0) {
         const int x = i - 1;
         const int c = x == pos ? sub : (int)__ldg(codes + base + x);
-        const int n0 = rank(rec, nb1, C, c, s0);
-        const int n1 = rank(rec, nb1, C, c, s1);
+        const int n0 = rank(ix, C, c, s0);
+        const int n1 = rank(ix, C, c, s1);
         if (n0 >= n1) break;
         s0 = n0;
         s1 = n1;

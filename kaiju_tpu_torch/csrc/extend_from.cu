@@ -35,10 +35,11 @@ __global__ void extend_from_kernel(const int* __restrict__ rec, int nb1,
                                    int* __restrict__ out_s1) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n) return;
+    const kt::FlatIx ix{rec, nb1, nullptr, nullptr, 0, nullptr};
     kt::Ext e{start_i[t], s0[t], s1[t]};
     if (act[t])
-        e = kt::extend_back(rec, nb1, C, flat, base[t], pos[t], sub[t], e.i,
-                            e.s0, e.s1);
+        e = kt::extend_back(ix, C, flat, base[t], pos[t], sub[t], e.i, e.s0,
+                            e.s1);
     out_i[t] = e.i;
     out_s0[t] = e.s0;
     out_s1[t] = e.s1;

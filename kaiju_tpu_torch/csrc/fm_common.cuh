@@ -26,14 +26,80 @@ __device__ __forceinline__ int count_eq_bytes(unsigned x, unsigned pat,
     return __popc(eq) >> 3;
 }
 
+// The index as the kernels read it: the rank record rows, the SA samples
+// and, for the text-compare hybrid, the text.  FlatIx holds one tensor of
+// each.  ShardIx holds the same arrays split into S contiguous shards,
+// each its own allocation, reached through small device tables of shard
+// pointers (K16, kaiju_tpu/parallel/sharded_index.py): the owner of block
+// b is min(b / nb_s, S - 1) and it holds the row at b - owner * nb_s
+// (its nb_s rows, then an end row; the last shard is padded with the end
+// row); SA samples go by slot over ns_s, text bytes over nt_s.  The JAX
+// program assembles each owner's value with a psum over the index axis;
+// on one card the owner's row is read directly.  Both give the same rows.
+struct FlatIx {
+    const int* rec;  // [nb1, 64]
+    int nb1;
+    const int* sa_seq;  // [nsamp]; null where the kernel walks no SA
+    const int* sa_off;  // [nsamp]; null where no position is needed
+    int nsamp;
+    const uint8_t* text;  // [N]; null without the hybrid
+
+    __device__ __forceinline__ const int* row(int b) const {
+        return rec + (size_t)min(b, nb1 - 1) * 64;
+    }
+    __device__ __forceinline__ int seq(int idx) const {
+        return __ldg(sa_seq + idx);
+    }
+    __device__ __forceinline__ int off(int idx) const {
+        return __ldg(sa_off + idx);
+    }
+    __device__ __forceinline__ int letter(int t) const {
+        return __ldg(text + t);
+    }
+};
+
+struct ShardIx {
+    const int* const* rec;  // [S] shards of [nb_s + 1, 64]
+    int nb_s;
+    const int* const* sa_seq;  // [S] shards of [ns_s]
+    const int* const* sa_off;
+    int ns_s;
+    int nsamp;  // the samples of all shards
+    const uint8_t* const* text;  // [S] shards of [nt_s] bytes
+    int nt_s;
+    int S;
+
+    __device__ __forceinline__ const int* row(int b) const {
+        const int o = min(b / nb_s, S - 1);
+        return rec[o] + (size_t)min(b - o * nb_s, nb_s) * 64;
+    }
+    __device__ __forceinline__ int seq(int idx) const {
+        const int o = min(idx / ns_s, S - 1);
+        return __ldg(sa_seq[o] + (idx - o * ns_s));
+    }
+    __device__ __forceinline__ int off(int idx) const {
+        const int o = min(idx / ns_s, S - 1);
+        return __ldg(sa_off[o] + (idx - o * ns_s));
+    }
+    __device__ __forceinline__ int letter(int t) const {
+        const int o = min(t / nt_s, S - 1);
+        return __ldg(text[o] + (t - o * nt_s));
+    }
+};
+
+// The BWT byte at offset off (0..127) of a record row.
+__device__ __forceinline__ int bwt_byte(const int* row, int off) {
+    return (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
+}
+
 // FMindex(c, k) = C[c] + #c in bwt[0, k): the reference's rank with the
 // count excluding k (compactfmi.c:4-19).  One record row: the occ word
 // of c, then a packed-byte compare over the first k & 127 bytes with
 // 16-byte loads.
-__device__ __forceinline__ int rank(const int* __restrict__ rec, int nb1,
-                                    const int* __restrict__ C, int c,
-                                    int k) {
-    const int* row = rec + (size_t)min(k >> 7, nb1 - 1) * 64;
+template <class Ix>
+__device__ __forceinline__ int rank(const Ix& ix, const int* __restrict__ C,
+                                    int c, int k) {
+    const int* row = ix.row(k >> 7);
     const int off = k & 127;
     const unsigned pat = 0x01010101u * (unsigned)c;
     const uint4* w4 = reinterpret_cast<const uint4*>(row + 32);
@@ -53,23 +119,20 @@ __device__ __forceinline__ int rank(const int* __restrict__ rec, int nb1,
 // SA position k until a sampled slot (k divisible by 2^chpt_exp) or a
 // terminator.  At a terminator (c == 0) the LF result itself is the
 // content rank of the sequence.
-__device__ __forceinline__ int sa_walk(const int* __restrict__ rec, int nb1,
-                                       const int* __restrict__ C,
-                                       const int* __restrict__ sa_seq,
-                                       int nsamp, int nseq, int chpt_exp,
-                                       int k) {
+template <class Ix>
+__device__ __forceinline__ int sa_walk(const Ix& ix,
+                                       const int* __restrict__ C, int nseq,
+                                       int chpt_exp, int k) {
     const int check = (1 << chpt_exp) - 1;
     while (k & check) {
-        const int* row = rec + (size_t)min(k >> 7, nb1 - 1) * 64;
-        const int off = k & 127;
-        const int c = (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
-        const int kn = rank(rec, nb1, C, c, k);
+        const int c = bwt_byte(ix.row(k >> 7), k & 127);
+        const int kn = rank(ix, C, c, k);
         if (c == 0) return kn;
         k = kn;
     }
     int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
-    idx = min(max(idx, 0), nsamp - 1);
-    return __ldg(sa_seq + idx);
+    idx = min(max(idx, 0), ix.nsamp - 1);
+    return ix.seq(idx);
 }
 
 // Warp helpers: every lane of the warp calls them.
@@ -105,6 +168,18 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
 }
 
 }  // namespace kt
+
+// The arguments of a sharded entry point that describe the shards (each
+// table a device array of S pointers), and the kt::ShardIx they make.
+#define KT_SHARD_PARAMS                                                  \
+    const int* const* rec_tab, int nb_s, const int* const* seq_tab,      \
+        const int* const* off_tab, int ns_s, int nsamp,                  \
+        const uint8_t* const* text_tab, int nt_s, int nshards
+#define KT_SHARD_IX                                                      \
+    kt::ShardIx {                                                        \
+        rec_tab, nb_s, seq_tab, off_tab, ns_s, nsamp, text_tab, nt_s,    \
+            nshards                                                      \
+    }
 
 // Error text for a code returned by an entry point (each library has its
 // own copy).

@@ -94,6 +94,10 @@ struct Args {
     const int *rank_start, *sa_seq, *sa_off;
     int nsamp, nseq, chpt_exp;
     int* sw_ids;  // [B, T, kSwWcap]
+
+    __device__ kt::FlatIx ix() const {
+        return {rec, nb1, sa_seq, sa_off, nsamp, text};
+    }
 };
 
 // The read's running best and its tie list, in event order.  Every lane
@@ -335,24 +339,23 @@ __global__ void greedy_search_kernel(Args a) {
                     const int ml1 = vml + 1;
                     // UpdateSI probe (bwt.c:160-173), then the resumed
                     // extension with code at the substituted position
-                    n0 = kt::rank(a.rec, a.nb1, a.C, code, vs0);
-                    n1 = kt::rank(a.rec, a.nb1, a.C, code, vs1);
+                    n0 = kt::rank(a.ix(), a.C, code, vs0);
+                    n1 = kt::rank(a.ix(), a.C, code, vs1);
                     i = veff - ml1;
                     if (n0 < n1 && last && a.sw_ids != nullptr &&
                         n1 - n0 <= kt::kSwWcap && i > 0) {
                         // the probe took the substitution at qi - 1 = i:
                         // the letters left are the query's own
                         i -= kt::switch_serial(
-                            a.rec, a.nb1, a.C, a.sa_seq, a.sa_off, a.nsamp,
-                            a.nseq, a.chpt_exp, a.text, a.rank_start, a.flat,
-                            n0, n1, vbase + i, i, ids, &nid);
+                            a.ix(), a.C, a.nseq, a.chpt_exp, a.rank_start,
+                            a.flat, n0, n1, vbase + i, i, ids, &nid);
                     } else if (n0 < n1) {
                         const int pos = vqi - 1;
                         while (i > 0) {
                             const int x = i - 1;
                             const int c = x == pos ? code : a.flat[vbase + x];
-                            const int m0 = kt::rank(a.rec, a.nb1, a.C, c, n0);
-                            const int m1 = kt::rank(a.rec, a.nb1, a.C, c, n1);
+                            const int m0 = kt::rank(a.ix(), a.C, c, n0);
+                            const int m1 = kt::rank(a.ix(), a.C, c, n1);
                             if (m0 >= m1) break;
                             n0 = m0;
                             n1 = m1;

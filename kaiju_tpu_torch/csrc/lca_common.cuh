@@ -38,13 +38,12 @@ struct LcaResult {
 // Whole warp.  range(g, &start, &size) gives range g of G (size 0: not
 // contributing), from any lane; pos and first are R ints each of the
 // warp's shared memory.  The result is the read's in lane 0, zeros in the
-// other lanes.
-template <class Range>
+// other lanes.  ix: the index the SA walks read (kt::FlatIx or
+// kt::ShardIx; fm_common.cuh).
+template <class Range, class Ix>
 __device__ LcaResult ranges_lca_warp(
-    const Range& range, int G, int* pos, int* first,
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, int nsamp,
-    const int* __restrict__ seq_tax, int ntax,
+    const Range& range, int G, int* pos, int* first, const Ix& ix,
+    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
     const int* __restrict__ sw_ids, int nsw) {
@@ -67,7 +66,7 @@ __device__ LcaResult ranges_lca_warp(
         const int iseq =
             sw_ids != nullptr && k >= kVBase
                 ? __ldg(sw_ids + min(k - kVBase, nsw - 1))
-                : sa_walk(rec, nb1, C, sa_seq, nsamp, nseq, chpt_exp, k);
+                : sa_walk(ix, C, nseq, chpt_exp, k);
         pos[r] = seq_tax[min(max(iseq, 0), ntax - 1)];
     }
     __syncwarp();

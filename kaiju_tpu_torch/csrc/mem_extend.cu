@@ -29,12 +29,18 @@
 // thread per flat position; the owning fragment comes from a binary
 // search over frag_off, which stays in L1/L2; the bitmap probe is one
 // random 4-byte read that ends most junk lanes before their seed.
+//
+// kt_mem_extend_sharded runs the same on an index split into shards
+// (kt::ShardIx): the search phases of K16e,
+// kaiju_tpu/parallel/sharded_fused.py:make_sharded_mem_classify
+// (:178-275), on the owner-computes rank of _make_rank1 (:52-75).
 #include "text_common.cuh"
 
 namespace {
 
+template <class Ix>
 __global__ void mem_extend_kernel(
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
+    const Ix ix, const int* __restrict__ C,
     const int* __restrict__ seed_s0, const int* __restrict__ seed_s1,
     const int8_t* __restrict__ seed_d, int nseed,
     const uint8_t* __restrict__ flat, int P,
@@ -79,8 +85,8 @@ __global__ void mem_extend_kernel(
         if (d == K) {
             for (int steps = 1; i > 0; ++steps) {
                 const int c = flat[base + i - 1];
-                const int n0 = kt::rank(rec, nb1, C, c, a0);
-                const int n1 = kt::rank(rec, nb1, C, c, a1);
+                const int n0 = kt::rank(ix, C, c, a0);
+                const int n1 = kt::rank(ix, C, c, a1);
                 if (n0 >= n1) break;
                 a0 = n0;
                 a1 = n1;
@@ -95,6 +101,19 @@ __global__ void mem_extend_kernel(
     out_s1[p] = a1;
 }
 
+template <class Ix>
+int launch(const Ix& ix, const int* C, const int* seed_s0,
+           const int* seed_s1, const int8_t* seed_d, int nseed,
+           const uint8_t* flat, int P, const int* frag_off, int F, int K,
+           int j0, const unsigned* words, int m, int lb, int sw_steps,
+           int* out_i, int* out_s0, int* out_s1, cudaStream_t stream) {
+    const int threads = 256;
+    mem_extend_kernel<<<(P + threads - 1) / threads, threads, 0, stream>>>(
+        ix, C, seed_s0, seed_s1, seed_d, nseed, flat, P, frag_off, F, K, j0,
+        words, m, lb, sw_steps, out_i, out_s0, out_s1);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 KT_EXPORT int kt_mem_extend(const int* rec, int nb1, const int* C,
@@ -104,9 +123,18 @@ KT_EXPORT int kt_mem_extend(const int* rec, int nb1, const int* C,
                             int F, int K, int j0, const unsigned* words,
                             int m, int lb, int sw_steps, int* out_i,
                             int* out_s0, int* out_s1, cudaStream_t stream) {
-    const int threads = 256;
-    mem_extend_kernel<<<(P + threads - 1) / threads, threads, 0, stream>>>(
-        rec, nb1, C, seed_s0, seed_s1, seed_d, nseed, flat, P, frag_off, F,
-        K, j0, words, m, lb, sw_steps, out_i, out_s0, out_s1);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kt::FlatIx{rec, nb1, nullptr, nullptr, 0, nullptr}, C,
+                  seed_s0, seed_s1, seed_d, nseed, flat, P, frag_off, F, K,
+                  j0, words, m, lb, sw_steps, out_i, out_s0, out_s1, stream);
+}
+
+KT_EXPORT int kt_mem_extend_sharded(
+    KT_SHARD_PARAMS, const int* C, const int* seed_s0, const int* seed_s1,
+    const int8_t* seed_d, int nseed, const uint8_t* flat, int P,
+    const int* frag_off, int F, int K, int j0, const unsigned* words, int m,
+    int lb, int sw_steps, int* out_i, int* out_s0, int* out_s1,
+    cudaStream_t stream) {
+    return launch(KT_SHARD_IX, C, seed_s0, seed_s1, seed_d, nseed, flat, P,
+                  frag_off, F, K, j0, words, m, lb, sw_steps, out_i, out_s0,
+                  out_s1, stream);
 }

@@ -45,8 +45,9 @@ __global__ void ranges_lca_kernel(
     int* pos = smem + w * 2 * R;
     const ReadRanges ranges{g_s0 + (size_t)b * G, g_s1 + (size_t)b * G};
     const kt::LcaResult res = kt::ranges_lca_warp(
-        ranges, G, pos, pos + R, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax,
-        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
+        ranges, G, pos, pos + R,
+        kt::FlatIx{rec, nb1, sa_seq, nullptr, nsamp, nullptr}, C, seq_tax,
+        ntax, parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if ((threadIdx.x & 31) != 0) return;
     out_lca[b] = res.lca;
     out_n_ids[b] = res.n_ids;

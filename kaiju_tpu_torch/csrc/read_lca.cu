@@ -14,6 +14,11 @@
 // Bound: the SA walks, one random 256-byte record row per LF step, plus
 // the statistics rows the reads touch; device-memory bytes at 3.35 TB/s.
 // Design: one warp per read (see lca_common.cuh).
+//
+// kt_read_lca_sharded runs the same on an index split into shards
+// (kt::ShardIx): the classify_tail of K16e,
+// kaiju_tpu/parallel/sharded_fused.py:make_sharded_mem_classify
+// (:178-275), whose SA walks are _make_walk's (:78-150).
 #include "lca_common.cuh"
 
 namespace {
@@ -34,13 +39,12 @@ struct SlotTies {
     }
 };
 
+template <class Ix>
 __global__ void read_lca_kernel(
     const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
     const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
-    const int* __restrict__ rf_rows, int B, int S,
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, int nsamp,
-    const int* __restrict__ seq_tax, int ntax,
+    const int* __restrict__ rf_rows, int B, int S, const Ix ix,
+    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
     const int* __restrict__ sw_ids, int nsw, int* __restrict__ out) {
@@ -60,14 +64,29 @@ __global__ void read_lca_kernel(
     const int tie_over = __any_sync(kt::kFullMask, over);
     const SlotTies ties{rf, maxl, tie_s0, tie_s1, T, longest};
     const kt::LcaResult res = kt::ranges_lca_warp(
-        ties, S * T, pos, pos + R, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax,
-        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
+        ties, S * T, pos, pos + R, ix, C, seq_tax, ntax, parent, depth,
+        maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if (lane != 0) return;
     int* o = out + (size_t)b * 4;
     o[0] = longest > 0 ? res.lca : 0;
     o[1] = longest;
     o[2] = tie_over * 1 + res.need_more * 2;
     o[3] = res.n_ids;
+}
+
+template <class Ix>
+int launch(const int* maxl, const int* tie_cnt, const int* tie_s0,
+           const int* tie_s1, int T, const int* rf_rows, int B, int S,
+           const Ix& ix, const int* C, const int* seq_tax, int ntax,
+           const int* parent, const int* depth, int maxtax, int R, int cap,
+           int nseq, int chpt_exp, const int* sw_ids, int nsw, int* out,
+           cudaStream_t stream) {
+    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
+    const int blocks = (B + kWarps - 1) / kWarps;
+    read_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
+        maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, ix, C, seq_tax, ntax,
+        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw, out);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,11 +99,20 @@ KT_EXPORT int kt_read_lca(const int* maxl, const int* tie_cnt,
                           const int* depth, int maxtax, int R, int cap,
                           int nseq, int chpt_exp, const int* sw_ids,
                           int nsw, int* out, cudaStream_t stream) {
-    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
-    const int blocks = (B + kWarps - 1) / kWarps;
-    read_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
-        maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, rec, nb1, C, sa_seq,
-        nsamp, seq_tax, ntax, parent, depth, maxtax, R, cap, nseq, chpt_exp,
-        sw_ids, nsw, out);
-    return static_cast<int>(cudaGetLastError());
+    return launch(maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S,
+                  kt::FlatIx{rec, nb1, sa_seq, nullptr, nsamp, nullptr}, C,
+                  seq_tax, ntax, parent, depth, maxtax, R, cap, nseq,
+                  chpt_exp, sw_ids, nsw, out, stream);
+}
+
+KT_EXPORT int kt_read_lca_sharded(
+    const int* maxl, const int* tie_cnt, const int* tie_s0,
+    const int* tie_s1, int T, const int* rf_rows, int B, int S,
+    KT_SHARD_PARAMS, const int* C, const int* seq_tax, int ntax,
+    const int* parent, const int* depth, int maxtax, int R, int cap,
+    int nseq, int chpt_exp, const int* sw_ids, int nsw, int* out,
+    cudaStream_t stream) {
+    return launch(maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S,
+                  KT_SHARD_IX, C, seq_tax, ntax, parent, depth, maxtax, R,
+                  cap, nseq, chpt_exp, sw_ids, nsw, out, stream);
 }

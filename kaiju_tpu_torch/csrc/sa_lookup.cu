@@ -15,24 +15,34 @@
 // thread per position; the walks are chains of dependent row reads, so
 // the card hides their latency with many positions in flight, not within
 // one.
+//
+// kt_sa_lookup_sharded walks an index split into shards (kt::ShardIx):
+// K16c, kaiju_tpu/parallel/sharded_index.py:make_sharded_sa_lookup
+// (:185-270), whose BWT byte, rank and SA sample come from their owner.
 #include "text_common.cuh"
 
 namespace {
 
-__global__ void sa_lookup_kernel(const int* __restrict__ rec, int nb1,
-                                 const int* __restrict__ C,
-                                 const int* __restrict__ sa_seq,
-                                 const int* __restrict__ sa_off, int nsamp,
+template <class Ix>
+__global__ void sa_lookup_kernel(const Ix ix, const int* __restrict__ C,
                                  int nseq, int chpt_exp,
                                  const int* __restrict__ k, int n,
                                  int* __restrict__ iseq,
                                  int* __restrict__ pos) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n) return;
-    const kt::WalkPos w = kt::walk_pos(rec, nb1, C, sa_seq, sa_off, nsamp,
-                                       nseq, chpt_exp, k[t]);
+    const kt::WalkPos w = kt::walk_pos(ix, C, nseq, chpt_exp, k[t]);
     iseq[t] = w.iseq;
     pos[t] = w.pos;
+}
+
+template <class Ix>
+int launch(const Ix& ix, const int* C, int nseq, int chpt_exp, const int* k,
+           int n, int* iseq, int* pos, cudaStream_t stream) {
+    const int threads = 256;
+    sa_lookup_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+        ix, C, nseq, chpt_exp, k, n, iseq, pos);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -41,8 +51,12 @@ KT_EXPORT int kt_sa_lookup(const int* rec, int nb1, const int* C,
                            const int* sa_seq, const int* sa_off, int nsamp,
                            int nseq, int chpt_exp, const int* k, int n,
                            int* iseq, int* pos, cudaStream_t stream) {
-    const int threads = 256;
-    sa_lookup_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        rec, nb1, C, sa_seq, sa_off, nsamp, nseq, chpt_exp, k, n, iseq, pos);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kt::FlatIx{rec, nb1, sa_seq, sa_off, nsamp, nullptr}, C,
+                  nseq, chpt_exp, k, n, iseq, pos, stream);
+}
+
+KT_EXPORT int kt_sa_lookup_sharded(KT_SHARD_PARAMS, const int* C, int nseq,
+                                   int chpt_exp, const int* k, int n,
+                                   int* iseq, int* pos, cudaStream_t stream) {
+    return launch(KT_SHARD_IX, C, nseq, chpt_exp, k, n, iseq, pos, stream);
 }

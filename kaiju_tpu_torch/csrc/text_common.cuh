@@ -28,24 +28,22 @@ struct WalkPos {
 // offset in it.  LF-walks from SA position k until a sampled slot, where
 // the sample gives (sa_seq, sa_off + steps), or a terminator, where the LF
 // result is the content rank and the offset the steps taken.
-__device__ __forceinline__ WalkPos walk_pos(
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, const int* __restrict__ sa_off,
-    int nsamp, int nseq, int chpt_exp, int k) {
+template <class Ix>
+__device__ __forceinline__ WalkPos walk_pos(const Ix& ix,
+                                            const int* __restrict__ C,
+                                            int nseq, int chpt_exp, int k) {
     const int check = (1 << chpt_exp) - 1;
     int steps = 0;
     while (k & check) {
-        const int* row = rec + (size_t)min(k >> 7, nb1 - 1) * 64;
-        const int off = k & 127;
-        const int c = (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
-        const int kn = rank(rec, nb1, C, c, k);
+        const int c = bwt_byte(ix.row(k >> 7), k & 127);
+        const int kn = rank(ix, C, c, k);
         if (c == 0) return {kn, steps};
         k = kn;
         ++steps;
     }
     int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
-    idx = min(max(idx, 0), nsamp - 1);
-    return {__ldg(sa_seq + idx), __ldg(sa_off + idx) + steps};
+    idx = min(max(idx, 0), ix.nsamp - 1);
+    return {ix.seq(idx), ix.off(idx) + steps};
 }
 
 // K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274): the longest u
@@ -53,7 +51,8 @@ __device__ __forceinline__ WalkPos walk_pos(
 // at t = p (the text's start) and at a text code of 0 (a separator).  The
 // bytes go 8 at a time: their 16 loads are issued together, so a chunk
 // costs one memory latency, not eight.
-__device__ __forceinline__ int text_extend(const uint8_t* __restrict__ text,
+template <class Ix>
+__device__ __forceinline__ int text_extend(const Ix& ix,
                                            const uint8_t* __restrict__ flat,
                                            int p, int qg, int avail) {
     constexpr int kChunk = 8;
@@ -63,7 +62,7 @@ __device__ __forceinline__ int text_extend(const uint8_t* __restrict__ text,
         int t[kChunk], q[kChunk];
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
-            t[k] = k < n ? __ldg(text + p - 1 - u - k) : 0;
+            t[k] = k < n ? ix.letter(p - 1 - u - k) : 0;
             q[k] = k < n ? __ldg(flat + qg - 1 - u - k) : 0;
         }
 #pragma unroll
@@ -78,20 +77,18 @@ __device__ __forceinline__ int text_extend(const uint8_t* __restrict__ text,
 // from query position qg with avail letters left, and keep the
 // occurrences that reach the longest extension.  Returns that extension;
 // ids[0, *n) receives their sequence ids in SA order.
+template <class Ix>
 __device__ __forceinline__ int switch_serial(
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, const int* __restrict__ sa_off,
-    int nsamp, int nseq, int chpt_exp, const uint8_t* __restrict__ text,
+    const Ix& ix, const int* __restrict__ C, int nseq, int chpt_exp,
     const int* __restrict__ rank_start, const uint8_t* __restrict__ flat,
     int s0, int s1, int qg, int avail, int* ids, int* n) {
     int best = -1;
     *n = 0;
     for (int k = s0; k < s1; ++k) {
-        const WalkPos w = walk_pos(rec, nb1, C, sa_seq, sa_off, nsamp, nseq,
-                                   chpt_exp, k);
+        const WalkPos w = walk_pos(ix, C, nseq, chpt_exp, k);
         const int p =
             __ldg(rank_start + min(max(w.iseq, 0), nseq - 1)) + w.pos;
-        const int e = text_extend(text, flat, p, qg, avail);
+        const int e = text_extend(ix, flat, p, qg, avail);
         if (e > best) {
             best = e;
             *n = 0;

@@ -32,14 +32,18 @@
 // lane of it per occurrence) would take a run of 32 one after another
 // (5.6x slower on the 64 Maa DB, whose intervals here hold one
 // occurrence; PERF.md).
+//
+// kt_text_extend_sharded runs the same on an index split into shards
+// (kt::ShardIx): the hybrid of K16d, kaiju_tpu/parallel/sharded_fused.py:
+// _make_walk with want_pos (:78-150) and _make_hyb.text_row (:153-175),
+// whose text rows are owned by the row ranges that match the BWT shards.
 #include "text_common.cuh"
 
 namespace {
 
+template <class Ix>
 __global__ void text_extend_kernel(
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, const int* __restrict__ sa_off,
-    int nsamp, int nseq, int chpt_exp, const uint8_t* __restrict__ text,
+    const Ix ix, const int* __restrict__ C, int nseq, int chpt_exp,
     const int* __restrict__ rank_start, const uint8_t* __restrict__ flat,
     int P, const int* __restrict__ frag_off, int F, int sw_len,
     const int* __restrict__ in_i, const int* __restrict__ in_s0,
@@ -58,9 +62,8 @@ __global__ void text_extend_kernel(
     if (i > 0 && p - base - i + 1 == sw_len && a1 > a0 &&
         a1 - a0 <= kt::kSwWcap) {
         int ids[kt::kSwWcap], n = 0;
-        i -= kt::switch_serial(rec, nb1, C, sa_seq, sa_off, nsamp, nseq,
-                               chpt_exp, text, rank_start, flat, a0, a1,
-                               base + i, i, ids, &n);
+        i -= kt::switch_serial(ix, C, nseq, chpt_exp, rank_start, flat, a0,
+                               a1, base + i, i, ids, &n);
         const size_t slot = (size_t)kt::kSwWcap * p;
         for (int q = 0; q < n; ++q) sw_ids[slot + q] = ids[q];
         a0 = kt::kVBase + (int)slot;
@@ -69,6 +72,19 @@ __global__ void text_extend_kernel(
     out_i[p] = i;
     out_s0[p] = a0;
     out_s1[p] = a1;
+}
+
+template <class Ix>
+int launch(const Ix& ix, const int* C, int nseq, int chpt_exp,
+           const int* rank_start, const uint8_t* flat, int P,
+           const int* frag_off, int F, int sw_len, const int* in_i,
+           const int* in_s0, const int* in_s1, int* out_i, int* out_s0,
+           int* out_s1, int* sw_ids, cudaStream_t stream) {
+    const int threads = 128;
+    text_extend_kernel<<<(P + threads - 1) / threads, threads, 0, stream>>>(
+        ix, C, nseq, chpt_exp, rank_start, flat, P, frag_off, F, sw_len,
+        in_i, in_s0, in_s1, out_i, out_s0, out_s1, sw_ids);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -81,10 +97,17 @@ KT_EXPORT int kt_text_extend(const int* rec, int nb1, const int* C,
                              const int* in_i, const int* in_s0,
                              const int* in_s1, int* out_i, int* out_s0,
                              int* out_s1, int* sw_ids, cudaStream_t stream) {
-    const int threads = 128;
-    text_extend_kernel<<<(P + threads - 1) / threads, threads, 0, stream>>>(
-        rec, nb1, C, sa_seq, sa_off, nsamp, nseq, chpt_exp, text, rank_start,
-        flat, P, frag_off, F, sw_len, in_i, in_s0, in_s1, out_i, out_s0,
-        out_s1, sw_ids);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kt::FlatIx{rec, nb1, sa_seq, sa_off, nsamp, text}, C, nseq,
+                  chpt_exp, rank_start, flat, P, frag_off, F, sw_len, in_i,
+                  in_s0, in_s1, out_i, out_s0, out_s1, sw_ids, stream);
+}
+
+KT_EXPORT int kt_text_extend_sharded(
+    KT_SHARD_PARAMS, const int* C, int nseq, int chpt_exp,
+    const int* rank_start, const uint8_t* flat, int P, const int* frag_off,
+    int F, int sw_len, const int* in_i, const int* in_s0, const int* in_s1,
+    int* out_i, int* out_s0, int* out_s1, int* sw_ids, cudaStream_t stream) {
+    return launch(KT_SHARD_IX, C, nseq, chpt_exp, rank_start, flat, P,
+                  frag_off, F, sw_len, in_i, in_s0, in_s1, out_i, out_s0,
+                  out_s1, sw_ids, stream);
 }

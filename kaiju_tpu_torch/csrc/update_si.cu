@@ -11,12 +11,16 @@
 // Design: one thread per probe, one row read per end through the shared
 // kt::rank; neighbouring probes share previous-depth intervals, so rows
 // are often reused through L2.
+//
+// kt_update_si_sharded runs the same on an index split into shards
+// (kt::ShardIx, K16's owner-computes rank): the seed tables of the
+// index-sharded MEM path.
 #include "fm_common.cuh"
 
 namespace {
 
-__global__ void update_si_kernel(const int* __restrict__ rec, int nb1,
-                                 const int* __restrict__ C,
+template <class Ix>
+__global__ void update_si_kernel(const Ix ix, const int* __restrict__ C,
                                  const int* __restrict__ c,
                                  const int* __restrict__ s0,
                                  const int* __restrict__ s1, int n,
@@ -25,11 +29,21 @@ __global__ void update_si_kernel(const int* __restrict__ rec, int nb1,
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n) return;
     const int cc = c[t];
-    const int a = kt::rank(rec, nb1, C, cc, s0[t]);
-    const int b = kt::rank(rec, nb1, C, cc, s1[t]);
+    const int a = kt::rank(ix, C, cc, s0[t]);
+    const int b = kt::rank(ix, C, cc, s1[t]);
     n0[t] = a;
     n1[t] = b;
     ok[t] = a < b;
+}
+
+template <class Ix>
+int launch(const Ix& ix, const int* C, const int* c, const int* s0,
+           const int* s1, int n, int* n0, int* n1, uint8_t* ok,
+           cudaStream_t stream) {
+    const int threads = 256;
+    update_si_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+        ix, C, c, s0, s1, n, n0, n1, ok);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -38,8 +52,13 @@ KT_EXPORT int kt_update_si(const int* rec, int nb1, const int* C,
                            const int* c, const int* s0, const int* s1, int n,
                            int* n0, int* n1, uint8_t* ok,
                            cudaStream_t stream) {
-    const int threads = 256;
-    update_si_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        rec, nb1, C, c, s0, s1, n, n0, n1, ok);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kt::FlatIx{rec, nb1, nullptr, nullptr, 0, nullptr}, C, c,
+                  s0, s1, n, n0, n1, ok, stream);
+}
+
+KT_EXPORT int kt_update_si_sharded(KT_SHARD_PARAMS, const int* C,
+                                   const int* c, const int* s0,
+                                   const int* s1, int n, int* n0, int* n1,
+                                   uint8_t* ok, cudaStream_t stream) {
+    return launch(KT_SHARD_IX, C, c, s0, s1, n, n0, n1, ok, stream);
 }

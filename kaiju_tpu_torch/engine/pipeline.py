@@ -47,7 +47,7 @@ class DeviceSetup:
         self.index = index
         self.tax = taxonomy
         self.device = resolve_device(device)
-        self.dev = DeviceIndex(index, self.device)
+        self.dev = self._device_index(index)
         self.seed_K = seed_K
         kmer = KmerTables.load_or_build(index, kmer_cache_dir, seed_K,
                                         device_index=self.dev)
@@ -55,6 +55,11 @@ class DeviceSetup:
         screen = BloomScreen.load_or_build(
             index, kmer_cache_dir or index.source_dir, bloom_m, self.device)
         self._bloom = None if screen is None else screen.args
+
+    def _device_index(self, index: KaijuIndex):
+        """The index on self.device that every kernel of the path reads
+        (``parallel.sharded_fused`` gives it in shards)."""
+        return DeviceIndex(index, self.device)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))

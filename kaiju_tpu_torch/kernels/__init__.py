@@ -1,11 +1,15 @@
 """Build loader for the port's CUDA kernels.
 
-Every ``kaiju_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
+Every ``kaiju_tpu_torch/csrc/<source>.cu`` is compiled by ``nvcc`` for
 sm_90a into its own plain-C shared library,
-``build/kaiju_tpu_torch/lib<name>.so`` at the repository root, and loaded
-with ctypes.  A library is built at first use and again whenever its
-source or a shared header (``csrc/*.cuh``) is newer; stale sources compile
-in parallel, one ``nvcc`` each.  Nothing is compiled when a module is
+``build/kaiju_tpu_torch/lib<source>.so`` at the repository root, and loaded
+with ctypes.  A kernel is one C entry point of a source: most sources hold
+one kernel of their own name; ``gather.cu`` holds P1 and P2, and a
+``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
+split into shards (K16, ``parallel/sharded_index.py``).  A library is
+built at first use and again whenever its source or a shared header
+(``csrc/*.cuh``) is newer; stale sources compile in parallel, one
+``nvcc`` each.  Nothing is compiled when a module is
 imported, so the CPU tests import everything without a CUDA toolkit.
 
 Each C entry point launches on the stream it is given and returns
@@ -74,7 +78,51 @@ _SIGNATURES = {
     "extend_all": ("kt_extend_all", "pip" "ppii" "ppp" "p"),
     # i s0 s1 frag_off F lmap | rows n_rows
     "greedy_map": ("kt_greedy_map", "ppppii" "pp" "p"),
+    # tab idx n | out
+    "gather_rows": ("kt_gather_rows", "ppi" "p" "p"),
+    "gather_sum": ("kt_gather_sum", "ppi" "p" "p"),
 }
+# The shard arguments that take the place of rec/nb1 (and of the SA samples
+# and the text) in a sharded entry point: rec_tab nb_s seq_tab off_tab ns_s
+# nsamp text_tab nt_s S (KT_SHARD_PARAMS, csrc/fm_common.cuh)
+SHARD_SIG = "pippiipii"
+_SIGNATURES.update({
+    # SHARD | C | c s0 s1 n | n0 n1 ok
+    "update_si_sharded": ("kt_update_si_sharded",
+                          SHARD_SIG + "p" "pppi" "ppp" "p"),
+    # SHARD | C nseq chpt_exp | k n | iseq pos
+    "sa_lookup_sharded": ("kt_sa_lookup_sharded",
+                          SHARD_SIG + "pii" "pi" "pp" "p"),
+    # SHARD | C | codes flen F L | start si0 si1
+    "extend_all_sharded": ("kt_extend_all_sharded",
+                           SHARD_SIG + "p" "ppii" "ppp" "p"),
+    # SHARD | C | seed_s0 seed_s1 seed_d nseed | flat P frag_off F K j0 |
+    # words m lb sw_steps | i s0 s1
+    "mem_extend_sharded": ("kt_mem_extend_sharded",
+                           SHARD_SIG + "p" "pppi" "pipiii" "piii" "ppp" "p"),
+    # SHARD | C nseq chpt_exp | rank_start flat P frag_off F sw_len | i s0
+    # s1 | out_i out_s0 out_s1 sw_ids
+    "text_extend_sharded": ("kt_text_extend_sharded",
+                            SHARD_SIG + "pii" "ppipii" "ppp" "pppp" "p"),
+    # maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | SHARD | C | seq_tax ntax
+    # parent depth maxtax | R cap nseq chpt_exp | sw_ids nsw | out
+    "read_lca_sharded": ("kt_read_lca_sharded",
+                         "ppppi" "pii" + SHARD_SIG + "p" "pippi" "iiii" "pi"
+                         "p" "p"),
+})
+# the source file of each kernel (csrc/<source>.cu), where it is not the
+# kernel's own name
+_SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
+           **{n: n[:-len("_sharded")] for n in _SIGNATURES
+              if n.endswith("_sharded")}}
+
+
+def source(name: str) -> str:
+    """The csrc/<source>.cu that holds kernel `name`."""
+    return _SOURCE.get(name, name)
+
+
+SOURCES = sorted({source(n) for n in _SIGNATURES})
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 # launches of kernel B with its Bloom screen (each counted in LAUNCHES too)
@@ -101,15 +149,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+def _lib_path(src: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{src}.so")
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
+def _stale(src: str) -> bool:
+    lib = _lib_path(src)
     if not os.path.exists(lib):
         return True
-    srcs = [os.path.join(CSRC_DIR, f"{name}.cu")]
+    srcs = [os.path.join(CSRC_DIR, f"{src}.cu")]
     srcs += glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     return os.path.getmtime(lib) < max(os.path.getmtime(s) for s in srcs)
 
@@ -119,55 +167,59 @@ def build(force: bool = False, verbose: bool = False) -> float:
     nvcc process per source, all started together.  Returns the wall
     seconds spent; raises with the compiler's output on a failure."""
     t0 = time.perf_counter()
-    todo = [n for n in _SIGNATURES if force or _stale(n)]
+    todo = [s for s in SOURCES if force or _stale(s)]
     if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name in todo:
+    for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
+               "-o", tmp, os.path.join(CSRC_DIR, f"{src}.cu")]
+        procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     errors = []
-    for name, tmp, proc in procs:
+    for src, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            errors.append(f"nvcc {src}.cu failed ({proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, _lib_path(name))
+        os.replace(tmp, _lib_path(src))
         if verbose and log.strip():
-            print(f"nvcc {name}.cu:\n{log.strip()}", flush=True)
+            print(f"nvcc {src}.cu:\n{log.strip()}", flush=True)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed (the
-    sources are checked once a process, at the first load)."""
-    lib = _libs.get(name)
+    """The loaded library of kernel `name`'s source, built first if needed
+    (the sources are checked once a process, at the first load), with the
+    C signature of every kernel it holds set."""
+    src = source(name)
+    lib = _libs.get(src)
     if lib is not None:
         return lib
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(src)
         if lib is None:
             build()
-            lib = ctypes.CDLL(_lib_path(name))
-            fn_name, sig = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_void_p if s == "p" else ctypes.c_int for s in sig
-            ]
+            lib = ctypes.CDLL(_lib_path(src))
+            for kname, (fn_name, sig) in _SIGNATURES.items():
+                if source(kname) != src:
+                    continue
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    ctypes.c_void_p if s == "p" else ctypes.c_int for s in sig
+                ]
             lib.kt_error_string.restype = ctypes.c_char_p
             lib.kt_error_string.argtypes = [ctypes.c_int]
-            _libs[name] = lib
+            _libs[src] = lib
         return lib
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .device_index import sa_walk
+from .device_index import Shards, sa_walk, shard_args
 from .hybrid import S1_STEPS, VBASE, text_extend
 from .search import mem_extend, mem_stats
 
@@ -187,19 +187,27 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
     """(lca, score, flags, n_ids) int32 [B, 4] per read from the
     per-fragment statistics (maxl, tie_cnt [F]; tie_s0, tie_s1 [F, T]) and
     the pop-order slot table rf_rows int32 [B, S] (-1 = pad); sw_ids:
-    None, or the ids of the virtual tie rows.  Kernel D for CUDA tensors,
-    the plain version for CPU tensors."""
+    None, or the ids of the virtual tie rows.  Kernel D for CUDA tensors
+    (its sharded instantiation for a ``Shards`` rec and sa_seq), the plain
+    version for CPU tensors."""
     if maxl.device.type == "cpu":
         return read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C,
                               sa_seq, sa_off, seq_tax, parent, depth, R, cap,
                               nseq, chpt_exp, sw_ids=sw_ids)
     dev = maxl.device
     F, T = tie_s0.shape
+    sharded = isinstance(rec, Shards)
+    if sharded:
+        idx_args = (*shard_args(dev, rec, sa_seq), C)
+    else:
+        idx_args = (rec, rec.shape[0], C, sa_seq, sa_seq.shape[0])
+        kernels.check(rec, "rec", torch.int32, dev, 2)
+        kernels.check(sa_seq, "sa_seq", torch.int32, dev, 1)
     for t, what, nd in ((maxl, "maxl", 1), (tie_cnt, "tie_cnt", 1),
                         (tie_s0, "tie_s0", 2), (tie_s1, "tie_s1", 2),
-                        (rf_rows, "rf_rows", 2), (rec, "rec", 2), (C, "C", 1),
-                        (sa_seq, "sa_seq", 1), (seq_tax, "seq_tax", 1),
-                        (parent, "parent", 1), (depth, "depth", 1)):
+                        (rf_rows, "rf_rows", 2), (C, "C", 1),
+                        (seq_tax, "seq_tax", 1), (parent, "parent", 1),
+                        (depth, "depth", 1)):
         kernels.check(t, what, torch.int32, dev, nd)
     if maxl.shape[0] != F or tie_cnt.shape[0] != F or tie_s1.shape != (F, T):
         raise ValueError("maxl, tie_cnt, tie_s0 and tie_s1 disagree on F or T")
@@ -207,11 +215,11 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
     B, S = rf_rows.shape
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
     if B:
-        kernels.launch("read_lca", maxl, tie_cnt, tie_s0, tie_s1, T,
-                       rf_rows, B, S, rec, rec.shape[0], C, sa_seq,
-                       sa_seq.shape[0], seq_tax, seq_tax.shape[0], parent,
-                       depth, parent.shape[0], R, cap, nseq, chpt_exp,
-                       sw_ids, _nsw(sw_ids), out)
+        kernels.launch("read_lca_sharded" if sharded else "read_lca", maxl,
+                       tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, *idx_args,
+                       seq_tax, seq_tax.shape[0], parent, depth,
+                       parent.shape[0], R, cap, nseq, chpt_exp, sw_ids,
+                       _nsw(sw_ids), out)
     return out
 
 

@@ -11,6 +11,13 @@ query reads one 256-byte row:
 Everything is int32: one index shard keeps its SA positions below 2^31.
 The plain versions below are masked loops over tensors with the kernels'
 contracts; a wrapper takes them only for tensors that lie on the CPU.
+
+An index may also be split into shards (``Shards``, built by
+``parallel.sharded_index.ShardedIndex``): then ``rec``, the SA samples and
+the text are each S tensors, the plain versions read them through the
+owner arithmetic of ``Shards.__getitem__``, and a wrapper launches the
+kernel's sharded instantiation (``<name>_sharded``, csrc/fm_common.cuh
+``kt::ShardIx``).
 """
 
 from __future__ import annotations
@@ -116,6 +123,77 @@ class DeviceIndex:
         return self.text is not None
 
 
+class Shards:
+    """One array of an index split into S contiguous shards, each its own
+    tensor on one device (K16, kaiju_tpu/parallel/sharded_index.py).
+    Element (row) x lives in shard o = min(x // per, S - 1) at x - o * per;
+    a shard holds `per` of them (rank records one end row more).  Indexing
+    with an integer tensor reads every element from its owner, so the
+    plain versions read the shards as they read one tensor; ``shape`` is
+    the whole array's.  ``table`` (int64 [S], on the shards' device) holds
+    the shards' addresses, which the sharded kernels read."""
+
+    def __init__(self, parts: list, per: int, length: int):
+        if not parts or per < 1:
+            raise ValueError("shards need one or more parts and per >= 1")
+        self.parts = list(parts)
+        self.per = int(per)
+        self.S = len(self.parts)
+        p0 = self.parts[0]
+        self.shape = torch.Size((int(length), *p0.shape[1:]))
+        self.dtype = p0.dtype
+        self.device = p0.device
+        self.table = torch.tensor([p.data_ptr() for p in self.parts],
+                                  dtype=torch.int64).to(self.device)
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        idx = torch.as_tensor(idx, device=self.device).long()
+        owner = torch.clamp(idx // self.per, 0, self.S - 1)
+        local = idx - owner * self.per
+        out = torch.empty((*idx.shape, *self.shape[1:]), dtype=self.dtype,
+                          device=self.device)
+        for o, part in enumerate(self.parts):
+            m = owner == o
+            out[m] = part[local[m]]
+        return out
+
+    def check(self, what: str, dtype: torch.dtype, device, rows: int) -> None:
+        """Raise unless every shard is a contiguous tensor of `dtype` on
+        `device` with `rows` rows."""
+        for o, part in enumerate(self.parts):
+            kernels.check(part, f"{what} shard {o}", dtype, device)
+            if part.shape[0] != rows:
+                raise ValueError(f"{what} shard {o}: {part.shape[0]} rows, "
+                                 f"expected {rows}")
+
+
+def shard_args(dev, rec, sa_seq=None, sa_off=None, text=None) -> tuple:
+    """The shard arguments of a sharded kernel (kernels.SHARD_SIG: rec_tab
+    nb_s seq_tab off_tab ns_s nsamp text_tab nt_s S) after checking the
+    shards; the arrays a kernel does not read are None."""
+    rec.check("rec", torch.int32, dev, rec.per + 1)
+    if rec.shape[1] != 64:
+        raise ValueError("rec: rows of 64 words expected")
+    for a, what in ((sa_seq, "sa_seq"), (sa_off, "sa_off"), (text, "text")):
+        if a is None:
+            continue
+        if not isinstance(a, Shards) or a.S != rec.S:
+            raise TypeError(f"{what}: expected {rec.S} shards like rec")
+        a.check(what, torch.uint8 if what == "text" else torch.int32, dev,
+                a.per)
+    if sa_seq is not None and sa_off is not None and (
+            sa_seq.per != sa_off.per or sa_seq.shape != sa_off.shape):
+        raise ValueError("sa_seq, sa_off: shards of different sizes")
+    samp = sa_seq if sa_seq is not None else sa_off
+    return (rec.table, rec.per,
+            None if sa_seq is None else sa_seq.table,
+            None if sa_off is None else sa_off.table,
+            0 if samp is None else samp.per,
+            0 if samp is None else samp.shape[0],
+            None if text is None else text.table,
+            0 if text is None else text.per, rec.S)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -204,18 +282,24 @@ def update_si(rec, C, c, s0, s1):
     if rec.device.type == "cpu":
         return update_si_plain(rec, C, c, s0, s1)
     dev = rec.device
-    kernels.check(rec, "rec", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
     n = c.shape[0]
     for t, what in ((c, "c"), (s0, "s0"), (s1, "s1")):
         kernels.check(t, what, torch.int32, dev, 1)
         if t.shape[0] != n:
             raise ValueError(f"{what}: {t.shape[0]} probes, expected {n}")
-    if rec.shape[1] != 64:
-        raise ValueError("rec: rows of 64 words expected")
     n0 = torch.empty(n, dtype=torch.int32, device=dev)
     n1 = torch.empty(n, dtype=torch.int32, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if isinstance(rec, Shards):
+        args = shard_args(dev, rec)
+        if n:
+            kernels.launch("update_si_sharded", *args, C, c, s0, s1, n, n0,
+                           n1, ok)
+        return n0, n1, ok
+    kernels.check(rec, "rec", torch.int32, dev, 2)
+    if rec.shape[1] != 64:
+        raise ValueError("rec: rows of 64 words expected")
     if n:
         kernels.launch("update_si", rec, rec.shape[0], C, c, s0, s1, n,
                        n0, n1, ok)
@@ -253,9 +337,20 @@ def sa_lookup(rec, C, sa_seq, sa_off, nseq, chpt_exp, k):
     if k.device.type == "cpu":
         return sa_lookup_plain(rec, C, sa_seq, sa_off, nseq, chpt_exp, k)
     dev = k.device
-    _check_index(dev, rec, C)
     n = k.shape[0]
     _check_lanes(dev, n, (k, "k", torch.int32))
+    if isinstance(rec, Shards):
+        kernels.check(C, "C", torch.int32, dev, 1)
+        args = shard_args(dev, rec, sa_seq, sa_off)
+        if sa_seq.shape[0] < 1:
+            raise ValueError("sa_seq, sa_off: one or more samples")
+        iseq = torch.empty(n, dtype=torch.int32, device=dev)
+        pos = torch.empty(n, dtype=torch.int32, device=dev)
+        if n:
+            kernels.launch("sa_lookup_sharded", *args, C, nseq, chpt_exp, k,
+                           n, iseq, pos)
+        return iseq, pos
+    _check_index(dev, rec, C)
     kernels.check(sa_seq, "sa_seq", torch.int32, dev, 1)
     kernels.check(sa_off, "sa_off", torch.int32, dev, 1)
     if sa_seq.shape != sa_off.shape or sa_seq.shape[0] < 1:
@@ -357,11 +452,18 @@ def extend_all(rec, C, codes, flen):
     if codes.device.type == "cpu":
         return extend_all_plain(rec, C, codes, flen)
     dev = codes.device
-    _check_index(dev, rec, C)
     kernels.check(codes, "codes", torch.uint8, dev, 2)
     F, L = codes.shape
     _check_lanes(dev, F, (flen, "flen", torch.int32))
     out = torch.empty((3, F, L), dtype=torch.int32, device=dev)
+    if isinstance(rec, Shards):
+        kernels.check(C, "C", torch.int32, dev, 1)
+        args = shard_args(dev, rec)
+        if F * L:
+            kernels.launch("extend_all_sharded", *args, C, codes, flen, F, L,
+                           out[0], out[1], out[2])
+        return out[0], out[1], out[2]
+    _check_index(dev, rec, C)
     if F * L:
         kernels.launch("extend_all", rec, rec.shape[0], C, codes, flen, F, L,
                        out[0], out[1], out[2])

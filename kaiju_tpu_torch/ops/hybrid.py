@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .device_index import sa_walk
+from .device_index import Shards, sa_walk, shard_args
 from .search import SW_WCAP, _lane_fragments
 
 S1_STEPS = 12  # FM steps after the K-letter seed before the MEM switch
@@ -118,8 +118,9 @@ def text_extend(i, s0, s1, flat, frag_off, sw_len, text, rank_start, rec, C,
     (i, s0, s1) int32 [P] with each switched lane's result as a virtual
     row (VBASE + 8 p, VBASE + 8 p + n), other lanes unchanged, and sw_ids
     int32 [8 P] with lane p's n ids in SA order at [8 p, 8 p + n), zeros
-    elsewhere.  Kernel G (csrc/text_extend.cu) for CUDA tensors, the plain
-    version for CPU tensors."""
+    elsewhere.  Kernel G (csrc/text_extend.cu) for CUDA tensors (its
+    sharded instantiation for a ``Shards`` rec, with the SA samples and the
+    text in shards too), the plain version for CPU tensors."""
     P = i.shape[0]
     if SW_WCAP * P >= VBASE:
         raise ValueError(f"{P} lanes: virtual rows would pass 2^31")
@@ -128,13 +129,21 @@ def text_extend(i, s0, s1, flat, frag_off, sw_len, text, rank_start, rec, C,
                                  rank_start, rec, C, sa_seq, sa_off, nseq,
                                  chpt_exp)
     dev = i.device
+    sharded = isinstance(rec, Shards)
+    if sharded:
+        idx_args = shard_args(dev, rec, sa_seq, sa_off, text)
+    else:
+        idx_args = (rec, rec.shape[0], C, sa_seq, sa_off, sa_seq.shape[0],
+                    nseq, chpt_exp, text)
+        for t, what, nd in ((rec, "rec", 2), (sa_seq, "sa_seq", 1),
+                            (sa_off, "sa_off", 1)):
+            kernels.check(t, what, torch.int32, dev, nd)
+        kernels.check(text, "text", torch.uint8, dev, 1)
     for t, what, nd in ((i, "i", 1), (s0, "s0", 1), (s1, "s1", 1),
                         (frag_off, "frag_off", 1), (rank_start, "rank_start", 1),
-                        (rec, "rec", 2), (C, "C", 1), (sa_seq, "sa_seq", 1),
-                        (sa_off, "sa_off", 1)):
+                        (C, "C", 1)):
         kernels.check(t, what, torch.int32, dev, nd)
     kernels.check(flat, "flat", torch.uint8, dev, 1)
-    kernels.check(text, "text", torch.uint8, dev, 1)
     if not s0.shape == s1.shape == flat.shape == (P,):
         raise ValueError("i, s0, s1 and flat must hold one entry a lane")
     if rank_start.shape[0] != nseq:
@@ -145,8 +154,12 @@ def text_extend(i, s0, s1, flat, frag_off, sw_len, text, rank_start, rec, C,
     if P:
         if F < 1:
             raise ValueError("lanes without a fragment to own them")
-        kernels.launch("text_extend", rec, rec.shape[0], C, sa_seq, sa_off,
-                       sa_seq.shape[0], nseq, chpt_exp, text, rank_start,
-                       flat, P, frag_off, F, sw_len, i, s0, s1, out[0],
-                       out[1], out[2], sw_ids)
+        if sharded:
+            kernels.launch("text_extend_sharded", *idx_args, C, nseq,
+                           chpt_exp, rank_start, flat, P, frag_off, F, sw_len,
+                           i, s0, s1, out[0], out[1], out[2], sw_ids)
+        else:
+            kernels.launch("text_extend", *idx_args, rank_start, flat, P,
+                           frag_off, F, sw_len, i, s0, s1, out[0], out[1],
+                           out[2], sw_ids)
     return out[0], out[1], out[2], sw_ids

@@ -29,7 +29,7 @@ import torch
 
 from .. import kernels
 from .bloom import probe_plain
-from .device_index import rank
+from .device_index import Shards, rank, shard_args
 
 SEED_K = 5  # seed-table depth of the MEM search
 TIE_CAP = 8  # ties kept per fragment
@@ -101,7 +101,8 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
     flat position (see csrc/mem_extend.cu for the contract).  bloom: None,
     or the screen (words int32 [2^(lb-5)], m, lb) with m <= j0 + 1;
     sw_steps: 0, or the steps after which the hybrid's narrow lanes stop.
-    Kernel B for CUDA tensors, the plain version for CPU tensors."""
+    Kernel B for CUDA tensors (its sharded instantiation for a ``Shards``
+    rec), the plain version for CPU tensors."""
     if K < 1 or j0 < K - 1:
         raise ValueError(f"need K >= 1 and j0 >= K - 1 (K={K}, j0={j0})")
     if bloom is not None and not 1 <= bloom[1] <= j0 + 1:
@@ -113,7 +114,10 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
                                 frag_off, K, j0, bloom=bloom,
                                 sw_steps=sw_steps)
     dev = flat.device
-    kernels.check(rec, "rec", torch.int32, dev, 2)
+    sharded = isinstance(rec, Shards)
+    idx_args = (shard_args(dev, rec) if sharded else (rec, rec.shape[0]))
+    if not sharded:
+        kernels.check(rec, "rec", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
     kernels.check(seed_s0, "seed_s0", torch.int32, dev, 1)
     kernels.check(seed_s1, "seed_s1", torch.int32, dev, 1)
@@ -133,9 +137,10 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
                              f"2^{lb - 5}")
     out = torch.empty((3, P), dtype=torch.int32, device=dev)
     if P:
-        kernels.launch("mem_extend", rec, rec.shape[0], C, seed_s0, seed_s1,
-                       seed_d, seed_d.shape[0], flat, P, frag_off, F, K, j0,
-                       words, m, lb, sw_steps, out[0], out[1], out[2])
+        kernels.launch("mem_extend_sharded" if sharded else "mem_extend",
+                       *idx_args, C, seed_s0, seed_s1, seed_d,
+                       seed_d.shape[0], flat, P, frag_off, F, K, j0, words,
+                       m, lb, sw_steps, out[0], out[1], out[2])
         if words is not None:
             kernels.SCREENED["mem_extend"] += 1
     return out[0], out[1], out[2]

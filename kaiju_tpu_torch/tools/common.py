@@ -24,6 +24,13 @@ def open_output(path: str | None):
     return sys.stdout
 
 
+def _kmer_dir(index):
+    """Where the seed tables are cached: KAIJU_TPU_CACHE, else beside the
+    index."""
+    return os.environ.get("KAIJU_TPU_CACHE") or getattr(
+        index, "source_dir", None)
+
+
 def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     """The engine for the configuration, as kaiju_tpu chooses it: -d runs
     the host ExactClassifier (its per-fragment stderr trace interleaves as
@@ -33,12 +40,32 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     host-tail pipelines on the device (engine.mem_fast,
     engine.greedy_fast), whose lines carry the names and fragments; MEM and
     Greedy otherwise run the device pipelines (engine.mem, engine.greedy).
-    Multi-GPU raises NotImplementedError naming the ROADMAP.md item that
-    ports it."""
-    if getattr(args, "mesh_index", 0) or (getattr(args, "dist_nprocs", 0) or 0) > 1:
+    --mesh-index S with -a mem and a taxonomy, without -v and -d, runs the
+    index-sharded pipeline parallel.sharded_fused.ShardedMemPipeline, all
+    S shards on one device.  Many processes (--dist-*, or
+    KAIJU_TPU_NPROCS > 1, which kaiju_tpu reads too) and the sharded forms
+    of the other modes raise NotImplementedError naming the ROADMAP.md item
+    that ports them."""
+    n_index = int(getattr(args, "mesh_index", 0) or 0)
+    nprocs = int(getattr(args, "dist_nprocs", 0)
+                 or os.environ.get("KAIJU_TPU_NPROCS", 0) or 0)
+    if nprocs > 1:
         raise NotImplementedError(
-            "--mesh-index / --dist-*: multi-GPU is ROADMAP.md queue 1 item 10"
+            "--dist-* / KAIJU_TPU_NPROCS: many processes are ROADMAP.md "
+            "queue 1 item 10 (10d)"
         )
+    if n_index:
+        if cfg.mode != "mem" or cfg.verbose or cfg.debug or cfg.taxonomy_free:
+            raise NotImplementedError(
+                "--mesh-index runs -a mem with a taxonomy, without -v and -d;"
+                " sharded Greedy is ROADMAP.md queue 1 item 10 (10c), the "
+                "other modes item 10 (10d)"
+            )
+        from ..parallel.sharded_fused import ShardedMemPipeline
+
+        return ShardedMemPipeline(index, taxonomy, cfg, n_index,
+                                  device=device,
+                                  kmer_cache_dir=_kmer_dir(index))
     if cfg.debug:
         from ..engine.core import ExactClassifier
 
@@ -47,9 +74,7 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
         from ..engine.batch import BatchRunner
 
         return BatchRunner(index, taxonomy, cfg, device=device)
-    kmer_dir = os.environ.get("KAIJU_TPU_CACHE") or getattr(
-        index, "source_dir", None
-    )
+    kmer_dir = _kmer_dir(index)
     if cfg.verbose and cfg.mode == "greedy":
         from ..engine.greedy_fast import GreedyFastPipeline as Pipeline
     elif cfg.verbose:
@@ -141,7 +166,8 @@ def add_engine_args(ap, protein_tool=False):
     ap.add_argument("-b", dest="batch_size", type=int, default=4096,
                     help="reads per device batch")
     ap.add_argument("--mesh-index", dest="mesh_index", type=int, default=0,
-                    help="shard the index over N devices (not ported yet)")
+                    help="split the index into N shards (-a mem; all on "
+                         "one device)")
     ap.add_argument("--dist-coordinator", dest="dist_coordinator",
                     help="host:port of process 0 of a multi-process run "
                          "(not ported yet)")

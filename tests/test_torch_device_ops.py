@@ -127,8 +127,10 @@ def test_kmer_tables_match(env, K):
 
 def test_port_imports_neither_jax_nor_kaiju_tpu():
     """Every module of the port (the verbose paths' engine.mem_fast and
-    engine.greedy_fast among them), and chip_smoke as a module, import
-    without pulling in jax or any kaiju_tpu module."""
+    engine.greedy_fast, the index shards of parallel/, P1 and P2's
+    ops.gather and their benchmark tools.bench_gather among them), and
+    chip_smoke as a module, import without pulling in jax or any kaiju_tpu
+    module."""
     code = r"""
 import importlib, pathlib, sys
 sys.path.insert(0, sys.argv[1])
@@ -137,7 +139,11 @@ mods = [".".join(p.relative_to(pkg.parent).with_suffix("").parts)
         .removesuffix(".__init__") for p in sorted(pkg.rglob("*.py"))]
 assert len(mods) > 30, mods
 assert {"kaiju_tpu_torch.engine.mem_fast", "kaiju_tpu_torch.engine.greedy_fast",
-        "kaiju_tpu_torch.engine.fragments_native"} <= set(mods), mods
+        "kaiju_tpu_torch.engine.fragments_native",
+        "kaiju_tpu_torch.parallel.sharded_index",
+        "kaiju_tpu_torch.parallel.sharded_fused",
+        "kaiju_tpu_torch.ops.gather",
+        "kaiju_tpu_torch.tools.bench_gather"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")

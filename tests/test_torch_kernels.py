@@ -618,3 +618,105 @@ def test_batch_runner_on_the_card_matches_cpu(env, cuda, mode):
     got = BatchRunner(env["idx"], None, cfg).classify_to_lines(reads)
     assert got == want
     assert sum(ln.startswith("C") for ln in want) > 50
+
+
+# ---------------------------------------------------------------------------
+# P1, P2 (gather_rows, gather_sum) and the sharded instantiations (K16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+def test_gather_kernels_match_plain(cuda, n):
+    """P1 and P2 on random rows (sums that wrap int32), for N not a
+    multiple of 32 or of the rows a warp takes; an index outside the table
+    raises before a launch."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(n)
+    tab = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (3000, 128),
+                                        dtype=np.int32))
+    idx = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32))
+    for fn, plain in ((gather.gather_rows, gather.gather_rows_plain),
+                      (gather.gather_sum, gather.gather_sum_plain)):
+        got = fn(tab.to(cuda), idx.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain(tab, idx))
+    kernels.reset_counts()
+    for bad in (-1, 3000):
+        with pytest.raises(IndexError):
+            gather.gather_rows(tab.to(cuda), torch.tensor(
+                [0, bad], dtype=torch.int32, device=cuda))
+    assert kernels.LAUNCHES["gather_rows"] == 0
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_sharded_kernels_match_unsharded(env, cuda, S):
+    """A, J, H, B (screened, stopping the narrow lanes), G and D launched on
+    the index in S shards (S = 3 leaves a padded last shard) equal their
+    unsharded launches on the same inputs; only the sharded kernels
+    launch."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                        sharded_extend_all,
+                                                        sharded_sa_lookup)
+
+    idx = env["idx"]
+    dv = tdev.DeviceIndex(idx, cuda)
+    sh = ShardedIndex(idx, S, cuda)
+    flat, frag_off, rf_rows = (t.to(cuda) for t in _batch(env, 16))
+    seed = tuple(a.to(cuda) for a in env["seed"])
+    rng = np.random.default_rng(S)
+    k = torch.from_numpy(rng.integers(0, idx.length, 5000).astype(np.int32))
+    c = torch.from_numpy(rng.integers(1, idx.alen, 5000).astype(np.int32))
+    s1 = torch.clamp(k + 200, max=idx.length)
+    off = frag_off.cpu().numpy()
+    flen = np.diff(off).astype(np.int32)
+    codes = np.zeros((flen.shape[0], int(flen.max())), dtype=np.uint8)
+    for t in range(flen.shape[0]):
+        codes[t, :flen[t]] = flat.cpu().numpy()[off[t]:off[t + 1]]
+    codes = torch.from_numpy(codes).to(cuda)
+    flen = torch.from_numpy(flen).to(cuda)
+    scr = _screen(env, MIN_LEN, cuda)
+    K, sw_len = search.SEED_K, search.SEED_K + hybrid.S1_STEPS
+    tax = (dv.seq_tax, env["par"].to(cuda), env["dep"].to(cuda), 32, CAP,
+           dv.nseq, dv.chpt_exp)
+
+    def run(ix, sharded):
+        kernels.reset_counts()
+        k_ = k.to(cuda)
+        out = {
+            "A": tdev.update_si(ix.rec, ix.C, c.to(cuda), k_, s1.to(cuda)),
+            "J": (sharded_extend_all(ix, codes, flen) if sharded else
+                  tdev.extend_all(ix.rec, ix.C, codes, flen)),
+            "H": (sharded_sa_lookup(ix, k_) if sharded else tdev.sa_lookup(
+                ix.rec, ix.C, ix.sa_seq, ix.sa_off, ix.nseq, ix.chpt_exp,
+                k_)),
+        }
+        lanes = search.mem_extend(ix.rec, ix.C, *seed, flat, frag_off, K,
+                                  MIN_LEN - 1, bloom=scr,
+                                  sw_steps=hybrid.S1_STEPS)
+        g = hybrid.text_extend(*lanes, flat, frag_off, sw_len, ix.text,
+                               ix.rank_start, ix.rec, ix.C, ix.sa_seq,
+                               ix.sa_off, ix.nseq, ix.chpt_exp)
+        stats = search.mem_stats(*g[:3], frag_off, MIN_LEN, T)
+        out["B"], out["G"] = lanes, g
+        out["D"] = classify.read_lca(*stats[:2], *stats[3:], rf_rows, ix.rec,
+                                     ix.C, ix.sa_seq, ix.sa_off, *tax,
+                                     sw_ids=g[3])
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    want, flat_counts = run(dv, False)
+    got, counts = run(sh, True)
+    for name, w in want.items():
+        w = w if isinstance(w, tuple) else (w,)
+        g = got[name] if isinstance(got[name], tuple) else (got[name],)
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b.cpu()), name
+    index_kernels = ("update_si", "extend_all", "sa_lookup", "mem_extend",
+                     "text_extend", "read_lca")
+    for name in index_kernels:
+        assert flat_counts[name] == 1 and counts[name] == 0, name
+        assert counts[name + "_sharded"] == 1, name
+    assert hybrid.switched(*want["B"], frag_off, sw_len).sum() > 50

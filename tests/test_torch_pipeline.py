@@ -108,7 +108,8 @@ def test_mem_tsv_paired_reads(env):
 def test_cli_main_on_saved_ktx(env):
     """tools.kaiju.main(..., device="cpu") on a saved .ktx writes the
     ExactClassifier's TSV; the last batch holds only reads too short for
-    a fragment.  Multi-GPU still raises, naming its ROADMAP.md item."""
+    a fragment.  --mesh-index 2 (the index in two shards) writes the same
+    TSV; many processes still raise, naming their ROADMAP.md item."""
     work = env["work"]
     ktx = str(work / "db.ktx")
     env["tidx"].save(ktx)
@@ -129,11 +130,15 @@ def test_cli_main_on_saved_ktx(env):
     with open(out) as fh:
         got = fh.read()
     assert got == exact, _diff(got, exact)
-    for other in (["-a", "mem", "--mesh-index", "2"],
-                  ["-a", "mem", "--dist-nprocs", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *other],
-                        device="cpu")
+    mesh_out = str(work / "out_mesh.tsv")
+    assert tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem",
+                        "--mesh-index", "2", "-o", mesh_out, "-b", "64"],
+                       device="cpu") == 0
+    with open(mesh_out) as fh:
+        assert fh.read() == got
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem",
+                     "--dist-nprocs", "2"], device="cpu")
 
 
 def test_mixed_depth_taxa_follow_the_reference(env):

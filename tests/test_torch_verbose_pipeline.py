@@ -333,12 +333,23 @@ def test_cli_debug_trace_matches_jax(env, capsys, mode):
     ({"verbose": True, "taxonomy_free": True}, SimpleNamespace(mesh_index=2),
      "item 10"),
     ({"debug": True}, SimpleNamespace(dist_nprocs=2), "item 10"),
+    ({}, SimpleNamespace(mesh_index=2), r"item 10 \(10c\)"),
+    ({"mode": "mem", "use_Evalue": False, "verbose": True},
+     SimpleNamespace(mesh_index=2), "item 10"),
+    ({"mode": "mem", "use_Evalue": False, "debug": True},
+     SimpleNamespace(mesh_index=1), "item 10"),
+    ({"mode": "mem", "use_Evalue": False, "taxonomy_free": True},
+     SimpleNamespace(mesh_index=2), "item 10"),
+    ({"mode": "mem", "use_Evalue": False}, SimpleNamespace(
+        mesh_index=2, dist_nprocs=2), r"item 10 \(10d\)"),
 ])
 def test_make_runner_refuses_unported_modes(env, what, args, item):
-    """The multi-GPU flags are not ported: make_runner raises, naming their
+    """Many processes are not ported: make_runner raises, naming their
     ROADMAP.md item, before it builds anything, with -v, -d and the
-    taxonomy-free tools too.  The taxonomy-free tools (kaijux, kaijup), MEM
-    and Greedy, with or without -v, get the coroutine runner BatchRunner."""
+    taxonomy-free tools too; --mesh-index runs MEM with a taxonomy alone
+    (tests/test_torch_sharded.py) and raises with Greedy, -v, -d or a
+    taxonomy-free tool.  The taxonomy-free tools (kaijux, kaijup), MEM and
+    Greedy, with or without -v, get the coroutine runner BatchRunner."""
     cfg = TorchConfig(**{"mode": "greedy", **what})
     if item == "BatchRunner":
         runner = common.make_runner(env["index"]["fmi"], None, cfg, args=args,
@@ -349,6 +360,25 @@ def test_make_runner_refuses_unported_modes(env, what, args, item):
     with pytest.raises(NotImplementedError, match=item):
         common.make_runner(env["index"]["fmi"], TorchTaxonomy(env["nodes"]),
                            cfg, args=args, device="cpu")
+
+
+@pytest.mark.parametrize("mesh_index", [0, 2])
+def test_make_runner_refuses_kaiju_tpu_nprocs(env, monkeypatch, mesh_index):
+    """KAIJU_TPU_NPROCS > 1, which starts a multi-process run in kaiju_tpu,
+    raises naming item 10 (10d) instead of running a whole classification
+    in every process; 1 is a single-process run."""
+    cfg = TorchConfig(mode="mem", use_Evalue=False)
+    args = SimpleNamespace(mesh_index=mesh_index)
+    monkeypatch.setenv("KAIJU_TPU_NPROCS", "2")
+    with pytest.raises(NotImplementedError, match=r"item 10 \(10d\)"):
+        common.make_runner(env["index"]["fmi"], TorchTaxonomy(env["nodes"]),
+                           cfg, args=args, device="cpu")
+    monkeypatch.setenv("KAIJU_TPU_NPROCS", "1")
+    runner = common.make_runner(env["index"]["fmi"],
+                                TorchTaxonomy(env["nodes"]), cfg, args=args,
+                                device="cpu")
+    assert type(runner).__name__ == ("ShardedMemPipeline" if mesh_index
+                                     else "MemPipeline")
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
