@@ -28,7 +28,7 @@ Phases, any failure exits non-zero:
      round's variant lanes, also run in the code-row form), and J gets
      the MEM batch's fragments as a padded matrix.  Integer outputs
      equal; time both.  Then each kernel that reads the index (A, J, H,
-     B, G, D) launched on the index in 2 and 4 shards (K16's sharded
+     B, G, D, E, F) launched on the index in 2 and 4 shards (K16's sharded
      instantiations) on the same inputs must equal the unsharded kernel,
      and on the text index its plain version on the shards (timed).  Then
      P1 and P2 through their benchmark, tools.bench_gather (250,000 rows of
@@ -72,20 +72,30 @@ Phases, any failure exits non-zero:
      kaiju-multi with the default flags on two samples (the first two
      batches of phase 4's reads): each output must equal phase 4's Greedy
      lines on db.ktx, and the stdout form their concatenation;
-  4e. the index-sharded MEM path: tools.kaiju.main with -a mem
-     --mesh-index 2 and 4 on the first 16,384 reads of each index (seed
-     tables built afresh, on the shards): every sharded kernel of the path
-     must launch (A, B, D, and G on the text index) and no unsharded
-     kernel that reads the index, and the TSV must equal phase 4's MEM
-     lines of the same reads byte for byte; a steady pass on a warm
-     ShardedMemPipeline beside phase 4b's unsharded rate; then the sharded
-     primitives (J over the first MEM batch's fragments, H on their SA
-     positions) against the unsharded kernels;
+  4e. the index-sharded paths: tools.kaiju.main with -a mem and with the
+     default flags (Greedy), each with --mesh-index 2 and 4, on the first
+     16,384 reads of each index (seed tables built afresh, on the
+     shards): every sharded kernel of the path must launch (A, B, D, and
+     G on the text index, for MEM; A, B, E, F for Greedy) and no
+     unsharded kernel that reads the index, and the TSV must equal phase
+     4's lines of the same reads and path byte for byte; a steady pass on
+     a warm sharded pipeline beside phase 4b's unsharded rate; then the
+     sharded primitives (J over the first MEM batch's fragments, H on
+     their SA positions) against the unsharded kernels;
+  4f. many processes on one card: tools.kaiju.main as 2 processes on
+     cuda:0 (--dist-nprocs 2, a coordinator on 127.0.0.1, --dist-pid p;
+     this script started again with --kaiju-worker, each process with its
+     own -o and seed-table cache), on the first 16,384 reads of
+     db_text.ktx, with -a mem and with the default flags, each with and
+     without --mesh-index 2: each process must launch every kernel of
+     its path, each read must be in exactly one output, the one its batch
+     share names, and the lines merged by read must equal phase 4's; the
+     processes' wall beside the one-process main() of the same reads;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards; the launches of every run of phases 4,
-     4c, 4d and 4e, each counted from 0, and of P1 and P2's benchmark; each
-     error the largest of all the kernel's comparisons), then the result
-     line.
+     4c, 4d, 4e and 4f, each counted from 0, and of P1 and P2's benchmark;
+     each error the largest of all the kernel's comparisons), then the
+     result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -130,15 +140,19 @@ REPLACES = {
     "mem_extend_sharded": "kaiju_tpu/parallel/sharded_fused.py:52",
     "text_extend_sharded": "kaiju_tpu/parallel/sharded_fused.py:153",
     "read_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:78",
+    "greedy_search_sharded": "kaiju_tpu/parallel/sharded_fused.py:278",
+    "ranges_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:278",
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
 # the kernels that read the index, whose sharded instantiations (K16) the
-# index-sharded MEM path runs (A for the seed tables, H and J beside them)
+# index-sharded paths run (A for the seed tables; B, G, D for MEM; B, E, F
+# for Greedy; H and J beside them)
 SHARDED = ("update_si", "extend_all", "sa_lookup", "mem_extend",
-           "text_extend", "read_lca")
+           "text_extend", "read_lca", "greedy_search", "ranges_lca")
 MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
-MESH_READS = 4 * BATCH  # reads of each phase 4e run
+MESH_READS = 4 * BATCH  # reads of each phase 4e and 4f run
+NPROCS = 2  # processes of each phase 4f run, all on cuda:0
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), and the CLI flags that select the path
 PATHS = {
@@ -520,7 +534,8 @@ def check_kernels(index, reads, ktx_dir):
            lambda: greedy.greedy_search(*ge, hyb=hyb),
            lambda: greedy.greedy_search_plain(*ge, hyb=hyb), touched,
            P * (12 + 1) + 4 * (F + 1) + 4 * B * S + B * (8 + 8 * T),
-           f"{B:,} reads, {P:,} lanes, -e 3, {virt:,} virtual tie rows")
+           f"{B:,} reads, {P:,} lanes, -e 3, {virt:,} virtual tie rows",
+           call=(ge, {"hyb": hyb}))
 
     gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.seq_tax,
           par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq, dv.chpt_exp)
@@ -531,7 +546,7 @@ def check_kernels(index, reads, ktx_dir):
            lambda: classify.ranges_lca(*gf, sw_ids=found[4]),
            lambda: classify.ranges_lca_plain(*gf, sw_ids=found[4]), touched,
            8 * B * T + 16 * B, f"{B:,} reads, {int((found[0] > 0).sum()):,} "
-           "with a best")
+           "with a best", call=(gf, {"sw_ids": found[4]}))
     torch.cuda.synchronize()
     del dv, screens
     torch.cuda.empty_cache()
@@ -710,7 +725,8 @@ def check_sharded(index, inputs, n_shards: int, timed: bool):
     measure() tuple or (max_abs_err,)}."""
     import torch
 
-    from kaiju_tpu_torch.ops import classify, device_index, hybrid, search
+    from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
+                                     search)
     from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
 
     fns = {"update_si": (device_index.update_si, device_index.update_si_plain),
@@ -719,7 +735,9 @@ def check_sharded(index, inputs, n_shards: int, timed: bool):
            "sa_lookup": (device_index.sa_lookup, device_index.sa_lookup_plain),
            "mem_extend": (search.mem_extend, search.mem_extend_plain),
            "text_extend": (hybrid.text_extend, hybrid.text_extend_plain),
-           "read_lca": (classify.read_lca, classify.read_lca_plain)}
+           "read_lca": (classify.read_lca, classify.read_lca_plain),
+           "greedy_search": (greedy.greedy_search, greedy.greedy_search_plain),
+           "ranges_lca": (classify.ranges_lca, classify.ranges_lca_plain)}
     sh = ShardedIndex(index, n_shards, torch.device("cuda"))
     out = {}
     for name in SHARDED:
@@ -731,15 +749,18 @@ def check_sharded(index, inputs, n_shards: int, timed: bool):
         if dv.has_text:
             swap[id(dv.text)] = sh.text
         sargs = tuple(swap.get(id(a), a) for a in args)
+        # E's hybrid is a keyword tuple of index arrays
+        skw = {k: tuple(swap.get(id(x), x) for x in v)
+               if isinstance(v, tuple) else v for k, v in kw.items()}
         fn, plain = fns[name]
-        got = fn(*sargs, **kw)
+        got = fn(*sargs, **skw)
         err = max_abs_err(got, fn(*args, **kw))
         if timed:
             touched = []
-            want = plain(*sargs, touched, **kw)
+            want = plain(*sargs, touched, **skw)
             err_p, *rest = measure(
-                got, want, lambda: fn(*sargs, **kw),
-                lambda: plain(*sargs, **kw), touched, other_bytes,
+                got, want, lambda: fn(*sargs, **skw),
+                lambda: plain(*sargs, **skw), touched, other_bytes,
                 f"{note}; {n_shards} shards of {sh.nb_s:,} blocks")
             out[name + "_sharded"] = (max(err, err_p), *rest)
         else:
@@ -853,10 +874,9 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str, tag: str):
     from kaiju_tpu_torch.tools import kaiju
 
     engine = greedy if mode == "greedy" else mem
-    path_kernels, flags = PATHS[mode]
+    flags = PATHS[mode][1]
     text = index.text is not None
-    if text and mode == "mem":
-        path_kernels = path_kernels + ("text_extend",)
+    path = kernels_of(mode, text, False)
     name = f"{mode} {tag}"
     shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
     out_tsv = os.path.join(os.path.dirname(ktx), f"out_{mode}_{tag}.tsv")
@@ -883,7 +903,7 @@ def run_cli(index, reads, ktx, nodes, fq, mode: str, tag: str):
         f"{screened}")
     if replay["reads"] != READS:
         raise AssertionError(f"classified {replay['reads']} of {READS} reads")
-    idle = [k for k in path_kernels if launches[k] <= 0]
+    idle = [k for k in path if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels of the {name} path did not launch: "
                              f"{idle} ({launches})")
@@ -1404,58 +1424,69 @@ def run_multi(ktx, nodes, reads, base_tsv):
 
 
 # ---------------------------------------------------------------------------
-# phase 4e: the index-sharded MEM path
+# phase 4e: the index-sharded paths
 # ---------------------------------------------------------------------------
 
 
-def run_mesh(index, reads, ktx, nodes, tag, n_shards, base_tsv, base_rate,
-             warm):
-    """kaiju -a mem --mesh-index n_shards through tools.kaiju.main on the
-    first MESH_READS reads (seed tables built afresh, on the shards): every
-    sharded kernel of the path must launch (G on the text index), no
-    unsharded kernel that reads the index, and the TSV must equal phase 4's
-    MEM lines of the same reads (base_tsv) byte for byte.  Then a steady
-    pass on a new ShardedMemPipeline warmed by one batch of other reads,
-    beside phase 4b's unsharded rate (base_rate).  Returns the launch
-    counts."""
+def kernels_of(mode: str, text: bool, sharded: bool) -> list:
+    """The kernels a run of `mode` must launch: on a text index MEM adds
+    G; sharded, each kernel that reads the index (SHARDED) in its sharded
+    instantiation."""
+    names = list(PATHS[mode][0])
+    if text and mode == "mem":
+        names.append("text_extend")
+    return [n + "_sharded" if sharded and n in SHARDED else n for n in names]
+
+
+def run_mesh(index, reads, ktx, nodes, tag, mode, n_shards, base_tsv,
+             base_rate, warm):
+    """kaiju --mesh-index n_shards on the path `mode` through
+    tools.kaiju.main on the first MESH_READS reads (seed tables built
+    afresh, on the shards): every sharded kernel of the path must launch,
+    no unsharded kernel that reads the index, and the TSV must equal phase
+    4's lines of the same reads and path (base_tsv) byte for byte.  Then a
+    steady pass on a new sharded pipeline warmed by one batch of other
+    reads, beside phase 4b's unsharded rate (base_rate).  Returns the
+    launch counts."""
     import torch
 
     from kaiju_tpu_torch import kernels
-    from kaiju_tpu_torch.engine import mem
+    from kaiju_tpu_torch.engine import greedy, mem
     from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
-    from kaiju_tpu_torch.parallel.sharded_fused import ShardedMemPipeline
+    from kaiju_tpu_torch.parallel import sharded_fused
     from kaiju_tpu_torch.tools import kaiju, readgen
 
-    name = f"mem --mesh-index {n_shards} {tag}"
-    text = index.text is not None
-    path = ["update_si", "mem_extend", "read_lca"] + (["text_extend"]
-                                                      if text else [])
+    engine = greedy if mode == "greedy" else mem
+    Pipeline = (sharded_fused.ShardedGreedyPipeline if mode == "greedy"
+                else sharded_fused.ShardedMemPipeline)
+    name = f"{mode} --mesh-index {n_shards} {tag}"
+    path = kernels_of(mode, index.text is not None, True)
     fq = os.path.join(os.path.dirname(ktx), f"reads_{MESH_READS}.fastq")
     if not os.path.exists(fq):
         readgen.write_fastq([(n, q) for n, q, _ in reads[:MESH_READS]], fq)
     shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
     out_tsv = os.path.join(os.path.dirname(ktx),
-                           f"out_mem_mesh{n_shards}_{tag}.tsv")
+                           f"out_{mode}_mesh{n_shards}_{tag}.tsv")
     kernels.reset_counts()
-    mem.reset_counts()
+    engine.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-a", "mem",
+    rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1],
                      "--mesh-index", str(n_shards), "-o", out_tsv,
                      "-b", str(BATCH)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if rc != 0:
-        raise AssertionError(f"kaiju main --mesh-index {n_shards} returned "
-                             f"{rc}")
+        raise AssertionError(f"kaiju main {name} returned {rc}")
     log(f"e2e {name}: {MESH_READS:,} reads in {dt:.2f} s = "
         f"{MESH_READS / dt:.1f} reads/s with set-up; host replay "
-        f"{mem.HOST_REPLAY['flagged']} reads; launches {json.dumps(launches)}")
-    idle = [k + "_sharded" for k in path if launches[k + "_sharded"] <= 0]
-    idle += ["mem_stats"] if launches["mem_stats"] <= 0 else []
+        f"{engine.HOST_REPLAY['flagged']} reads; launches "
+        f"{json.dumps(launches)}")
+    idle = [k for k in path if launches[k] <= 0]
     unsharded = [k for k in SHARDED if launches[k]]
-    stray = [k for k in SHARDED if k not in path and launches[k + "_sharded"]]
+    stray = [k + "_sharded" for k in SHARDED
+             if launches[k + "_sharded"] and k + "_sharded" not in path]
     if idle or unsharded or stray:
         raise AssertionError(f"{name}: kernels of the path that did not "
                              f"launch {idle}, unsharded kernels that did "
@@ -1466,29 +1497,29 @@ def run_mesh(index, reads, ktx, nodes, tag, n_shards, base_tsv, base_rate,
         want = [next(fh) for _ in range(MESH_READS)]
     same = sum(g == w for g, w in zip(got, want))
     log(f"check {name}: {same:,} of {MESH_READS:,} lines equal phase 4's "
-        f"unsharded MEM lines ({sum(w.startswith('C') for w in want):,} "
+        f"unsharded {mode} lines ({sum(w.startswith('C') for w in want):,} "
         "classified)")
     if len(got) != MESH_READS or same != MESH_READS:
         raise AssertionError(f"{name}: the TSV differs from phase 4's")
 
     tax = Taxonomy(parse_nodes_dmp(nodes))
-    pipe = ShardedMemPipeline(index, tax, cli_config("mem"), n_shards,
-                              kmer_cache_dir=index.source_dir)
+    pipe = Pipeline(index, tax, cli_config(mode), n_shards,
+                    kmer_cache_dir=index.source_dir)
     pipe.classify_batch(warm)
     torch.cuda.synchronize()
-    mem.reset_counts()
+    engine.reset_counts()
     batches = [reads[i:i + BATCH] for i in range(0, MESH_READS, BATCH)]
     t0 = time.perf_counter()
     n = sum(len(r) for r in pipe.classify_stream(batches))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    host = dict(mem.HOST_SECONDS)
+    host = dict(engine.HOST_SECONDS)
     host["other"] = wall - sum(host.values())
     log(f"steady {name}: {n:,} reads in {wall:.3f} s = {n / wall:.1f} "
         f"reads/s untraced; unsharded {base_rate:.1f} reads/s (phase 4b, "
         "65,536 reads); host seconds " + ", ".join(
             f"{k} {v:.3f} ({v / wall:.1%})" for k, v in host.items())
-        + f"; replayed {mem.HOST_REPLAY['flagged']} reads")
+        + f"; replayed {engine.HOST_REPLAY['flagged']} reads")
     del pipe
     torch.cuda.empty_cache()
     return {k: launches[k] for k in REPLACES}
@@ -1550,6 +1581,159 @@ def run_sharded_primitives(index, reads, n_shards):
     del sh, dv
     torch.cuda.empty_cache()
     return {n: launches[n] for n in REPLACES}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: many processes on one card
+# ---------------------------------------------------------------------------
+
+
+def kaiju_worker(counts_path: str, argv: list) -> int:
+    """One process of a phase 4f run: tools.kaiju.main(argv) on this
+    process's card (the --dist-* flags in argv), then its exit code, card,
+    launch counts and seconds to counts_path as JSON."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.tools import kaiju
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = kaiju.main(argv)
+    torch.cuda.synchronize()
+    with open(counts_path, "w") as fh:
+        json.dump({"rc": rc, "device": str(torch.cuda.current_device()),
+                   "launches": kernels.LAUNCHES,
+                   "seconds": time.perf_counter() - t0}, fh)
+    return rc
+
+
+def fresh_cache(ktx: str, path: str) -> str:
+    """A cache directory at path with the index's Bloom bitmaps and no seed
+    tables, so that a run builds its tables (kernel A) without racing
+    another process for the index's own cache."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    for f in os.listdir(ktx):
+        if f.startswith("bloom_"):
+            os.symlink(os.path.join(ktx, f), os.path.join(path, f))
+    return path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
+    """tools.kaiju.main on the path `mode` (with --mesh-index n_shards if
+    given) as NPROCS processes on cuda:0 (--dist-nprocs, a coordinator on
+    127.0.0.1, --dist-pid p, each with its own -o and seed-table cache), on
+    the first MESH_READS reads: each process must launch every kernel of
+    its path on the card, each read must be in exactly one output, the one
+    its batch share names, and the lines merged by read must equal phase
+    4's lines (base_tsv).  Then the one-process main() of the same reads,
+    timed beside the processes' wall.  Returns the launch counts of all
+    the processes."""
+    import torch
+
+    from kaiju_tpu_torch.parallel.multihost import local_rows
+    from kaiju_tpu_torch.tools import kaiju
+
+    work = os.path.dirname(ktx)
+    mesh = ["--mesh-index", str(n_shards)] if n_shards else []
+    name = f"{mode}{' --mesh-index %d' % n_shards if n_shards else ''}"
+    fq = os.path.join(work, f"reads_{MESH_READS}.fastq")
+    argv = ["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1], *mesh,
+            "-b", str(BATCH)]
+    coord = f"127.0.0.1:{free_port()}"
+    outs, counts, logs, procs = [], [], [], []
+    tag = f"{mode}_mesh{n_shards}"
+    t0 = time.perf_counter()
+    try:
+        for p in range(NPROCS):
+            outs.append(os.path.join(work, f"out_procs_{tag}_p{p}.tsv"))
+            counts.append(os.path.join(work, f"counts_{tag}_p{p}.json"))
+            logs.append(open(os.path.join(work, f"log_{tag}_p{p}.txt"), "w"))
+            env = dict(os.environ, KAIJU_TPU_CACHE=fresh_cache(
+                ktx, os.path.join(work, f"cache_{tag}_p{p}")))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
+                 counts[p], *argv, "-o", outs[p], "--dist-nprocs",
+                 str(NPROCS), "--dist-coordinator", coord, "--dist-pid",
+                 str(p)], env=env, stdout=logs[p], stderr=subprocess.STDOUT))
+        rcs = [proc.wait(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs:
+            fh.close()
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        for p, fh in enumerate(logs):
+            with open(fh.name) as f:
+                log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
+        raise AssertionError(f"{name} x{NPROCS}: exit codes {rcs}")
+    path = kernels_of(mode, index.text is not None, bool(n_shards))
+    launches = {k: 0 for k in REPLACES}
+    for p, cpath in enumerate(counts):
+        with open(cpath) as fh:
+            got = json.load(fh)
+        idle = [k for k in path if got["launches"][k] <= 0]
+        stray = [k for k in REPLACES if k not in path and got["launches"][k]]
+        log(f"e2e {name} process {p} of {NPROCS}: cuda:{got['device']}, "
+            f"{got['seconds']:.2f} s in main(); launches "
+            f"{json.dumps(got['launches'])}")
+        if idle or stray or got["device"] != "0":
+            raise AssertionError(f"{name} process {p}: kernels that did not "
+                                 f"launch {idle}, others {stray}, card "
+                                 f"{got['device']}")
+        for k in launches:
+            launches[k] += got["launches"][k]
+
+    names = [n for n, _q, _r in reads[:MESH_READS]]
+    owner = {}
+    for b0 in range(0, MESH_READS, BATCH):
+        for p in range(NPROCS):
+            lo, hi = local_rows(min(BATCH, MESH_READS - b0), NPROCS, p)
+            owner.update((names[r], p) for r in range(b0 + lo, b0 + hi))
+    lines = {}
+    for p, out in enumerate(outs):
+        with open(out) as fh:
+            for ln in fh:
+                n = ln.split("\t")[1]
+                if n in lines or owner.get(n) != p:
+                    raise AssertionError(f"{name}: read {n} twice or in "
+                                         f"process {p}'s output")
+                lines[n] = ln
+    with open(base_tsv) as fh:
+        want = [next(fh) for _ in range(MESH_READS)]
+    same = sum(lines.get(n) == w for n, w in zip(names, want))
+
+    fq_cache = fresh_cache(ktx, os.path.join(work, f"cache_{tag}_one"))
+    os.environ["KAIJU_TPU_CACHE"] = fq_cache
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rc = kaiju.main(argv + ["-o", os.path.join(work, f"out_one_{tag}.tsv")])
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t1
+    finally:
+        del os.environ["KAIJU_TPU_CACHE"]
+    log(f"e2e {name} x{NPROCS} on one card: {MESH_READS:,} reads, "
+        f"{len(lines):,} written once each, {same:,} equal to phase 4's "
+        f"lines; wall {wall:.2f} s for the processes (start-up, index load, "
+        f"seed tables and classification) against {one:.2f} s for the "
+        "one-process main() in this process")
+    if rc != 0 or len(lines) != MESH_READS or same != MESH_READS:
+        raise AssertionError(f"{name} x{NPROCS}: the merged lines differ "
+                             "from phase 4's")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1685,15 +1869,24 @@ def run(args) -> int:
                           tsvs["greedy"]["fmi"]).items():
         launches[k] += c
 
-    # ---- 4e. the index-sharded MEM path, each run counted from 0 ---------
+    # ---- 4e. the index-sharded paths, each run counted from 0 ------------
     for tag in ("text", "fmi"):
         for n_shards in MESH:
-            for k, c in run_mesh(indexes[tag], reads, ktx[tag], nodes, tag,
-                                 n_shards, tsvs["mem"][tag],
-                                 rates["mem", tag], warm).items():
-                launches[k] += c
+            for mode in PATHS:
+                for k, c in run_mesh(indexes[tag], reads, ktx[tag], nodes,
+                                     tag, mode, n_shards, tsvs[mode][tag],
+                                     rates[mode, tag], warm).items():
+                    launches[k] += c
             for k, c in run_sharded_primitives(indexes[tag], reads,
                                                n_shards).items():
+                launches[k] += c
+
+    # ---- 4f. many processes on one card, each counted from 0 -------------
+    for n_shards in (0, MESH[0]):
+        for mode in PATHS:
+            for k, c in run_processes(indexes["text"], reads, ktx["text"],
+                                      nodes, mode, n_shards,
+                                      tsvs[mode]["text"]).items():
                 launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
@@ -1719,6 +1912,9 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--kaiju-worker"]:  # one process of phase 4f
+        return kaiju_worker(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)

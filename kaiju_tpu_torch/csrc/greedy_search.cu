@@ -54,6 +54,12 @@
 // through ballots, which keeps the JAX order.  Per position, node flags and
 // diagonal prefix sums live in scratch the wrapper allocates; the length
 // histogram of the planned-node rule lives in shared memory.
+//
+// kt_greedy_search_sharded runs the same body on an index split into
+// shards (kt::ShardIx): K16f, kaiju_tpu/parallel/sharded_fused.py:
+// make_sharded_greedy_classify (:278-390), whose rank pairs are
+// _make_rank1's and whose last level's walks are _make_walk's.  Virtual
+// tie rows are slots of sw_ids, never rows of a shard.
 #include "text_common.cuh"
 
 namespace {
@@ -74,14 +80,14 @@ using kt::warp_incl_min;
 using kt::warp_incl_sum;
 using kt::warp_max;
 
+template <class Ix>
 struct Args {
     const int *li, *ls0, *ls1;  // B's lanes
     const uint8_t* flat;
     const int* frag_off;
     const int* rf_rows;
     int B, S;
-    const int* rec;
-    int nb1;
+    Ix index;  // rank rows; with the hybrid also SA samples and text
     const int* C;
     const int *diag, *submat, *subcode, *subdiag;  // [32], [32 * 19] x 3
     int Lmap, mfl, min_score, mismatches, T, vcap;
@@ -90,14 +96,11 @@ struct Args {
     int* src;       // [B, 2, vcap, kSrcInts]
     int *best, *flags, *g_s0, *g_s1;
     // the last level's hybrid: off when sw_ids is null
-    const uint8_t* text;
-    const int *rank_start, *sa_seq, *sa_off;
-    int nsamp, nseq, chpt_exp;
+    const int* rank_start;
+    int nseq, chpt_exp;
     int* sw_ids;  // [B, T, kSwWcap]
 
-    __device__ kt::FlatIx ix() const {
-        return {rec, nb1, sa_seq, sa_off, nsamp, text};
-    }
+    __device__ const Ix& ix() const { return index; }
 };
 
 // The read's running best and its tie list, in event order.  Every lane
@@ -133,7 +136,8 @@ struct Ties {
 };
 
 // Diagonal sum over the first x codes of the fragment at base.
-__device__ __forceinline__ int pref(const Args& a, int base, int x) {
+template <class A>
+__device__ __forceinline__ int pref(const A& a, int base, int x) {
     return x > 0 ? a.pincl[base + x - 1] : 0;
 }
 
@@ -159,7 +163,8 @@ __device__ __forceinline__ int push_src(int* buf, int n, int vcap, bool on,
     return n + __popc(bal);
 }
 
-__global__ void greedy_search_kernel(Args a) {
+template <class Ix>
+__global__ void greedy_search_kernel(Args<Ix> a) {
     __shared__ int s_hist[kWarps][kQlCap];
     __shared__ int s_frag[kWarps][kMaxS];
     const int w = threadIdx.x >> 5;
@@ -410,6 +415,13 @@ __global__ void greedy_search_kernel(Args a) {
     }
 }
 
+template <class Ix>
+int launch(const Args<Ix>& a, cudaStream_t stream) {
+    const int blocks = (a.B + kWarps - 1) / kWarps;
+    greedy_search_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 KT_EXPORT int kt_greedy_search(
@@ -422,12 +434,30 @@ KT_EXPORT int kt_greedy_search(
     const int* rank_start, const int* sa_seq, const int* sa_off, int nsamp,
     int nseq, int chpt_exp, int* sw_ids, cudaStream_t stream) {
     (void)F;  // the slot table names the fragment rows
-    const Args a{li, ls0, ls1, flat, frag_off, rf_rows, B, S, rec, nb1, C,
-                 diag, submat, subcode, subdiag, Lmap, mfl, min_score,
-                 mismatches, T, vcap, node, pincl, src, best, flags, g_s0,
-                 g_s1, text, rank_start, sa_seq, sa_off, nsamp, nseq,
-                 chpt_exp, sw_ids};
-    const int blocks = (B + kWarps - 1) / kWarps;
-    greedy_search_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
+    return launch(
+        Args<kt::FlatIx>{li, ls0, ls1, flat, frag_off, rf_rows, B, S,
+                         kt::FlatIx{rec, nb1, sa_seq, sa_off, nsamp, text},
+                         C, diag, submat, subcode, subdiag, Lmap, mfl,
+                         min_score, mismatches, T, vcap, node, pincl, src,
+                         best, flags, g_s0, g_s1, rank_start, nseq, chpt_exp,
+                         sw_ids},
+        stream);
+}
+
+KT_EXPORT int kt_greedy_search_sharded(
+    const int* li, const int* ls0, const int* ls1, const uint8_t* flat,
+    const int* frag_off, int F, const int* rf_rows, int B, int S,
+    KT_SHARD_PARAMS, const int* C, const int* diag, const int* submat,
+    const int* subcode, const int* subdiag, int Lmap, int mfl, int min_score,
+    int mismatches, int T, int vcap, uint8_t* node, int* pincl, int* src,
+    int* best, int* flags, int* g_s0, int* g_s1, const int* rank_start,
+    int nseq, int chpt_exp, int* sw_ids, cudaStream_t stream) {
+    (void)F;
+    return launch(
+        Args<kt::ShardIx>{li, ls0, ls1, flat, frag_off, rf_rows, B, S,
+                          KT_SHARD_IX, C, diag, submat, subcode, subdiag,
+                          Lmap, mfl, min_score, mismatches, T, vcap, node,
+                          pincl, src, best, flags, g_s0, g_s1, rank_start,
+                          nseq, chpt_exp, sw_ids},
+        stream);
 }

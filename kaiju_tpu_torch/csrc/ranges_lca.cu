@@ -14,6 +14,12 @@
 // Bound: the SA walks, one random 256-byte record row per LF step, plus
 // the ranges in and 12 bytes a read out; device-memory bytes at 3.35 TB/s.
 // Design: one warp per read (see lca_common.cuh).
+//
+// kt_ranges_lca_sharded runs the same on an index split into shards
+// (kt::ShardIx): the tail of K16f, kaiju_tpu/parallel/sharded_fused.py:
+// make_sharded_greedy_classify (:278-390), whose SA walks are
+// _make_walk's (:78-150).  A virtual row (kt::kVBase and up) takes its id
+// from sw_ids and never goes through the owner rule.
 #include "lca_common.cuh"
 
 namespace {
@@ -28,12 +34,11 @@ struct ReadRanges {
     }
 };
 
+template <class Ix>
 __global__ void ranges_lca_kernel(
     const int* __restrict__ g_s0, const int* __restrict__ g_s1, int B, int G,
-    const int* __restrict__ rec, int nb1, const int* __restrict__ C,
-    const int* __restrict__ sa_seq, int nsamp,
-    const int* __restrict__ seq_tax, int ntax,
-    const int* __restrict__ parent, const int* __restrict__ depth,
+    const Ix ix, const int* __restrict__ C, const int* __restrict__ seq_tax,
+    int ntax, const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
     const int* __restrict__ sw_ids, int nsw, int* __restrict__ out_lca,
     int* __restrict__ out_n_ids, int* __restrict__ out_need_more,
@@ -45,14 +50,29 @@ __global__ void ranges_lca_kernel(
     int* pos = smem + w * 2 * R;
     const ReadRanges ranges{g_s0 + (size_t)b * G, g_s1 + (size_t)b * G};
     const kt::LcaResult res = kt::ranges_lca_warp(
-        ranges, G, pos, pos + R,
-        kt::FlatIx{rec, nb1, sa_seq, nullptr, nsamp, nullptr}, C, seq_tax,
-        ntax, parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
+        ranges, G, pos, pos + R, ix, C, seq_tax, ntax, parent, depth, maxtax,
+        R, cap, nseq, chpt_exp, sw_ids, nsw);
     if ((threadIdx.x & 31) != 0) return;
     out_lca[b] = res.lca;
     out_n_ids[b] = res.n_ids;
     out_need_more[b] = res.need_more;
     out_tie_order[b] = res.n_ranges > 1 && res.cut;
+}
+
+template <class Ix>
+int launch(const int* g_s0, const int* g_s1, int B, int G, const Ix& ix,
+           const int* C, const int* seq_tax, int ntax, const int* parent,
+           const int* depth, int maxtax, int R, int cap, int nseq,
+           int chpt_exp, const int* sw_ids, int nsw, int* out_lca,
+           int* out_n_ids, int* out_need_more, int* out_tie_order,
+           cudaStream_t stream) {
+    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
+    const int blocks = (B + kWarps - 1) / kWarps;
+    ranges_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
+        g_s0, g_s1, B, G, ix, C, seq_tax, ntax, parent, depth, maxtax, R,
+        cap, nseq, chpt_exp, sw_ids, nsw, out_lca, out_n_ids, out_need_more,
+        out_tie_order);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -65,11 +85,20 @@ KT_EXPORT int kt_ranges_lca(const int* g_s0, const int* g_s1, int B, int G,
                             const int* sw_ids, int nsw, int* out_lca,
                             int* out_n_ids, int* out_need_more,
                             int* out_tie_order, cudaStream_t stream) {
-    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
-    const int blocks = (B + kWarps - 1) / kWarps;
-    ranges_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
-        g_s0, g_s1, B, G, rec, nb1, C, sa_seq, nsamp, seq_tax, ntax, parent,
-        depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw, out_lca,
-        out_n_ids, out_need_more, out_tie_order);
-    return static_cast<int>(cudaGetLastError());
+    return launch(g_s0, g_s1, B, G,
+                  kt::FlatIx{rec, nb1, sa_seq, nullptr, nsamp, nullptr}, C,
+                  seq_tax, ntax, parent, depth, maxtax, R, cap, nseq,
+                  chpt_exp, sw_ids, nsw, out_lca, out_n_ids, out_need_more,
+                  out_tie_order, stream);
+}
+
+KT_EXPORT int kt_ranges_lca_sharded(
+    const int* g_s0, const int* g_s1, int B, int G, KT_SHARD_PARAMS,
+    const int* C, const int* seq_tax, int ntax, const int* parent,
+    const int* depth, int maxtax, int R, int cap, int nseq, int chpt_exp,
+    const int* sw_ids, int nsw, int* out_lca, int* out_n_ids,
+    int* out_need_more, int* out_tie_order, cudaStream_t stream) {
+    return launch(g_s0, g_s1, B, G, KT_SHARD_IX, C, seq_tax, ntax, parent,
+                  depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw,
+                  out_lca, out_n_ids, out_need_more, out_tie_order, stream);
 }

@@ -7,7 +7,9 @@ the taxonomy on the card, the text-compare hybrid of an index with a text
 copy, the native fragmenter, the host replay of flagged reads, and the
 stream with its lookahead.  Each pipeline keeps its own counters
 (``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
-``submit_batch`` and ``collect_batch``."""
+``submit_batch`` and ``collect_batch``.  ``ProcessShare`` runs any of
+them as one process of several (``parallel.multihost``) on its share of
+each batch."""
 
 from __future__ import annotations
 
@@ -114,3 +116,43 @@ class DevicePipeline(DeviceSetup):
                 yield self.collect_batch(q.popleft())
         while q:
             yield self.collect_batch(q.popleft())
+
+
+class ProcessShare:
+    """Process pid of nprocs running `pipe` (a device pipeline) on its
+    share of each batch, ``multihost.local_rows``: only those reads are
+    fragmented, uploaded and classified, and the results hold None for
+    every read a peer owns (kaiju_tpu's collect_batch,
+    parallel/sharded_fused.py:636-638).  A process whose share of a batch
+    is empty launches nothing for it.  The stream ends at a barrier of all
+    the processes."""
+
+    LOOKAHEAD = DevicePipeline.LOOKAHEAD
+
+    def __init__(self, pipe, nprocs: int, pid: int):
+        self.pipe = pipe
+        self.nprocs = nprocs
+        self.pid = pid
+
+    def submit_batch(self, reads):
+        from ..parallel.multihost import local_rows
+
+        lo, hi = local_rows(len(reads), self.nprocs, self.pid)
+        sub = self.pipe.submit_batch(reads[lo:hi]) if hi > lo else None
+        return len(reads), lo, sub
+
+    def collect_batch(self, state) -> list:
+        n, lo, sub = state
+        out = [None] * n
+        if sub is not None:
+            mine = self.pipe.collect_batch(sub)
+            out[lo:lo + len(mine)] = mine
+        return out
+
+    classify_batch = DeviceSetup.classify_batch
+
+    def classify_stream(self, batches):
+        from ..parallel.multihost import barrier
+
+        yield from DevicePipeline.classify_stream(self, batches)
+        barrier()

@@ -109,6 +109,17 @@ _SIGNATURES.update({
     "read_lca_sharded": ("kt_read_lca_sharded",
                          "ppppi" "pii" + SHARD_SIG + "p" "pippi" "iiii" "pi"
                          "p" "p"),
+    # g_s0 g_s1 B G | SHARD | C | seq_tax ntax parent depth maxtax | R cap
+    # nseq chpt_exp | sw_ids nsw | lca n_ids need_more tie_order
+    "ranges_lca_sharded": ("kt_ranges_lca_sharded",
+                           "ppii" + SHARD_SIG + "p" "pippi" "iiii" "pi"
+                           "pppp" "p"),
+    # li ls0 ls1 flat frag_off F rf_rows B S | SHARD | C | diag submat
+    # subcode subdiag | Lmap mfl min_score mismatches T vcap | node pincl
+    # src | best flags g_s0 g_s1 | rank_start nseq chpt_exp sw_ids
+    "greedy_search_sharded": ("kt_greedy_search_sharded",
+                              "ppppp" "ipii" + SHARD_SIG + "p" "pppp"
+                              "iiiiii" "ppp" "pppp" "pii" "p" "p"),
 })
 # the source file of each kernel (csrc/<source>.cu), where it is not the
 # kernel's own name

@@ -115,14 +115,21 @@ def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,
     tie_order is 1 where more than one range contributes and the id cap
     may have cut the read's taxa, so that the result depends on the order
     of the ranges.  sw_ids: None, or the ids of the virtual rows (int32).
-    Kernel F for CUDA tensors, the plain version for CPU tensors."""
+    Kernel F for CUDA tensors (its sharded instantiation for a ``Shards``
+    rec and sa_seq), the plain version for CPU tensors."""
     if g_s0.device.type == "cpu":
         return ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax,
                                 parent, depth, R, cap, nseq, chpt_exp,
                                 sw_ids=sw_ids)
     dev = g_s0.device
-    for t, what, nd in ((g_s0, "g_s0", 2), (g_s1, "g_s1", 2), (rec, "rec", 2),
-                        (C, "C", 1), (sa_seq, "sa_seq", 1),
+    sharded = isinstance(rec, Shards)
+    if sharded:
+        idx_args = (*shard_args(dev, rec, sa_seq), C)
+    else:
+        idx_args = (rec, rec.shape[0], C, sa_seq, sa_seq.shape[0])
+        kernels.check(rec, "rec", torch.int32, dev, 2)
+        kernels.check(sa_seq, "sa_seq", torch.int32, dev, 1)
+    for t, what, nd in ((g_s0, "g_s0", 2), (g_s1, "g_s1", 2), (C, "C", 1),
                         (seq_tax, "seq_tax", 1), (parent, "parent", 1),
                         (depth, "depth", 1)):
         kernels.check(t, what, torch.int32, dev, nd)
@@ -132,8 +139,8 @@ def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,
     B, G = g_s0.shape
     out = torch.empty((4, B), dtype=torch.int32, device=dev)
     if B:
-        kernels.launch("ranges_lca", g_s0, g_s1, B, G, rec, rec.shape[0], C,
-                       sa_seq, sa_seq.shape[0], seq_tax, seq_tax.shape[0],
+        kernels.launch("ranges_lca_sharded" if sharded else "ranges_lca",
+                       g_s0, g_s1, B, G, *idx_args, seq_tax, seq_tax.shape[0],
                        parent, depth, parent.shape[0], R, cap, nseq, chpt_exp,
                        sw_ids, _nsw(sw_ids), out[0], out[1], out[2], out[3])
     return out[0], out[1], out[2], out[3]

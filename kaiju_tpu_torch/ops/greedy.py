@@ -51,7 +51,7 @@ import torch
 from .. import kernels
 from ..constants import AA_TO_INT, BLOSUM62, BLOSUM62_DIAG, BLOSUM_SUBST
 from .classify import FLAG_NEED_MORE, FLAG_TIE_OVER, ranges_lca
-from .device_index import rank
+from .device_index import Shards, rank, shard_args
 from .hybrid import VBASE, switch_plain
 from .search import SW_WCAP, _lane_fragments, mem_extend
 
@@ -291,8 +291,9 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
     greedy_scoring_tables; then sw_ids, int32 [B T 8], the ids of the
     virtual tie rows (None without hyb).  hyb: None, or the last level's
     text-compare hybrid (text, rank_start, sa_seq, sa_off, nseq,
-    chpt_exp).  Kernel E (csrc/greedy_search.cu) for CUDA tensors, the
-    plain version for CPU tensors."""
+    chpt_exp).  Kernel E (csrc/greedy_search.cu) for CUDA tensors (its
+    sharded instantiation for a ``Shards`` rec, with the hybrid's SA
+    samples and text in shards too), the plain version for CPU tensors."""
     if Lmap < 1 or mismatches < 0 or T < 1 or vcap < 1:
         raise ValueError("need Lmap >= 1, mismatches >= 0, T >= 1, vcap >= 1")
     B = rf_rows.shape[0]
@@ -311,7 +312,6 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
     kernels.check(flat, "flat", torch.uint8, dev, 1)
     kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
     kernels.check(rf_rows, "rf_rows", torch.int32, dev, 2)
-    kernels.check(rec, "rec", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
     diag, submat, subcode, subdiag = tables
     kernels.check(diag, "diag", torch.int32, dev, 1)
@@ -329,10 +329,17 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
     text, rank_start, sa_seq, sa_off, nseq, chpt_exp = (
         hyb if hyb is not None else (None, None, None, None, 0, 0))
     if hyb is not None:
-        kernels.check(text, "text", torch.uint8, dev, 1)
-        for t, what in ((rank_start, "rank_start"), (sa_seq, "sa_seq"),
-                        (sa_off, "sa_off")):
-            kernels.check(t, what, torch.int32, dev, 1)
+        kernels.check(rank_start, "rank_start", torch.int32, dev, 1)
+    sharded = isinstance(rec, Shards)
+    if sharded:
+        idx_args = shard_args(dev, rec, sa_seq, sa_off, text)
+    else:
+        kernels.check(rec, "rec", torch.int32, dev, 2)
+        if hyb is not None:
+            kernels.check(text, "text", torch.uint8, dev, 1)
+            kernels.check(sa_seq, "sa_seq", torch.int32, dev, 1)
+            kernels.check(sa_off, "sa_off", torch.int32, dev, 1)
+        idx_args = (rec, rec.shape[0])
     sw_ids = (torch.zeros(B * T * SW_WCAP, dtype=torch.int32, device=dev)
               if hyb is not None else None)
     best = torch.empty(B, dtype=torch.int32, device=dev)
@@ -343,13 +350,17 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
         pincl = torch.empty(P, dtype=torch.int32, device=dev)
         src = torch.empty((B, 2, vcap, SRC_INTS) if mismatches else (1,),
                           dtype=torch.int32, device=dev)
-        kernels.launch("greedy_search", i, s0, s1, flat, frag_off, F, rf_rows,
-                       B, S, rec, rec.shape[0], C, diag, submat, subcode,
-                       subdiag, Lmap, mfl, min_score, mismatches, T, vcap,
-                       node, pincl, src, best, flags, g[0], g[1], text,
-                       rank_start, sa_seq, sa_off,
-                       0 if sa_seq is None else sa_seq.shape[0], nseq,
-                       chpt_exp, sw_ids)
+        common = (i, s0, s1, flat, frag_off, F, rf_rows, B, S, *idx_args, C,
+                  diag, submat, subcode, subdiag, Lmap, mfl, min_score,
+                  mismatches, T, vcap, node, pincl, src, best, flags, g[0],
+                  g[1])
+        if sharded:
+            kernels.launch("greedy_search_sharded", *common, rank_start,
+                           nseq, chpt_exp, sw_ids)
+        else:
+            kernels.launch("greedy_search", *common, text, rank_start, sa_seq,
+                           sa_off, 0 if sa_seq is None else sa_seq.shape[0],
+                           nseq, chpt_exp, sw_ids)
     return best, flags, g[0], g[1], sw_ids
 
 

@@ -20,7 +20,7 @@ csrc/fm_common.cuh), through a device table of shard pointers.
 
 Every shard is a tensor of its own.  In this port all S shards live on the
 one device the pipeline runs on: spreading them over cards (peer access or
-NCCL, one process a card) is ROADMAP item 10d, and it needs no new layout.
+NCCL, one process a card) is ROADMAP item 10e, and it needs no new layout.
 """
 
 from __future__ import annotations

@@ -39,33 +39,43 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     coroutine runner engine.batch.BatchRunner on the device; -v runs the
     host-tail pipelines on the device (engine.mem_fast,
     engine.greedy_fast), whose lines carry the names and fragments; MEM and
-    Greedy otherwise run the device pipelines (engine.mem, engine.greedy).
-    --mesh-index S with -a mem and a taxonomy, without -v and -d, runs the
-    index-sharded pipeline parallel.sharded_fused.ShardedMemPipeline, all
-    S shards on one device.  Many processes (--dist-*, or
-    KAIJU_TPU_NPROCS > 1, which kaiju_tpu reads too) and the sharded forms
-    of the other modes raise NotImplementedError naming the ROADMAP.md item
-    that ports them."""
+    Greedy otherwise run the device pipelines (engine.mem, engine.greedy),
+    or with --mesh-index S their index-sharded forms
+    (parallel.sharded_fused), all S shards on one device.
+
+    Many processes (--dist-nprocs N > 1 with --dist-coordinator and
+    --dist-pid, or KAIJU_TPU_NPROCS, _COORDINATOR and _PID, which kaiju_tpu
+    reads too) join a group (parallel.multihost); each runs the pipeline
+    the other flags choose on its own card, on its share of every batch
+    (engine.pipeline.ProcessShare).  As in kaiju_tpu, --mesh-index and
+    many processes run MEM and Greedy without -v, and a taxonomy-free tool
+    or -v exits with its message; -d exits too, since the trace needs the
+    one-process host engine (kaiju_tpu drops the trace there)."""
     n_index = int(getattr(args, "mesh_index", 0) or 0)
     nprocs = int(getattr(args, "dist_nprocs", 0)
                  or os.environ.get("KAIJU_TPU_NPROCS", 0) or 0)
+    pid = 0
     if nprocs > 1:
-        raise NotImplementedError(
-            "--dist-* / KAIJU_TPU_NPROCS: many processes are ROADMAP.md "
-            "queue 1 item 10 (10d)"
-        )
-    if n_index:
-        if cfg.mode != "mem" or cfg.verbose or cfg.debug or cfg.taxonomy_free:
-            raise NotImplementedError(
-                "--mesh-index runs -a mem with a taxonomy, without -v and -d;"
-                " sharded Greedy is ROADMAP.md queue 1 item 10 (10c), the "
-                "other modes item 10 (10d)"
-            )
-        from ..parallel.sharded_fused import ShardedMemPipeline
+        coord = (getattr(args, "dist_coordinator", None)
+                 or os.environ.get("KAIJU_TPU_COORDINATOR"))
+        pid = int(getattr(args, "dist_pid", None)
+                  or os.environ.get("KAIJU_TPU_PID", 0) or 0)
+        if not coord:
+            raise SystemExit("multi-process run needs --dist-coordinator "
+                             "(or KAIJU_TPU_COORDINATOR)")
+    if n_index or nprocs > 1:
+        if cfg.verbose or cfg.taxonomy_free:
+            raise SystemExit("--mesh-index / --dist-* support mem and greedy "
+                             "modes without -v")
+        if cfg.debug:
+            raise SystemExit("-d traces reads through the host engine in "
+                             "one process: it does not run with --mesh-index"
+                             " / --dist-*")
+    if nprocs > 1:
+        from ..parallel import multihost
 
-        return ShardedMemPipeline(index, taxonomy, cfg, n_index,
-                                  device=device,
-                                  kmer_cache_dir=_kmer_dir(index))
+        device = multihost.process_device(pid, device)
+        multihost.init_distributed(coord, nprocs, pid)
     if cfg.debug:
         from ..engine.core import ExactClassifier
 
@@ -75,17 +85,33 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
 
         return BatchRunner(index, taxonomy, cfg, device=device)
     kmer_dir = _kmer_dir(index)
-    if cfg.verbose and cfg.mode == "greedy":
-        from ..engine.greedy_fast import GreedyFastPipeline as Pipeline
-    elif cfg.verbose:
-        from ..engine.mem_fast import MemFastPipeline as Pipeline
-    elif cfg.mode == "greedy":
-        from ..engine.greedy import GreedyPipeline as Pipeline
-    else:
-        from ..engine.mem import MemPipeline as Pipeline
+    if cfg.verbose:
+        if cfg.mode == "greedy":
+            from ..engine.greedy_fast import GreedyFastPipeline as Pipeline
+        else:
+            from ..engine.mem_fast import MemFastPipeline as Pipeline
+        return Pipeline(index, taxonomy, cfg, device=device,
+                        kmer_cache_dir=kmer_dir)
+    if n_index:
+        from ..parallel import sharded_fused
 
-    return Pipeline(index, taxonomy, cfg, device=device,
-                    kmer_cache_dir=kmer_dir)
+        Pipeline = (sharded_fused.ShardedGreedyPipeline
+                    if cfg.mode == "greedy"
+                    else sharded_fused.ShardedMemPipeline)
+        pipe = Pipeline(index, taxonomy, cfg, n_index, device=device,
+                        kmer_cache_dir=kmer_dir)
+    else:
+        if cfg.mode == "greedy":
+            from ..engine.greedy import GreedyPipeline as Pipeline
+        else:
+            from ..engine.mem import MemPipeline as Pipeline
+        pipe = Pipeline(index, taxonomy, cfg, device=device,
+                        kmer_cache_dir=kmer_dir)
+    if nprocs > 1:
+        from ..engine.pipeline import ProcessShare
+
+        return ProcessShare(pipe, nprocs, pid)
+    return pipe
 
 
 def print_verbose_parameters(cfg: KaijuConfig, args, multi=False) -> None:
@@ -121,12 +147,16 @@ def print_verbose_parameters(cfg: KaijuConfig, args, multi=False) -> None:
 
 def classify_stream(runner, reads_iter, out, cfg: KaijuConfig, batch_size=4096):
     """Stream reads in batches through the runner, writing TSV lines (the
-    taxonomy-free form for kaijux and kaijup)."""
+    taxonomy-free form for kaijux and kaijup); a None result is a read
+    that another process writes."""
     from ..engine.core import format_output_line, format_output_line_x
     from ..io.fastx import prefetch_batches
 
     def emit(results):
-        for name, res in results:
+        for item in results:
+            if item is None:  # many processes: a read a peer owns
+                continue
+            name, res = item
             if cfg.taxonomy_free:
                 out.write(format_output_line_x(name, res))
             else:
@@ -166,16 +196,18 @@ def add_engine_args(ap, protein_tool=False):
     ap.add_argument("-b", dest="batch_size", type=int, default=4096,
                     help="reads per device batch")
     ap.add_argument("--mesh-index", dest="mesh_index", type=int, default=0,
-                    help="split the index into N shards (-a mem; all on "
-                         "one device)")
+                    help="split the index into N shards, all on the "
+                         "process's card (MEM and Greedy without -v; 0 = "
+                         "one index)")
     ap.add_argument("--dist-coordinator", dest="dist_coordinator",
                     help="host:port of process 0 of a multi-process run "
-                         "(not ported yet)")
+                         "(or KAIJU_TPU_COORDINATOR)")
     ap.add_argument("--dist-nprocs", dest="dist_nprocs", type=int,
                     default=0, help="total processes of a multi-process "
-                    "run (not ported yet)")
+                    "run, each classifying and writing its share of every "
+                    "batch (or KAIJU_TPU_NPROCS)")
     ap.add_argument("--dist-pid", dest="dist_pid", type=int, default=None,
-                    help="this process's id (not ported yet)")
+                    help="this process's id, 0..N-1 (or KAIJU_TPU_PID)")
 
 
 def config_from_args(args, taxonomy_free=False, protein=False) -> KaijuConfig:

@@ -3,10 +3,13 @@
 Flag surface of the reference `kaiju` binary (src/kaiju.cpp:427-451).
 This port classifies Greedy (the default) and `-a mem` with a taxonomy on
 the GPU, with or without the verbose columns of `-v`; `-d` traces each
-read on stderr through the exact host engine:
+read on stderr through the exact host engine.  Without `-v` and `-d`,
+`--mesh-index S` splits the index into S shards on the card, and the run
+may be split over N processes, each writing its share of the reads:
 
     python -m kaiju_tpu_torch.tools.kaiju -t nodes.dmp -f db.fmi \
-        -i reads.fastq -o out.tsv [-a mem] [-v]
+        -i reads.fastq -o out.tsv [-a mem] [-v] [--mesh-index S]
+        [--dist-nprocs N --dist-coordinator host:port --dist-pid p]
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ def build_parser():
 
 
 def main(argv=None, device=None):
-    """Run the CLI; device: None for the GPU, "cpu" for the plain
-    versions on the CPU."""
+    """Run the CLI; device: None for the GPU (with many processes, the
+    process's card), "cpu" for the plain versions on the CPU."""
     args = build_parser().parse_args(argv)
     if args.protein and args.input2:
         print("Error: Protein input only supports one input file.", file=sys.stderr)

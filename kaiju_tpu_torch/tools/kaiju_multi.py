@@ -5,7 +5,8 @@ index load (reference: src/kaiju-multi.cpp).
 the taxonomy and the engine are made once and the samples run one after
 another through them, each into its own output file, or all to stdout in
 sample order without -o.  The modes are those of the port's `kaiju`, on
-the GPU:
+the GPU, --mesh-index and --dist-* included (with many processes each
+sample's stream ends at a barrier of all of them):
 
     python -m kaiju_tpu_torch.tools.kaiju_multi -t nodes.dmp -f db.fmi \
         -i s1.fastq,s2.fastq -o s1.tsv,s2.tsv [-a mem] [-v]
@@ -29,8 +30,8 @@ from .common import (
 
 
 def main(argv=None, device=None):
-    """Run the CLI; device: None for the GPU, "cpu" for the plain
-    versions on the CPU."""
+    """Run the CLI; device: None for the GPU (with many processes, the
+    process's card), "cpu" for the plain versions on the CPU."""
     ap = argparse.ArgumentParser(prog="kaiju-multi-tpu-torch",
                                  description=__doc__)
     ap.add_argument("-t", dest="nodes", required=True, help="nodes.dmp file")

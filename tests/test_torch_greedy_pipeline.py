@@ -169,9 +169,10 @@ def test_scratch_overflow_replays(env):
 def test_cli_default_flags_on_saved_ktx(env, monkeypatch):
     """tools.kaiju.main with no mode flag runs Greedy (-e 3, -s 65, -m 11,
     -l 7, SEG, -E 0.01) on a saved .ktx and writes the ExactClassifier's
-    TSV; the last batch holds only reads too short for a fragment.
-    Multi-GPU still raises, naming its ROADMAP.md item; without a card and
-    without device="cpu" it raises."""
+    TSV; the last batch holds only reads too short for a fragment.  With
+    --mesh-index 2 it writes the same TSV on the index in two shards; many
+    processes without a coordinator exit with kaiju_tpu's message; without
+    a card and without device="cpu" it raises."""
     work = env["work"]
     ktx = str(work / "db.ktx")
     env["tidx"].save(ktx)
@@ -194,10 +195,14 @@ def test_cli_default_flags_on_saved_ktx(env, monkeypatch):
     with open(out) as fh:
         got = fh.read()
     assert got == exact, _diff(got, exact)
-    for other in (["--mesh-index", "2"], ["--dist-nprocs", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *other],
-                        device="cpu")
+    mesh_out = str(work / "out_mesh.tsv")
+    assert tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-o", mesh_out,
+                        "-b", "64", "--mesh-index", "2"], device="cpu") == 0
+    with open(mesh_out) as fh:
+        assert fh.read() == got
+    with pytest.raises(SystemExit, match="needs --dist-coordinator"):
+        tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "--dist-nprocs", "2"],
+                    device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tkaiju.main(["-t", nodes, "-f", ktx, "-i", fq, "-o", out])

@@ -720,3 +720,46 @@ def test_sharded_kernels_match_unsharded(env, cuda, S):
         assert flat_counts[name] == 1 and counts[name] == 0, name
         assert counts[name + "_sharded"] == 1, name
     assert hybrid.switched(*want["B"], frag_off, sw_len).sum() > 50
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_sharded_greedy_kernels_match_unsharded(env, cuda, S):
+    """E with its last level's hybrid and F with the virtual rows (K16f)
+    launched on the index in S shards (S = 3 leaves a padded last shard)
+    equal their unsharded launches on the same inputs and the plain
+    versions on the same shards on the CPU; only the sharded kernels
+    launch."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx = env["idx"]
+    (rec, C, seed, flat, frag_off, rf_rows, _sa_seq, _sa_off, _seq_tax, par,
+     dep, tables, K, lmap, mfl, min_score, e, T, R, cap, nseq, chpt_exp,
+     vc) = _greedy_args(env, env["reads"], 3, cuda)
+    lanes = search.mem_extend(rec, C, *seed, flat, frag_off, K, lmap - 1,
+                              bloom=_screen(env, lmap, cuda))
+
+    def run(ix, dev):
+        kernels.reset_counts()
+        found = greedy.greedy_search(
+            *(_to(a, dev) for a in (*lanes, flat, frag_off, rf_rows)),
+            ix.rec, ix.C, tuple(t.to(dev) for t in tables), lmap, mfl,
+            min_score, e, T, vc, hyb=(ix.text, ix.rank_start, ix.sa_seq,
+                                      ix.sa_off, nseq, chpt_exp))
+        tail = classify.ranges_lca(found[2], found[3], ix.rec, ix.C,
+                                   ix.sa_seq, ix.sa_off, ix.seq_tax,
+                                   par.to(dev), dep.to(dev), R, cap, nseq,
+                                   chpt_exp, sw_ids=found[4])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return [t.cpu() for t in (*found, *tail)], dict(kernels.LAUNCHES)
+
+    want, flat_counts = run(tdev.DeviceIndex(idx, cuda), cuda)
+    got, counts = run(ShardedIndex(idx, S, cuda), cuda)
+    plain, _c = run(ShardedIndex(idx, S, "cpu"), "cpu")
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    for name in ("greedy_search", "ranges_lca"):
+        assert flat_counts[name] == 1 and counts[name] == 0, name
+        assert counts[name + "_sharded"] == 1, name
+    assert (want[2] >= hybrid.VBASE).any()  # virtual tie rows exercised

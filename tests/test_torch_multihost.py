@@ -1,0 +1,163 @@
+"""Many processes of the port's `kaiju` on the CPU (--dist-*,
+KAIJU_TPU_NPROCS; kaiju_tpu_torch.parallel.multihost and
+engine.pipeline.ProcessShare): 2 and 3 processes over gloo on 127.0.0.1,
+MEM and Greedy, each with and without --mesh-index 2, with a batch size
+that gives 3 processes uneven shares and one of them an empty share of
+the last batch.  Every read must be written by exactly one process, the
+one that multihost.local_rows names, and the lines merged by read must be
+the single-process TSV byte for byte, which is the ExactClassifier's.
+Each process is tests/torch_multihost_worker.py."""
+
+import os
+import random
+import socket
+import subprocess
+import sys
+
+import pytest
+
+from kaiju_tpu.engine.config import KaijuConfig
+from kaiju_tpu.engine.core import ExactClassifier, format_output_line
+from kaiju_tpu.index import py_builder as jax_py_builder
+from kaiju_tpu.io.taxonomy import Taxonomy
+from kaiju_tpu_torch.index import py_builder
+from kaiju_tpu_torch.parallel.multihost import local_rows
+from kaiju_tpu_torch.tools import kaiju as tkaiju
+
+from conftest import make_db_records, write_nodes_dmp
+from readgen import make_reads, write_fastq
+from test_exact_parity import _diff
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(ROOT, "tests", "torch_multihost_worker.py")
+N_READS, BATCH = 100, 32  # last batch 4 reads: 3 processes get 2, 2, 0
+MODES = {"mem": ["-a", "mem"], "greedy": []}
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    rng = random.Random(171)
+    records = make_db_records(rng, nseq=40)
+    work = tmp_path_factory.mktemp("torch_multihost")
+    nodes_dmp = str(work / "nodes.dmp")
+    nodes = write_nodes_dmp(nodes_dmp)
+    idx = py_builder.build_index(records)
+    idx.text = None
+    ktx = str(work / "db.ktx")
+    idx.save(ktx)
+    reads = make_reads(rng, records, n=N_READS)
+    fq = str(work / "reads.fastq")
+    write_fastq(reads, fq)
+    return {"work": work, "nodes": nodes, "nodes_dmp": nodes_dmp, "ktx": ktx,
+            "fq": fq, "reads": reads, "records": records}
+
+
+def _single(env, mode):
+    """The one-process TSV of the mode (its run also fills the seed-table
+    cache beside the index, which the processes then share) and the
+    ExactClassifier's."""
+    key = ("single", mode)
+    if key not in env:
+        out = str(env["work"] / f"single_{mode}.tsv")
+        assert tkaiju.main(["-t", env["nodes_dmp"], "-f", env["ktx"], "-i",
+                            env["fq"], *MODES[mode], "-b", str(BATCH), "-o",
+                            out], device="cpu") == 0
+        with open(out) as fh:
+            tsv = fh.read()
+        cfg = (KaijuConfig(mode="mem", seg=True, use_Evalue=False)
+               if mode == "mem" else KaijuConfig())
+        idx = jax_py_builder.build_index(env["records"])
+        exact = "".join(format_output_line(n, r, False) for n, r in
+                        ExactClassifier(idx, Taxonomy(env["nodes"]), cfg)
+                        .classify_batch([(n, s, None)
+                                         for n, s in env["reads"]]))
+        env[key] = (tsv, exact)
+    return env[key]
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run(env, nprocs, by_env, argv, tag):
+    """Start nprocs workers with argv and the process flags (or the
+    KAIJU_TPU_* variables); returns each process's output lines."""
+    coord = f"127.0.0.1:{_free_port()}"
+    procs, outs = [], []
+    for p in range(nprocs):
+        out = str(env["work"] / f"{tag}_p{p}.tsv")
+        outs.append(out)
+        # one thread a process: the reads are few, and the lane runs
+        # several test files at once
+        penv = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT
+                    + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        if by_env:
+            penv.update(KAIJU_TPU_NPROCS=str(nprocs),
+                        KAIJU_TPU_COORDINATOR=coord, KAIJU_TPU_PID=str(p))
+            dist = []
+        else:
+            dist = ["--dist-nprocs", str(nprocs), "--dist-coordinator",
+                    coord, "--dist-pid", str(p)]
+        procs.append(subprocess.Popen(
+            [sys.executable, WORKER, *argv, *dist, "-o", out], cwd=ROOT,
+            env=penv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    errors = []
+    try:
+        for p, proc in enumerate(procs):
+            _o, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                errors.append(f"process {p}: rc {proc.returncode}\n"
+                              f"{err[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert not errors, "\n".join(errors)
+    lines = []
+    for out in outs:
+        with open(out) as fh:
+            lines.append(fh.readlines())
+    return lines
+
+
+@pytest.mark.parametrize("nprocs, by_env", [(2, False), (3, True)],
+                         ids=["2-flags", "3-env"])
+@pytest.mark.parametrize("mesh", [0, 2], ids=["flat", "mesh2"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_processes_merge_to_the_single_process_tsv(env, mode, mesh, nprocs,
+                                                   by_env):
+    single, exact = _single(env, mode)
+    assert single == exact, _diff(single, exact)
+    argv = ["-t", env["nodes_dmp"], "-f", env["ktx"], "-i", env["fq"],
+            *MODES[mode], "-b", str(BATCH)]
+    if mesh:
+        argv += ["--mesh-index", str(mesh)]
+    lines = _run(env, nprocs, by_env, argv, f"{mode}_{mesh}_{nprocs}")
+    # the reads each process owns, batch by batch
+    names = [n for n, _s in env["reads"]]
+    want_owner = {}
+    for b0 in range(0, N_READS, BATCH):
+        n = min(BATCH, N_READS - b0)
+        for p in range(nprocs):
+            lo, hi = local_rows(n, nprocs, p)
+            for r in range(b0 + lo, b0 + hi):
+                want_owner[names[r]] = p
+    if nprocs == 3:  # uneven shares of a full batch, an empty last share
+        assert [local_rows(BATCH, 3, p) for p in range(3)] == [
+            (0, 11), (11, 22), (22, 32)]
+        assert local_rows(N_READS % BATCH, 3, 2) == (4, 4)
+    by_name = {}
+    for p, ls in enumerate(lines):
+        for ln in ls:
+            name = ln.split("\t")[1]
+            assert name not in by_name, f"{name} written twice"
+            assert want_owner[name] == p, name
+            by_name[name] = ln
+    assert sorted(by_name) == sorted(names)
+    merged = "".join(by_name[n] for n in names)
+    assert merged == single, _diff(merged, single)
+    assert merged.count("C\t") > 40

@@ -310,7 +310,9 @@ def test_cli_mesh_index_tsv(env, monkeypatch, tag, shards):
     """kaiju -a mem --mesh-index S (S = 1, 2, 4) through main(...,
     device="cpu") writes the port's unsharded TSV byte for byte, and it is
     the ExactClassifier's; reads with more ties than T replay on the host.
-    Greedy still raises, naming item 10."""
+    On the text index Greedy (the default) with --mesh-index 4 writes its
+    unsharded TSV (tests/test_torch_sharded_greedy.py holds it to
+    ExactClassifier's)."""
     monkeypatch.setenv("KAIJU_TPU_CACHE", _cache(env, tag))
     work = env["work"]
     ktx = str(work / f"db_{tag}.ktx")
@@ -343,6 +345,13 @@ def test_cli_mesh_index_tsv(env, monkeypatch, tag, shards):
         assert tsv[S] == tsv[0], _diff(tsv[S], tsv[0])
     assert tsv[0] == exact, _diff(tsv[0], exact)
     assert tsv[0].count("\nC\t") > 50
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tkaiju.main(["-t", env["nodes_dmp"], "-f", ktx, "-i", fq,
-                     "--mesh-index", "2"], device="cpu")
+    if tag == "text":  # Greedy, the default mode, runs on shards too
+        greedy = {}
+        for S in (0, 4):
+            out = str(work / f"out_{tag}_greedy_{S}.tsv")
+            mesh = ["--mesh-index", str(S)] if S else []
+            assert tkaiju.main(["-t", env["nodes_dmp"], "-f", ktx, "-i", fq,
+                                *mesh, "-o", out], device="cpu") == 0
+            with open(out) as fh:
+                greedy[S] = fh.read()
+        assert greedy[4] == greedy[0], _diff(greedy[4], greedy[0])

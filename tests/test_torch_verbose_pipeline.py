@@ -307,7 +307,8 @@ def test_cli_verbose_prints_parameters(env, capsys, mode):
 def test_cli_debug_trace_matches_jax(env, capsys, mode):
     """main([... "-d"], device="cpu"): the same stdout TSV and stderr
     trace as kaiju_tpu.tools.kaiju.main with -d (the host engine on both
-    sides); the multi-GPU flags still raise, naming their item."""
+    sides); with --mesh-index the port exits, since kaiju_tpu drops the
+    trace there (ROADMAP.md queue 3)."""
     work = env["work"]
     ktx = str(work / "db_d.ktx")
     env["index"]["fmi"].save(ktx)
@@ -322,63 +323,105 @@ def test_cli_debug_trace_matches_jax(env, capsys, mode):
     want = capsys.readouterr()
     assert port.out == want.out and port.err == want.err
     assert "Searching fragment " in port.err and port.out.count("\n") == 24
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(SystemExit, match="-d traces reads"):
         tkaiju.main(argv + ["--mesh-index", "2"], device="cpu")
 
 
-@pytest.mark.parametrize("what, args, item", [
+V_ONLY = "--mesh-index / --dist-\\* support mem and greedy modes without -v"
+NO_COORD = "multi-process run needs --dist-coordinator"
+COORD = {"dist_nprocs": 2, "dist_coordinator": "127.0.0.1:1", "dist_pid": 1}
+
+
+def _kmer_cache(env, monkeypatch):
+    """One seed-table cache for the pipelines make_runner builds here."""
+    path = env["work"] / "kmer_fmi"
+    path.mkdir(exist_ok=True)
+    monkeypatch.setenv("KAIJU_TPU_CACHE", str(path))
+
+
+@pytest.mark.parametrize("what, args, expect", [
     ({"taxonomy_free": True}, None, "BatchRunner"),
     ({"taxonomy_free": True, "verbose": True, "mode": "mem",
       "use_Evalue": False}, None, "BatchRunner"),
     ({"verbose": True, "taxonomy_free": True}, SimpleNamespace(mesh_index=2),
-     "item 10"),
-    ({"debug": True}, SimpleNamespace(dist_nprocs=2), "item 10"),
-    ({}, SimpleNamespace(mesh_index=2), r"item 10 \(10c\)"),
+     V_ONLY),
+    ({"debug": True}, SimpleNamespace(**COORD), "-d traces reads"),
+    ({}, SimpleNamespace(mesh_index=2), "ShardedGreedyPipeline"),
     ({"mode": "mem", "use_Evalue": False, "verbose": True},
-     SimpleNamespace(mesh_index=2), "item 10"),
+     SimpleNamespace(mesh_index=2), V_ONLY),
     ({"mode": "mem", "use_Evalue": False, "debug": True},
-     SimpleNamespace(mesh_index=1), "item 10"),
+     SimpleNamespace(mesh_index=1), "-d traces reads"),
     ({"mode": "mem", "use_Evalue": False, "taxonomy_free": True},
-     SimpleNamespace(mesh_index=2), "item 10"),
+     SimpleNamespace(mesh_index=2), V_ONLY),
     ({"mode": "mem", "use_Evalue": False}, SimpleNamespace(
-        mesh_index=2, dist_nprocs=2), r"item 10 \(10d\)"),
+        mesh_index=2, dist_nprocs=2), NO_COORD),
 ])
-def test_make_runner_refuses_unported_modes(env, what, args, item):
-    """Many processes are not ported: make_runner raises, naming their
-    ROADMAP.md item, before it builds anything, with -v, -d and the
-    taxonomy-free tools too; --mesh-index runs MEM with a taxonomy alone
-    (tests/test_torch_sharded.py) and raises with Greedy, -v, -d or a
-    taxonomy-free tool.  The taxonomy-free tools (kaijux, kaijup), MEM and
-    Greedy, with or without -v, get the coroutine runner BatchRunner."""
+def test_make_runner_refuses_unported_modes(env, monkeypatch, what, args,
+                                           expect):
+    """make_runner routes as kaiju_tpu's: --mesh-index with Greedy (the
+    default) and a taxonomy gets ShardedGreedyPipeline, all shards on the
+    one device; --mesh-index or many processes with -v or a taxonomy-free
+    tool exit with kaiju_tpu's message, and many processes without a
+    coordinator too, before anything is built or joined; -d with either
+    exits, naming why (kaiju_tpu drops the trace there).  The
+    taxonomy-free tools (kaijux, kaijup), MEM and Greedy, with or without
+    -v, get the coroutine runner BatchRunner."""
     cfg = TorchConfig(**{"mode": "greedy", **what})
-    if item == "BatchRunner":
+    if expect == "BatchRunner":
         runner = common.make_runner(env["index"]["fmi"], None, cfg, args=args,
                                     device="cpu")
         assert isinstance(runner, BatchRunner) and runner.cfg is cfg
         assert runner.dev.device == torch.device("cpu")
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if expect == "ShardedGreedyPipeline":
+        _kmer_cache(env, monkeypatch)
+        runner = common.make_runner(env["index"]["fmi"],
+                                    TorchTaxonomy(env["nodes"]), cfg,
+                                    args=args, device="cpu")
+        assert type(runner).__name__ == expect and runner.cfg is cfg
+        assert runner.dev.S == 2 and runner.device == torch.device("cpu")
+        return
+    with pytest.raises(SystemExit, match=expect):
         common.make_runner(env["index"]["fmi"], TorchTaxonomy(env["nodes"]),
                            cfg, args=args, device="cpu")
 
 
 @pytest.mark.parametrize("mesh_index", [0, 2])
 def test_make_runner_refuses_kaiju_tpu_nprocs(env, monkeypatch, mesh_index):
-    """KAIJU_TPU_NPROCS > 1, which starts a multi-process run in kaiju_tpu,
-    raises naming item 10 (10d) instead of running a whole classification
-    in every process; 1 is a single-process run."""
+    """KAIJU_TPU_NPROCS > 1 starts a multi-process run, as in kaiju_tpu:
+    without KAIJU_TPU_COORDINATOR it exits with kaiju_tpu's message before
+    it joins anything; with it, process KAIJU_TPU_PID joins the group
+    (stubbed here; tests/test_torch_multihost.py runs real processes) and
+    gets its ProcessShare of the pipeline the other flags choose; 1 is a
+    single-process run."""
+    from kaiju_tpu_torch.engine.pipeline import ProcessShare
+    from kaiju_tpu_torch.parallel import multihost
+
     cfg = TorchConfig(mode="mem", use_Evalue=False)
     args = SimpleNamespace(mesh_index=mesh_index)
+    tax = TorchTaxonomy(env["nodes"])
+    want = "ShardedMemPipeline" if mesh_index else "MemPipeline"
+    _kmer_cache(env, monkeypatch)
+    joined = []
+    monkeypatch.setattr(multihost, "init_distributed",
+                        lambda *a: joined.append(a))
     monkeypatch.setenv("KAIJU_TPU_NPROCS", "2")
-    with pytest.raises(NotImplementedError, match=r"item 10 \(10d\)"):
-        common.make_runner(env["index"]["fmi"], TorchTaxonomy(env["nodes"]),
-                           cfg, args=args, device="cpu")
-    monkeypatch.setenv("KAIJU_TPU_NPROCS", "1")
-    runner = common.make_runner(env["index"]["fmi"],
-                                TorchTaxonomy(env["nodes"]), cfg, args=args,
+    with pytest.raises(SystemExit, match=NO_COORD):
+        common.make_runner(env["index"]["fmi"], tax, cfg, args=args,
+                           device="cpu")
+    assert joined == []
+    monkeypatch.setenv("KAIJU_TPU_COORDINATOR", "127.0.0.1:29400")
+    monkeypatch.setenv("KAIJU_TPU_PID", "1")
+    runner = common.make_runner(env["index"]["fmi"], tax, cfg, args=args,
                                 device="cpu")
-    assert type(runner).__name__ == ("ShardedMemPipeline" if mesh_index
-                                     else "MemPipeline")
+    assert joined == [("127.0.0.1:29400", 2, 1)]
+    assert isinstance(runner, ProcessShare)
+    assert (runner.nprocs, runner.pid) == (2, 1)
+    assert type(runner.pipe).__name__ == want
+    monkeypatch.setenv("KAIJU_TPU_NPROCS", "1")
+    runner = common.make_runner(env["index"]["fmi"], tax, cfg, args=args,
+                                device="cpu")
+    assert type(runner).__name__ == want
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
