@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (kaiju_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 20240817] [--db-letters 64000000]
+    python3 chip_smoke.py --only-processes    # phases 1, 2, 4 (text), 4f
 
 Phases, any failure exits non-zero:
   1. build the CUDA kernels from kaiju_tpu_torch/csrc with nvcc; print the
@@ -82,14 +83,23 @@ Phases, any failure exits non-zero:
      a warm sharded pipeline beside phase 4b's unsharded rate; then the
      sharded primitives (J over the first MEM batch's fragments, H on
      their SA positions) against the unsharded kernels;
-  4f. many processes on one card: tools.kaiju.main as 2 processes on
-     cuda:0 (--dist-nprocs 2, a coordinator on 127.0.0.1, --dist-pid p;
-     this script started again with --kaiju-worker, each process with its
-     own -o and seed-table cache), on the first 16,384 reads of
-     db_text.ktx, with -a mem and with the default flags, each with and
-     without --mesh-index 2: each process must launch every kernel of
-     its path, each read must be in exactly one output, the one its batch
-     share names, and the lines merged by read must equal phase 4's; the
+  4f. many processes: tools.kaiju.main as 2 processes, process p on
+     cuda:{p % cards} (on one card both on cuda:0, and the script says
+     that the cross-card form was not run) (--dist-nprocs 2, a coordinator
+     on 127.0.0.1, --dist-pid p; this script started again with
+     --kaiju-worker, each process with its own -o and seed-table cache),
+     on the first 16,384 reads of db_text.ktx, with -a mem and with the
+     default flags, each with and without --mesh-index 2, and Greedy with
+     --mesh-index 4: each process must launch every kernel of its path,
+     each read must be in exactly one output, the one its batch share
+     names, and the lines merged by read must equal phase 4's; with
+     --mesh-index each process must hold exactly its shards (p mod S for
+     N >= S, o mod N = p for N < S) and map the others from their holders
+     over CUDA IPC, and process 0 holds each kernel of its path (A; B, G,
+     C, D; B, E, F) on the arguments of its first call, on the mapped
+     shards, against its plain version and against its launch on copies
+     in its own memory (both launches timed); the card memory used after
+     set-up, the index bytes held apart beside two whole copies, and the
      processes' wall beside the one-process main() of the same reads;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards; the launches of every run of phases 4,
@@ -104,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -152,7 +163,11 @@ SHARDED = ("update_si", "extend_all", "sa_lookup", "mem_extend",
            "text_extend", "read_lca", "greedy_search", "ranges_lca")
 MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
 MESH_READS = 4 * BATCH  # reads of each phase 4e and 4f run
-NPROCS = 2  # processes of each phase 4f run, all on cuda:0
+NPROCS = 2  # processes of each phase 4f run, process p on cuda:{p % cards}
+# phase 4f's runs (--mesh-index, path): one index a process; the shards
+# held apart with N = S; N < S (two shards held and two mapped a process)
+PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
+             (4, "greedy"))
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), and the CLI flags that select the path
 PATHS = {
@@ -1438,6 +1453,16 @@ def kernels_of(mode: str, text: bool, sharded: bool) -> list:
     return [n + "_sharded" if sharded and n in SHARDED else n for n in names]
 
 
+def mesh_fastq(reads, ktx) -> str:
+    """The first MESH_READS reads as a FASTQ beside the index at ktx."""
+    from kaiju_tpu_torch.tools import readgen
+
+    fq = os.path.join(os.path.dirname(ktx), f"reads_{MESH_READS}.fastq")
+    if not os.path.exists(fq):
+        readgen.write_fastq([(n, q) for n, q, _ in reads[:MESH_READS]], fq)
+    return fq
+
+
 def run_mesh(index, reads, ktx, nodes, tag, mode, n_shards, base_tsv,
              base_rate, warm):
     """kaiju --mesh-index n_shards on the path `mode` through
@@ -1454,16 +1479,14 @@ def run_mesh(index, reads, ktx, nodes, tag, mode, n_shards, base_tsv,
     from kaiju_tpu_torch.engine import greedy, mem
     from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
     from kaiju_tpu_torch.parallel import sharded_fused
-    from kaiju_tpu_torch.tools import kaiju, readgen
+    from kaiju_tpu_torch.tools import kaiju
 
     engine = greedy if mode == "greedy" else mem
     Pipeline = (sharded_fused.ShardedGreedyPipeline if mode == "greedy"
                 else sharded_fused.ShardedMemPipeline)
     name = f"{mode} --mesh-index {n_shards} {tag}"
     path = kernels_of(mode, index.text is not None, True)
-    fq = os.path.join(os.path.dirname(ktx), f"reads_{MESH_READS}.fastq")
-    if not os.path.exists(fq):
-        readgen.write_fastq([(n, q) for n, q, _ in reads[:MESH_READS]], fq)
+    fq = mesh_fastq(reads, ktx)
     shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
     out_tsv = os.path.join(os.path.dirname(ktx),
                            f"out_{mode}_mesh{n_shards}_{tag}.tsv")
@@ -1588,23 +1611,129 @@ def run_sharded_primitives(index, reads, n_shards):
 # ---------------------------------------------------------------------------
 
 
+def spy_first_calls(mode: str) -> dict:
+    """Wrap the kernel wrappers of the path `mode` where its pipeline
+    looks them up (A where the seed tables are built), so that each keeps
+    the arguments of its first call: {kernel: (wrapper, plain version,
+    args, kwargs)}, filled as the run goes."""
+    from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
+                                     kmer, search)
+
+    where = {"update_si": (kmer, device_index.update_si_plain)}
+    if mode == "mem":
+        where.update(mem_extend=(classify, search.mem_extend_plain),
+                     text_extend=(classify, hybrid.text_extend_plain),
+                     mem_stats=(classify, search.mem_stats_plain),
+                     read_lca=(classify, classify.read_lca_plain))
+    else:
+        where.update(mem_extend=(greedy, search.mem_extend_plain),
+                     greedy_search=(greedy, greedy.greedy_search_plain),
+                     ranges_lca=(greedy, classify.ranges_lca_plain))
+    first = {}
+    for name, (mod, plain) in where.items():
+        def wrap(*args, _fn=getattr(mod, name), _name=name, _plain=plain,
+                 **kw):
+            first.setdefault(_name, (_fn, _plain, args, kw))
+            return _fn(*args, **kw)
+
+        setattr(mod, name, wrap)
+    return first
+
+
+def check_first_calls(first: dict, dev) -> dict:
+    """Each kernel of `first` (spy_first_calls) on the arguments of its
+    first call, whose Shards hold the shards mapped from the peer process:
+    launched again, it must equal its plain version on the same Shards (on
+    copies made here of the shards that lie on another card, which the
+    plain versions refuse) and its launch on a Shards of copies of every
+    shard in this process's own memory; both launches timed.  Returns
+    {kernel: {"err", "ms" (mapped shards), "ms_local" (own copies),
+    "opened" (shards mapped)}}."""
+    import torch
+
+    from kaiju_tpu_torch.ops.device_index import Shards
+
+    out = {}
+    for name, (fn, plain, args, kw) in first.items():
+        found = {}
+
+        def swap(x):
+            if isinstance(x, Shards):
+                if id(x) not in found:
+                    found[id(x)] = (x, Shards(
+                        [p.to(dev, copy=True) for p in x.parts], x.per,
+                        x.shape[0], dev))
+                return found[id(x)][1]
+            if isinstance(x, tuple):
+                return tuple(swap(v) for v in x)
+            return x
+
+        largs = swap(args)
+        lkw = {k: swap(v) for k, v in kw.items()}
+        got = fn(*args, **kw)
+        here = all(p.device == dev for sh, _c in found.values()
+                   for p in sh.parts)
+        want = plain(*args, **kw) if here else plain(*largs, **lkw)
+        err = max(max_abs_err(got, want),
+                  max_abs_err(got, fn(*largs, **lkw)))
+        out[name + "_sharded" if name in SHARDED else name] = {
+            "err": err, "ms": cuda_ms(lambda: fn(*args, **kw)),
+            "ms_local": cuda_ms(lambda: fn(*largs, **lkw)),
+            "opened": max((len(sh.opened) for sh, _c in found.values()),
+                          default=0)}
+        del found, largs, lkw
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kaiju_worker(counts_path: str, argv: list) -> int:
     """One process of a phase 4f run: tools.kaiju.main(argv) on this
-    process's card (the --dist-* flags in argv), then its exit code, card,
-    launch counts and seconds to counts_path as JSON."""
+    process's card (the --dist-* flags in argv).  Right after set-up (the
+    runner made) every process waits for the others and reads the card's
+    used memory; with --mesh-index it reports the shards it holds and maps
+    (ShardedIndex.layout), and process 0 keeps the arguments of each
+    kernel's first call, which it checks after main() (check_first_calls),
+    while the mapped shards are still open: they are released when the
+    process leaves its group, at exit.  Writes its exit code, card, launch
+    counts (main()'s only), seconds, memory, layout and checks to
+    counts_path as JSON."""
     import torch
+    import torch.distributed as dist
 
     from kaiju_tpu_torch import kernels
     from kaiju_tpu_torch.tools import kaiju
 
+    mesh = "--mesh-index" in argv
+    pid = int(argv[argv.index("--dist-pid") + 1])
+    first = (spy_first_calls("mem" if "mem" in argv else "greedy")
+             if mesh and pid == 0 else {})
+    info = {}
+    make_runner = kaiju.make_runner
+
+    def keep(*args, **kw):
+        info["runner"] = runner = make_runner(*args, **kw)
+        torch.cuda.synchronize()
+        dist.barrier()  # every process set up
+        free, total = torch.cuda.mem_get_info()
+        info["card_used"] = total - free
+        info["allocated"] = torch.cuda.memory_allocated()
+        return runner
+
+    kaiju.make_runner = keep
     kernels.reset_counts()
     t0 = time.perf_counter()
     rc = kaiju.main(argv)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)  # before the checks' launches
+    runner = info.pop("runner")
+    if mesh:
+        info["layout"] = runner.pipe.dev.layout()
+    info["checks"] = check_first_calls(first, runner.pipe.device)
     with open(counts_path, "w") as fh:
         json.dump({"rc": rc, "device": str(torch.cuda.current_device()),
-                   "launches": kernels.LAUNCHES,
-                   "seconds": time.perf_counter() - t0}, fh)
+                   "launches": launches, "seconds": seconds, **info}, fh)
     return rc
 
 
@@ -1628,16 +1757,29 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def held_by_rule(p: int, nprocs: int, n_shards: int) -> list:
+    """The shards process p of nprocs must hold: p mod S for N >= S (one
+    card a process, index axis innermost, as kaiju_tpu's mesh), the
+    shards o with o mod N = p for N < S."""
+    if nprocs >= n_shards:
+        return [p % n_shards]
+    return [o for o in range(n_shards) if o % nprocs == p]
+
+
 def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
     """tools.kaiju.main on the path `mode` (with --mesh-index n_shards if
-    given) as NPROCS processes on cuda:0 (--dist-nprocs, a coordinator on
-    127.0.0.1, --dist-pid p, each with its own -o and seed-table cache), on
-    the first MESH_READS reads: each process must launch every kernel of
-    its path on the card, each read must be in exactly one output, the one
-    its batch share names, and the lines merged by read must equal phase
-    4's lines (base_tsv).  Then the one-process main() of the same reads,
-    timed beside the processes' wall.  Returns the launch counts of all
-    the processes."""
+    given) as NPROCS processes (--dist-nprocs, a coordinator on 127.0.0.1,
+    --dist-pid p, each with its own -o and seed-table cache), process p on
+    cuda:{p % cards}, on the first MESH_READS reads: each process must
+    launch every kernel of its path on its card, each read must be in
+    exactly one output, the one its batch share names, and the lines
+    merged by read must equal phase 4's lines (base_tsv).  With
+    --mesh-index each process must hold exactly the shards of
+    held_by_rule and map every other one from process o mod N, and each
+    kernel of the path must equal its plain version on process 0's first
+    call, on the mapped shards (check_first_calls).  Then the one-process
+    main() of the same reads, timed beside the processes' wall.  Returns
+    the launch counts of all the processes and each process's report."""
     import torch
 
     from kaiju_tpu_torch.parallel.multihost import local_rows
@@ -1646,12 +1788,14 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
     work = os.path.dirname(ktx)
     mesh = ["--mesh-index", str(n_shards)] if n_shards else []
     name = f"{mode}{' --mesh-index %d' % n_shards if n_shards else ''}"
-    fq = os.path.join(work, f"reads_{MESH_READS}.fastq")
+    fq = mesh_fastq(reads, ktx)
     argv = ["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1], *mesh,
             "-b", str(BATCH)]
     coord = f"127.0.0.1:{free_port()}"
     outs, counts, logs, procs = [], [], [], []
     tag = f"{mode}_mesh{n_shards}"
+    gc.collect()  # this process's cached card memory, out of the readings
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
         for p in range(NPROCS):
@@ -1680,21 +1824,63 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
                 log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
         raise AssertionError(f"{name} x{NPROCS}: exit codes {rcs}")
     path = kernels_of(mode, index.text is not None, bool(n_shards))
+    cards = torch.cuda.device_count()
     launches = {k: 0 for k in REPLACES}
+    reports = []
     for p, cpath in enumerate(counts):
         with open(cpath) as fh:
             got = json.load(fh)
+        reports.append(got)
         idle = [k for k in path if got["launches"][k] <= 0]
         stray = [k for k in REPLACES if k not in path and got["launches"][k]]
         log(f"e2e {name} process {p} of {NPROCS}: cuda:{got['device']}, "
-            f"{got['seconds']:.2f} s in main(); launches "
+            f"{got['seconds']:.2f} s in main(); card memory used after "
+            f"set-up {got['card_used']:,} bytes (this process's caching "
+            f"allocator {got['allocated']:,}); launches "
             f"{json.dumps(got['launches'])}")
-        if idle or stray or got["device"] != "0":
+        if idle or stray or got["device"] != str(p % cards):
             raise AssertionError(f"{name} process {p}: kernels that did not "
                                  f"launch {idle}, others {stray}, card "
                                  f"{got['device']}")
         for k in launches:
             launches[k] += got["launches"][k]
+        if not n_shards:
+            continue
+        lay = got["layout"]
+        log(f"memory {name} process {p}: caching allocator "
+            f"{got['allocated']:,} bytes + held shards "
+            f"{sum(lay['bytes_held'].values()):,} bytes outside it")
+        want = held_by_rule(p, NPROCS, n_shards)
+        opened = {int(o): q for o, q in lay["opened"].items()}
+        log(f"shards {name} process {p}: holds {lay['held']} "
+            f"({json.dumps(lay['bytes_held'])} bytes), maps "
+            + ", ".join(f"{o} from process {q}" for o, q in opened.items())
+            + f" ({json.dumps(lay['bytes_opened'])} bytes)")
+        if lay["held"] != want or opened != {
+                o: o % NPROCS for o in range(n_shards) if o not in want}:
+            raise AssertionError(f"{name} process {p}: holds {lay['held']} "
+                                 f"and maps {opened}, the rule gives {want}")
+        for k, c in got["checks"].items():
+            log(f"kernel {k} [{name}, process {p}, {c['opened']} of "
+                f"{n_shards} shards mapped from the peer]: max_abs_err "
+                f"{c['err']} against its plain version and its launch on "
+                f"copies in this process; {c['ms']:.4f} ms on the mapped "
+                f"shards, {c['ms_local']:.4f} ms on the copies "
+                f"({c['ms'] / c['ms_local'] - 1:+.1%})")
+        unchecked = [k for k in path if p == 0 and k not in got["checks"]]
+        if unchecked or any(c["err"] for c in got["checks"].values()):
+            raise AssertionError(f"{name} process {p}: kernels unchecked "
+                                 f"{unchecked} or differing from their plain "
+                                 "versions on the mapped shards")
+    if n_shards:
+        held = sum(sum(r["layout"]["bytes_held"].values()) for r in reports)
+        lay = reports[0]["layout"]
+        whole = sum(lay["bytes_held"].values()) + sum(
+            lay["bytes_opened"].values())
+        log(f"shards {name} x{NPROCS}: the index shards (rec, SA samples, "
+            f"text) take {held:,} bytes of card memory held apart, against "
+            f"{NPROCS * whole:,} as {NPROCS} whole copies (every process "
+            "holding all the shards)")
 
     names = [n for n, _q, _r in reads[:MESH_READS]]
     owner = {}
@@ -1725,7 +1911,8 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
         one = time.perf_counter() - t1
     finally:
         del os.environ["KAIJU_TPU_CACHE"]
-    log(f"e2e {name} x{NPROCS} on one card: {MESH_READS:,} reads, "
+    log(f"e2e {name} x{NPROCS} on cuda:" + ",".join(
+        sorted({r["device"] for r in reports})) + f": {MESH_READS:,} reads, "
         f"{len(lines):,} written once each, {same:,} equal to phase 4's "
         f"lines; wall {wall:.2f} s for the processes (start-up, index load, "
         f"seed tables and classification) against {one:.2f} s for the "
@@ -1733,6 +1920,33 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
     if rc != 0 or len(lines) != MESH_READS or same != MESH_READS:
         raise AssertionError(f"{name} x{NPROCS}: the merged lines differ "
                              "from phase 4's")
+    return launches, reports
+
+
+def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
+    """Phase 4f: run_processes for each of PROC_RUNS on the text index
+    (ktx), held against phase 4's lines tsvs[mode]["text"]; prints the
+    cards used and the card memory after set-up.  Returns the launch
+    counts of all the runs."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    log(f"4f: process p on cuda:{{p % {cards}}}: " + (
+        "each process maps its peer's shards over NVLink from another card"
+        if cards > 1 else "one card, so the processes map each other's "
+        "shards on cuda:0; the cross-card form (over NVLink) was not run"))
+    launches = {k: 0 for k in REPLACES}
+    used = {}
+    for n_shards, mode in PROC_RUNS:
+        counts, reports = run_processes(index, reads, ktx, nodes, mode,
+                                        n_shards, tsvs[mode]["text"])
+        for k, c in counts.items():
+            launches[k] += c
+        used[mode, n_shards] = max(r["card_used"] for r in reports)
+    log("4f: card memory used after set-up, the larger of the processes' "
+        "readings: " + "; ".join(
+            f"{mode} {'--mesh-index %d' % n if n else 'one index'} "
+            f"{b:,} bytes" for (mode, n), b in used.items()))
     return launches
 
 
@@ -1776,6 +1990,15 @@ def run(args) -> int:
     fq = os.path.join(os.path.dirname(ktx["fmi"]), f"reads_{READS}.fastq")
     readgen.write_fastq([(n, s) for n, s, _ in reads], fq)
     check_fragmenter(reads)
+
+    if args.only_processes:  # phase 4f and the lines it is held against
+        tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
+                                       nodes, fq, mode, "text")[1]}
+                for mode in PATHS}
+        run_phase_4f(indexes["text"], reads, ktx["text"], nodes, tsvs)
+        log("--only-processes: phases 1, 2, 4 on db_text.ktx and 4f passed; "
+            "no kernels line")
+        return 0
 
     # ---- 3. kernels against their plain versions -----------------------
     checks = {}
@@ -1881,13 +2104,10 @@ def run(args) -> int:
                                                n_shards).items():
                 launches[k] += c
 
-    # ---- 4f. many processes on one card, each counted from 0 -------------
-    for n_shards in (0, MESH[0]):
-        for mode in PATHS:
-            for k, c in run_processes(indexes["text"], reads, ktx["text"],
-                                      nodes, mode, n_shards,
-                                      tsvs[mode]["text"]).items():
-                launches[k] += c
+    # ---- 4f. many processes, each counted from 0 --------------------------
+    for k, c in run_phase_4f(indexes["text"], reads, ktx["text"], nodes,
+                             tsvs).items():
+        launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
     # ---- 5. result lines ----------------------------------------------
@@ -1918,6 +2138,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)
+    ap.add_argument("--only-processes", action="store_true",
+                    help="run phase 4f alone, with the phase 4 lines it is "
+                    "held against (for a machine with several cards); no "
+                    "kernels line and no result line")
     args = ap.parse_args(argv)
     try:
         return run(args)

@@ -6,7 +6,9 @@ sm_90a into its own plain-C shared library,
 with ctypes.  A kernel is one C entry point of a source: most sources hold
 one kernel of their own name; ``gather.cu`` holds P1 and P2, and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
-split into shards (K16, ``parallel/sharded_index.py``).  A library is
+split into shards (K16, ``parallel/sharded_index.py``); ``peer.cu`` holds
+no kernel, only the CUDA IPC calls that share shards between processes
+(``parallel/peer_shards.py``).  A library is
 built at first use and again whenever its source or a shared header
 (``csrc/*.cuh``) is newer; stale sources compile in parallel, one
 ``nvcc`` each.  Nothing is compiled when a module is
@@ -126,6 +128,9 @@ _SIGNATURES.update({
 _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
            **{n: n[:-len("_sharded")] for n in _SIGNATURES
               if n.endswith("_sharded")}}
+# sources that hold no kernel, only host entry points whose signatures
+# their module sets (csrc/peer.cu: parallel/peer_shards.py)
+HELPERS = ("peer",)
 
 
 def source(name: str) -> str:
@@ -133,7 +138,7 @@ def source(name: str) -> str:
     return _SOURCE.get(name, name)
 
 
-SOURCES = sorted({source(n) for n in _SIGNATURES})
+SOURCES = sorted({source(n) for n in _SIGNATURES} | set(HELPERS))
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 # launches of kernel B with its Bloom screen (each counted in LAUNCHES too)
@@ -211,7 +216,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`'s source, built first if needed
     (the sources are checked once a process, at the first load), with the
     C signature of every kernel it holds set."""
-    src = source(name)
+    return load(source(name))
+
+
+def load(src: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<src>.cu, as library() gives it."""
     lib = _libs.get(src)
     if lib is not None:
         return lib

@@ -125,15 +125,20 @@ class DeviceIndex:
 
 class Shards:
     """One array of an index split into S contiguous shards, each its own
-    tensor on one device (K16, kaiju_tpu/parallel/sharded_index.py).
-    Element (row) x lives in shard o = min(x // per, S - 1) at x - o * per;
-    a shard holds `per` of them (rank records one end row more).  Indexing
-    with an integer tensor reads every element from its owner, so the
-    plain versions read the shards as they read one tensor; ``shape`` is
-    the whole array's.  ``table`` (int64 [S], on the shards' device) holds
-    the shards' addresses, which the sharded kernels read."""
+    tensor (K16, kaiju_tpu/parallel/sharded_index.py), read on `device`
+    (by default the first shard's).  Element (row) x lives in shard o =
+    min(x // per, S - 1) at x - o * per; a shard holds `per` of them (rank
+    records one end row more).  Indexing with an integer tensor reads every
+    element from its owner, so the plain versions read the shards as they
+    read one tensor; ``shape`` is the whole array's.  ``table`` (int64
+    [S], on `device`) holds the shards' addresses, which the sharded
+    kernels read.  A shard may be mapped from another process's memory
+    (``parallel.peer_shards``); `opened` names those that were mapped for
+    `device` and may lie on another card of the host, which the kernels
+    read over NVLink and the plain versions refuse."""
 
-    def __init__(self, parts: list, per: int, length: int):
+    def __init__(self, parts: list, per: int, length: int, device=None,
+                 opened=()):
         if not parts or per < 1:
             raise ValueError("shards need one or more parts and per >= 1")
         self.parts = list(parts)
@@ -142,11 +147,17 @@ class Shards:
         p0 = self.parts[0]
         self.shape = torch.Size((int(length), *p0.shape[1:]))
         self.dtype = p0.dtype
-        self.device = p0.device
+        self.device = p0.device if device is None else torch.device(device)
+        self.opened = frozenset(opened)
         self.table = torch.tensor([p.data_ptr() for p in self.parts],
                                   dtype=torch.int64).to(self.device)
 
     def __getitem__(self, idx) -> torch.Tensor:
+        for o, part in enumerate(self.parts):
+            if part.device != self.device:
+                raise ValueError(
+                    f"shard {o} lies on {part.device}: the plain versions "
+                    f"read shards on {self.device} only")
         idx = torch.as_tensor(idx, device=self.device).long()
         owner = torch.clamp(idx // self.per, 0, self.S - 1)
         local = idx - owner * self.per
@@ -158,10 +169,17 @@ class Shards:
         return out
 
     def check(self, what: str, dtype: torch.dtype, device, rows: int) -> None:
-        """Raise unless every shard is a contiguous tensor of `dtype` on
-        `device` with `rows` rows."""
+        """Raise unless the shards are read on `device` and every shard is
+        a contiguous tensor of `dtype` with `rows` rows on `device`, or on
+        another card when it was mapped for `device`."""
+        if self.device != device:
+            raise ValueError(f"{what}: shards read on {self.device}, "
+                             f"expected {device}")
         for o, part in enumerate(self.parts):
-            kernels.check(part, f"{what} shard {o}", dtype, device)
+            on = device
+            if o in self.opened and part.device.type == device.type:
+                on = part.device
+            kernels.check(part, f"{what} shard {o}", dtype, on)
             if part.shape[0] != rows:
                 raise ValueError(f"{what} shard {o}: {part.shape[0]} rows, "
                                  f"expected {rows}")

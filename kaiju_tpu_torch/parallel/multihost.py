@@ -12,23 +12,25 @@ for byte.  This is kaiju_tpu's ``local_data_rows`` (:66-78) on a mesh of
 one card a process, with the data axis over the processes.
 
 Each process runs on its own card, ``cuda:{p % device_count}``
-(``process_device``), and keeps the whole index there: with
-``--mesh-index S`` all S shards sit on the process's card.  kaiju_tpu
-puts the index axis innermost in a (data x index) mesh over all devices
-(:41-53), so with one device a process and S > 1 that axis crosses
-processes and its data axis has N / S rows; here the data axis always
-has N rows.  The merged output is the same; which process writes which
-read differs in that case only.  Index shards on several cards are
-ROADMAP.md item 10e.
+(``process_device``).  Without ``--mesh-index`` it keeps the whole index
+there.  With ``--mesh-index S`` it holds only its shards of the index and
+maps every other shard from the process that holds it
+(``parallel.peer_shards``): the index axis crosses the processes, as in
+kaiju_tpu's (data x index) mesh with the index axis innermost (:41-53).
+Its data axis then has N / S rows; here the data axis always has N rows,
+every process classifying its share of each batch on all S shards.  The
+merged output is the same; which process writes which read differs in
+that case only.
 
 The processes join a ``torch.distributed`` group over gloo, not NCCL:
 NCCL refuses two ranks on one card, which is how a one-card machine runs
 two processes, and no collective runs inside the loop.  kaiju_tpu needs a
 per-batch pmax of its overflow counters only so that every process takes
 the same capacity retry (sharded_fused.py:366-373), and the port has no
-capacity retry.  The group serves the rendezvous and one barrier at the
-end of each stream, so that no process tears the group down while a peer
-still writes.
+capacity retry.  The group serves the rendezvous, the exchange of the
+shards' handles, one barrier at the end of each stream, so that no
+process tears the group down while a peer still writes, and the
+shards' teardown (``before_leave``).
 """
 
 from __future__ import annotations
@@ -54,9 +56,20 @@ def init_distributed(coordinator: str, nprocs: int, pid: int) -> None:
     atexit.register(_leave)
 
 
+_BEFORE_LEAVE: list = []
+
+
+def before_leave(fn) -> None:
+    """Call fn() when this process leaves its group (at exit, before the
+    group is destroyed), the latest registered first."""
+    _BEFORE_LEAVE.append(fn)
+
+
 def _leave() -> None:
     import torch.distributed as dist
 
+    while _BEFORE_LEAVE:
+        _BEFORE_LEAVE.pop()()
     if dist.is_initialized():
         dist.destroy_process_group()
 

@@ -1,0 +1,243 @@
+"""Index shards held apart by the processes of one host (K16's
+cross-process form: ``kaiju --mesh-index S --dist-nprocs N``).
+
+The counterpart of kaiju_tpu's ``put_global``
+(kaiju_tpu/parallel/multihost.py:55-65), which puts on a process's devices
+only the shards they hold, together with the psum over the index axis
+that takes each rank or walk step from its owner
+(kaiju_tpu/parallel/sharded_fused.py:35-36).  Here a process uploads only
+the shards it holds and maps every other shard from a process that holds
+it; the sharded kernels then read rows, SA samples and text bytes through
+their pointer tables (``kt::ShardIx``, csrc/fm_common.cuh) wherever the
+shard lives, with no collective in the loop.
+
+Who holds what: process p of N holds shard o of S when o = p mod S, for N
+>= S (kaiju_tpu's (data x index) mesh of one card a process, index axis
+innermost, multihost.py:41-53; processes p >= S hold replicas), and when
+o mod N = p, for N < S (ceil or floor S / N shards each, as a JAX process
+with S / N devices).  A shard that a process does not hold is read from
+process o mod N, which holds it either way (``held``, ``source``).
+
+On the card (process p on ``cuda:{p % cards}``) each held shard is an
+allocation of its own (csrc/peer.cu), published by its CUDA IPC handle
+once its upload has finished; a reader maps it on its own card, or over
+NVLink from another card of the host.  An open that fails raises with the
+CUDA error: no shard is copied in place of mapping it.  On the CPU
+(``device="cpu"``, the tests) the holder writes each shard it serves to a
+file in a run directory that process 0 makes in the temporary directory
+and names to the group, and the readers map the file read-only
+(np.memmap): the ownership and the teardown, rehearsed without a card.
+
+Teardown (``PeerShards.close``): the readers unmap, a barrier, then the
+holders free (on the CPU: unlink their files, a second barrier, process 0
+removes the run directory), so that no holder frees a shard that a peer
+still reads.  It runs when the caller closes the shards, and at the
+latest before the process leaves its group (``multihost.before_leave``).
+
+CUDA IPC reaches the processes of one host only: a group that spans
+hosts exits with a message (shards on several hosts are ROADMAP item 10e;
+kaiju_tpu reaches them over DCN).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import socket
+import tempfile
+import warnings
+
+import numpy as np
+import torch
+
+from .. import kernels
+from . import multihost
+
+HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
+
+
+def held(pid: int, nprocs: int, n_shards: int) -> list[int]:
+    """The shards that process pid of nprocs holds."""
+    if nprocs >= n_shards:
+        return [pid % n_shards]
+    return list(range(pid, n_shards, nprocs))
+
+
+def source(shard: int, nprocs: int) -> int:
+    """The process that a process not holding `shard` reads it from."""
+    return shard % nprocs
+
+
+def one_host(hosts) -> None:
+    """Exit unless the host names of a group's processes are all one."""
+    names = sorted(set(hosts))
+    if len(names) > 1:
+        raise SystemExit(
+            "--mesh-index with --dist-* maps index shards between the "
+            "processes of one host (CUDA IPC); this group spans the hosts "
+            f"{', '.join(names)}: shards on several hosts are ROADMAP "
+            "item 10e")
+
+
+def map_file(path: str, shape, dtype: np.dtype) -> torch.Tensor:
+    """A CPU tensor over the file a holder wrote, mapped read-only."""
+    a = np.memmap(path, dtype=dtype, mode="r", shape=tuple(shape))
+    with warnings.catch_warnings():  # read-only, and nothing writes it
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
+
+
+def _peer_lib() -> ctypes.CDLL:
+    lib = kernels.load("peer")
+    if not getattr(lib, "_kt_peer_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, args in (("kt_peer_alloc", (i, ctypes.c_size_t,
+                                            ctypes.POINTER(p))),
+                         ("kt_peer_handle", (p, p)),
+                         ("kt_peer_open", (i, p, ctypes.POINTER(p))),
+                         ("kt_peer_close", (p,)),
+                         ("kt_peer_free", (p,))):
+            getattr(lib, fn).restype = i
+            getattr(lib, fn).argtypes = args
+        lib._kt_peer_set = True
+    return lib
+
+
+class _CudaArray:
+    """A device pointer as ``__cuda_array_interface__``, which
+    torch.as_tensor wraps without a copy, on the card that holds it."""
+
+    def __init__(self, ptr: int, shape, dtype: np.dtype):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": dtype.str,
+            "data": (ptr, False), "strides": None, "version": 2}
+
+
+class PeerShards:
+    """The shards of one index as process `rank` of `group` (a
+    torch.distributed group of more than one process) reads them: those it
+    holds, uploaded to `device`, and the others mapped from their source
+    (module docstring).  ``held`` lists the held shards, ``opened`` maps
+    every other shard to the process it was mapped from."""
+
+    def __init__(self, device: torch.device, n_shards: int, group):
+        import torch.distributed as dist
+
+        self.device = device
+        self.S = n_shards
+        self.group = group
+        self.pid = dist.get_rank(group)
+        self.nprocs = dist.get_world_size(group)
+        self.held = held(self.pid, self.nprocs, n_shards)
+        self.opened: dict[int, int] = {}
+        self.run_dir = None
+        self._lib = _peer_lib() if device.type == "cuda" else None
+        self._owned: list = []  # our allocations (card) or files (CPU)
+        self._maps: list = []  # peers' allocations mapped here (card)
+        self._closed = False
+        multihost.before_leave(self.close)
+        if self._lib is None:  # process 0 names the run directory
+            name = [tempfile.mkdtemp(prefix="kaiju_tpu_shards_")
+                    if self.pid == 0 else None]
+            dist.broadcast_object_list(name, src=0, group=group)
+            self.run_dir = name[0]
+
+    def parts(self, arrays: dict) -> dict:
+        """{name: S host parts (numpy)} -> {name: S tensors}: the held
+        parts uploaded, every other part mapped from its source, all
+        handles exchanged in one all-gather."""
+        import torch.distributed as dist
+
+        out = {name: [None] * self.S for name in arrays}
+        mine = {}
+        for name, host in arrays.items():
+            for o in self.held:
+                serve = source(o, self.nprocs) == self.pid
+                out[name][o], key = self._hold(
+                    np.ascontiguousarray(host[o]), serve, f"{name}_{o}")
+                if serve:
+                    mine[name, o] = (key, host[o].shape, host[o].dtype.str)
+        if self._lib is not None:  # uploads done before the handles go out
+            torch.cuda.synchronize(self.device)
+        everyone = [None] * self.nprocs
+        dist.all_gather_object(everyone, (socket.gethostname(), mine),
+                               group=self.group)
+        one_host(h for h, _m in everyone)
+        for o in range(self.S):
+            if o in self.held:
+                continue
+            p = self.opened[o] = source(o, self.nprocs)
+            for name in arrays:
+                key, shape, dtype = everyone[p][1][name, o]
+                out[name][o] = self._open(key, shape, np.dtype(dtype),
+                                          f"{name} shard {o} of process {p}")
+        return out
+
+    def _hold(self, a: np.ndarray, serve: bool, tag: str):
+        """a on this process's device, and what a peer opens it by (the
+        IPC handle, or the file) if this process serves it."""
+        if self._lib is None:
+            t = torch.from_numpy(a.copy())
+            if not serve:
+                return t, None
+            path = os.path.join(self.run_dir, f"{tag}.p{self.pid}")
+            a.tofile(path)
+            self._owned.append(path)
+            return t, path
+        ptr = ctypes.c_void_p()
+        self._call("kt_peer_alloc", f"cudaMalloc of {tag}", self.device.index,
+                   a.nbytes, ctypes.byref(ptr))
+        self._owned.append(ptr.value)
+        t = torch.as_tensor(_CudaArray(ptr.value, a.shape, a.dtype))
+        t.copy_(torch.from_numpy(a))
+        if not serve:
+            return t, None
+        handle = ctypes.create_string_buffer(HANDLE_BYTES)
+        self._call("kt_peer_handle", f"cudaIpcGetMemHandle of {tag}", ptr,
+                   handle)
+        return t, handle.raw
+
+    def _open(self, key, shape, dtype: np.dtype, what: str) -> torch.Tensor:
+        if self._lib is None:
+            return map_file(key, shape, dtype)
+        ptr = ctypes.c_void_p()
+        self._call("kt_peer_open", f"cudaIpcOpenMemHandle of {what} on "
+                   f"{self.device} (across cards it needs peer access)",
+                   self.device.index, ctypes.create_string_buffer(key),
+                   ctypes.byref(ptr))
+        self._maps.append(ptr.value)
+        return torch.as_tensor(_CudaArray(ptr.value, shape, dtype))
+
+    def _call(self, fn: str, what: str, *args) -> None:
+        rc = getattr(self._lib, fn)(*args)
+        if rc != 0:
+            msg = self._lib.kt_error_string(rc).decode()
+            raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+    def close(self) -> None:
+        """Unmap the peers' shards, wait for every process to do so, then
+        free the held ones (on the CPU, unlink and remove the run
+        directory).  Every process of the group calls it; the tensors of
+        ``parts`` are invalid after it."""
+        import torch.distributed as dist
+
+        if self._closed:
+            return
+        self._closed = True
+        if self._lib is not None:
+            torch.cuda.synchronize(self.device)
+            for ptr in self._maps:
+                self._call("kt_peer_close", "cudaIpcCloseMemHandle",
+                           ctypes.c_void_p(ptr))
+        self._maps.clear()
+        dist.barrier(group=self.group)
+        for item in self._owned:
+            if self._lib is None:
+                os.unlink(item)
+            else:
+                self._call("kt_peer_free", "cudaFree", ctypes.c_void_p(item))
+        self._owned.clear()
+        if self._lib is None:
+            dist.barrier(group=self.group)
+            if self.pid == 0:
+                os.rmdir(self.run_dir)

@@ -27,10 +27,12 @@ does not.
 
 kaiju_tpu's capacity budgets (``CapStore``) and their retry, its v1
 fragmenter with the S = 16 slot fallback and its ``MemFastPipeline``
-fallback have no counterpart: the kernels take exact sizes.  All shards
-live on the one device the pipeline runs on; spreading them over cards is
-ROADMAP item 10e.  Several processes each run a pipeline on their share of
-every batch (``parallel.multihost``, ``engine.pipeline.ProcessShare``).
+fallback have no counterpart: the kernels take exact sizes.  In one
+process all shards live on the device the pipeline runs on.  Several
+processes each run a pipeline on their share of every batch
+(``parallel.multihost``, ``engine.pipeline.ProcessShare``); given their
+group, each holds only its shards and maps the others from their holders
+(``parallel.peer_shards``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from .sharded_index import ShardedIndex
 
 class _OnShards:
     """A device pipeline whose index is a ``ShardedIndex`` of n_index
-    shards on its device."""
+    shards on its device; with a group of several processes, the shards
+    held apart by them (``ShardedIndex``'s group)."""
 
     def __init__(
         self,
@@ -57,14 +60,16 @@ class _OnShards:
         n_index: int,
         device=None,
         kmer_cache_dir: Optional[str] = None,
+        group=None,
     ):
         if n_index < 1:
             raise ValueError(f"--mesh-index must be >= 1, got {n_index}")
         self.n_index = n_index
+        self.group = group
         super().__init__(index, taxonomy, config, device, kmer_cache_dir)
 
     def _device_index(self, index: KaijuIndex) -> ShardedIndex:
-        return ShardedIndex(index, self.n_index, self.device)
+        return ShardedIndex(index, self.n_index, self.device, self.group)
 
 
 class ShardedMemPipeline(_OnShards, MemPipeline):

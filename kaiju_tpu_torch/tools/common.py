@@ -41,13 +41,15 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     engine.greedy_fast), whose lines carry the names and fragments; MEM and
     Greedy otherwise run the device pipelines (engine.mem, engine.greedy),
     or with --mesh-index S their index-sharded forms
-    (parallel.sharded_fused), all S shards on one device.
+    (parallel.sharded_fused), all S shards on one device in one process.
 
     Many processes (--dist-nprocs N > 1 with --dist-coordinator and
     --dist-pid, or KAIJU_TPU_NPROCS, _COORDINATOR and _PID, which kaiju_tpu
     reads too) join a group (parallel.multihost); each runs the pipeline
     the other flags choose on its own card, on its share of every batch
-    (engine.pipeline.ProcessShare).  As in kaiju_tpu, --mesh-index and
+    (engine.pipeline.ProcessShare), and with --mesh-index S holds only its
+    shards of the index, mapping the others from the processes that hold
+    them (parallel.peer_shards).  As in kaiju_tpu, --mesh-index and
     many processes run MEM and Greedy without -v, and a taxonomy-free tool
     or -v exits with its message; -d exits too, since the trace needs the
     one-process host engine (kaiju_tpu drops the trace there)."""
@@ -71,11 +73,15 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
             raise SystemExit("-d traces reads through the host engine in "
                              "one process: it does not run with --mesh-index"
                              " / --dist-*")
+    group = None
     if nprocs > 1:
+        import torch.distributed as dist
+
         from ..parallel import multihost
 
         device = multihost.process_device(pid, device)
         multihost.init_distributed(coord, nprocs, pid)
+        group = dist.group.WORLD
     if cfg.debug:
         from ..engine.core import ExactClassifier
 
@@ -99,7 +105,7 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
                     if cfg.mode == "greedy"
                     else sharded_fused.ShardedMemPipeline)
         pipe = Pipeline(index, taxonomy, cfg, n_index, device=device,
-                        kmer_cache_dir=kmer_dir)
+                        kmer_cache_dir=kmer_dir, group=group)
     else:
         if cfg.mode == "greedy":
             from ..engine.greedy import GreedyPipeline as Pipeline
@@ -196,9 +202,10 @@ def add_engine_args(ap, protein_tool=False):
     ap.add_argument("-b", dest="batch_size", type=int, default=4096,
                     help="reads per device batch")
     ap.add_argument("--mesh-index", dest="mesh_index", type=int, default=0,
-                    help="split the index into N shards, all on the "
-                         "process's card (MEM and Greedy without -v; 0 = "
-                         "one index)")
+                    help="split the index into N shards (MEM and Greedy "
+                         "without -v; 0 = one index): all on the process's "
+                         "card, or with --dist-* each held by one process "
+                         "and mapped by the others")
     ap.add_argument("--dist-coordinator", dest="dist_coordinator",
                     help="host:port of process 0 of a multi-process run "
                          "(or KAIJU_TPU_COORDINATOR)")

@@ -3,11 +3,16 @@ KAIJU_TPU_NPROCS; kaiju_tpu_torch.parallel.multihost and
 engine.pipeline.ProcessShare): 2 and 3 processes over gloo on 127.0.0.1,
 MEM and Greedy, each with and without --mesh-index 2, with a batch size
 that gives 3 processes uneven shares and one of them an empty share of
-the last batch.  Every read must be written by exactly one process, the
+the last batch, and 2 processes with --mesh-index 4 in Greedy on an index
+with a text copy.  Every read must be written by exactly one process, the
 one that multihost.local_rows names, and the lines merged by read must be
 the single-process TSV byte for byte, which is the ExactClassifier's.
-Each process is tests/torch_multihost_worker.py."""
+With --mesh-index each process must hold exactly the shards of the
+ownership rule (parallel.peer_shards) and map every other shard from
+process o mod N, and no file of the mapped shards may outlive the
+processes.  Each process is tests/torch_multihost_worker.py."""
 
+import json
 import os
 import random
 import socket
@@ -42,6 +47,8 @@ def env(tmp_path_factory):
     nodes_dmp = str(work / "nodes.dmp")
     nodes = write_nodes_dmp(nodes_dmp)
     idx = py_builder.build_index(records)
+    ktx_text = str(work / "db_text.ktx")
+    idx.save(ktx_text)
     idx.text = None
     ktx = str(work / "db.ktx")
     idx.save(ktx)
@@ -49,17 +56,18 @@ def env(tmp_path_factory):
     fq = str(work / "reads.fastq")
     write_fastq(reads, fq)
     return {"work": work, "nodes": nodes, "nodes_dmp": nodes_dmp, "ktx": ktx,
-            "fq": fq, "reads": reads, "records": records}
+            "ktx_text": ktx_text, "fq": fq, "reads": reads,
+            "records": records}
 
 
-def _single(env, mode):
-    """The one-process TSV of the mode (its run also fills the seed-table
-    cache beside the index, which the processes then share) and the
-    ExactClassifier's."""
-    key = ("single", mode)
+def _single(env, mode, ktx="ktx"):
+    """The one-process TSV of the mode on env[ktx] (its run also fills the
+    seed-table cache and Bloom bitmaps beside the index, which the
+    processes then share) and the ExactClassifier's."""
+    key = ("single", mode, ktx)
     if key not in env:
-        out = str(env["work"] / f"single_{mode}.tsv")
-        assert tkaiju.main(["-t", env["nodes_dmp"], "-f", env["ktx"], "-i",
+        out = str(env["work"] / f"single_{mode}_{ktx}.tsv")
+        assert tkaiju.main(["-t", env["nodes_dmp"], "-f", env[ktx], "-i",
                             env["fq"], *MODES[mode], "-b", str(BATCH), "-o",
                             out], device="cpu") == 0
         with open(out) as fh:
@@ -124,19 +132,17 @@ def _run(env, nprocs, by_env, argv, tag):
     return lines
 
 
-@pytest.mark.parametrize("nprocs, by_env", [(2, False), (3, True)],
-                         ids=["2-flags", "3-env"])
-@pytest.mark.parametrize("mesh", [0, 2], ids=["flat", "mesh2"])
-@pytest.mark.parametrize("mode", list(MODES))
-def test_processes_merge_to_the_single_process_tsv(env, mode, mesh, nprocs,
-                                                   by_env):
-    single, exact = _single(env, mode)
+def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx"):
+    """Run nprocs workers on env[ktx] and check their outputs and, with
+    --mesh-index, their shards."""
+    single, exact = _single(env, mode, ktx)
     assert single == exact, _diff(single, exact)
-    argv = ["-t", env["nodes_dmp"], "-f", env["ktx"], "-i", env["fq"],
+    argv = ["-t", env["nodes_dmp"], "-f", env[ktx], "-i", env["fq"],
             *MODES[mode], "-b", str(BATCH)]
     if mesh:
         argv += ["--mesh-index", str(mesh)]
-    lines = _run(env, nprocs, by_env, argv, f"{mode}_{mesh}_{nprocs}")
+    tag = f"{mode}_{mesh}_{nprocs}_{ktx}"
+    lines = _run(env, nprocs, by_env, argv, tag)
     # the reads each process owns, batch by batch
     names = [n for n, _s in env["reads"]]
     want_owner = {}
@@ -161,3 +167,45 @@ def test_processes_merge_to_the_single_process_tsv(env, mode, mesh, nprocs,
     merged = "".join(by_name[n] for n in names)
     assert merged == single, _diff(merged, single)
     assert merged.count("C\t") > 40
+    if mesh:
+        _check_shards(env, tag, nprocs, mesh, ktx == "ktx_text")
+    return single
+
+
+def _check_shards(env, tag, nprocs, S, text):
+    """Each process held exactly its shards (process p: shard p mod S for
+    N >= S, the shards o with o mod N = p for N < S), mapped every other
+    one from process o mod N, and left no file of them behind."""
+    arrays = {"rec", "sa_seq", "sa_off"} | ({"text"} if text else set())
+    holders = set()
+    for p in range(nprocs):
+        with open(env["work"] / f"{tag}_p{p}.tsv.shards.json") as fh:
+            got = json.load(fh)
+        want = ([p % S] if nprocs >= S
+                else [o for o in range(S) if o % nprocs == p])
+        assert got["held"] == want, (p, got)
+        assert got["opened"] == {str(o): o % nprocs for o in range(S)
+                                 if o not in want}, (p, got)
+        assert set(got["bytes_held"]) == arrays
+        assert all(got["bytes_held"][a] > 0 for a in arrays)
+        assert all(got["bytes_opened"][a] > 0 for a in arrays)
+        holders.update(want)
+        assert not os.path.exists(got["run_dir"]), got["run_dir"]
+    assert holders == set(range(S))
+
+
+@pytest.mark.parametrize("nprocs, by_env", [(2, False), (3, True)],
+                         ids=["2-flags", "3-env"])
+@pytest.mark.parametrize("mesh", [0, 2], ids=["flat", "mesh2"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_processes_merge_to_the_single_process_tsv(env, mode, mesh, nprocs,
+                                                   by_env):
+    _check_run(env, mode, mesh, nprocs, by_env)
+
+
+def test_two_processes_hold_four_text_index_shards_apart(env):
+    """N < S: 2 processes, --mesh-index 4, Greedy, on the index with a
+    text copy (E's hybrid reads the text shards): two shards held and two
+    mapped a process, and the TSV equal to the one from db.ktx."""
+    single = _check_run(env, "greedy", 4, 2, False, "ktx_text")
+    assert single == _single(env, "greedy")[0]

@@ -1,0 +1,102 @@
+"""Index shards held apart by processes (kaiju_tpu_torch.parallel.
+peer_shards), without processes: the ownership rule for N processes and S
+shards, ``Shards`` over read-only memory maps of shard files (as a
+process maps its peers' shards on the CPU) against the whole tensor and
+through the plain SA walk and extension, the plain versions' refusal of a
+shard on another device, and the exit of a group that spans two hosts.
+The processes themselves run in tests/test_torch_multihost.py."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from kaiju_tpu_torch.index import py_builder
+from kaiju_tpu_torch.ops import device_index as tdev
+from kaiju_tpu_torch.parallel import peer_shards
+from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex, _split
+
+from conftest import make_db_records
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+@pytest.mark.parametrize("N", [1, 2, 3, 4])
+def test_every_shard_has_a_holder_that_serves_it(N, S):
+    held = [peer_shards.held(p, N, S) for p in range(N)]
+    # kaiju_tpu's mesh of one card a process, index axis innermost (N >= S),
+    # or S / N shards a process (N < S)
+    for p in range(N):
+        want = ([p % S] if N >= S else [o for o in range(S) if o % N == p])
+        assert held[p] == want
+        if N < S:
+            assert len(held[p]) in (S // N, -(-S // N))
+    assert set().union(*map(set, held)) == set(range(S))
+    for p in range(N):
+        for o in range(S):
+            src = peer_shards.source(o, N)
+            assert src == o % N and o in held[src], (p, o)
+    if N >= S:  # processes p >= S hold replicas
+        assert all(held[p] == held[p % S] for p in range(N))
+
+
+@pytest.fixture(scope="module")
+def index():
+    return py_builder.build_index(make_db_records(random.Random(88),
+                                                  nseq=30))
+
+
+def _mapped(tmp_path, name, parts):
+    """Each part written to a file and mapped read-only, as a reader maps
+    a peer's shard on the CPU."""
+    out = []
+    for o, a in enumerate(parts):
+        path = tmp_path / f"{name}_{o}"
+        np.ascontiguousarray(a).tofile(path)
+        out.append(peer_shards.map_file(str(path), a.shape, a.dtype))
+    return out
+
+
+@pytest.mark.parametrize("S", [2, 3])
+def test_shards_of_memory_maps_read_as_the_whole_index(tmp_path, index, S):
+    whole = tdev.DeviceIndex(index, "cpu")
+    sh = ShardedIndex(index, S, "cpu")
+    # shard 0 held, the others mapped from files, as process 0 of S has them
+    for name, per, length in (("rec", sh.nb_s, whole.rec.shape[0]),
+                              ("sa_seq", sh.ns_s, whole.sa_seq.shape[0]),
+                              ("sa_off", sh.ns_s, whole.sa_off.shape[0])):
+        full = getattr(whole, name).numpy()
+        extra = 1 if name == "rec" else 0
+        parts = _split(full, S, per, extra, full[-1] if extra else 0)
+        shards = tdev.Shards([torch.from_numpy(parts[0].copy())]
+                             + _mapped(tmp_path, name, parts[1:]),
+                             per, length, "cpu", opened=range(1, S))
+        idx = torch.arange(length)
+        assert torch.equal(shards[idx], getattr(whole, name)[idx])
+        setattr(sh, name, shards)
+    k = torch.arange(0, index.length, 3, dtype=torch.int32)
+    got = tdev.sa_lookup_plain(sh.rec, sh.C, sh.sa_seq, sh.sa_off, sh.nseq,
+                               sh.chpt_exp, k)
+    want = tdev.sa_lookup_plain(whole.rec, whole.C, whole.sa_seq,
+                                whole.sa_off, whole.nseq, whole.chpt_exp, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rng = np.random.default_rng(S)
+    codes = torch.from_numpy(rng.integers(1, 21, (40, 12), dtype=np.uint8))
+    flen = torch.from_numpy(rng.integers(1, 13, 40).astype(np.int32))
+    got = tdev.extend_all_plain(sh.rec, sh.C, codes, flen)
+    want = tdev.extend_all_plain(whole.rec, whole.C, codes, flen)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_plain_versions_refuse_a_shard_on_another_device():
+    shards = tdev.Shards([torch.zeros(4, dtype=torch.int32),
+                          torch.zeros(4, dtype=torch.int32, device="meta")],
+                         4, 8, "cpu", opened=[1])
+    with pytest.raises(ValueError, match="shard 1 lies on meta"):
+        shards[torch.arange(8)]
+
+
+def test_a_group_across_hosts_exits():
+    peer_shards.one_host(["node-a", "node-a"])
+    with pytest.raises(SystemExit, match="ROADMAP item 10e"):
+        peer_shards.one_host(["node-a", "node-b", "node-a"])
