@@ -101,11 +101,26 @@ Phases, any failure exits non-zero:
      in its own memory (both launches timed); the card memory used after
      set-up, the index bytes held apart beside two whole copies, and the
      processes' wall beside the one-process main() of the same reads;
+  4g. the index above 2^31 letters (K17): a synthetic DB of 2.2 G
+     letters (N about 1.03 x 2^31) from the demo's
+     seed, built with the int64 builder on every host thread in a thread
+     of its own that starts after phase 4b and runs beside phases 4c-4f
+     (it slows their host stages; 4b's steady rates run alone);
+     then tools.big_classify.run on the demo's 1,024 reads of 64 at S = 2
+     (saved, loaded onto the card, L then M twice, the host statistics,
+     every lane of 24 sampled reads against its host oracle) and at S = 8
+     (each run counted from 0; L and M must launch in each), the four
+     arrays of S = 8 equal to S = 2's; L and M against their plain
+     versions on the card on the S = 2 run's reads (timed, bound from the
+     distinct rows), an interval starting at 2^31 or later; a steady
+     big_mem_step over 65,536 reads (reads/s, L's and M's ms, the host
+     statistics' seconds), with build, save and load seconds, the card's
+     bytes for the index and the host's peak RSS;
   5. print the kernels' JSON line (the text index's measurements, the
-     sharded kernels' on 4 shards; the launches of every run of phases 4,
-     4c, 4d, 4e and 4f, each counted from 0, and of P1 and P2's benchmark;
-     each error the largest of all the kernel's comparisons), then the
-     result line.
+     sharded kernels' on 4 shards, L's and M's on the big index; the
+     launches of every run of phases 4, 4c, 4d, 4e, 4f and 4g, each
+     counted from 0, and of P1 and P2's benchmark; each error the largest
+     of all the kernel's comparisons), then the result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -153,6 +168,8 @@ REPLACES = {
     "read_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:78",
     "greedy_search_sharded": "kaiju_tpu/parallel/sharded_fused.py:278",
     "ranges_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:278",
+    "big_extend_all": "scripts/big_classify_demo.py:296",
+    "big_sa_walk": "scripts/big_classify_demo.py:332",
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
@@ -199,6 +216,14 @@ X_RUNS = {
 }
 X_WRAPPERS = ("extend_all", "extend_rows", "update_si", "sa_lookup")
 X_STEADY = ("kaijux mem", "kaijux greedy")  # the runs timed again
+# phase 4g, the index above 2^31 letters (K17): the DB's letters (N about
+# 1.03 x 2^31) and seed (the demo's default), the shards of the two runs,
+# the demo's reads, read length and sampled reads, and the kernels
+BIG_LETTERS = 2_200_000_000
+BIG_SEED = 20260821
+BIG_SHARDS = (2, 8)
+BIG_READS, BIG_LEN, BIG_VERIFY = 1024, 64, 24
+BIG_KERNELS = ("big_extend_all", "big_sa_walk")
 
 
 def log(msg: str) -> None:
@@ -1951,6 +1976,182 @@ def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the index above 2^31 letters (K17)
+# ---------------------------------------------------------------------------
+
+
+def big_checks(ix, reads, smi):
+    """L and M against their plain versions on the card on the 1,024
+    demo reads (65,536 lanes): {name: measure() tuple}; on an index past
+    2^31 + 10^6 letters also asserts that a lane's interval starts at 2^31
+    or later."""
+    import torch
+
+    from kaiju_tpu_torch.ops import big_mem
+
+    codes = torch.from_numpy(reads).cuda()
+    R, L = codes.shape
+    got = big_mem.big_extend_all(ix, codes)
+    touched = []
+    want = big_mem.big_extend_all_plain(ix, codes, touched)
+    out = {"big_extend_all": measure(
+        got, want, lambda: big_mem.big_extend_all(ix, codes),
+        lambda: big_mem.big_extend_all_plain(ix, codes), touched,
+        R * L * (1 + 4 + 8 + 8), f"[{R}, {L}] lanes")}
+    i, s0, s1 = got
+    kf = torch.where(s1 > s0, s0, -1).reshape(-1)
+    ids = big_mem.big_sa_walk(ix, kf)
+    touched, slots = [], []
+    want_ids = big_mem.big_sa_walk_plain(ix, kf, touched, slots)
+    walked = int((kf >= 0).sum())
+    n_slots = int(torch.unique(torch.cat(slots)).numel()) if slots else 0
+    out["big_sa_walk"] = measure(
+        ids, want_ids, lambda: big_mem.big_sa_walk(ix, kf),
+        lambda: big_mem.big_sa_walk_plain(ix, kf), touched,
+        kf.numel() * 16 + 4 * n_slots,
+        f"{walked:,} walks of {kf.numel():,} lanes, {n_slots:,} samples")
+    big = int((s0 >= 1 << 31).sum())
+    log(f"4g: {big:,} of {s0.numel():,} lanes have s0 >= 2^31; largest s1 "
+        f"{int(s1.max()):,}, largest id {int(ids.max()):,} [{smi}]")
+    if not big and ix.N > (1 << 31) + 1_000_000:
+        raise AssertionError("4g: no interval starts at 2^31 or later")
+    return out
+
+
+def steady_big(ix, db, smi) -> None:
+    """A steady step over READS reads of the demo's length: big_mem_step's
+    reads/s (host clock, synchronised), L's and M's ms (CUDA events), the
+    host statistics' seconds."""
+    import torch
+
+    from kaiju_tpu_torch.ops import big_mem
+    from kaiju_tpu_torch.tools import big_classify
+
+    reads, _truth = big_classify.make_reads(db, READS, BIG_LEN, seed=8)
+    codes = torch.from_numpy(reads).cuda()
+    big_mem.big_mem_step(ix, codes)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step = big_mem.big_mem_step(ix, codes)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    i, s0, s1, _ids = step
+    kf = torch.where(s1 > s0, s0, -1).reshape(-1)
+    l_ms = cuda_ms(lambda: big_mem.big_extend_all(ix, codes), reps=5)
+    m_ms = cuda_ms(lambda: big_mem.big_sa_walk(ix, kf), reps=5)
+    arrays = tuple(a.cpu().numpy() for a in step)
+    t0 = time.perf_counter()
+    _res, n_cls = big_classify.host_stats(reads, *arrays,
+                                          ix.seq_tax.cpu().numpy())
+    host_s = time.perf_counter() - t0
+    log(f"4g steady: {READS:,} reads of {BIG_LEN}: big_mem_step "
+        f"{step_s:.4f} s = {READS / step_s:,.1f} reads/s (L {l_ms:.3f} ms, "
+        f"M {m_ms:.3f} ms, {int((kf >= 0).sum()):,} walks); host "
+        f"statistics {host_s:.2f} s; with them {READS / (step_s + host_s):,.1f}"
+        f" reads/s; {n_cls:,} classified [{smi}]")
+
+
+def start_big_build(letters: int) -> dict:
+    """Phase 4g's DB build (parallel.big_index.build_db on every host
+    thread) started in a thread of its own, so that it runs beside phases
+    4c-4f: the builder releases the GIL.  Returns the box that
+    receives "db" or "error", and "seconds", and holds the "thread"."""
+    import threading
+
+    from kaiju_tpu_torch.parallel.big_index import build_db
+
+    box = {"threads": os.cpu_count() or 1}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            box["db"] = build_db(None, letters, box["threads"], BIG_SEED,
+                                 letters <= (1 << 31) + 1_000_000)
+        except Exception as exc:  # re-raised by run_phase_4g
+            box["error"] = exc
+        box["seconds"] = time.perf_counter() - t0
+
+    box["thread"] = threading.Thread(target=work, name="big-build",
+                                     daemon=True)
+    box["thread"].start()
+    return box
+
+
+def run_phase_4g(build: dict, smi: str):
+    """Phase 4g: the big DB of `build` (start_big_build's box; waits for
+    it), then tools.big_classify.run at S = 2 and 8 on the demo's reads
+    (each counted from 0), L and M against their plain versions, S = 8
+    against S = 2, the oracle on the sampled reads, a steady step.
+    Returns (measure() tuples, launch counts)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.big_index import peak_rss_gb
+    from kaiju_tpu_torch.tools import big_classify
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "big")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    build["thread"].join()
+    if "error" in build:
+        raise build["error"]
+    db, threads = build.pop("db"), build["threads"]
+    log(f"4g: built N = {db['N']:,} ({db['N'] / 2**31:.4f} x 2^31), "
+        f"{db['nseq']:,} sequences, e = {db['e']} in {build['seconds']:.1f}"
+        f" s on {threads} threads beside phases 4c-4f (waited "
+        f"{time.perf_counter() - t0:.1f} s for it here), host peak RSS "
+        f"{peak_rss_gb():.1f} GB")
+    launches = {k: 0 for k in BIG_KERNELS}
+    rows, arrays = {}, {}
+    for S in BIG_SHARDS:
+        out = os.path.join(work, f"s{S}")
+        args = big_classify.parse_args([
+            "--letters", str(db["N"] - db["nseq"]), "--threads", str(threads),
+            "--shards", str(S), "--reads", str(BIG_READS),
+            "--read-len", str(BIG_LEN), "--out", out,
+            "--verify", str(BIG_VERIFY if S == BIG_SHARDS[0] else 0)])
+        kernels.reset_counts()
+        res = big_classify.run(args, db=db)
+        counts = {k: kernels.LAUNCHES[k] for k in BIG_KERNELS}
+        for k, c in counts.items():
+            launches[k] += c
+        if not all(counts.values()):
+            raise AssertionError(f"4g S = {S}: a kernel did not launch: "
+                                 f"{counts}")
+        ix, secs = res["index"], res["seconds"]
+        log(f"4g S = {S}: {res['summary']}; save {secs['save']:.1f} s, "
+            f"load {secs['load']:.1f} s, {sum(ix.nbytes.values()):,} card "
+            f"bytes ({ix.nbytes}), first step {secs['first_step']:.2f} s, "
+            f"steady step {secs['step']:.4f} s, host statistics "
+            f"{secs['host_stats']:.2f} s; launches {counts}; host peak RSS "
+            f"{peak_rss_gb():.1f} GB [{smi}]")
+        arrays[S] = res["step"]
+        if S == BIG_SHARDS[0]:
+            if res["summary"]["verified"] != BIG_VERIFY:
+                raise AssertionError("4g: the oracle checked too few reads")
+            rows = big_checks(ix, res["reads"], smi)
+            steady_big(ix, db, smi)
+        else:
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(arrays[S], arrays[BIG_SHARDS[0]]))
+            log(f"4g: S = {S} {'equals' if same else 'DIFFERS FROM'} "
+                f"S = {BIG_SHARDS[0]} on all four arrays")
+            if not same:
+                raise AssertionError(f"4g: S = {S} differs")
+        del res, ix
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(out, ignore_errors=True)
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -2059,6 +2260,10 @@ def run(args) -> int:
             rates[mode, tag] = steady_stream(indexes[tag], nodes, reads, warm,
                                              mode, tag)
 
+    # phase 4g's DB builds from here on, beside phases 4c-4f, whose host
+    # stages it slows; the steady rates above ran alone
+    big_build = start_big_build(BIG_LETTERS)
+
     # ---- 4c. the verbose paths, each run counted from 0 ----------------
     for mode in VERBOSE_PATHS:
         for tag, n_reads in (("text", V_READS), ("fmi", BATCH)):
@@ -2110,9 +2315,19 @@ def run(args) -> int:
         launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
+    # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
+    big_rows, big_launches = run_phase_4g(big_build, smi)
+    for name, v in big_rows.items():
+        log(f"kernel {name}: max_abs_err {v[0]}, {v[1]:.4f} ms (plain "
+            f"{v[2]:.3f} ms, bound {v[3]:.4f} ms) [{v[4]}]")
+    if any(v[0] for v in big_rows.values()):
+        raise AssertionError("L or M differs from its plain version")
+    launches.update(big_launches)
+
     # ---- 5. result lines ----------------------------------------------
     rows = {name: (*v, None) for name, v in checks["text"].items()}
     rows.update(gathers)
+    rows.update({name: (*v, None) for name, v in big_rows.items()})
     missing = [name for name in REPLACES if name not in rows]
     if missing:
         raise AssertionError(f"kernels without a measurement: {missing}")

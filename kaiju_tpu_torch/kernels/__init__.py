@@ -4,7 +4,9 @@ Every ``kaiju_tpu_torch/csrc/<source>.cu`` is compiled by ``nvcc`` for
 sm_90a into its own plain-C shared library,
 ``build/kaiju_tpu_torch/lib<source>.so`` at the repository root, and loaded
 with ctypes.  A kernel is one C entry point of a source: most sources hold
-one kernel of their own name; ``gather.cu`` holds P1 and P2, and a
+one kernel of their own name; ``gather.cu`` holds P1 and P2,
+``big_mem.cu`` L and M (the int64 step over an index above 2^31 letters,
+K17, ``ops/big_mem.py``), and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
 split into shards (K16, ``parallel/sharded_index.py``); ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
@@ -42,7 +44,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# C signatures, the stream last: "p" = pointer (c_void_p), "i" = int32
+# C signatures, the stream last: "p" = pointer (c_void_p), "i" = int32,
+# "q" = int64
 _SIGNATURES = {
     # rec nb1 C | c s0 s1 n | n0 n1 ok
     "update_si": ("kt_update_si", "pip" "pppi" "ppp" "p"),
@@ -83,6 +86,11 @@ _SIGNATURES = {
     # tab idx n | out
     "gather_rows": ("kt_gather_rows", "ppi" "p" "p"),
     "gather_sum": ("kt_gather_sum", "ppi" "p" "p"),
+    # the big index (K17, csrc/big_mem.cu): rec_tab nb_s S C base alen |
+    # codes R L | i s0 s1
+    "big_extend_all": ("kt_big_extend_all", "piippi" "pii" "ppp" "p"),
+    # rec_tab nb_s S C base alen | seq_tab ns_s first e | kf n | ids
+    "big_sa_walk": ("kt_big_sa_walk", "piippi" "piqi" "pq" "p" "p"),
 }
 # The shard arguments that take the place of rec/nb1 (and of the SA samples
 # and the text) in a sharded entry point: rec_tab nb_s seq_tab off_tab ns_s
@@ -126,6 +134,7 @@ _SIGNATURES.update({
 # the source file of each kernel (csrc/<source>.cu), where it is not the
 # kernel's own name
 _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
+           "big_extend_all": "big_mem", "big_sa_walk": "big_mem",
            **{n: n[:-len("_sharded")] for n in _SIGNATURES
               if n.endswith("_sharded")}}
 # sources that hold no kernel, only host entry points whose signatures
@@ -144,6 +153,7 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 # launches of kernel B with its Bloom screen (each counted in LAUNCHES too)
 SCREENED = {"mem_extend": 0}
 
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -234,9 +244,7 @@ def load(src: str) -> ctypes.CDLL:
                     continue
                 fn = getattr(lib, fn_name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_void_p if s == "p" else ctypes.c_int for s in sig
-                ]
+                fn.argtypes = [_CTYPES[s] for s in sig]
             lib.kt_error_string.restype = ctypes.c_char_p
             lib.kt_error_string.argtypes = [ctypes.c_int]
             _libs[src] = lib
@@ -246,7 +254,8 @@ def load(src: str) -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point on the current stream with
     `args` (tensors pass their data pointer, None a null pointer, ints
-    as int32) and count the launch; raises on a CUDA error."""
+    as int32 or int64 as the signature says) and count the launch; raises
+    on a CUDA error."""
     lib = library(name)
     fn_name, sig = _SIGNATURES[name]
     conv = []

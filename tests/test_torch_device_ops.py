@@ -129,8 +129,8 @@ def test_port_imports_neither_jax_nor_kaiju_tpu():
     """Every module of the port (the verbose paths' engine.mem_fast and
     engine.greedy_fast, the index shards of parallel/, P1 and P2's
     ops.gather and their benchmark tools.bench_gather among them), and
-    chip_smoke as a module, import without pulling in jax or any kaiju_tpu
-    module."""
+    chip_smoke as a module, import without pulling in jax, any kaiju_tpu
+    module or a script of scripts/."""
     code = r"""
 import importlib, pathlib, sys
 sys.path.insert(0, sys.argv[1])
@@ -143,13 +143,18 @@ assert {"kaiju_tpu_torch.engine.mem_fast", "kaiju_tpu_torch.engine.greedy_fast",
         "kaiju_tpu_torch.parallel.sharded_index",
         "kaiju_tpu_torch.parallel.sharded_fused",
         "kaiju_tpu_torch.ops.gather",
-        "kaiju_tpu_torch.tools.bench_gather"} <= set(mods), mods
+        "kaiju_tpu_torch.tools.bench_gather",
+        "kaiju_tpu_torch.parallel.big_index", "kaiju_tpu_torch.ops.big_mem",
+        "kaiju_tpu_torch.tools.big_build",
+        "kaiju_tpu_torch.tools.big_classify"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "kaiju_tpu" or m.startswith("kaiju_tpu."))
+             or m == "kaiju_tpu" or m.startswith("kaiju_tpu.")
+             or m.startswith(("scripts", "big_classify_demo",
+                              "big_build_demo")))
 assert not bad, bad
 print(len(mods))
 """

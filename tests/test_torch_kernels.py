@@ -763,3 +763,55 @@ def test_sharded_greedy_kernels_match_unsharded(env, cuda, S):
         assert flat_counts[name] == 1 and counts[name] == 0, name
         assert counts[name + "_sharded"] == 1, name
     assert (want[2] >= hybrid.VBASE).any()  # virtual tie rows exercised
+
+
+@pytest.fixture(scope="module")
+def big_dbs():
+    """Two toy databases of the big-index layout (K17): one whose last
+    shard is full at S = 2 (N = 128 x 2 x 196), one that leaves it
+    padded."""
+    from kaiju_tpu_torch.parallel.big_index import build_db
+
+    return {"full": build_db(None, 50_000, 2, 25, True),
+            "padded": build_db(None, 300_000, 2, 13, True)}
+
+
+@pytest.mark.parametrize("name,S", [("padded", 1), ("padded", 3),
+                                    ("full", 2)])
+def test_big_kernels_match_plain(big_dbs, cuda, tmp_path, name, S):
+    """L (big_extend_all) and M (big_sa_walk) on the card equal their plain
+    versions on the CPU on every lane, with reads shorter than L, a code 0
+    inside a read and lanes at k = N on a full last shard; each launches
+    once a call."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import big_mem
+    from kaiju_tpu_torch.parallel.big_index import BigIndex, save_sharded_ktx
+    from kaiju_tpu_torch.tools.big_classify import make_reads
+
+    db = big_dbs[name]
+    save_sharded_ktx(None, db, str(tmp_path), S)
+    gpu, cpu = (BigIndex.load(str(tmp_path), d) for d in (cuda, "cpu"))
+    reads = make_reads(db, 64, 40)[0]
+    reads[0, 20:] = 0
+    reads[1, 7] = 0
+    reads[2] = 20
+    codes = torch.from_numpy(reads)
+    kernels.reset_counts()
+    got = big_mem.big_extend_all(gpu, codes.to(cuda))
+    kf = torch.where(got[2] > got[1], got[1], -1).reshape(-1)
+    ids = big_mem.big_sa_walk(gpu, kf)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_extend_all"] == 1
+    assert kernels.LAUNCHES["big_sa_walk"] == 1
+    want = big_mem.big_extend_all_plain(cpu, codes)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    want_ids = big_mem.big_sa_walk_plain(cpu, kf.cpu())
+    assert torch.equal(ids.cpu(), want_ids)
+    assert (want_ids >= 0).sum() > 1000
+    if name == "full":
+        assert (want[2] == db["N"]).any()  # intervals that end at k = N
+    with pytest.raises(TypeError):
+        big_mem.big_sa_walk(gpu, kf.int())
+    with pytest.raises(TypeError):
+        big_mem.big_extend_all(gpu, codes.to(cuda).int())
