@@ -31,7 +31,14 @@ Phases, any failure exits non-zero:
      equal; time both.  Then each kernel that reads the index (A, J, H,
      B, G, D, E, F) launched on the index in 2 and 4 shards (K16's sharded
      instantiations) on the same inputs must equal the unsharded kernel,
-     and on the text index its plain version on the shards (timed).  Then
+     and on the text index its plain version on the shards (timed).  B and
+     E also print a second floor: the plain versions' longest chain of
+     dependent row reads times the card's L2 latency, which csrc/chase.cu
+     measures first.  Then B (the MEM batch screened with the hybrid's stop
+     on the text index, unscreened without it on db.ktx; the Greedy batch)
+     and E (-e 3, with and without the hybrid) on a DB with repeats
+     (readgen.gen_realistic, bench.py's generator, 8 M letters, one batch
+     of 4,096 of its reads), equal to their plain versions, timed.  Then
      P1 and P2 through their benchmark, tools.bench_gather (250,000 rows of
      512 bytes, 262,144 random rows): each equal to its plain version, bit
      for bit, timed beside torch.index_select and tab[idx].sum(1);
@@ -224,6 +231,12 @@ BIG_SEED = 20260821
 BIG_SHARDS = (2, 8)
 BIG_READS, BIG_LEN, BIG_VERIFY = 1024, 64, 24
 BIG_KERNELS = ("big_extend_all", "big_sa_walk")
+# phase 3's DB with repeats (readgen.gen_realistic, bench.py's generator):
+# its letters, and the kernels held to their plain versions there
+REPEATS_LETTERS = 8_000_000
+# a read's positions that kernel E holds in shared memory (kLcap of
+# csrc/greedy_search.cu); phase 3 counts the reads past it
+E_SHARED_POSITIONS = 512
 
 
 def log(msg: str) -> None:
@@ -344,6 +357,46 @@ def make_db(seed: int, letters: int):
     return records, nodes, ktx
 
 
+def make_repeats_db(seed: int, letters: int = REPEATS_LETTERS):
+    """(protein records, {"fmi": ktx dir without text, "text": ktx dir
+    with text}) of a DB with repeats: readgen.gen_realistic (bench.py's
+    generator: gene families copied exactly and at ~90 % identity, with
+    low-complexity runs) from seed + 2, indexed with the native builder;
+    the text index's cache holds its two Bloom bitmaps."""
+    import numpy as np
+
+    from kaiju_tpu_torch.index import native_builder
+    from kaiju_tpu_torch.index.core import KaijuIndex
+    from kaiju_tpu_torch.ops import bloom
+    from kaiju_tpu_torch.tools import readgen
+
+    t0 = time.perf_counter()
+    records = readgen.gen_realistic(random.Random(seed + 2), letters)
+    cache = os.path.join(ROOT, "build", "chip_smoke",
+                         f"repeats{letters}_seed{seed}")
+    ktx = {"fmi": os.path.join(cache, "db.ktx"),
+           "text": os.path.join(cache, "db_text.ktx")}
+    if not all(os.path.exists(os.path.join(k, "meta.json"))
+               for k in ktx.values()):
+        lut = np.zeros(256, dtype=np.uint8)
+        lut[np.frombuffer(AA.encode(), dtype=np.uint8)] = np.arange(
+            1, 21, dtype=np.uint8)
+        index = native_builder.build_index_from_codes(
+            [n for n, _ in records],
+            [lut[np.frombuffer(q.encode(), dtype=np.uint8)]
+             for _, q in records])
+        index.save(ktx["text"])
+        index.text = None
+        index.save(ktx["fmi"])
+        tidx = KaijuIndex.load(ktx["text"])
+        for m in BLOOM_M.values():
+            bloom.load_words(tidx, ktx["text"], m)
+    log(f"repeats db: {sum(len(q) for _, q in records):,} letters, "
+        f"{len(records):,} sequences, both indexes and bitmaps ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return records, ktx
+
+
 def check_fragmenter(reads) -> None:
     """Fragment every batch with the pipeline's fragmenter (two threads;
     its first call in the process is the first SEG call) and with one
@@ -389,6 +442,70 @@ def row_bytes(touched) -> tuple[int, int]:
     return 256 * int(torch.unique(allrows).numel()), int(allrows.numel())
 
 
+@contextlib.contextmanager
+def dependent_reads():
+    """Counts the rounds of dependent record-row reads of the plain
+    versions of B and E run inside the block.  Their lanes step in
+    lockstep, so a round is one link of the batch's longest chain of
+    dependent reads.  Yields a dict filled on exit: "steps", B's FM-step
+    rounds (a step's two ranks read in parallel: one round); "levels",
+    E's rounds of each variant level: the probe, then the longer of the
+    resumed extension and the last level's SA walks."""
+    from kaiju_tpu_torch.ops import device_index, greedy, search
+
+    trace = []
+    orig = (search.rank, greedy.rank, device_index.rank, greedy._resume)
+
+    def pair_rank(*a, **k):
+        trace.append("p")
+        return orig[0](*a, **k)
+
+    def walk_rank(*a, **k):
+        trace.append("w")
+        return orig[2](*a, **k)
+
+    def resume(*a, **k):
+        trace.append("[")
+        r = orig[3](*a, **k)
+        trace.append("]")
+        return r
+
+    search.rank = greedy.rank = pair_rank
+    device_index.rank = walk_rank
+    greedy._resume = resume
+    out = {}
+    try:
+        yield out
+    finally:
+        search.rank, greedy.rank, device_index.rank, greedy._resume = orig
+    out["steps"] = trace.count("p") // 2
+    # E's levels: a probe pair, "[" its resumed extension's pairs "]",
+    # then the switch's walk rounds, until the next level's probe pair
+    levels, state, res, walks = [], None, 0, 0
+    for t in trace:
+        if t == "[":
+            state, res, walks = "resume", 0, 0
+        elif t == "]":
+            state = "after"
+        elif t == "p" and state == "resume":
+            res += 1
+        elif t == "p" and state == "after":
+            levels.append(1 + max(res // 2, walks))
+            state = "probe"
+        elif t == "w" and state == "after":
+            walks += 1
+    if state == "after":
+        levels.append(1 + max(res // 2, walks))
+    out["levels"] = levels
+
+
+def floor_note(chain: int, lat_ns: float) -> str:
+    """The latency floor of a chain of `chain` dependent row reads, each
+    at least one L2 hit (lat_ns)."""
+    return (f"longest chain {chain} dependent row reads: latency floor "
+            f"{chain * lat_ns / 1e6:.4f} ms at {lat_ns:.1f} ns")
+
+
 def measure(got, want, fn, plain_fn, touched, other_bytes, note):
     """(max_abs_err, ms, plain_ms, bound_ms, note) of a kernel whose
     outputs `got` its plain version gave as `want`: fn and plain_fn timed
@@ -401,14 +518,16 @@ def measure(got, want, fn, plain_fn, touched, other_bytes, note):
             f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
 
 
-def check_kernels(index, reads, ktx_dir):
+def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
     index at ktx_dir; with a text copy, B screens (its bitmaps cached in
     ktx_dir), G finishes the narrow MEM lanes, E runs its last-level hybrid
     and D, F read the virtual rows.  The bound counts each input byte once:
     the distinct record rows that the plain version reads, plus the other
     inputs and the outputs (E's per-position and per-source scratch is its
-    own, not counted)."""
+    own, not counted).  B's and E's notes carry their second floor, the
+    longest chain of dependent row reads times the L2 latency lat_ns.
+    full=False: B on the MEM and the Greedy batch and E alone."""
     import numpy as np
     import torch
 
@@ -453,11 +572,12 @@ def check_kernels(index, reads, ktx_dir):
         return tuple(torch.cat([p[t] for p in parts]) for t in range(3))
 
     touched = []
-    want = update_si_plain(touched)
-    report("update_si", device_index.update_si(dv.rec, dv.C, c, s0, s1),
-           want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
-           update_si_plain, touched, n * (12 + 9), f"{n:,} probes",
-           call=((dv.rec, dv.C, c, s0, s1), {}))
+    if full:
+        want = update_si_plain(touched)
+        report("update_si", device_index.update_si(dv.rec, dv.C, c, s0, s1),
+               want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
+               update_si_plain, touched, n * (12 + 9), f"{n:,} probes",
+               call=((dv.rec, dv.C, c, s0, s1), {}))
 
     # B (screened, stopping the narrow lanes), G, C, D on the first batch
     # of the MEM path
@@ -479,17 +599,21 @@ def check_kernels(index, reads, ktx_dir):
         """B on ext with kw; (its lanes, the lanes it evaluated)."""
         lanes = search.mem_extend(*ext, **kw)
         touched = []
-        want = search.mem_extend_plain(*ext, touched, **kw)
+        with dependent_reads() as dep:
+            want = search.mem_extend_plain(*ext, touched, **kw)
         pos, _f, base, flen = search._lane_fragments(ext[6], P_[mode])
         usable = int(((pos - base >= ext[8]) & (pos - base < flen)).sum())
         evaluated = int((lanes[0] <= pos - base).sum())
+        # the seed row, the bitmap word, then one row pair a step
+        chain = dep["steps"] + 1 + (kw["bloom"] is not None)
         report(name, lanes, want, lambda: search.mem_extend(*ext, **kw),
                lambda: search.mem_extend_plain(*ext, **kw), touched,
                P_[mode] * (1 + 12) + 4 * (F_[mode] + 1)
                + (4 * usable if kw["bloom"] is not None else 0)
                + 9 * evaluated,
                f"{note}, {P_[mode]:,} lanes, {usable:,} usable, "
-               f"{evaluated:,} evaluated", call=(ext, kw))
+               f"{evaluated:,} evaluated; {floor_note(chain, lat_ns)}",
+               call=(ext, kw))
         return lanes
 
     P_, F_ = {"mem": P}, {"mem": F}
@@ -499,7 +623,7 @@ def check_kernels(index, reads, ktx_dir):
     lanes = extend_report("mem_extend", "mem", ext, kw,
                           "MEM batch" + (", screened (m 11)" if text else ""))
     sw_ids = None
-    if text:
+    if text and full:
         g = (*lanes, flat, frag_off, sw_len, dv.text, dv.rank_start, dv.rec,
              dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
         sw = hybrid.switched(*lanes, frag_off, sw_len)
@@ -518,29 +642,30 @@ def check_kernels(index, reads, ktx_dir):
                call=(g, {}))
         lanes, sw_ids = res[:3], res[3]
 
-    st = (*lanes, frag_off, min_len, T)
-    stats = search.mem_stats(*st)
-    report("mem_stats", stats, search.mem_stats_plain(*st),
-           lambda: search.mem_stats(*st),
-           lambda: search.mem_stats_plain(*st), [],
-           12 * P + 4 * (F + 1) + F * (8 + 12 * T), f"{F:,} fragments")
-
     par, dep = (put(a) for a in Taxonomy(
         {1: 1, 10: 1, **{t: 10 for t in range(100, 197)}}).dense_arrays())
-    B, S = rf_rows.shape
-    tail = (*stats[:2], *stats[3:], rf_rows, dv.rec, dv.C, dv.sa_seq,
-            dv.sa_off, dv.seq_tax, par, dep, MemPipeline.R_BUDGET, 20,
-            dv.nseq, dv.chpt_exp)
-    virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
-    rows = classify.read_lca(*tail, sw_ids=sw_ids)
-    touched = []
-    want = classify.read_lca_plain(*tail, touched, sw_ids=sw_ids)
-    report("read_lca", rows, want,
-           lambda: classify.read_lca(*tail, sw_ids=sw_ids),
-           lambda: classify.read_lca_plain(*tail, sw_ids=sw_ids), touched,
-           4 * B * S + 16 * B + F * (8 + 8 * T),
-           f"{B:,} reads, {virt:,} virtual tie rows",
-           call=(tail, {"sw_ids": sw_ids}))
+    if full:
+        st = (*lanes, frag_off, min_len, T)
+        stats = search.mem_stats(*st)
+        report("mem_stats", stats, search.mem_stats_plain(*st),
+               lambda: search.mem_stats(*st),
+               lambda: search.mem_stats_plain(*st), [],
+               12 * P + 4 * (F + 1) + F * (8 + 12 * T), f"{F:,} fragments")
+
+        B, S = rf_rows.shape
+        tail = (*stats[:2], *stats[3:], rf_rows, dv.rec, dv.C, dv.sa_seq,
+                dv.sa_off, dv.seq_tax, par, dep, MemPipeline.R_BUDGET, 20,
+                dv.nseq, dv.chpt_exp)
+        virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
+        rows = classify.read_lca(*tail, sw_ids=sw_ids)
+        touched = []
+        want = classify.read_lca_plain(*tail, touched, sw_ids=sw_ids)
+        report("read_lca", rows, want,
+               lambda: classify.read_lca(*tail, sw_ids=sw_ids),
+               lambda: classify.read_lca_plain(*tail, sw_ids=sw_ids),
+               touched, 4 * B * S + 16 * B + F * (8 + 8 * T),
+               f"{B:,} reads, {virt:,} virtual tie rows",
+               call=(tail, {"sw_ids": sw_ids}))
 
     # B (screened), E, F on the first batch of the Greedy path at the
     # default flags (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
@@ -557,36 +682,49 @@ def check_kernels(index, reads, ktx_dir):
     P_["greedy"], F_["greedy"] = P, F
     ext = (dv.rec, dv.C, *seed, flat, frag_off, K, lmap - 1)
     kw = dict(bloom=screens["greedy"], sw_steps=0)
-    if text:  # logged, not in the kernels line: MEM's B stands there
-        lanes = extend_report("mem_extend (Greedy batch)", "greedy", ext, kw,
-                              "Greedy batch, screened (m 7)")
-    else:
-        lanes = search.mem_extend(*ext, **kw)
+    # logged, not in the kernels line: MEM's B stands there
+    lanes = extend_report("mem_extend (Greedy batch)", "greedy", ext, kw,
+                          "Greedy batch" + (", screened (m 7)" if text
+                                            else ""))
     hyb = ((dv.text, dv.rank_start, dv.sa_seq, dv.sa_off, dv.nseq,
             dv.chpt_exp) if text else None)
     ge = (*lanes, flat, frag_off, rf_rows, dv.rec, dv.C, tables, lmap, 11, 65,
           3, T, GreedyPipeline.VCAP)
     found = greedy.greedy_search(*ge, hyb=hyb)
     touched = []
-    want = greedy.greedy_search_plain(*ge, touched, hyb=hyb)
+    with dependent_reads() as dep_r:
+        want = greedy.greedy_search_plain(*ge, touched, hyb=hyb)
     virt = int((found[2] >= hybrid.VBASE).sum())
+    flen = frag_off[1:] - frag_off[:-1]
+    read_len = torch.where(rf_rows >= 0, flen[rf_rows.clamp(min=0).long()],
+                           0).sum(1)
+    n_long = int((read_len > E_SHARED_POSITIONS).sum())
+    # the longest level bounds any one read's chain from below; the batch
+    # runs the levels in turn, a read no more than all of them
+    levels = dep_r["levels"]
     report("greedy_search", found, want,
            lambda: greedy.greedy_search(*ge, hyb=hyb),
            lambda: greedy.greedy_search_plain(*ge, hyb=hyb), touched,
            P * (12 + 1) + 4 * (F + 1) + 4 * B * S + B * (8 + 8 * T),
-           f"{B:,} reads, {P:,} lanes, -e 3, {virt:,} virtual tie rows",
+           f"{B:,} reads, {P:,} lanes, -e 3, {virt:,} virtual tie rows, "
+           f"{n_long:,} reads over {E_SHARED_POSITIONS} positions (longest "
+           f"{int(read_len.max())}); levels {levels} rounds: "
+           f"{floor_note(max(levels, default=0), lat_ns)}",
            call=(ge, {"hyb": hyb}))
 
-    gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.seq_tax,
-          par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq, dv.chpt_exp)
-    res = classify.ranges_lca(*gf, sw_ids=found[4])
-    touched = []
-    want = classify.ranges_lca_plain(*gf, touched, sw_ids=found[4])
-    report("ranges_lca", res, want,
-           lambda: classify.ranges_lca(*gf, sw_ids=found[4]),
-           lambda: classify.ranges_lca_plain(*gf, sw_ids=found[4]), touched,
-           8 * B * T + 16 * B, f"{B:,} reads, {int((found[0] > 0).sum()):,} "
-           "with a best", call=(gf, {"sw_ids": found[4]}))
+    if full:
+        gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off,
+              dv.seq_tax, par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq,
+              dv.chpt_exp)
+        res = classify.ranges_lca(*gf, sw_ids=found[4])
+        touched = []
+        want = classify.ranges_lca_plain(*gf, touched, sw_ids=found[4])
+        report("ranges_lca", res, want,
+               lambda: classify.ranges_lca(*gf, sw_ids=found[4]),
+               lambda: classify.ranges_lca_plain(*gf, sw_ids=found[4]),
+               touched, 8 * B * T + 16 * B,
+               f"{B:,} reads, {int((found[0] > 0).sum()):,} with a best",
+               call=(gf, {"sw_ids": found[4]}))
     torch.cuda.synchronize()
     del dv, screens
     torch.cuda.empty_cache()
@@ -756,6 +894,20 @@ def check_gather(seed: int):
     return out, launches
 
 
+def shard_call(sh, dv, args, kw):
+    """(args, kw) of a kernel call on the DeviceIndex dv with its index
+    arrays swapped for the shards of sh (a ShardedIndex)."""
+    swap = {id(dv.rec): sh.rec, id(dv.sa_seq): sh.sa_seq,
+            id(dv.sa_off): sh.sa_off}
+    if dv.has_text:
+        swap[id(dv.text)] = sh.text
+    sargs = tuple(swap.get(id(a), a) for a in args)
+    # E's hybrid is a keyword tuple of index arrays
+    skw = {k: tuple(swap.get(id(x), x) for x in v)
+           if isinstance(v, tuple) else v for k, v in kw.items()}
+    return sargs, skw
+
+
 def check_sharded(index, inputs, n_shards: int, timed: bool):
     """Each kernel that reads the index (SHARDED) launched on the index in
     n_shards shards, on the arguments of its phase 3 check with the index
@@ -784,14 +936,7 @@ def check_sharded(index, inputs, n_shards: int, timed: bool):
         if name not in inputs:  # G on an index without text
             continue
         dv, args, kw, other_bytes, note = inputs[name]
-        swap = {id(dv.rec): sh.rec, id(dv.sa_seq): sh.sa_seq,
-                id(dv.sa_off): sh.sa_off}
-        if dv.has_text:
-            swap[id(dv.text)] = sh.text
-        sargs = tuple(swap.get(id(a), a) for a in args)
-        # E's hybrid is a keyword tuple of index arrays
-        skw = {k: tuple(swap.get(id(x), x) for x in v)
-               if isinstance(v, tuple) else v for k, v in kw.items()}
+        sargs, skw = shard_call(sh, dv, args, kw)
         fn, plain = fns[name]
         got = fn(*sargs, **skw)
         err = max_abs_err(got, fn(*args, **kw))
@@ -2151,6 +2296,44 @@ def run_phase_4g(build: dict, smi: str):
     return rows, launches
 
 
+def log_checks(checks: dict, tag: str) -> None:
+    for name, (err, ms, plain_ms, bound_ms, note) in checks.items():
+        log(f"kernel {name} [{tag}]: max_abs_err {err}, {ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) [{note}]")
+
+
+def check_repeats(seed: int, lat_ns: float) -> dict:
+    """Phase 3 on the DB with repeats (make_repeats_db), one batch of 4,096
+    of its reads: B on the MEM batch (screened, the hybrid's narrow lanes
+    stopping, on the text index; unscreened and not stopping on db.ktx)
+    and on the Greedy batch, and E at -e 3 (its last level's hybrid on the
+    text index, none on db.ktx), against their plain versions.  Returns
+    {index tag: check_kernels' dict}."""
+    from kaiju_tpu_torch.index.core import KaijuIndex
+
+    records, ktx = make_repeats_db(seed)
+    reads = make_reads(seed, records, BATCH)
+    out = {}
+    for tag in ("fmi", "text"):
+        out[tag], _inputs = check_kernels(KaijuIndex.load(ktx[tag]), reads,
+                                          ktx[tag], lat_ns, full=False)
+        log_checks(out[tag], f"repeats, {tag}")
+    return out
+
+
+def latency(smi: str) -> float:
+    """Logs the card's dependent-load latency in the L2 (a 16 MiB cycle,
+    walked twice) and in device memory (a 256 MiB cycle, on addresses not
+    walked before); returns the L2's, in ns."""
+    from kaiju_tpu_torch import kernels
+
+    l2 = kernels.chase_ns(1 << 22, cached=True)
+    dram = kernels.chase_ns(1 << 26, cached=False)
+    log(f"latency: {l2:.1f} ns a dependent load in the L2, {dram:.1f} ns "
+        f"in device memory (csrc/chase.cu; {smi})")
+    return l2
+
+
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
@@ -2178,6 +2361,7 @@ def run(args) -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    lat_ns = latency(smi)
 
     # ---- 2. database and reads ----------------------------------------
     t0 = time.perf_counter()
@@ -2204,15 +2388,13 @@ def run(args) -> int:
     # ---- 3. kernels against their plain versions -----------------------
     checks = {}
     for tag in ("fmi", "text"):
-        checks[tag], inputs = check_kernels(indexes[tag], reads, ktx[tag])
+        checks[tag], inputs = check_kernels(indexes[tag], reads, ktx[tag],
+                                            lat_ns)
         v_checks, v_inputs = check_verbose_kernels(indexes[tag], nodes,
                                                    reads, ktx[tag])
         checks[tag].update(v_checks)
         inputs.update(v_inputs)
-        for name, (err, ms, plain_ms, bound_ms, note) in checks[tag].items():
-            log(f"kernel {name} [{tag}]: max_abs_err {err}, {ms:.4f} ms "
-                f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) "
-                f"[{note}]")
+        log_checks(checks[tag], tag)
         # the sharded instantiations on the same inputs; the line carries
         # the text index's measurements at the most shards
         for n_shards in MESH:
@@ -2228,6 +2410,12 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
+    # B and E on the DB with repeats; their errors join the line's
+    for tag, rc in check_repeats(args.seed, lat_ns).items():
+        checks["repeats " + tag] = rc
+        for name in ("mem_extend", "greedy_search"):
+            err, *rest = checks["text"][name]
+            checks["text"][name] = (max(err, rc[name][0]), *rest)
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")

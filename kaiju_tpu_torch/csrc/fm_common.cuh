@@ -115,6 +115,124 @@ __device__ __forceinline__ int rank(const Ix& ix, const int* __restrict__ C,
     return __ldg(C + c) + __ldg(row + c) + cnt;
 }
 
+// Bytes equal to the byte in every lane of pat among the first nbytes
+// (any int: <= 0 counts none, >= 16 all) of a 16-byte group.
+__device__ __forceinline__ int count_eq16(const uint4& v, unsigned pat,
+                                          int nbytes) {
+    return count_eq_bytes(v.x, pat, nbytes) +
+           count_eq_bytes(v.y, pat, nbytes - 4) +
+           count_eq_bytes(v.z, pat, nbytes - 8) +
+           count_eq_bytes(v.w, pat, nbytes - 12);
+}
+
+// The bytes equal to c among the first o0 (*a) and the first o1 (*b) BWT
+// bytes of a record row, its 16-byte loads issued four at a time before
+// they are counted: at most two memory latencies, where rank()'s loop may
+// wait for each of its loads in turn, and 16 registers of loads in
+// flight.
+__device__ __forceinline__ void count_row(const int* row, int c, int o0,
+                                          int o1, int* a, int* b) {
+    const unsigned pat = 0x01010101u * (unsigned)c;
+    const uint4* w4 = reinterpret_cast<const uint4*>(row + 32);
+    const int hi = max(o0, o1);
+    int x = 0, y = 0;
+    for (int h = 0; h < 8 && h * 16 < hi; h += 4) {
+        uint4 v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            v[q] = (h + q) * 16 < hi ? __ldg(w4 + h + q)
+                                     : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            x += count_eq16(v[q], pat, o0 - 16 * (h + q));
+            y += count_eq16(v[q], pat, o1 - 16 * (h + q));
+        }
+    }
+    *a = x;
+    *b = y;
+}
+
+// rank() through count_row's loads.
+template <class Ix>
+__device__ __forceinline__ int rank1(const Ix& ix, const int* __restrict__ C,
+                                     int c, int k) {
+    const int* row = ix.row(k >> 7);
+    int a, b;
+    count_row(row, c, k & 127, k & 127, &a, &b);
+    return __ldg(C + c) + __ldg(row + c) + a;
+}
+
+// The rank pair of one FM step, *n0 = FMindex(c, k0) and *n1 =
+// FMindex(c, k1), as rank() gives each (fused_greedy.py:_paired_rank2),
+// computed by a group of G threads (1, 2, 4 or 8; gl: the thread's place
+// in it, gmask: the group's lanes), every thread of which gets both.
+// Thread gl loads the row's 16-byte groups gl, gl + G, ..., so a group of
+// 8 reads the 128 BWT bytes as one coalesced line, and a shuffle sums the
+// counts; one thread (G = 1) issues its loads four at a time.  Both
+// ends usually lie in one 128-character block once the interval is
+// narrow: then one row serves both, its bytes loaded once.
+template <int G, class Ix>
+__device__ __forceinline__ void rank2(const Ix& ix,
+                                      const int* __restrict__ C, int c,
+                                      int k0, int k1, int gl, unsigned gmask,
+                                      int* n0, int* n1) {
+    const bool one = k0 >> 7 == k1 >> 7;
+    if constexpr (G == 1) {  // one thread: count_row's loads
+        if (!one) {
+            *n0 = rank1(ix, C, c, k0);
+            *n1 = rank1(ix, C, c, k1);
+            return;
+        }
+        const int* row = ix.row(k0 >> 7);
+        int a, b;
+        count_row(row, c, k0 & 127, k1 & 127, &a, &b);
+        const int base = __ldg(C + c) + __ldg(row + c);
+        *n0 = base + a;
+        *n1 = base + b;
+        return;
+    }
+    const int* r0 = ix.row(k0 >> 7);
+    const int* r1 = one ? r0 : ix.row(k1 >> 7);
+    const int o0 = k0 & 127, o1 = k1 & 127;
+    const unsigned pat = 0x01010101u * (unsigned)c;
+    const uint4* w0 = reinterpret_cast<const uint4*>(r0 + 32);
+    const uint4* w1 = reinterpret_cast<const uint4*>(r1 + 32);
+    int a = 0, b = 0;
+#pragma unroll
+    for (int t = 0; t < 8 / G; ++t) {
+        const int q = gl + t * G;
+        if (one) {
+            if (q * 16 < max(o0, o1)) {
+                const uint4 v = __ldg(w0 + q);
+                a += count_eq16(v, pat, o0 - 16 * q);
+                b += count_eq16(v, pat, o1 - 16 * q);
+            }
+        } else {
+            if (q * 16 < o0) a += count_eq16(__ldg(w0 + q), pat, o0 - 16 * q);
+            if (q * 16 < o1) b += count_eq16(__ldg(w1 + q), pat, o1 - 16 * q);
+        }
+    }
+    if (gl == 0) {
+        const int cc = __ldg(C + c);
+        a += cc + __ldg(r0 + c);
+        b += cc + __ldg(r1 + c);
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(gmask, a, o, G);
+        b += __shfl_xor_sync(gmask, b, o, G);
+    }
+    *n0 = a;
+    *n1 = b;
+}
+
+// The lanes of the aligned group of G (1, 2, 4 or 8) threads that holds
+// `lane`.
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+    return ((1u << G) - 1u) << (lane & ~(G - 1));
+}
+
 // get_suffix (bwt.c:105-121) reduced to the sequence index: LF-walk from
 // SA position k until a sampled slot (k divisible by 2^chpt_exp) or a
 // terminator.  At a terminator (c == 0) the LF result itself is the

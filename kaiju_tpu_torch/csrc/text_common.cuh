@@ -27,8 +27,9 @@ struct WalkPos {
 // (bwt.c:105-121) returning the content rank of the sequence and the
 // offset in it.  LF-walks from SA position k until a sampled slot, where
 // the sample gives (sa_seq, sa_off + steps), or a terminator, where the LF
-// result is the content rank and the offset the steps taken.
-template <class Ix>
+// result is the content rank and the offset the steps taken.  kRank1:
+// each step's rank through rank1 (its loads issued four at a time).
+template <bool kRank1 = false, class Ix>
 __device__ __forceinline__ WalkPos walk_pos(const Ix& ix,
                                             const int* __restrict__ C,
                                             int nseq, int chpt_exp, int k) {
@@ -36,7 +37,9 @@ __device__ __forceinline__ WalkPos walk_pos(const Ix& ix,
     int steps = 0;
     while (k & check) {
         const int c = bwt_byte(ix.row(k >> 7), k & 127);
-        const int kn = rank(ix, C, c, k);
+        int kn;
+        if constexpr (kRank1) kn = rank1(ix, C, c, k);
+        else kn = rank(ix, C, c, k);
         if (c == 0) return {kn, steps};
         k = kn;
         ++steps;

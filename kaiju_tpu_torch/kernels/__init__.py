@@ -10,7 +10,8 @@ K17, ``ops/big_mem.py``), and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
 split into shards (K16, ``parallel/sharded_index.py``); ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
-(``parallel/peer_shards.py``).  A library is
+(``parallel/peer_shards.py``), and ``chase.cu`` a latency probe outside
+every path (``chase_ns``).  A library is
 built at first use and again whenever its source or a shared header
 (``csrc/*.cuh``) is newer; stale sources compile in parallel, one
 ``nvcc`` each.  Nothing is compiled when a module is
@@ -137,9 +138,10 @@ _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
            "big_extend_all": "big_mem", "big_sa_walk": "big_mem",
            **{n: n[:-len("_sharded")] for n in _SIGNATURES
               if n.endswith("_sharded")}}
-# sources that hold no kernel, only host entry points whose signatures
-# their module sets (csrc/peer.cu: parallel/peer_shards.py)
-HELPERS = ("peer",)
+# sources that hold no kernel of a path, only entry points whose
+# signatures their users set (csrc/peer.cu: parallel/peer_shards.py;
+# csrc/chase.cu: chase_ns)
+HELPERS = ("chase", "peer")
 
 
 def source(name: str) -> str:
@@ -274,6 +276,43 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.kt_error_string(rc).decode()
         raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
+
+
+def chase_ns(n_ints: int, cached: bool, steps: int = 20_000,
+             seed: int = 0) -> float:
+    """Nanoseconds of one dependent load on the current card (csrc/chase.cu)
+    along a random cycle through n_ints int32, CUDA events around a walk
+    of `steps` loads.  cached: the walk repeats the warm-up walk's
+    addresses, now in the L2; else it starts half the cycle away, on
+    addresses not loaded before (device memory, for a cycle of 4 n_ints
+    bytes well past the 50 MB L2)."""
+    lib = load("chase")
+    lib.kt_chase.restype = ctypes.c_int
+    lib.kt_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p, ctypes.c_void_p]
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.randperm(n_ints, generator=gen, dtype=torch.int32)
+    nxt = torch.empty(n_ints, dtype=torch.int32)
+    nxt[order] = torch.roll(order, -1)  # one cycle through every slot
+    nxt = nxt.cuda()
+    out = torch.empty(1, dtype=torch.int32, device=nxt.device)
+    stream = torch.cuda.current_stream()
+
+    def walk(start, n):
+        rc = lib.kt_chase(nxt.data_ptr(), start, n, out.data_ptr(),
+                          stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kt_chase: CUDA error {rc}")
+
+    walk(int(order[0]), steps)
+    if not cached:  # evict the upload's last lines: 256 MiB written
+        torch.zeros(1 << 26, dtype=torch.int32, device=nxt.device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    walk(int(order[0 if cached else n_ints // 2]), steps)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e6 / steps
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype, device,

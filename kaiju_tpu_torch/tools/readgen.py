@@ -97,6 +97,42 @@ def make_protein_reads(rng: random.Random, records, n: int = 60):
     return reads
 
 
+def gen_realistic(rng: random.Random, letters: int):
+    """A protein DB of at least `letters` letters with repeats, as
+    (name, sequence) records: gene families whose base gene is copied
+    exactly (under other taxa) and at ~90 % identity, salted with
+    low-complexity runs (homopolymers and dipeptide repeats).  The
+    benchmark's generator (bench.py), copied so that the port needs
+    nothing outside itself; the same rng state gives the same records."""
+    aas = "ACDEFGHIKLMNPQRSTVWY"
+    records = []
+    total = 0
+    i = 0
+    while total < letters:
+        base = "".join(rng.choices(aas, k=rng.randint(150, 450)))
+        fam = rng.randint(1, 6)  # copies of this family
+        for c in range(fam):
+            seq = base
+            if c > 0 and rng.random() < 0.7:
+                # ~90%-identity mutant
+                s = list(seq)
+                for _ in range(max(1, len(s) // 10)):
+                    s[rng.randrange(len(s))] = rng.choice(aas)
+                seq = "".join(s)
+            if rng.random() < 0.10:
+                # low-complexity insertion (homopolymer / dipeptide run)
+                run = (rng.choice(aas) * rng.randint(8, 30)
+                       if rng.random() < 0.5
+                       else (rng.choice(aas) + rng.choice(aas))
+                       * rng.randint(6, 15))
+                p = rng.randrange(len(seq))
+                seq = seq[:p] + run + seq[p:]
+            records.append((f"ACC{i:07d}.1_{100 + i % 97}", seq))
+            total += len(seq)
+            i += 1
+    return records
+
+
 def write_fastq(reads, path):
     with open(path, "w") as fh:
         for name, seq in reads:

@@ -815,3 +815,187 @@ def test_big_kernels_match_plain(big_dbs, cuda, tmp_path, name, S):
         big_mem.big_sa_walk(gpu, kf.int())
     with pytest.raises(TypeError):
         big_mem.big_extend_all(gpu, codes.to(cuda).int())
+
+
+# ---------------------------------------------------------------------------
+# edge cases of B's block lists and E's shared-memory views and windows,
+# on hand-laid batches, on the flat index (S = 0) and in S shards
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def edge_env():
+    """A small index with homopolymer runs and a shared gene, its seed and
+    scoring tables, and the letter codes of its alphabet."""
+    rng = random.Random(5)
+    base = "".join(rng.choice(AA) for _ in range(150))
+    records = [(f"ACC{i:04d}.1_{[101, 102, 201, 100][i % 4]}",
+                "".join(rng.choice(AA) for _ in range(rng.randint(40, 300))))
+               for i in range(40)]
+    records += [("HOMO1.1_101", "A" * 400), ("HOMO2.1_201", "G" * 60 + "A" * 300),
+                ("BASE1.1_102", base), ("BASE2.1_201", base[:90] + "W" + base[91:])]
+    idx = py_builder.build_index(records)
+    kt = KmerTables.build(idx, search.SEED_K)
+    tables = greedy.greedy_scoring_tables(idx.alphabet, trans_table(idx.alphabet))
+    par, dep = Taxonomy(NODES).dense_arrays()
+    return {"idx": idx, "records": [s for _, s in records], "base": base,
+            "trans": trans_table(idx.alphabet), "dv": tdev.DeviceIndex(idx, "cpu"),
+            "seed": tuple(torch.from_numpy(a) for a in kt.planar_seed(search.SEED_K)),
+            "tables": tuple(torch.from_numpy(a) for a in tables),
+            "par": torch.from_numpy(par), "dep": torch.from_numpy(dep)}
+
+
+def _edge_index(env, S, dev):
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    return (tdev.DeviceIndex(env["idx"], dev) if S == 0
+            else ShardedIndex(env["idx"], S, dev))
+
+
+def _layout(env, frags):
+    """flat uint8 codes and frag_off int32 of protein fragments (any may be
+    empty)."""
+    codes = [np.array([env["trans"][ord(ch)] for ch in f], dtype=np.uint8)
+             for f in frags]
+    flat = np.concatenate(codes) if codes else np.zeros(0, np.uint8)
+    off = np.zeros(len(frags) + 1, dtype=np.int32)
+    off[1:] = np.cumsum([len(f) for f in frags])
+    return torch.from_numpy(flat.astype(np.uint8)), torch.from_numpy(off)
+
+
+def _piece(env, rng, n, mutate=0):
+    """n letters cut from the DB's records (random letters past their
+    length), with `mutate` point substitutions."""
+    out = ""
+    while len(out) < n:
+        s = rng.choice(env["records"])
+        st = rng.randrange(0, len(s))
+        out += s[st:st + n - len(out)]
+    out = list(out)
+    for _ in range(mutate):
+        out[rng.randrange(n)] = rng.choice(AA)
+    return "".join(out)
+
+
+def _edge_fragments(env, case):
+    rng = random.Random(case)
+    if case == "long":  # one homopolymer extension among thousands of lanes
+        frags = [_piece(env, rng, rng.randint(0, 20)) for _ in range(3000)]
+        frags.insert(1500, "A" * 300)
+    elif case == "edges":  # starts on warp and block edges; P = 4,680
+        frags = [_piece(env, rng, n) for n in
+                 (32, 32, 192, 768, 1024, 1, 31, 33, 255, 257, 1023, 1025, 7)]
+    else:  # "empty": empty fragments, 600 in one block (past its staging)
+        frags = []
+        for t in range(200):
+            frags += [""] * (600 if t == 100 else rng.randint(0, 2))
+            frags.append(_piece(env, rng, rng.randint(5, 40)))
+    return frags
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", ["long", "edges", "empty", "screened"])
+def test_mem_extend_edge_batches_match_plain(edge_env, cuda, case, S):
+    """B against its plain version on the flat index, with and without the
+    hybrid's stop: one 300-step homopolymer lane among 3,000 short
+    fragments; fragment starts on warp and block edges with P not a
+    multiple of a block; empty fragments, 600 of them inside one block;
+    and a screen that drops every lane."""
+    env = edge_env
+    dv = env["dv"]
+    flat, frag_off = _layout(env, _edge_fragments(
+        env, "long" if case == "screened" else case))
+    ix = _edge_index(env, S, cuda)
+    seed = tuple(a.to(cuda) for a in env["seed"])
+    lb = bloom.bloom_lb(env["idx"].length)
+    words = torch.zeros(1 << (lb - 5), dtype=torch.int32)
+    for j0, sw in ((MIN_LEN - 1, 0), (6, hybrid.S1_STEPS)):
+        scr = (words, 7, lb) if case == "screened" else None
+        want = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat,
+                                       frag_off, search.SEED_K, j0, bloom=scr,
+                                       sw_steps=sw)
+        got = search.mem_extend(
+            ix.rec, ix.C, *seed, flat.to(cuda), frag_off.to(cuda),
+            search.SEED_K, j0, sw_steps=sw,
+            bloom=None if scr is None else (words.to(cuda), 7, lb))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (case, S, j0)
+        pos, _f, base, _n = search._lane_fragments(frag_off, flat.shape[0])
+        if case == "screened":
+            assert torch.equal(want[0], pos - base + 1)  # nothing evaluated
+        elif case == "long" and sw == 0:
+            assert int((pos - base - want[0]).max()) > 250  # the long chain
+
+
+def _edge_reads(env, case):
+    """(fragments, rf_rows) of Greedy reads: "long" has a read of 640
+    positions (past E's shared-memory views) among short ones; "variants"
+    has reads of mutated pieces, whose many planned nodes make levels of
+    many sources: eight of 150 letters (1,200 positions, more than 32
+    sources), four of 120 (480 positions, in the views, more than 16), and
+    short ones between."""
+    rng = random.Random(case)
+    reads = []
+    for r in range(300):
+        if case == "long" and r % 50 == 0:
+            reads.append([_piece(env, rng, 80, 2) for _ in range(8)])
+        elif case == "long" or r % 3 == 2:
+            reads.append([_piece(env, rng, rng.randint(8, 40), 1)
+                          for _ in range(rng.randint(0, 6))])
+        elif r % 3 == 0:
+            reads.append([_piece(env, rng, 150, 15) for _ in range(8)])
+        else:
+            reads.append([_piece(env, rng, 120, 12) for _ in range(4)])
+    frags, rows = [], np.full((len(reads), 8), -1, dtype=np.int32)
+    for r, fr in enumerate(reads):
+        for t, f in enumerate(fr):
+            rows[r, t] = len(frags)
+            frags.append(f)
+    return frags, torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3])
+@pytest.mark.parametrize("case,vcap", [("long", greedy.VCAP),
+                                       ("variants", greedy.VCAP),
+                                       ("variants", 8)])
+@pytest.mark.parametrize("hyb", [False, True])
+def test_greedy_search_edge_reads_match_plain(edge_env, cuda, case, vcap,
+                                              hyb, S):
+    """E against its plain version at -e 3: a read too long for its
+    shared-memory views, which takes the global scratch path; levels with
+    more than 32 sources (more than one window of variants); and with vcap
+    8 reads that outgrow their scratch (FLAG_SCRATCH, a zero row), with
+    and without the last level's hybrid (whose ids then go through windows
+    of vcap variants)."""
+    env = edge_env
+    dv = env["dv"]
+    frags, rf_rows = _edge_reads(env, case)
+    flat, frag_off = _layout(env, frags)
+    lanes = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat,
+                                    frag_off, search.SEED_K, 6)
+    e_args = (7, MIN_LEN, 65, 3, 20, vcap)
+    want = greedy.greedy_search_plain(
+        *lanes, flat, frag_off, rf_rows, dv.rec, dv.C, env["tables"],
+        *e_args, hyb=(dv.text, dv.rank_start, dv.sa_seq, dv.sa_off, dv.nseq,
+                      dv.chpt_exp) if hyb else None)
+    ix = _edge_index(env, S, cuda)
+    got = greedy.greedy_search(
+        *(t.to(cuda) for t in (*lanes, flat, frag_off, rf_rows)), ix.rec,
+        ix.C, tuple(t.to(cuda) for t in env["tables"]), *e_args,
+        hyb=(ix.text, ix.rank_start, ix.sa_seq, ix.sa_off, dv.nseq,
+             dv.chpt_exp) if hyb else None)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g.cpu(), w)
+    flags = want[1]
+    assert (want[0] > 0).sum() > 20
+    if vcap == 8:
+        over = (flags & greedy.FLAG_SCRATCH) > 0
+        assert over.any() and not want[2][over].any()
+    elif case == "variants":  # levels of more than 32 and more than 16
+        for cap, reads in ((32, slice(0, None, 3)), (16, slice(1, None, 3))):
+            few = greedy.greedy_search_plain(
+                *lanes, flat, frag_off, rf_rows, dv.rec, dv.C,
+                env["tables"], *e_args[:-1], cap)
+            assert (few[1][reads] & greedy.FLAG_SCRATCH).any(), cap
