@@ -34,9 +34,18 @@ Phases, any failure exits non-zero:
      and on the text index its plain version on the shards (timed).  B and
      E also print a second floor: the plain versions' longest chain of
      dependent row reads times the card's L2 latency, which csrc/chase.cu
-     measures first.  Then B (the MEM batch screened with the hybrid's stop
-     on the text index, unscreened without it on db.ktx; the Greedy batch)
-     and E (-e 3, with and without the hybrid) on a DB with repeats
+     measures first.  D and F run twice on each index: with the flat tree
+     of phase 4 and with every sequence mapped to a species of a taxonomy
+     of NCBI's size and depth (readgen.DeepTaxonomy: 2.5 M nodes, species
+     20-40 levels deep, taxids up to 3 M; its nodes.dmp written under
+     build/chip_smoke/), each with both floors, bytes and the plain
+     versions' longest chain of dependent loads (range expansion, SA walk
+     rounds, sample, taxon, depth, lift and climb rounds) times the L2
+     latency.  Then B (the MEM batch screened with the hybrid's stop on
+     the text index, unscreened without it on db.ktx; the Greedy batch), E
+     (-e 3, with and without the hybrid), D and F (both trees; on the deep
+     one each gene family's copies lie under one random clade, so that
+     their LCAs fall at mixed depths) on a DB with repeats
      (readgen.gen_realistic, bench.py's generator, 8 M letters, one batch
      of 4,096 of its reads), equal to their plain versions, timed.  Then
      P1 and P2 through their benchmark, tools.bench_gather (250,000 rows of
@@ -237,6 +246,13 @@ REPEATS_LETTERS = 8_000_000
 # a read's positions that kernel E holds in shared memory (kLcap of
 # csrc/greedy_search.cu); phase 3 counts the reads past it
 E_SHARED_POSITIONS = 512
+# phase 3's taxonomy of NCBI depth (readgen.DeepTaxonomy from seed + 3):
+# a gene family of the DB with repeats goes under the clade 1 to
+# DEEP_FAMILY_UP levels above a random species; each tree's D and F checks
+# carry this suffix (none for the flat tree)
+DEEP_FAMILY_UP = 12
+TREES = ("", " (deep tree)")
+_DEEP = {}
 
 
 def log(msg: str) -> None:
@@ -359,10 +375,11 @@ def make_db(seed: int, letters: int):
 
 def make_repeats_db(seed: int, letters: int = REPEATS_LETTERS):
     """(protein records, {"fmi": ktx dir without text, "text": ktx dir
-    with text}) of a DB with repeats: readgen.gen_realistic (bench.py's
-    generator: gene families copied exactly and at ~90 % identity, with
-    low-complexity runs) from seed + 2, indexed with the native builder;
-    the text index's cache holds its two Bloom bitmaps."""
+    with text}, each record's gene family) of a DB with repeats:
+    readgen.gen_realistic (bench.py's generator: gene families copied
+    exactly and at ~90 % identity, with low-complexity runs) from seed +
+    2, indexed with the native builder; the text index's cache holds its
+    two Bloom bitmaps."""
     import numpy as np
 
     from kaiju_tpu_torch.index import native_builder
@@ -371,7 +388,9 @@ def make_repeats_db(seed: int, letters: int = REPEATS_LETTERS):
     from kaiju_tpu_torch.tools import readgen
 
     t0 = time.perf_counter()
-    records = readgen.gen_realistic(random.Random(seed + 2), letters)
+    families = []
+    records = readgen.gen_realistic(random.Random(seed + 2), letters,
+                                    families)
     cache = os.path.join(ROOT, "build", "chip_smoke",
                          f"repeats{letters}_seed{seed}")
     ktx = {"fmi": os.path.join(cache, "db.ktx"),
@@ -394,7 +413,49 @@ def make_repeats_db(seed: int, letters: int = REPEATS_LETTERS):
     log(f"repeats db: {sum(len(q) for _, q in records):,} letters, "
         f"{len(records):,} sequences, both indexes and bitmaps ready in "
         f"{time.perf_counter() - t0:.1f} s")
-    return records, ktx
+    return records, ktx, families
+
+
+def deep_tree(seed: int):
+    """The taxonomy of NCBI depth (readgen.DeepTaxonomy from seed + 3),
+    made once a process; its nodes.dmp is written under
+    build/chip_smoke/."""
+    if seed not in _DEEP:
+        from kaiju_tpu_torch.tools import readgen
+
+        t0 = time.perf_counter()
+        tree = readgen.DeepTaxonomy(seed + 3)
+        path = os.path.join(ROOT, "build", "chip_smoke", f"deep_seed{seed}",
+                            "nodes.dmp")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tree.write_nodes_dmp(path)
+        d = tree.depth[tree.species]
+        log(f"deep tree: {len(tree.internal) + len(tree.species):,} nodes, "
+            f"{len(tree.species):,} species at depth {int(d.min())}-"
+            f"{int(d.max())} (mean {float(d.mean()):.1f}), taxids below "
+            f"{tree.parent.shape[0]:,} (parent and depth "
+            f"{tree.parent.nbytes:,} bytes each), {path} written, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _DEEP[seed] = tree
+    return _DEEP[seed]
+
+
+def deep_seq_tax(tree, index, seed: int, families=None):
+    """Each sequence of the index mapped to a species of the deep tree
+    (int32 [nseq]): a random species each; with families (each input
+    record's gene family), a random leaf under its family's clade, itself
+    1 to DEEP_FAMILY_UP levels above a random species."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 4)
+    if families is None:
+        return tree.species[rng.integers(0, len(tree.species), index.nseq)]
+    fam = np.asarray(families)[index.seq_term_order]
+    ufam, inv = np.unique(fam, return_inverse=True)
+    top = tree.ancestor(
+        tree.species[rng.integers(0, len(tree.species), len(ufam))],
+        rng.integers(1, DEEP_FAMILY_UP + 1, len(ufam)))
+    return tree.leaves_under(rng, top[inv])
 
 
 def check_fragmenter(reads) -> None:
@@ -445,16 +506,19 @@ def row_bytes(touched) -> tuple[int, int]:
 @contextlib.contextmanager
 def dependent_reads():
     """Counts the rounds of dependent record-row reads of the plain
-    versions of B and E run inside the block.  Their lanes step in
+    versions of B, E, D and F run inside the block.  Their lanes step in
     lockstep, so a round is one link of the batch's longest chain of
     dependent reads.  Yields a dict filled on exit: "steps", B's FM-step
     rounds (a step's two ranks read in parallel: one round); "levels",
     E's rounds of each variant level: the probe, then the longer of the
-    resumed extension and the last level's SA walks."""
-    from kaiju_tpu_torch.ops import device_index, greedy, search
+    resumed extension and the last level's SA walks; "walks", D's and F's
+    SA walk rounds, and "parents" their rounds of parent loads (the lift,
+    then the climb)."""
+    from kaiju_tpu_torch.ops import classify, device_index, greedy, search
 
     trace = []
-    orig = (search.rank, greedy.rank, device_index.rank, greedy._resume)
+    orig = (search.rank, greedy.rank, device_index.rank, greedy._resume,
+            classify._up)
 
     def pair_rank(*a, **k):
         trace.append("p")
@@ -470,15 +534,23 @@ def dependent_reads():
         trace.append("]")
         return r
 
+    def up(*a, **k):
+        trace.append("u")
+        return orig[4](*a, **k)
+
     search.rank = greedy.rank = pair_rank
     device_index.rank = walk_rank
     greedy._resume = resume
+    classify._up = up
     out = {}
     try:
         yield out
     finally:
-        search.rank, greedy.rank, device_index.rank, greedy._resume = orig
+        (search.rank, greedy.rank, device_index.rank, greedy._resume,
+         classify._up) = orig
     out["steps"] = trace.count("p") // 2
+    # D's and F's: SA walk rounds, lift and climb rounds
+    out["walks"], out["parents"] = trace.count("w"), trace.count("u")
     # E's levels: a probe pair, "[" its resumed extension's pairs "]",
     # then the switch's walk rounds, until the next level's probe pair
     levels, state, res, walks = [], None, 0, 0
@@ -499,10 +571,10 @@ def dependent_reads():
     out["levels"] = levels
 
 
-def floor_note(chain: int, lat_ns: float) -> str:
-    """The latency floor of a chain of `chain` dependent row reads, each
-    at least one L2 hit (lat_ns)."""
-    return (f"longest chain {chain} dependent row reads: latency floor "
+def floor_note(chain: int, lat_ns: float, what: str = "row reads") -> str:
+    """The latency floor of a chain of `chain` dependent loads, each at
+    least one L2 hit (lat_ns)."""
+    return (f"longest chain {chain} dependent {what}: latency floor "
             f"{chain * lat_ns / 1e6:.4f} ms at {lat_ns:.1f} ns")
 
 
@@ -518,16 +590,20 @@ def measure(got, want, fn, plain_fn, touched, other_bytes, note):
             f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
 
 
-def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True):
+def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
+                  deep=None):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
     index at ktx_dir; with a text copy, B screens (its bitmaps cached in
     ktx_dir), G finishes the narrow MEM lanes, E runs its last-level hybrid
     and D, F read the virtual rows.  The bound counts each input byte once:
     the distinct record rows that the plain version reads, plus the other
     inputs and the outputs (E's per-position and per-source scratch is its
-    own, not counted).  B's and E's notes carry their second floor, the
-    longest chain of dependent row reads times the L2 latency lat_ns.
-    full=False: B on the MEM and the Greedy batch and E alone."""
+    own, not counted).  B's, E's, D's and F's notes carry their second
+    floor, the longest chain of dependent loads times the L2 latency
+    lat_ns.  D and F run on the flat tree and, given deep = (seq_tax int32
+    [nseq], readgen.DeepTaxonomy), on the deep one too ("read_lca (deep
+    tree)", "ranges_lca (deep tree)").  full=False: B on the MEM and the
+    Greedy batch, E, D and F alone (A, G and C run unchecked)."""
     import numpy as np
     import torch
 
@@ -623,49 +699,68 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True):
     lanes = extend_report("mem_extend", "mem", ext, kw,
                           "MEM batch" + (", screened (m 11)" if text else ""))
     sw_ids = None
-    if text and full:
+    if text:
         g = (*lanes, flat, frag_off, sw_len, dv.text, dv.rank_start, dv.rec,
              dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
-        sw = hybrid.switched(*lanes, frag_off, sw_len)
-        nsw, nocc = int(sw.sum()), int((lanes[2] - lanes[1])[sw].sum())
         res = hybrid.text_extend(*g)
-        touched = []
-        want = hybrid.text_extend_plain(*g, touched)
-        ext_len = int((lanes[0] - res[0])[sw].sum())
-        n_ids = int((res[2] - res[1])[sw].sum())
-        report("text_extend", res, want, lambda: hybrid.text_extend(*g),
-               lambda: hybrid.text_extend_plain(*g), touched,
-               P * 24 + 4 * (F + 1) + nocc * 12
-               + 2 * (ext_len + nsw) + 4 * n_ids,
-               f"{nsw:,} switched lanes of {P:,}, {nocc:,} occurrences, "
-               f"{ext_len:,} letters extended, {n_ids:,} ids",
-               call=(g, {}))
+        if full:
+            sw = hybrid.switched(*lanes, frag_off, sw_len)
+            nsw, nocc = int(sw.sum()), int((lanes[2] - lanes[1])[sw].sum())
+            touched = []
+            want = hybrid.text_extend_plain(*g, touched)
+            ext_len = int((lanes[0] - res[0])[sw].sum())
+            n_ids = int((res[2] - res[1])[sw].sum())
+            report("text_extend", res, want, lambda: hybrid.text_extend(*g),
+                   lambda: hybrid.text_extend_plain(*g), touched,
+                   P * 24 + 4 * (F + 1) + nocc * 12
+                   + 2 * (ext_len + nsw) + 4 * n_ids,
+                   f"{nsw:,} switched lanes of {P:,}, {nocc:,} occurrences, "
+                   f"{ext_len:,} letters extended, {n_ids:,} ids",
+                   call=(g, {}))
         lanes, sw_ids = res[:3], res[3]
 
-    par, dep = (put(a) for a in Taxonomy(
-        {1: 1, 10: 1, **{t: 10 for t in range(100, 197)}}).dense_arrays())
+    # the taxonomies D and F run on: (seq_tax, parent, depth) by suffix
+    trees = {TREES[0]: (dv.seq_tax, *(put(a) for a in Taxonomy(
+        {1: 1, 10: 1, **{t: 10 for t in range(100, 197)}}).dense_arrays()))}
+    if deep is not None:
+        trees[TREES[1]] = (put(deep[0]), put(deep[1].parent),
+                           put(deep[1].depth))
+
+    def tail_report(name, fn, plain, args, kw, other_bytes, note, expand):
+        """D or F (fn, its plain version) on args, kw; the latency floor's
+        chain: `expand` loads to the ranges, the walk rounds, the sample,
+        the taxon and its depth, then the lift and climb rounds."""
+        got = fn(*args, **kw)
+        touched = []
+        with dependent_reads() as dep_r:
+            want = plain(*args, touched, **kw)
+        chain = expand + dep_r["walks"] + 3 + dep_r["parents"]
+        n_ids = want[1] if isinstance(want, tuple) else want[:, 3]
+        report(name, got, want, lambda: fn(*args, **kw),
+               lambda: plain(*args, **kw), touched, other_bytes,
+               f"{note}, {int((n_ids > 1).sum()):,} with several taxa; "
+               f"walk {dep_r['walks']} rounds, lift and climb "
+               f"{dep_r['parents']}: {floor_note(chain, lat_ns, 'loads')}",
+               call=(args, kw))
+
+    st = (*lanes, frag_off, min_len, T)
+    stats = search.mem_stats(*st)
     if full:
-        st = (*lanes, frag_off, min_len, T)
-        stats = search.mem_stats(*st)
         report("mem_stats", stats, search.mem_stats_plain(*st),
                lambda: search.mem_stats(*st),
                lambda: search.mem_stats_plain(*st), [],
                12 * P + 4 * (F + 1) + F * (8 + 12 * T), f"{F:,} fragments")
-
-        B, S = rf_rows.shape
-        tail = (*stats[:2], *stats[3:], rf_rows, dv.rec, dv.C, dv.sa_seq,
-                dv.sa_off, dv.seq_tax, par, dep, MemPipeline.R_BUDGET, 20,
-                dv.nseq, dv.chpt_exp)
-        virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
-        rows = classify.read_lca(*tail, sw_ids=sw_ids)
-        touched = []
-        want = classify.read_lca_plain(*tail, touched, sw_ids=sw_ids)
-        report("read_lca", rows, want,
-               lambda: classify.read_lca(*tail, sw_ids=sw_ids),
-               lambda: classify.read_lca_plain(*tail, sw_ids=sw_ids),
-               touched, 4 * B * S + 16 * B + F * (8 + 8 * T),
-               f"{B:,} reads, {virt:,} virtual tie rows",
-               call=(tail, {"sw_ids": sw_ids}))
+    B, S = rf_rows.shape
+    virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
+    for suffix, tax in trees.items():
+        # rf_rows, then maxl, then the tie ranges
+        tail_report("read_lca" + suffix, classify.read_lca,
+                    classify.read_lca_plain,
+                    (*stats[:2], *stats[3:], rf_rows, dv.rec, dv.C,
+                     dv.sa_seq, dv.sa_off, *tax, MemPipeline.R_BUDGET, 20,
+                     dv.nseq, dv.chpt_exp), {"sw_ids": sw_ids},
+                    4 * B * S + 16 * B + F * (8 + 8 * T),
+                    f"{B:,} reads, {virt:,} virtual tie rows", 3)
 
     # B (screened), E, F on the first batch of the Greedy path at the
     # default flags (-e 3, -s 65, -m 11, -l 7: K = 5, Lmap = 7, T = 20)
@@ -712,19 +807,15 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True):
            f"{floor_note(max(levels, default=0), lat_ns)}",
            call=(ge, {"hyb": hyb}))
 
-    if full:
-        gf = (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off,
-              dv.seq_tax, par, dep, GreedyPipeline.R_BUDGET, 20, dv.nseq,
-              dv.chpt_exp)
-        res = classify.ranges_lca(*gf, sw_ids=found[4])
-        touched = []
-        want = classify.ranges_lca_plain(*gf, touched, sw_ids=found[4])
-        report("ranges_lca", res, want,
-               lambda: classify.ranges_lca(*gf, sw_ids=found[4]),
-               lambda: classify.ranges_lca_plain(*gf, sw_ids=found[4]),
-               touched, 8 * B * T + 16 * B,
-               f"{B:,} reads, {int((found[0] > 0).sum()):,} with a best",
-               call=(gf, {"sw_ids": found[4]}))
+    for suffix, tax in trees.items():
+        tail_report("ranges_lca" + suffix, classify.ranges_lca,
+                    classify.ranges_lca_plain,
+                    (found[2], found[3], dv.rec, dv.C, dv.sa_seq, dv.sa_off,
+                     *tax, GreedyPipeline.R_BUDGET, 20, dv.nseq,
+                     dv.chpt_exp), {"sw_ids": found[4]},
+                    8 * B * T + 16 * B,
+                    f"{B:,} reads, {int((found[0] > 0).sum()):,} with a best",
+                    1)
     torch.cuda.synchronize()
     del dv, screens
     torch.cuda.empty_cache()
@@ -2306,19 +2397,34 @@ def check_repeats(seed: int, lat_ns: float) -> dict:
     """Phase 3 on the DB with repeats (make_repeats_db), one batch of 4,096
     of its reads: B on the MEM batch (screened, the hybrid's narrow lanes
     stopping, on the text index; unscreened and not stopping on db.ktx)
-    and on the Greedy batch, and E at -e 3 (its last level's hybrid on the
-    text index, none on db.ktx), against their plain versions.  Returns
-    {index tag: check_kernels' dict}."""
+    and on the Greedy batch, E at -e 3 (its last level's hybrid on the
+    text index, none on db.ktx), and D and F on the flat and the deep tree
+    (each gene family under one clade), against their plain versions.
+    Returns {index tag: check_kernels' dict}."""
     from kaiju_tpu_torch.index.core import KaijuIndex
 
-    records, ktx = make_repeats_db(seed)
+    records, ktx, families = make_repeats_db(seed)
     reads = make_reads(seed, records, BATCH)
     out = {}
     for tag in ("fmi", "text"):
-        out[tag], _inputs = check_kernels(KaijuIndex.load(ktx[tag]), reads,
-                                          ktx[tag], lat_ns, full=False)
+        index = KaijuIndex.load(ktx[tag])
+        tree = deep_tree(seed)
+        out[tag], _inputs = check_kernels(
+            index, reads, ktx[tag], lat_ns, full=False,
+            deep=(deep_seq_tax(tree, index, seed, families), tree))
         log_checks(out[tag], f"repeats, {tag}")
     return out
+
+
+def fold_errors(checks: dict, name: str, *more: dict) -> None:
+    """checks[name]'s error raised to the largest of every check of kernel
+    `name` in checks and in `more` (its runs on other trees and DBs), so
+    that the kernels line carries them all."""
+    err, *rest = checks[name]
+    for c in (checks, *more):
+        err = max([err] + [v[0] for k, v in c.items()
+                           if k == name or k.startswith(name + " (")])
+    checks[name] = (err, *rest)
 
 
 def latency(smi: str) -> float:
@@ -2387,9 +2493,11 @@ def run(args) -> int:
 
     # ---- 3. kernels against their plain versions -----------------------
     checks = {}
+    tree = deep_tree(args.seed)
     for tag in ("fmi", "text"):
-        checks[tag], inputs = check_kernels(indexes[tag], reads, ktx[tag],
-                                            lat_ns)
+        checks[tag], inputs = check_kernels(
+            indexes[tag], reads, ktx[tag], lat_ns,
+            deep=(deep_seq_tax(tree, indexes[tag], args.seed), tree))
         v_checks, v_inputs = check_verbose_kernels(indexes[tag], nodes,
                                                    reads, ktx[tag])
         checks[tag].update(v_checks)
@@ -2410,12 +2518,13 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
-    # B and E on the DB with repeats; their errors join the line's
-    for tag, rc in check_repeats(args.seed, lat_ns).items():
+    # B, E, D and F on the DB with repeats; their errors, and D's and F's
+    # on the deep tree, join the line's
+    repeats = check_repeats(args.seed, lat_ns)
+    for tag, rc in repeats.items():
         checks["repeats " + tag] = rc
-        for name in ("mem_extend", "greedy_search"):
-            err, *rest = checks["text"][name]
-            checks["text"][name] = (max(err, rc[name][0]), *rest)
+    for name in ("mem_extend", "greedy_search", "read_lca", "ranges_lca"):
+        fold_errors(checks["text"], name, checks["fmi"], *repeats.values())
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")

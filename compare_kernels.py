@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Kernels B (mem_extend) and E (greedy_search) of this checkout against
-the same kernels of another checkout of the port, on one NVIDIA GPU.
+"""Kernels B (mem_extend), E (greedy_search), D (read_lca) and F
+(ranges_lca) of this checkout against the same kernels of another
+checkout of the port, on one NVIDIA GPU.
 
     python3 compare_kernels.py OTHER [--seed 20240817] [--db-letters N]
 
 OTHER is a directory that holds another checkout's kaiju_tpu_torch, for
 example the parent commit unpacked with ``git archive`` into a directory
 that .gitignore lists, or a copy of this checkout with a kernel's source
-changed.  Its wrappers ``ops.search.mem_extend`` and
-``ops.greedy.greedy_search`` must take the arguments this checkout's
+changed.  Its wrappers ``ops.search.mem_extend``,
+``ops.greedy.greedy_search``, ``ops.classify.read_lca`` and
+``ops.classify.ranges_lca`` must take the arguments this checkout's
 take.  Both packages are imported side by side in this process, each
 with its own kernel loader, which builds its checkout's kernels into that
 checkout's build/ directory; nothing of either loader is replaced.
 
 On chip_smoke.py phase 3's inputs (both 64 Maa indexes, the DB with
 repeats with and without text, and the 64 Maa indexes in 4 shards),
-B on the MEM and the Greedy batch and E at -e 3: this checkout's kernels
-against their plain versions (phase 3's check, with both floors), each
+B on the MEM and the Greedy batch, E at -e 3, and D and F on the flat
+tree and on the taxonomy of NCBI depth: this checkout's kernels against
+their plain versions (phase 3's check, with both floors), each
 design's outputs against this checkout's kernel (they must be equal, and
 each design's launches must be counted by its own package), then each
 design timed twice in turns, other, this, this, other (CUDA events, the
@@ -35,13 +38,19 @@ import sys
 import traceback
 
 PKG = "kaiju_tpu_torch"
-# the modules a design is called through: the two wrappers, the loader
-# that counts their launches, and the class of a sharded index array
-MODULES = ("kernels", "ops.search", "ops.greedy", "ops.device_index")
-# phase 3's calls of B and E, by their name in chip_smoke.check_kernels
+# the modules a design is called through: the wrappers, the loader that
+# counts their launches, and the class of a sharded index array
+MODULES = ("kernels", "ops.search", "ops.greedy", "ops.classify",
+           "ops.device_index")
+# phase 3's calls of B, E, D and F, by their name in
+# chip_smoke.check_kernels
 COMPARED = {"mem_extend": ("ops.search", "mem_extend"),
             "mem_extend (Greedy batch)": ("ops.search", "mem_extend"),
-            "greedy_search": ("ops.greedy", "greedy_search")}
+            "greedy_search": ("ops.greedy", "greedy_search"),
+            "read_lca": ("ops.classify", "read_lca"),
+            "read_lca (deep tree)": ("ops.classify", "read_lca"),
+            "ranges_lca": ("ops.classify", "ranges_lca"),
+            "ranges_lca (deep tree)": ("ops.classify", "ranges_lca")}
 SHARDS = 4  # phase 4e's widest split
 
 
@@ -122,15 +131,16 @@ def run(args) -> int:
     lat_ns = cs.latency(smi)
     records, _nodes, ktx = cs.make_db(args.seed, args.db_letters)
     reads = cs.make_reads(args.seed, records, cs.BATCH)
-    r_records, r_ktx = cs.make_repeats_db(args.seed)
+    r_records, r_ktx, families = cs.make_repeats_db(args.seed)
     r_reads = cs.make_reads(args.seed, r_records, cs.BATCH)
-    cases = [(tag, ktx[tag], reads) for tag in ("fmi", "text")]
-    cases += [(f"repeats, {tag}", r_ktx[tag], r_reads)
+    tree = cs.deep_tree(args.seed)
+    cases = [(tag, ktx[tag], reads, None) for tag in ("fmi", "text")]
+    cases += [(f"repeats, {tag}", r_ktx[tag], r_reads, families)
               for tag in ("fmi", "text")]
     bad = []
 
     def compare(name, where, a, kw, want):
-        """Each design's B or E (phase 3's call `name`) on a, kw against
+        """Each design's kernel (phase 3's call `name`) on a, kw against
         want, then timed."""
         calls = {tag: design_call(mods, name, a, kw)
                  for tag, mods in designs.items()}
@@ -151,10 +161,11 @@ def run(args) -> int:
             + f"; this/other {sum(times['this']) / sum(times['other']):.3f}"
             f" ({smi})")
 
-    for where, path, rd in cases:
+    for where, path, rd, fam in cases:
         index = KaijuIndex.load(path)
-        checks, inputs = cs.check_kernels(index, rd, path, lat_ns,
-                                          full=False)
+        checks, inputs = cs.check_kernels(
+            index, rd, path, lat_ns, full=False,
+            deep=(cs.deep_seq_tax(tree, index, args.seed, fam), tree))
         cs.log_checks(checks, where)
         bad += [(n, where, "plain", v[0]) for n, v in checks.items() if v[0]]
         sh = (ShardedIndex(index, SHARDS, torch.device("cuda"))

@@ -356,57 +356,7 @@ __device__ __forceinline__ void extend_window(const Args<Ix>& a, Warp& sm,
     __syncwarp();
 }
 
-// One LF step of an SA walk by a group of G (2, 4 or 8) lanes: *c = the
-// BWT letter at k and the result FMindex(*c, k) to every lane.  Lane gl
-// loads the row's 16-byte groups gl, gl + G, ... of both halves, the occ
-// words and the BWT bytes, so that the step costs one memory latency; the
-// letter and its occ word come by shuffle from the lanes that hold them.
-template <int G, class Ix>
-__device__ __forceinline__ int lf_group(const Ix& ix,
-                                        const int* __restrict__ C, int k,
-                                        int gl, unsigned gmask, int* c) {
-    const int* row = ix.row(k >> 7);
-    const int off = k & 127, qb = off >> 4;
-    const uint4* bw = reinterpret_cast<const uint4*>(row + 32);
-    const uint4* ow = reinterpret_cast<const uint4*>(row);
-    uint4 v[8 / G], o[8 / G];
-#pragma unroll
-    for (int t = 0; t < 8 / G; ++t) {
-        const int q = gl + t * G;
-        v[t] = q <= qb ? __ldg(bw + q) : make_uint4(0, 0, 0, 0);
-        o[t] = __ldg(ow + q);
-    }
-    // the letter at off: group qb, held by lane qb % G
-    uint4 g = v[0];
-#pragma unroll
-    for (int t = 1; t < 8 / G; ++t)
-        if (t == qb / G) g = v[t];
-    const int b = off & 15;
-    const unsigned word = b < 4 ? g.x : b < 8 ? g.y : b < 12 ? g.z : g.w;
-    const int letter = __shfl_sync(gmask, (int)(word >> ((b & 3) * 8)) & 255,
-                                   qb % G, G);
-    // its occ word: group letter >> 2, held by lane (letter >> 2) % G
-    uint4 h = o[0];
-#pragma unroll
-    for (int t = 1; t < 8 / G; ++t)
-        if (t == (letter >> 2) / G) h = o[t];
-    const int x = letter & 3;
-    const int occ = __shfl_sync(
-        gmask, (int)(x == 0 ? h.x : x == 1 ? h.y : x == 2 ? h.z : h.w),
-        (letter >> 2) % G, G);
-    const unsigned pat = 0x01010101u * (unsigned)letter;
-    int cnt = 0;
-#pragma unroll
-    for (int t = 0; t < 8 / G; ++t)
-        cnt += kt::count_eq16(v[t], pat, off - 16 * (gl + t * G));
-#pragma unroll
-    for (int m = G / 2; m > 0; m >>= 1)
-        cnt += __shfl_xor_sync(gmask, cnt, m, G);
-    *c = letter;
-    return __ldg(C + letter) + occ + cnt;
-}
-
-// kt::walk_pos by a group of G lanes (lf_group steps).
+// kt::walk_pos by a group of G lanes (kt::lf_group steps).
 template <int G, class Ix>
 __device__ __forceinline__ kt::WalkPos walk_group(const Ix& ix,
                                                   const int* __restrict__ C,
@@ -417,7 +367,7 @@ __device__ __forceinline__ kt::WalkPos walk_group(const Ix& ix,
     int steps = 0;
     while (k & check) {
         int c;
-        const int kn = lf_group<G>(ix, C, k, gl, gmask, &c);
+        const int kn = kt::lf_group<G>(ix, C, k, gl, gmask, &c);
         if (c == 0) return {kn, steps};
         k = kn;
         ++steps;

@@ -20,11 +20,34 @@
 // and positions past R), so that the kept set depends on the order of the
 // ranges; n_ranges: the ranges that contribute.
 //
-// Design: one warp per read.  The lanes expand 32 ranges at a time into
-// positions in shared memory, each at its offset from a warp prefix sum
-// of the sizes; they walk the positions in parallel (the walks are the
-// latency-bound part) and mark first occurrences; lane 0 runs the short
-// sequential cap and LCA logic.
+// Bound: a chain of dependent loads, not bytes.  An SA walk's LF steps
+// follow one another, and a walk ends only at a sampled SA slot (one in
+// 2^chpt_exp, so the longest of a batch's walks takes tens of steps); the
+// lift and the climb follow parent links, 20-40 of them on NCBI's tree.
+// Design: one warp per read, every stage spread over the lanes, none on
+// one lane while the others wait.
+//   1. Ranges 32 at a time: a warp prefix sum of their sizes gives each
+//      its offset; the nonempty ones are written out in turn by the whole
+//      warp, up to R positions, into shared memory.
+//   2. Positions 32 at a time: each walked by a group of G lanes, G = 8,
+//      4 or 2 for at most 4, 8 or 16 positions (kt::lf_group: a step in
+//      one memory latency), one lane a position past 16 (kt::rank1's
+//      loads, four at a time); its taxon from seq_tax.  Groups for every
+//      chunk, past 16 positions in two passes, took 1.2x longer on reads
+//      of 32 positions, and a lane a position for every chunk 2.3x longer
+//      (PERF.md, PR 11).
+//   3. The capped set by warp intrinsics: __match_any_sync finds each
+//      taxon's first lane in the chunk, a scan of the list of unique taxa
+//      so far (shared memory) drops the ones earlier chunks saw, a ballot
+//      numbers the new ones.  n_uniq matters only up to cap + 2 (need_more
+//      and cut), so the list holds at most that many, and positions after
+//      the chunk that reaches it are not walked.
+//   4. The LCA a kept taxon a lane (several past 32): their depths loaded
+//      together, the shallowest by a warp minimum, each taxon lifted on
+//      its own lane, then every lane climbs one parent a step until
+//      __all_sync finds them all equal to the first present taxon.  The
+//      chain is the longest lift plus the climb, where a single lane
+//      would take the sum of the lifts plus the climb times the taxa.
 #pragma once
 
 #include "text_common.cuh"
@@ -35,82 +58,152 @@ struct LcaResult {
     int lca, n_ids, need_more, cut, n_ranges;
 };
 
+// The ints of a warp's shared memory that ranges_lca_warp takes for R
+// positions: the positions (later the kept taxa's depths) and the list of
+// unique taxa (at most min(R, cap + 2)).
+__host__ __device__ constexpr int lca_warp_ints(int R) { return 2 * R; }
+
+// The taxon of position pos[lane / G] (m positions, m * G <= 32) in every
+// lane of its group of G; 0 in lanes past the m groups.
+template <int G, class Ix>
+__device__ __forceinline__ int walk_taxon(
+    const int* pos, int m, int lane, const Ix& ix,
+    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
+    int nseq, int chpt_exp, const int* __restrict__ sw_ids, int nsw) {
+    const int r = lane / G;
+    if (r >= m) return 0;  // whole groups
+    const int k = pos[r];
+    const int iseq =
+        sw_ids != nullptr && k >= kVBase
+            ? __ldg(sw_ids + min(k - kVBase, nsw - 1))
+            : sa_walk<G>(ix, C, nseq, chpt_exp, k, lane & (G - 1),
+                         group_mask<G>(lane));
+    return __ldg(seq_tax + min(max(iseq, 0), ntax - 1));
+}
+
 // Whole warp.  range(g, &start, &size) gives range g of G (size 0: not
-// contributing), from any lane; pos and first are R ints each of the
-// warp's shared memory.  The result is the read's in lane 0, zeros in the
-// other lanes.  ix: the index the SA walks read (kt::FlatIx or
-// kt::ShardIx; fm_common.cuh).
+// contributing), from any lane; sh is lca_warp_ints(R) ints of the warp's
+// shared memory.  Every lane gets the read's result.  ix: the index the
+// SA walks read (kt::FlatIx or kt::ShardIx; fm_common.cuh).
 template <class Range, class Ix>
 __device__ LcaResult ranges_lca_warp(
-    const Range& range, int G, int* pos, int* first, const Ix& ix,
+    const Range& range, int G, int* sh, const Ix& ix,
     const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
     int maxtax, int R, int cap, int nseq, int chpt_exp,
     const int* __restrict__ sw_ids, int nsw) {
     const int lane = threadIdx.x & 31;
+    int* pos = sh;
+    int* list = sh + R;
+    const int listcap = max(min(R, cap + 2), 0);
+
+    // 1. the first R positions of the ranges, in order
     int total = 0, n_ranges = 0;
     for (int g0 = 0; g0 < G; g0 += 32) {
         int a = 0, size = 0;
         if (g0 + lane < G) range(g0 + lane, a, size);
         const int inc = warp_incl_sum(size, lane);
-        for (int x = 0, off = total + inc - size; x < size && off + x < R; ++x)
-            pos[off + x] = a + x;
+        const unsigned live = __ballot_sync(kFullMask, size > 0);
+        for (unsigned w = live; w != 0; w &= w - 1) {
+            const int src = __ffs(w) - 1;
+            const int ra = __shfl_sync(kFullMask, a, src);
+            const int rs = __shfl_sync(kFullMask, size, src);
+            const int ro = total + __shfl_sync(kFullMask, inc - size, src);
+            if (ro >= R) break;
+            for (int x = lane; x < rs && ro + x < R; x += 32)
+                pos[ro + x] = ra + x;
+        }
         total += __shfl_sync(kFullMask, inc, 31);
-        n_ranges += __popc(__ballot_sync(kFullMask, size > 0));
+        n_ranges += __popc(live);
     }
     const int n = min(total, R);
     __syncwarp();  // every lane's positions are visible to the warp
 
-    for (int r = lane; r < n; r += 32) {
-        const int k = pos[r];
-        const int iseq =
-            sw_ids != nullptr && k >= kVBase
-                ? __ldg(sw_ids + min(k - kVBase, nsw - 1))
-                : sa_walk(ix, C, nseq, chpt_exp, k);
-        pos[r] = seq_tax[min(max(iseq, 0), ntax - 1)];
+    // 2-3. chunks of 32 positions: their taxa, then the new ones listed
+    int n_uniq = 0;
+    for (int r0 = 0; r0 < n && n_uniq < cap + 2; r0 += 32) {
+        const int m = min(32, n - r0);
+        const int* p = pos + r0;
+        const int gs = m <= 4 ? 8 : m <= 8 ? 4 : m <= 16 ? 2 : 1;
+        int t;  // the taxon of position r0 + lane / gs
+        if (gs == 8)
+            t = walk_taxon<8>(p, m, lane, ix, C, seq_tax, ntax, nseq,
+                              chpt_exp, sw_ids, nsw);
+        else if (gs == 4)
+            t = walk_taxon<4>(p, m, lane, ix, C, seq_tax, ntax, nseq,
+                              chpt_exp, sw_ids, nsw);
+        else if (gs == 2)
+            t = walk_taxon<2>(p, m, lane, ix, C, seq_tax, ntax, nseq,
+                              chpt_exp, sw_ids, nsw);
+        else
+            t = walk_taxon<1>(p, m, lane, ix, C, seq_tax, ntax, nseq,
+                              chpt_exp, sw_ids, nsw);
+        // position r0 + lane's taxon, from the first lane of its group
+        const int tax = __shfl_sync(kFullMask, t, min(lane * gs, 31));
+        const bool valid = lane < m;
+        bool seen = false;
+        for (int j = 0; valid && !seen && j < n_uniq; ++j)
+            seen = list[j] == tax;
+        // a lane past m may hold any value, but a valid lane below it comes
+        // first among the lanes of that value
+        const unsigned same = __match_any_sync(kFullMask, tax);
+        const bool fresh = valid && !seen && __ffs(same) - 1 == lane;
+        const unsigned news = __ballot_sync(kFullMask, fresh);
+        const int prior = n_uniq + __popc(news & lanes_below(lane));
+        if (fresh && prior < listcap) list[prior] = tax;
+        n_uniq += __popc(news);
+        __syncwarp();
     }
-    __syncwarp();
-    for (int r = lane; r < n; r += 32) {
-        int is_first = 1;
-        for (int q = 0; q < r && is_first; ++q) is_first = pos[q] != pos[r];
-        first[r] = is_first;
-    }
-    __syncwarp();
-    LcaResult res{0, 0, 0, 0, 0};
-    if (lane != 0) return res;
 
-    // kept taxa: new ones while at most cap new ones came before; the ones
-    // present in the tree are compacted, lifted, into pos[0, m)
-    int n_uniq = 0, first_id = 0, m = 0, dmin = 0x7fffffff;
-    for (int r = 0; r < n; ++r) {
-        if (!first[r]) continue;
-        const int tax = pos[r];
-        if (n_uniq++ > cap) continue;
-        if (res.n_ids++ == 0) first_id = tax;
-        if (tax >= 0 && tax < maxtax && depth[tax] > 0) {
-            dmin = min(dmin, depth[tax]);
-            pos[m++] = tax;
-        }
-    }
-    if (res.n_ids == 1) {
-        res.lca = first_id;
-    } else if (m > 0) {
-        for (int x = 0; x < m; ++x)
-            for (int up = depth[pos[x]] - dmin; up > 0; --up)
-                pos[x] = parent[pos[x]];
-        // all lifted taxa reach depth 1 after dmin - 1 steps; a forest with
-        // several roots never meets, so the climb is bounded
-        for (int step = 0; step < dmin; ++step) {
-            bool same = true;
-            for (int x = 1; x < m && same; ++x) same = pos[x] == pos[0];
-            if (same) break;
-            for (int x = 0; x < m; ++x) pos[x] = parent[pos[x]];
-        }
-        res.lca = pos[0];
-    }
+    // the kept taxa are list[0, n_ids), in order
+    LcaResult res;
+    res.n_ids = max(min(n_uniq, cap + 1), 0);
     res.need_more = total > R && n_uniq <= cap;
     res.cut = n_uniq > cap + 1 || (total > R && n_uniq > cap);
     res.n_ranges = n_ranges;
+    res.lca = res.n_ids > 0 ? list[0] : 0;
+    if (res.n_ids < 2) return res;
+
+    // 4. the LCA: x = lane + 32 i is the lane's i-th kept taxon; pres
+    // marks those in the tree, pos[x] holds their depths
+    unsigned pres = 0;
+    int dmin = 0x7fffffff, xfirst = 0x7fffffff;
+    for (int i = 0, x = lane; x < res.n_ids; ++i, x += 32) {
+        const int tx = list[x];
+        const int d = tx >= 0 && tx < maxtax ? __ldg(depth + tx) : 0;
+        pos[x] = d;
+        if (d > 0) {
+            pres |= 1u << i;
+            dmin = min(dmin, d);
+            xfirst = min(xfirst, x);
+        }
+    }
+    dmin = __reduce_min_sync(kFullMask, dmin);
+    xfirst = __reduce_min_sync(kFullMask, xfirst);
+    res.lca = 0;
+    if (xfirst == 0x7fffffff) return res;  // none in the tree
+    for (int i = 0, x = lane; x < res.n_ids; ++i, x += 32) {
+        if (!(pres >> i & 1)) continue;
+        int tx = list[x];
+        for (int up = pos[x] - dmin; up > 0; --up)
+            tx = __ldg(parent + min(max(tx, 0), maxtax - 1));
+        list[x] = tx;
+    }
+    __syncwarp();
+    // every lifted taxon reaches depth 1 after dmin - 1 steps; a forest
+    // with several roots never meets, so the climb is bounded
+    int ref = list[xfirst];
+    for (int step = 0; step < dmin; ++step) {
+        bool same = true;
+        for (int i = 0, x = lane; x < res.n_ids; ++i, x += 32)
+            if (pres >> i & 1) same = same && list[x] == ref;
+        if (__all_sync(kFullMask, same)) break;
+        for (int i = 0, x = lane; x < res.n_ids; ++i, x += 32)
+            if (pres >> i & 1)
+                list[x] = __ldg(parent + min(max(list[x], 0), maxtax - 1));
+        ref = __ldg(parent + min(max(ref, 0), maxtax - 1));
+    }
+    res.lca = ref;
     return res;
 }
 

@@ -11,9 +11,10 @@
 // (lca_common.cuh).  sw_ids (null: none) holds the ids of kernel E's
 // virtual tie rows, those of the last level's text-compare hybrid.
 //
-// Bound: the SA walks, one random 256-byte record row per LF step, plus
-// the ranges in and 12 bytes a read out; device-memory bytes at 3.35 TB/s.
-// Design: one warp per read (see lca_common.cuh).
+// Bound: bytes, the SA walks' random 256-byte record rows plus the
+// ranges in and 16 bytes a read out, at 3.35 TB/s; and the chain of
+// dependent loads of the slowest read (lca_common.cuh), at the L2's
+// latency.  Design: one warp per read (see lca_common.cuh).
 //
 // kt_ranges_lca_sharded runs the same on an index split into shards
 // (kt::ShardIx): the tail of K16f, kaiju_tpu/parallel/sharded_fused.py:
@@ -29,8 +30,8 @@ constexpr int kWarps = 4;  // reads a block
 struct ReadRanges {
     const int *s0, *s1;
     __device__ void operator()(int g, int& a, int& size) const {
-        a = s0[g];
-        size = max(s1[g] - a, 0);
+        a = __ldg(s0 + g);
+        size = max(__ldg(s1 + g) - a, 0);
     }
 };
 
@@ -47,11 +48,10 @@ __global__ void ranges_lca_kernel(
     const int w = threadIdx.x >> 5;
     const int b = blockIdx.x * kWarps + w;
     if (b >= B) return;  // whole warps leave together
-    int* pos = smem + w * 2 * R;
     const ReadRanges ranges{g_s0 + (size_t)b * G, g_s1 + (size_t)b * G};
     const kt::LcaResult res = kt::ranges_lca_warp(
-        ranges, G, pos, pos + R, ix, C, seq_tax, ntax, parent, depth, maxtax,
-        R, cap, nseq, chpt_exp, sw_ids, nsw);
+        ranges, G, smem + w * kt::lca_warp_ints(R), ix, C, seq_tax, ntax,
+        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if ((threadIdx.x & 31) != 0) return;
     out_lca[b] = res.lca;
     out_n_ids[b] = res.n_ids;
@@ -66,7 +66,7 @@ int launch(const int* g_s0, const int* g_s1, int B, int G, const Ix& ix,
            int chpt_exp, const int* sw_ids, int nsw, int* out_lca,
            int* out_n_ids, int* out_need_more, int* out_tie_order,
            cudaStream_t stream) {
-    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
+    const size_t shmem = (size_t)kWarps * kt::lca_warp_ints(R) * sizeof(int);
     const int blocks = (B + kWarps - 1) / kWarps;
     ranges_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
         g_s0, g_s1, B, G, ix, C, seq_tax, ntax, parent, depth, maxtax, R,

@@ -11,9 +11,14 @@
 // positions ran out before the id cap.  The host replays flagged reads
 // exactly.
 //
-// Bound: the SA walks, one random 256-byte record row per LF step, plus
-// the statistics rows the reads touch; device-memory bytes at 3.35 TB/s.
-// Design: one warp per read (see lca_common.cuh).
+// Bound: bytes, the SA walks' random 256-byte record rows plus the
+// statistics rows the reads touch, at 3.35 TB/s; and the chain of
+// dependent loads of the slowest read (lca_common.cuh), at the L2's
+// latency.  Design: one warp per read.  The slots come 32 at a time, one
+// a lane: their longest, then a ballot of the slots that reach it, whose
+// fragment rows are listed in shared memory, so that only their ties are
+// loaded (T a slot); the tail kt::ranges_lca_warp (lca_common.cuh) takes
+// the rest.
 //
 // kt_read_lca_sharded runs the same on an index split into shards
 // (kt::ShardIx): the classify_tail of K16e,
@@ -25,17 +30,15 @@ namespace {
 
 constexpr int kWarps = 4;  // reads a block
 
-// Tie t of slot s (g = s * T + t) when the slot reaches the read's longest.
+// Tie t of the c-th slot that reaches the read's longest (g = c * T + t);
+// rows: those slots' fragment rows, in slot order.
 struct SlotTies {
-    const int *rf, *maxl, *tie_s0, *tie_s1;
-    int T, longest;
+    const int *rows, *tie_s0, *tie_s1;
+    int T;
     __device__ void operator()(int g, int& a, int& size) const {
-        const int r = rf[g / T];
-        a = 0;
-        size = 0;
-        if (longest <= 0 || r < 0 || maxl[r] != longest) return;
-        a = tie_s0[(size_t)r * T + g % T];
-        size = tie_s1[(size_t)r * T + g % T] - a;
+        const size_t i = (size_t)rows[g / T] * T + g % T;
+        a = __ldg(tie_s0 + i);
+        size = __ldg(tie_s1 + i) - a;
     }
 };
 
@@ -53,19 +56,31 @@ __global__ void read_lca_kernel(
     const int lane = threadIdx.x & 31;
     const int b = blockIdx.x * kWarps + w;
     if (b >= B) return;  // whole warps leave together
-    int* pos = smem + w * 2 * R;  // positions, then taxa, then lifted ids
+    int* sh = smem + w * (kt::lca_warp_ints(R) + S);
+    int* rows = sh + kt::lca_warp_ints(R);  // the contributing slots' rows
     const int* rf = rf_rows + (size_t)b * S;
-    int longest = 0, over = 0;
-    for (int s = lane; s < S; s += 32)
-        if (rf[s] >= 0) longest = max(longest, maxl[rf[s]]);
+    int longest = 0;
+    for (int s = lane; s < S; s += 32) {
+        const int r = __ldg(rf + s);
+        if (r >= 0) longest = max(longest, __ldg(maxl + r));
+    }
     longest = kt::warp_max(longest);
-    for (int s = lane; s < S && longest > 0; s += 32)
-        over |= rf[s] >= 0 && maxl[rf[s]] == longest && tie_cnt[rf[s]] > T;
+    int nc = 0, over = 0;
+    for (int s0 = 0; s0 < S && longest > 0; s0 += 32) {
+        const int r = s0 + lane < S ? __ldg(rf + s0 + lane) : -1;
+        const bool c = r >= 0 && __ldg(maxl + r) == longest;
+        const unsigned cm = __ballot_sync(kt::kFullMask, c);
+        if (c) {
+            rows[nc + __popc(cm & kt::lanes_below(lane))] = r;
+            over |= __ldg(tie_cnt + r) > T;
+        }
+        nc += __popc(cm);
+    }
+    __syncwarp();
     const int tie_over = __any_sync(kt::kFullMask, over);
-    const SlotTies ties{rf, maxl, tie_s0, tie_s1, T, longest};
     const kt::LcaResult res = kt::ranges_lca_warp(
-        ties, S * T, pos, pos + R, ix, C, seq_tax, ntax, parent, depth,
-        maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
+        SlotTies{rows, tie_s0, tie_s1, T}, nc * T, sh, ix, C, seq_tax, ntax,
+        parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
     if (lane != 0) return;
     int* o = out + (size_t)b * 4;
     o[0] = longest > 0 ? res.lca : 0;
@@ -81,7 +96,8 @@ int launch(const int* maxl, const int* tie_cnt, const int* tie_s0,
            const int* parent, const int* depth, int maxtax, int R, int cap,
            int nseq, int chpt_exp, const int* sw_ids, int nsw, int* out,
            cudaStream_t stream) {
-    const size_t shmem = (size_t)kWarps * 2 * R * sizeof(int);
+    const size_t shmem =
+        (size_t)kWarps * (kt::lca_warp_ints(R) + S) * sizeof(int);
     const int blocks = (B + kWarps - 1) / kWarps;
     read_lca_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
         maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, ix, C, seq_tax, ntax,

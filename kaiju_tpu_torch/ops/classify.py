@@ -90,7 +90,7 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
     lift = torch.where(present, dep - dmin[:, None], 0)
     while bool((lift > 0).any()):
         up = lift > 0
-        ids = torch.where(up, parent[ids].long(), ids)
+        ids = torch.where(up, _up(parent, ids), ids)
         lift = lift - up.to(i32)
     # absent slots take the first present taxon so they never block the
     # climb
@@ -100,12 +100,18 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
         same = (ids == ids[:, :1]).all(1)
         if bool(same.all()):
             break
-        ids = torch.where(same[:, None], ids, parent[ids].long())
+        ids = torch.where(same[:, None], ids, _up(parent, ids))
     lca = torch.where(present.any(1), ids[:, 0].to(i32), 0)
     first_uid = tax.gather(1, included.to(i32).argmax(1, keepdim=True))[:, 0]
     lca = torch.where(n_ids == 1, first_uid, lca)
     lca = torch.where(n_ids > 0, lca, 0)
     return lca, n_ids, need_more.to(i32), tie_order.to(i32)
+
+
+def _up(parent, ids):
+    """One round of parent loads of the lift or the climb (a link of the
+    longest chain of dependent loads, which chip_smoke.py counts)."""
+    return parent[ids].long()
 
 
 def ranges_lca(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth,

@@ -1,8 +1,9 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
-checkout beside the first, and kernels B's and E's calls routed through
-that copy's wrappers (here their plain versions, as the CPU takes them),
-sharded index arrays rebuilt as the copy's class.  The results must equal
-this copy's, bit for bit.  Imports neither jax nor kaiju_tpu."""
+checkout beside the first, and kernels B's, E's, D's and F's calls (D and
+F on a flat and a deep taxonomy) routed through that copy's wrappers
+(here their plain versions, as the CPU takes them), sharded index arrays
+rebuilt as the copy's class.  The results must equal this copy's, bit for
+bit.  Imports neither jax nor kaiju_tpu."""
 
 import importlib
 import os
@@ -17,10 +18,11 @@ from kaiju_tpu_torch.engine.pipeline import _bucket
 from kaiju_tpu_torch.index import py_builder
 from kaiju_tpu_torch.index.alphabet import trans_table
 from kaiju_tpu_torch.ops import device_index as tdev
+from kaiju_tpu_torch.io.taxonomy import Taxonomy
 from kaiju_tpu_torch.ops import greedy, search
 from kaiju_tpu_torch.ops.kmer import KmerTables
 from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
-from kaiju_tpu_torch.tools.readgen import make_reads
+from kaiju_tpu_torch.tools.readgen import DeepTaxonomy, make_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -50,9 +52,35 @@ def env():
     lanes = search.mem_extend(*ext)
     tables = tuple(torch.from_numpy(a) for a in greedy.greedy_scoring_tables(
         idx.alphabet, trans_table(idx.alphabet)))
-    ge = (*lanes, flat, frag_off, torch.from_numpy(rf_rows), dv.rec, dv.C,
-          tables, 7, 11, 65, 3, 20, 64)
-    return {"idx": idx, "dv": dv, "ext": ext, "ge": ge}
+    rf_rows = torch.from_numpy(rf_rows)
+    ge = (*lanes, flat, frag_off, rf_rows, dv.rec, dv.C, tables, 7, 11, 65,
+          3, 20, 64)
+    # D's and F's inputs on the flat tree and on a deep one
+    stats = search.mem_stats(*lanes, frag_off, 11, 8)
+    found = greedy.greedy_search(*ge)
+    deep = DeepTaxonomy(3, n_species=3000, max_taxid=20_000, width=40)
+    trees = {"": (dv.seq_tax, *(torch.from_numpy(a) for a in Taxonomy(
+        {1: 1, 10: 1, 100: 10, 101: 10, 102: 10}).dense_arrays())),
+        " (deep tree)": (torch.from_numpy(deep.species[:idx.nseq]),
+                         torch.from_numpy(deep.parent),
+                         torch.from_numpy(deep.depth))}
+    tails = {}
+    for suffix, tax in trees.items():
+        tail = (dv.rec, dv.C, dv.sa_seq, dv.sa_off, *tax, 32, 20, dv.nseq,
+                dv.chpt_exp)
+        tails["read_lca" + suffix] = (*stats[:2], *stats[3:], rf_rows,
+                                      *tail)
+        tails["ranges_lca" + suffix] = (found[2], found[3], *tail)
+    return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails}
+
+
+def _call(env, name):
+    """(args, kwargs) of phase 3's call `name` on env's index."""
+    if name == "greedy_search":
+        return env["ge"], {"hyb": None}
+    if name.startswith("mem_extend"):
+        return env["ext"], {"bloom": None, "sw_steps": 0}
+    return env["tails"][name], {"sw_ids": None}
 
 
 @pytest.mark.parametrize("name", sorted(ck.COMPARED))
@@ -69,13 +97,13 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     assert other["ops.greedy"].kernels is other["kernels"]
     assert {k: m for k, m in sys.modules.items()
             if k.startswith("kaiju_tpu_torch")} == before
-    a, kw = (env["ge"], {"hyb": None}) if name == "greedy_search" else (
-        env["ext"], {"bloom": None, "sw_steps": 0})
+    assert other["ops.classify"].kernels is other["kernels"]
+    a, kw = _call(env, name)
     want = ck.design_call(this, name, a, kw)[0]()
     if shards:
         sh = ShardedIndex(env["idx"], shards, "cpu")
         a, kw = chip_smoke.shard_call(sh, env["dv"], a, kw)
-        rec = a[0] if name.startswith("mem") else a[6]
+        rec = a[list(map(id, _call(env, name)[0])).index(id(env["dv"].rec))]
         assert isinstance(rec, tdev.Shards)
         moved = ck.to_design((rec,), other)[0]
         assert isinstance(moved, other["ops.device_index"].Shards)
@@ -85,6 +113,8 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     call, kname = ck.design_call(other, name, a, kw)
     assert kname == ck.COMPARED[name][1] + ("_sharded" if shards else "")
     got = call()
+    if isinstance(want, torch.Tensor):  # D's rows
+        got, want = (got,), (want,)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g is None) == (w is None)

@@ -999,3 +999,177 @@ def test_greedy_search_edge_reads_match_plain(edge_env, cuda, case, vcap,
                 *lanes, flat, frag_off, rf_rows, dv.rec, dv.C,
                 env["tables"], *e_args[:-1], cap)
             assert (few[1][reads] & greedy.FLAG_SCRATCH).any(), cap
+
+
+# ---------------------------------------------------------------------------
+# edge cases of D's and F's warp-parallel tail (csrc/lca_common.cuh), on
+# hand-laid ranges, on the flat index (S = 0) and in 2 and 4 shards
+# ---------------------------------------------------------------------------
+
+OUTSIDE = 25_000  # taxids past the dense arrays of lca_env's tree
+
+
+@pytest.fixture(scope="module")
+def lca_env(edge_env):
+    """A taxonomy of NCBI's depth cut small (readgen.DeepTaxonomy: species
+    20-40 levels deep) with a second root, its dense arrays, clades at
+    several depths, and the sequence of each SA row of edge_env's index."""
+    from kaiju_tpu_torch.tools.readgen import DeepTaxonomy
+
+    t = DeepTaxonomy(23, n_species=3000, max_taxid=20_000, width=40)
+    nodes = {int(x): int(t.parent[x])
+             for x in np.concatenate([t.internal, t.species])}
+    second = min(x for x, p in nodes.items() if p == 1 and x != 1)
+    nodes[second] = second
+    par, dep = Taxonomy(nodes).dense_arrays()
+    nr = np.random.default_rng(29)
+    clades = t.ancestor(t.species[nr.integers(0, len(t.species), 5)],
+                        nr.integers(3, 16, 5))
+    dv = edge_env["dv"]
+    n = edge_env["idx"].length
+    walked, _p = tdev.sa_walk(dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq,
+                              dv.chpt_exp, torch.arange(n, dtype=torch.int32))
+    return {"tree": t, "second": second, "clades": clades, "nr": nr,
+            "par": torch.from_numpy(par), "dep": torch.from_numpy(dep),
+            "walked": walked.numpy()}
+
+
+def _lca_case(env, lenv, case):
+    """(g_s0, g_s1 int32 [B, G], seq_tax, sw_ids or None, R, cap) of a
+    case: ranges inside the SA rows of letters [nseq, length)."""
+    idx, t, nr = env["idx"], lenv["tree"], lenv["nr"]
+    nseq, n = idx.nseq, idx.length
+    rng = np.random.default_rng(len(case))
+    distinct = t.species[rng.choice(len(t.species), nseq, replace=False)]
+    seq_tax = t.leaves_under(rng, lenv["clades"][np.arange(nseq) % 5])
+    R, cap, sw_ids = 32, 20, None
+    B, G = 64, 20
+    s0 = rng.integers(nseq, n, (B, G))
+    size = rng.integers(1, 4, (B, G)) * (rng.random((B, G)) < 0.12)
+    if case in ("wide", "cap40"):  # n > 32 positions a read
+        R = 1024
+        size = rng.integers(0, 400, (B, G)) * (rng.random((B, G)) < 0.5)
+        if case == "cap40":  # more than a warp of kept taxa
+            cap, seq_tax = 40, distinct
+    elif case == "absent":  # ids of depth 0, inside the arrays and past
+        seq_tax = np.flatnonzero(lenv["dep"].numpy() == 0)[1:nseq + 1]
+        seq_tax[::2] = OUTSIDE + np.arange(0, nseq, 2)
+    elif case == "outside":
+        seq_tax = np.full(nseq, OUTSIDE)
+    elif case == "two_roots":
+        seq_tax[::2] = t.leaves_under(rng, [lenv["second"]] * len(seq_tax[::2]))
+    elif case == "virtual":  # virtual rows of the hybrid beside real ones
+        sw_ids = torch.from_numpy(rng.integers(0, nseq, 40).astype(np.int32))
+        v = rng.random((B, G)) < 0.3
+        s0 = np.where(v, hybrid.VBASE + rng.integers(0, 32, (B, G)), s0)
+        size = np.where(v, rng.integers(1, 9, (B, G)), size)
+    elif case.startswith("around_cap"):
+        # n_uniq = cap, cap + 1, cap + 2 with R - 1, R, R + 1 positions:
+        # one position a range, the first u from u sequences of their own
+        # taxon, the rest repeats of the first
+        R, cap = (64, 40) if case.endswith("64") else (32, 20)
+        seq_tax = distinct
+        rows = [np.flatnonzero(lenv["walked"][nseq:] == i)[0] + nseq
+                for i in range(nseq)]
+        B, G = 9, R + 1
+        s0 = np.zeros((B, G), dtype=np.int64)
+        size = np.zeros((B, G), dtype=np.int64)
+        for b, (u, tot) in enumerate((u, tot) for u in (cap, cap + 1, cap + 2)
+                                     for tot in (R - 1, R, R + 1)):
+            pos = [rows[i] for i in range(u)] + [rows[0]] * (tot - u)
+            s0[b, :tot], size[b, :tot] = pos, 1
+    s1 = np.where(s0 >= hybrid.VBASE, s0 + size, np.minimum(s0 + size, n))
+    return (torch.from_numpy(s0.astype(np.int32)),
+            torch.from_numpy(s1.astype(np.int32)),
+            torch.from_numpy(np.asarray(seq_tax, dtype=np.int32)), sw_ids, R,
+            cap)
+
+
+def _slots(g_s0, g_s1, rng):
+    """D's inputs holding F's ranges: each read's ranges as the ties of
+    its slots (T a slot, in slot order) that reach its longest, behind a
+    slot that does not and beside a pad; a tenth of the reads with more
+    ties than T."""
+    B, G = g_s0.shape
+    ns = -(-G // T)
+    pad = ns * T - G
+    s0 = torch.nn.functional.pad(g_s0, (0, pad)).reshape(B * ns, T)
+    s1 = torch.nn.functional.pad(g_s1, (0, pad)).reshape(B * ns, T)
+    F = B * ns
+    junk = torch.from_numpy(rng.integers(0, 50, (B, T)).astype(np.int32))
+    tie_s0 = torch.cat([s0, junk]).contiguous()
+    tie_s1 = torch.cat([s1, junk + 3]).contiguous()
+    maxl = torch.cat([torch.full((F,), 10, dtype=torch.int32),
+                      torch.full((B,), 5, dtype=torch.int32)])
+    tie_cnt = torch.from_numpy(np.where(rng.random(F + B) < 0.1, T + 1, T)
+                               .astype(np.int32))
+    rf = np.full((B, ns + 2), -1, dtype=np.int32)
+    rf[:, 0] = F + np.arange(B)
+    rf[:, 2:] = np.arange(F).reshape(B, ns)
+    return maxl, tie_cnt, tie_s0, tie_s1, torch.from_numpy(rf)
+
+
+LCA_CASES = ["deep", "wide", "cap40", "absent", "outside", "two_roots",
+             "around_cap", "around_cap 64", "virtual"]
+
+
+@pytest.mark.parametrize("S", [0, 2, 4])
+@pytest.mark.parametrize("case", LCA_CASES)
+def test_lca_edge_reads_match_plain(edge_env, lca_env, cuda, case, S):
+    """D and F against their plain versions, on the flat index and in 2 and
+    4 shards: ranges on a tree of NCBI depth; R = 1024 with reads of more
+    than 32 positions; cap 40, so that the kept taxa exceed a warp; every
+    taxon absent from the tree; a single kept taxon outside the arrays;
+    two roots; n_uniq exactly cap, cap + 1 and cap + 2 beside R - 1, R and
+    R + 1 positions (R = 32 and 64); the hybrid's virtual rows."""
+    from kaiju_tpu_torch import kernels
+
+    env = edge_env
+    dv = env["dv"]
+    g_s0, g_s1, seq_tax, sw_ids, R, cap = _lca_case(env, lca_env, case)
+    par, dep = lca_env["par"], lca_env["dep"]
+    tail = (seq_tax, par, dep, R, cap, dv.nseq, dv.chpt_exp)
+    want_f = classify.ranges_lca_plain(g_s0, g_s1, dv.rec, dv.C, dv.sa_seq,
+                                       dv.sa_off, *tail, sw_ids=sw_ids)
+    d_in = _slots(g_s0, g_s1, np.random.default_rng(S))
+    want_d = classify.read_lca_plain(*d_in, dv.rec, dv.C, dv.sa_seq,
+                                     dv.sa_off, *tail, sw_ids=sw_ids)
+    ix = _edge_index(env, S, cuda)
+    on = (seq_tax.to(cuda), par.to(cuda), dep.to(cuda), *tail[3:])
+    sw = None if sw_ids is None else sw_ids.to(cuda)
+    kernels.reset_counts()
+    got_f = classify.ranges_lca(g_s0.to(cuda), g_s1.to(cuda), ix.rec, ix.C,
+                                ix.sa_seq, ix.sa_off, *on, sw_ids=sw)
+    got_d = classify.read_lca(*(a.to(cuda) for a in d_in), ix.rec, ix.C,
+                              ix.sa_seq, ix.sa_off, *on, sw_ids=sw)
+    torch.cuda.synchronize()
+    suffix = "_sharded" if S else ""
+    assert kernels.LAUNCHES["ranges_lca" + suffix] == 1
+    assert kernels.LAUNCHES["read_lca" + suffix] == 1
+    for g, w in zip(got_f, want_f):
+        assert torch.equal(g.cpu(), w), case
+    assert torch.equal(got_d.cpu(), want_d), case
+    # D on the same ranges gives F's LCA and ids
+    assert torch.equal(want_d[:, 0], want_f[0])
+    assert torch.equal(want_d[:, 3], want_f[1])
+    lca, n_ids, need_more, order = want_f
+    total = (g_s1 - g_s0).clamp(min=0).sum(1)
+    if case == "deep":
+        assert len(set(dep[lca.clamp(max=len(dep) - 1).long()].tolist())) > 3
+    elif case == "wide":
+        assert (total > 32).sum() > 10 and (n_ids > 1).any()
+    elif case == "cap40":
+        assert (n_ids > 32).any()
+    elif case == "absent":
+        assert ((n_ids > 1) & (lca == 0)).any()
+        assert (lca >= OUTSIDE).any() and ((lca > 0) & (lca < OUTSIDE)).any()
+    elif case == "outside":
+        assert (lca == OUTSIDE).sum() > 10 and n_ids.max() == 1
+    elif case == "two_roots":
+        assert (lca == lca_env["second"]).any() and (lca == 1).any()
+    elif case.startswith("around_cap"):
+        assert n_ids.tolist() == [cap] * 3 + [cap + 1] * 6
+        assert need_more.tolist() == [0, 0, 1] + [0] * 6
+        assert order.tolist() == [0, 0, 0, 0, 0, 1, 1, 1, 1]
+    elif case == "virtual":
+        assert (g_s0 >= hybrid.VBASE).any() and (n_ids > 1).any()
