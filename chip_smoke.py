@@ -189,6 +189,9 @@ REPLACES = {
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
+# a kernel launched as passes, one device function each: the symbols whose
+# profiler rows phase 4b sums into its total
+PASSES = {"G": ("text_extend_list", "text_extend_switch", "text_extend_keep")}
 # the kernels that read the index, whose sharded instantiations (K16) the
 # index-sharded paths run (A for the seed tables; B, G, D for MEM; B, E, F
 # for Greedy; H and J beside them)
@@ -590,6 +593,23 @@ def measure(got, want, fn, plain_fn, touched, other_bytes, note):
             f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
 
 
+def check_sa_lookup(h, lat_ns: float, note: str):
+    """H against its plain version on the arguments h of a sa_lookup call:
+    measure()'s tuple, the note with the latency floor (the position, the
+    longest walk's rounds, the sample)."""
+    from kaiju_tpu_torch.ops import device_index
+
+    touched = []
+    with dependent_reads() as dep:
+        want = device_index.sa_lookup_plain(*h, touched)
+    return measure(device_index.sa_lookup(*h), want,
+                   lambda: device_index.sa_lookup(*h),
+                   lambda: device_index.sa_lookup_plain(*h), touched,
+                   h[-1].shape[0] * (4 + 8 + 8),
+                   f"{note}; walk {dep['walks']} rounds: "
+                   f"{floor_note(dep['walks'] + 2, lat_ns)}")
+
+
 def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
                   deep=None):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
@@ -598,12 +618,13 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
     and D, F read the virtual rows.  The bound counts each input byte once:
     the distinct record rows that the plain version reads, plus the other
     inputs and the outputs (E's per-position and per-source scratch is its
-    own, not counted).  B's, E's, D's and F's notes carry their second
-    floor, the longest chain of dependent loads times the L2 latency
-    lat_ns.  D and F run on the flat tree and, given deep = (seq_tax int32
-    [nseq], readgen.DeepTaxonomy), on the deep one too ("read_lca (deep
-    tree)", "ranges_lca (deep tree)").  full=False: B on the MEM and the
-    Greedy batch, E, D and F alone (A, G and C run unchecked)."""
+    own, not counted).  B's, G's, E's, D's and F's notes carry their
+    second floor, the longest chain of dependent loads times the L2
+    latency lat_ns.  D and F run on the flat tree and, given deep =
+    (seq_tax int32 [nseq], readgen.DeepTaxonomy), on the deep one too
+    ("read_lca (deep tree)", "ranges_lca (deep tree)").  H runs on the SA
+    positions of the MEM batch's tie rows ("sa_lookup (tie rows)", its
+    floor in its note too).  full=False: A and C run unchecked."""
     import numpy as np
     import torch
 
@@ -703,20 +724,34 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
         g = (*lanes, flat, frag_off, sw_len, dv.text, dv.rank_start, dv.rec,
              dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
         res = hybrid.text_extend(*g)
-        if full:
-            sw = hybrid.switched(*lanes, frag_off, sw_len)
-            nsw, nocc = int(sw.sum()), int((lanes[2] - lanes[1])[sw].sum())
-            touched = []
+        sw = hybrid.switched(*lanes, frag_off, sw_len)
+        width = (lanes[2] - lanes[1])[sw]
+        nsw, nocc = int(sw.sum()), int(width.sum())
+        touched = []
+        with dependent_reads() as dep:
             want = hybrid.text_extend_plain(*g, touched)
-            ext_len = int((lanes[0] - res[0])[sw].sum())
-            n_ids = int((res[2] - res[1])[sw].sum())
-            report("text_extend", res, want, lambda: hybrid.text_extend(*g),
-                   lambda: hybrid.text_extend_plain(*g), touched,
-                   P * 24 + 4 * (F + 1) + nocc * 12
-                   + 2 * (ext_len + nsw) + 4 * n_ids,
-                   f"{nsw:,} switched lanes of {P:,}, {nocc:,} occurrences, "
-                   f"{ext_len:,} letters extended, {n_ids:,} ids",
-                   call=(g, {}))
+        ext = (lanes[0] - want[0])[sw]
+        ext_len, n_ach = int(ext.sum()), (want[2] - want[1])[sw]
+        n_ids = int(n_ach.sum())
+        at = torch.nonzero(sw).squeeze(1).cpu().numpy()
+        run = max((len(r) for r in np.split(at, np.flatnonzero(
+            np.diff(at) != 1) + 1)), default=0)
+        # the lane, the walk rounds, the sample and the text start, then
+        # the compare rounds of a group of 8 (64 letters a round, the
+        # stopping letter included)
+        chain = (3 + dep["walks"] + (int(ext.max()) + 64) // 64
+                 if nsw else 0)
+        report("text_extend", res, want, lambda: hybrid.text_extend(*g),
+               lambda: hybrid.text_extend_plain(*g), touched,
+               P * 24 + 4 * (F + 1) + nocc * 12
+               + 2 * (ext_len + nsw) + 4 * n_ids,
+               f"{nsw:,} switched lanes of {P:,} (longest run {run:,}), "
+               f"{nocc:,} occurrences (lanes of 1-8: "
+               f"{torch.bincount(width, minlength=9)[1:].tolist()}), "
+               f"{int((n_ach > 1).sum()):,} lanes keeping ties, "
+               f"{ext_len:,} letters extended, {n_ids:,} ids; walk "
+               f"{dep['walks']} rounds: {floor_note(chain, lat_ns)}",
+               call=(g, {}))
         lanes, sw_ids = res[:3], res[3]
 
     # the taxonomies D and F run on: (seq_tax, parent, depth) by suffix
@@ -750,6 +785,20 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
                lambda: search.mem_stats(*st),
                lambda: search.mem_stats_plain(*st), [],
                12 * P + 4 * (F + 1) + F * (8 + 12 * T), f"{F:,} fragments")
+    # H on the SA positions that the MEM -v path resolves first: each real
+    # tie row's first max_match_ids + 6 (engine/mem_fast.py's chunk)
+    chunk = cli_config("mem", True).max_match_ids + 6
+    ts0, ts1 = stats[3].reshape(-1), stats[4].reshape(-1)
+    real = (ts1 > ts0) & (ts1 < hybrid.VBASE)
+    x = torch.arange(chunk, dtype=torch.int32, device=cuda)
+    k = torch.unique((ts0[real][:, None] + x)[
+        x < (ts1 - ts0)[real][:, None]]).to(torch.int32)
+    h = (dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp, k)
+    out["sa_lookup (tie rows)"] = check_sa_lookup(
+        h, lat_ns, f"{k.shape[0]:,} SA positions of the MEM batch's "
+        f"{int(real.sum()):,} real tie rows (the first {chunk} of each)")
+    inputs["sa_lookup (tie rows)"] = (dv, h, {}, k.shape[0] * (4 + 8 + 8),
+                                      out["sa_lookup (tie rows)"][-1])
     B, S = rf_rows.shape
     virt = 0 if sw_ids is None else int((stats[3] >= hybrid.VBASE).sum())
     for suffix, tax in trees.items():
@@ -822,7 +871,7 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
     return out, inputs
 
 
-def check_verbose_kernels(index, nodes, reads, ktx_dir):
+def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
     """H, I, J and K against their plain versions on the inputs the -v
     paths give them, on the index at ktx_dir: one batch through each -v
     pipeline on the card records the first launch of H (MEM: the SA
@@ -875,13 +924,11 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir):
 
     # H on the SA positions of the MEM batch's first resolution round
     h = seen["sa_lookup"]
-    n = h[-1].shape[0]
-    touched = []
-    want = device_index.sa_lookup_plain(*h, touched)
-    report("sa_lookup", device_index.sa_lookup(*h), want,
-           lambda: device_index.sa_lookup(*h),
-           lambda: device_index.sa_lookup_plain(*h), touched, n * (4 + 8 + 8),
-           f"{n:,} SA positions of the MEM -v batch's ties", call=(h, {}))
+    out["sa_lookup"] = check_sa_lookup(
+        h, lat_ns, f"{h[-1].shape[0]:,} SA positions of the MEM -v batch's "
+        "ties")
+    inputs["sa_lookup"] = (mem_pipe.dev, h, {}, h[-1].shape[0] * (4 + 8 + 8),
+                           out["sa_lookup"][-1])
 
     # I on the first co-simulation round's variant lanes; its code-row
     # form on the same lanes
@@ -1105,7 +1152,8 @@ def steady_stream(index, nodes, reads, warm, mode: str, tag: str) -> None:
 
 def log_device_time(name: str, prof, wall: float, top: int = 8) -> None:
     """Print the device's busy and idle share of a pass of `wall` seconds
-    traced by `prof` (torch.profiler, card only) and its `top` kernels."""
+    traced by `prof` (torch.profiler, card only), its `top` kernels, and
+    the total of every row of each kernel of PASSES."""
     from torch.autograd import DeviceType
 
     rows = [r for r in prof.key_averages()
@@ -1121,6 +1169,21 @@ def log_device_time(name: str, prof, wall: float, top: int = 8) -> None:
     for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:top]:
         log(f"steady {name}: device {r.self_device_time_total / 1e3:9.3f} ms "
             f"x{r.count:<4d} {r.key[:70]}")
+    for kname, syms in PASSES.items():  # every row of a kernel of passes
+        mine = {s: [r for r in rows if s in r.key] for s in syms}
+        if not any(mine.values()):
+            continue
+        us = {s: sum(r.self_device_time_total for r in v)
+              for s, v in mine.items()}
+        log(f"steady {name}: kernel {kname} {sum(us.values()) / 1e3:.3f} ms "
+            "(" + ", ".join(f"{s} {us[s] / 1e3:.3f} ms x"
+                            f"{sum(r.count for r in mine[s])}"
+                            for s in syms) + ")")
+    sets = [r for r in rows if r.key.startswith("Memset")]
+    if sets:
+        us = sum(r.self_device_time_total for r in sets)
+        log(f"steady {name}: memsets {us / 1e3:.3f} ms "
+            f"x{sum(r.count for r in sets)} (G's counters among them)")
 
 
 def cli_config(mode: str, verbose: bool = False):
@@ -1441,7 +1504,7 @@ def x_config(name: str):
                        input_is_protein=kind == "protein")
 
 
-def x_kernel_checks(first, name):
+def x_kernel_checks(first, name, lat_ns: float):
     """Each kernel of BatchRunner against its plain version on the
     arguments of the wrapper's first call in the run `name` (the warm-up's
     first length group for J, the first round of the others): the
@@ -1492,13 +1555,9 @@ def x_kernel_checks(first, name):
             f"{int((a[4] == a[3]).sum()):,} on empty intervals")
     if "sa_lookup" in first:
         a = first["sa_lookup"]
-        n = a[-1].shape[0]
-        touched = []
-        want = dvi.sa_lookup_plain(*a, touched)
-        out["sa_lookup"] = measure(
-            dvi.sa_lookup(*a), want, lambda: dvi.sa_lookup(*a),
-            lambda: dvi.sa_lookup_plain(*a), touched, n * (4 + 8 + 8),
-            f"{name}: the first round's {n:,} SA positions")
+        out["sa_lookup"] = check_sa_lookup(
+            a, lat_ns, f"{name}: the first round's {a[-1].shape[0]:,} SA "
+            "positions")
     return out
 
 
@@ -1521,7 +1580,7 @@ def x_items(records, reads, seed: int, kind: str, n: int, work: str):
     return [(nm, s, None) for nm, s, _ in read_reads(path)], path
 
 
-def run_taxfree(index, ktx, items, fq, name):
+def run_taxfree(index, ktx, items, fq, name, lat_ns: float):
     """Run the tool of X_RUNS[name] through its main on db.ktx; fail
     unless every kernel of the path launched and no other did, unless
     every read went through BatchRunner, unless 256 sampled lines equal
@@ -1598,7 +1657,7 @@ def run_taxfree(index, ktx, items, fq, name):
     if diff:
         r = diff[0]
         raise AssertionError(f"read {r}: {lines[r]!r} != {want[pick.index(r)]!r}")
-    checks = x_kernel_checks(first, name)
+    checks = x_kernel_checks(first, name, lat_ns)
     for k, (err, ms, plain_ms, bound_ms, note) in checks.items():
         log(f"kernel {k} [{name}]: max_abs_err {err}, {ms:.4f} ms (plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms) [{note}]")
@@ -2396,11 +2455,13 @@ def log_checks(checks: dict, tag: str) -> None:
 def check_repeats(seed: int, lat_ns: float) -> dict:
     """Phase 3 on the DB with repeats (make_repeats_db), one batch of 4,096
     of its reads: B on the MEM batch (screened, the hybrid's narrow lanes
-    stopping, on the text index; unscreened and not stopping on db.ktx)
-    and on the Greedy batch, E at -e 3 (its last level's hybrid on the
-    text index, none on db.ktx), and D and F on the flat and the deep tree
-    (each gene family under one clade), against their plain versions.
-    Returns {index tag: check_kernels' dict}."""
+    stopping, on the text index; unscreened and not stopping on db.ktx),
+    G on the text index's stopped lanes (intervals of 1 to 8
+    occurrences), H on the tie rows' SA positions, B on the Greedy batch,
+    E at -e 3 (its last level's hybrid on the text index, none on
+    db.ktx), and D and F on the flat and the deep tree (each gene family
+    under one clade), against their plain versions.  Returns {index tag:
+    check_kernels' dict}."""
     from kaiju_tpu_torch.index.core import KaijuIndex
 
     records, ktx, families = make_repeats_db(seed)
@@ -2499,7 +2560,7 @@ def run(args) -> int:
             indexes[tag], reads, ktx[tag], lat_ns,
             deep=(deep_seq_tax(tree, indexes[tag], args.seed), tree))
         v_checks, v_inputs = check_verbose_kernels(indexes[tag], nodes,
-                                                   reads, ktx[tag])
+                                                   reads, ktx[tag], lat_ns)
         checks[tag].update(v_checks)
         inputs.update(v_inputs)
         log_checks(checks[tag], tag)
@@ -2518,12 +2579,13 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
-    # B, E, D and F on the DB with repeats; their errors, and D's and F's
-    # on the deep tree, join the line's
+    # B, G, E, D, F and H on the DB with repeats; their errors, D's and
+    # F's on the deep tree and H's on the tie rows join the line's
     repeats = check_repeats(args.seed, lat_ns)
     for tag, rc in repeats.items():
         checks["repeats " + tag] = rc
-    for name in ("mem_extend", "greedy_search", "read_lca", "ranges_lca"):
+    for name in ("mem_extend", "text_extend", "greedy_search", "read_lca",
+                 "ranges_lca", "sa_lookup"):
         fold_errors(checks["text"], name, checks["fmi"], *repeats.values())
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:
@@ -2582,7 +2644,7 @@ def run(args) -> int:
     for name, (_t, _f, kind, n, _k) in X_RUNS.items():
         items, xfq = x_items(records, reads, args.seed, kind, n, work)
         counts, x_checks, _tsv = run_taxfree(index, ktx["fmi"], items, xfq,
-                                             name)
+                                             name, lat_ns)
         for k, c in counts.items():
             launches[k] += c
         for k, (x_err, *_r) in x_checks.items():  # errors over all checks

@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
-"""Kernels B (mem_extend), E (greedy_search), D (read_lca) and F
-(ranges_lca) of this checkout against the same kernels of another
-checkout of the port, on one NVIDIA GPU.
+"""Kernels B (mem_extend), G (text_extend), E (greedy_search), D
+(read_lca), F (ranges_lca) and H (sa_lookup) of this checkout against the
+same kernels of other checkouts of the port, on one NVIDIA GPU.
 
-    python3 compare_kernels.py OTHER [--seed 20240817] [--db-letters N]
+    python3 compare_kernels.py OTHER [OTHER ...] [--seed 20240817]
+        [--db-letters N]
 
 OTHER is a directory that holds another checkout's kaiju_tpu_torch, for
 example the parent commit unpacked with ``git archive`` into a directory
 that .gitignore lists, or a copy of this checkout with a kernel's source
-changed.  Its wrappers ``ops.search.mem_extend``,
-``ops.greedy.greedy_search``, ``ops.classify.read_lca`` and
-``ops.classify.ranges_lca`` must take the arguments this checkout's
-take.  Both packages are imported side by side in this process, each
-with its own kernel loader, which builds its checkout's kernels into that
-checkout's build/ directory; nothing of either loader is replaced.
+changed; each design is named by its directory.  Its wrappers
+``ops.search.mem_extend``, ``ops.hybrid.text_extend``,
+``ops.greedy.greedy_search``, ``ops.classify.read_lca``,
+``ops.classify.ranges_lca`` and ``ops.device_index.sa_lookup`` must take
+the arguments this checkout's take.  The packages are imported side by
+side in this process, each with its own kernel loader, which builds its
+checkout's kernels into that checkout's build/ directory; nothing of any
+loader is replaced.
 
 On chip_smoke.py phase 3's inputs (both 64 Maa indexes, the DB with
 repeats with and without text, and the 64 Maa indexes in 4 shards),
-B on the MEM and the Greedy batch, E at -e 3, and D and F on the flat
-tree and on the taxonomy of NCBI depth: this checkout's kernels against
+B on the MEM and the Greedy batch, G on the text indexes' stopped MEM
+lanes, E at -e 3, D and F on the flat tree and on the taxonomy of NCBI
+depth, H on the SA positions of the MEM batch's tie rows and, on the
+64 Maa indexes, of the MEM -v batch's first round (phase 3's -v check)
+and, on db.ktx alone, of the first SaLookup round of a BatchRunner
+(kaijux -a mem, phase 4d's, unsharded): this checkout's kernels against
 their plain versions (phase 3's check, with both floors), each
 design's outputs against this checkout's kernel (they must be equal, and
 each design's launches must be counted by its own package), then each
-design timed twice in turns, other, this, this, other (CUDA events, the
-median of 15 launches).  Prints a line a shape and exits non-zero when
-a design disagrees, a launch went to the wrong package, or there is no
-CUDA device.  Imports nothing of JAX or of kaiju_tpu.
+design timed twice in turns, the others, this, this, the others in
+reverse (CUDA events, the median of 15 launches).  Prints a line a
+shape and exits non-zero when a design disagrees, a launch went to the
+wrong package, or there is no CUDA device.  Imports nothing of JAX or of
+kaiju_tpu.
 """
 
 from __future__ import annotations
@@ -40,17 +48,26 @@ import traceback
 PKG = "kaiju_tpu_torch"
 # the modules a design is called through: the wrappers, the loader that
 # counts their launches, and the class of a sharded index array
-MODULES = ("kernels", "ops.search", "ops.greedy", "ops.classify",
-           "ops.device_index")
-# phase 3's calls of B, E, D and F, by their name in
-# chip_smoke.check_kernels
+MODULES = ("kernels", "ops.search", "ops.hybrid", "ops.greedy",
+           "ops.classify", "ops.device_index")
+# phase 3's calls of B, G, E, D, F and H, by their name in
+# chip_smoke.check_kernels (H's -v call: check_verbose_kernels), and H's
+# BatchRunner round
 COMPARED = {"mem_extend": ("ops.search", "mem_extend"),
             "mem_extend (Greedy batch)": ("ops.search", "mem_extend"),
+            "text_extend": ("ops.hybrid", "text_extend"),
             "greedy_search": ("ops.greedy", "greedy_search"),
             "read_lca": ("ops.classify", "read_lca"),
             "read_lca (deep tree)": ("ops.classify", "read_lca"),
             "ranges_lca": ("ops.classify", "ranges_lca"),
-            "ranges_lca (deep tree)": ("ops.classify", "ranges_lca")}
+            "ranges_lca (deep tree)": ("ops.classify", "ranges_lca"),
+            "sa_lookup": ("ops.device_index", "sa_lookup"),
+            "sa_lookup (tie rows)": ("ops.device_index", "sa_lookup"),
+            "sa_lookup (BatchRunner)": ("ops.device_index", "sa_lookup")}
+# the calls not repeated on the index in shards: their paths never run
+# sharded (Greedy's B is timed on the MEM batch; kaijux refuses
+# --mesh-index)
+UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)")
 SHARDS = 4  # phase 4e's widest split
 
 
@@ -105,6 +122,31 @@ def design_call(mods: dict, name: str, args, kw):
     return (lambda: wrapper(*a, **k)), kname
 
 
+def runner_round(index, reads, device=None):
+    """The arguments of BatchRunner's first SaLookup launch (kernel H) on
+    a batch of reads, as kaijux -a mem classifies them (phase 4d); device
+    as for BatchRunner."""
+    import chip_smoke as cs
+    from kaiju_tpu_torch.engine import batch
+
+    first = []
+    real = batch.sa_lookup
+
+    def spy(*a):
+        first.append(a)
+        return real(*a)
+
+    batch.sa_lookup = spy
+    try:
+        batch.BatchRunner(index, None, cs.x_config("kaijux mem"),
+                          device=device).classify_batch(reads)
+    finally:
+        batch.sa_lookup = real
+    if not first:
+        raise RuntimeError("the BatchRunner round launched no H")
+    return first[0]
+
+
 def run(args) -> int:
     import torch
 
@@ -115,9 +157,14 @@ def run(args) -> int:
     from kaiju_tpu_torch.index.core import KaijuIndex
     from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
 
-    designs = {"other": import_checkout(args.other),
-               "this": {n: importlib.import_module(f"{PKG}.{n}")
-                        for n in MODULES}}
+    designs = {os.path.basename(os.path.normpath(d)): import_checkout(d)
+               for d in args.other}
+    others = list(designs)
+    if "this" in designs or len(others) != len(args.other):
+        raise ValueError(f"designs need distinct names besides 'this': "
+                         f"{args.other}")
+    designs["this"] = {n: importlib.import_module(f"{PKG}.{n}")
+                       for n in MODULES}
     for tag, mods in designs.items():
         secs = mods["kernels"].build(verbose=True)
         cs.log(f"build [{tag}]: {secs:.1f} s, "
@@ -129,7 +176,7 @@ def run(args) -> int:
     ).stdout.strip().splitlines()[0]
     cs.log(smi)
     lat_ns = cs.latency(smi)
-    records, _nodes, ktx = cs.make_db(args.seed, args.db_letters)
+    records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
     reads = cs.make_reads(args.seed, records, cs.BATCH)
     r_records, r_ktx, families = cs.make_repeats_db(args.seed)
     r_reads = cs.make_reads(args.seed, r_records, cs.BATCH)
@@ -154,27 +201,40 @@ def run(args) -> int:
             if err or moved != {t: int(t == tag) for t in designs}:
                 bad.append((name, where, tag, err, moved))
         times = {tag: [] for tag in designs}
-        for tag in ("other", "this", "this", "other"):
+        for tag in [*others, "this", "this", *others[::-1]]:
             times[tag].append(cs.cuda_ms(calls[tag][0]))
         cs.log(f"compare {name} [{where}]: " + "; ".join(
             f"{tag} {t[0]:.4f} {t[1]:.4f} ms" for tag, t in times.items())
-            + f"; this/other {sum(times['this']) / sum(times['other']):.3f}"
-            f" ({smi})")
+            + "".join(f"; this/{o} {sum(times['this']) / sum(times[o]):.3f}"
+                      for o in others) + f" ({smi})")
 
     for where, path, rd, fam in cases:
         index = KaijuIndex.load(path)
         checks, inputs = cs.check_kernels(
             index, rd, path, lat_ns, full=False,
             deep=(cs.deep_seq_tax(tree, index, args.seed, fam), tree))
+        if where in ("fmi", "text"):  # H on the -v path's positions
+            v_checks, v_inputs = cs.check_verbose_kernels(
+                index, nodes, rd, path, lat_ns)
+            checks["sa_lookup"] = v_checks["sa_lookup"]
+            inputs["sa_lookup"] = v_inputs["sa_lookup"]
+        if where == "fmi":  # and on a BatchRunner round
+            h = runner_round(index, rd[:cs.BATCH])
+            inputs["sa_lookup (BatchRunner)"] = (None, h, {}, None, None)
+            checks["sa_lookup (BatchRunner)"] = cs.check_sa_lookup(
+                h, lat_ns, f"{h[-1].shape[0]:,} SA positions of a "
+                "BatchRunner round (kaijux -a mem)")
         cs.log_checks(checks, where)
         bad += [(n, where, "plain", v[0]) for n, v in checks.items() if v[0]]
         sh = (ShardedIndex(index, SHARDS, torch.device("cuda"))
               if where in ("fmi", "text") else None)
         for name in COMPARED:
+            if name not in inputs:  # G without text; H's other rounds
+                continue
             dv, a, kw, _b, _n = inputs[name]
             want = design_call(designs["this"], name, a, kw)[0]()
             compare(name, where, a, kw, want)
-            if sh is not None and name != "mem_extend (Greedy batch)":
+            if sh is not None and name not in UNSHARDED:
                 sa, skw = cs.shard_call(sh, dv, a, kw)
                 compare(name, f"{where}, {SHARDS} shards", sa, skw, want)
         del inputs, sh
@@ -189,8 +249,8 @@ def run(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("other", help="a directory holding another checkout's "
-                    f"{PKG}")
+    ap.add_argument("other", nargs="+", help="a directory holding another "
+                    f"checkout's {PKG}")
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)
     args = ap.parse_args(argv)

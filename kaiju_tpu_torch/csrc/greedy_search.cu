@@ -7,8 +7,9 @@
 // _extend_two_stage (K14: the resumed extension of the substituted
 // variants), with the rank of K1, and the last level's text-compare
 // hybrid (K8: _switch_pool with _text_extend and K4's _walk_pos, called at
-// fused_greedy.py:488-505).  The search funnel before it is kernel B; the
-// tail after it (SA walks, capped ids, LCA) is kernel F.
+// fused_greedy.py:488-505; kt::walk_group and kt::text_extend_group of
+// text_common.cuh, shared with kernel G).  The search funnel before it is
+// kernel B; the tail after it (SA walks, capped ids, LCA) is kernel F.
 //
 // Semantics per read, as ops/greedy.py states them:
 //   level 0  jstop = the highest j >= j0 whose match reaches i <= 1;
@@ -356,61 +357,11 @@ __device__ __forceinline__ void extend_window(const Args<Ix>& a, Warp& sm,
     __syncwarp();
 }
 
-// kt::walk_pos by a group of G lanes (kt::lf_group steps).
-template <int G, class Ix>
-__device__ __forceinline__ kt::WalkPos walk_group(const Ix& ix,
-                                                  const int* __restrict__ C,
-                                                  int nseq, int chpt_exp,
-                                                  int k, int gl,
-                                                  unsigned gmask) {
-    const int check = (1 << chpt_exp) - 1;
-    int steps = 0;
-    while (k & check) {
-        int c;
-        const int kn = kt::lf_group<G>(ix, C, k, gl, gmask, &c);
-        if (c == 0) return {kn, steps};
-        k = kn;
-        ++steps;
-    }
-    int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
-    idx = min(max(idx, 0), ix.nsamp - 1);
-    return {ix.seq(idx), ix.off(idx) + steps};
-}
-
-// kt::text_extend by a group of G lanes: lane gl compares letters gl * 8
-// .. + 8 of each round of 8 G, so that a round costs one memory latency;
-// the first stop is the group's least.
-template <int G, class Ix>
-__device__ __forceinline__ int text_extend_group(
-    const Ix& ix, const uint8_t* __restrict__ flat, int p, int qg, int avail,
-    int gl, unsigned gmask) {
-    constexpr int kC = 8;
-    const int lim = min(avail, p);
-    for (int u = 0; u < lim; u += kC * G) {
-        const int base = u + gl * kC;
-        int t[kC], q[kC];
-#pragma unroll
-        for (int k = 0; k < kC; ++k) {
-            const bool in = base + k < lim;
-            t[k] = in ? ix.letter(p - 1 - base - k) : 0;
-            q[k] = in ? __ldg(flat + qg - 1 - base - k) : 0;
-        }
-        int stop = 0x7fffffff;
-#pragma unroll
-        for (int k = kC - 1; k >= 0; --k)
-            if (base + k >= lim || t[k] == 0 || t[k] != q[k]) stop = base + k;
-#pragma unroll
-        for (int m = G / 2; m > 0; m >>= 1)
-            stop = min(stop, __shfl_xor_sync(gmask, stop, m, G));
-        if (stop != 0x7fffffff) return min(stop, lim);
-    }
-    return lim;
-}
-
 // The window's switch occurrences numbered in first[], taken a group of G
-// (2, 4 or 8) lanes each, each group taking the next as soon as its own
-// ends: walked to its text start and compared backwards from its
-// variant's query position, its reach and id to the slots.
+// (1, 2, 4 or 8) lanes each, each group taking the next as soon as its own
+// ends: walked to its text start (kt::walk_group) and compared backwards
+// from its variant's query position (kt::text_extend_group), its reach
+// and id to the slots.
 template <int G, class Ix>
 __device__ __forceinline__ void switch_groups(const Args<Ix>& a, Warp& sm,
                                               int total, int* ids,
@@ -425,14 +376,14 @@ __device__ __forceinline__ void switch_groups(const Args<Ix>& a, Warp& sm,
             if (sm.u.w.first[t + step] <= o) t += step;
         const int q = o - sm.u.w.first[t];
         const int* rt = sm.u.w.res[t];
-        const kt::WalkPos w = walk_group<G>(a.ix(), a.C, a.nseq, a.chpt_exp,
-                                            rt[1] + q, gl, gmask);
+        const kt::WalkPos w = kt::walk_group<G>(
+            a.ix(), a.C, a.nseq, a.chpt_exp, rt[1] + q, gl, gmask);
         const int p =
             __ldg(a.rank_start + min(max(w.iseq, 0), a.nseq - 1)) + w.pos;
         const int avail = rt[3];
-        const int e = text_extend_group<G>(a.ix(), a.flat, p,
-                                           sm.base[rt[7] & 255] + avail,
-                                           avail, gl, gmask);
+        const int e = kt::text_extend_group<G>(
+            a.ix(), a.flat, p, sm.base[rt[7] & 255] + avail, avail, gl,
+            gmask);
         if (gl == 0) {
             sm.u.w.ext[t][q] = e;
             ids[t * kt::kSwWcap + q] = w.iseq;
@@ -442,13 +393,12 @@ __device__ __forceinline__ void switch_groups(const Args<Ix>& a, Warp& sm,
     }
 }
 
-// The pending switches of a window (text_common.cuh's switch_serial with
-// its occurrences spread over the lanes): every lane takes the next
-// occurrence of any pending variant as soon as its own ends, walks it to
-// its text start and compares backwards from the variant's query
-// position; then the lane of each pending slot keeps the occurrences that
-// reach the longest extension, their ids in SA order at ids + slot *
-// kSwWcap, and settles the variant.
+// The pending switches of a window, their occurrences spread over the
+// lanes: every group takes the next occurrence of any pending variant as
+// soon as its own ends, walks it to its text start and compares backwards
+// from the variant's query position; then the lane of each pending slot
+// keeps the occurrences that reach the longest extension, their ids in SA
+// order at ids + slot * kSwWcap, and settles the variant.
 template <class Ix>
 __device__ __forceinline__ void switch_window(const Args<Ix>& a, Warp& sm,
                                               const int* pincl_all, int wn,
@@ -467,23 +417,7 @@ __device__ __forceinline__ void switch_window(const Args<Ix>& a, Warp& sm,
     if (total <= 4) switch_groups<8>(a, sm, total, ids, lane);
     else if (total <= 8) switch_groups<4>(a, sm, total, ids, lane);
     else if (total <= 16) switch_groups<2>(a, sm, total, ids, lane);
-    else for (int o = atomicAdd(&sm.next, 1); o < total;
-              o = atomicAdd(&sm.next, 1)) {
-        int t = 0;  // the last slot whose first occurrence is at or before o
-        for (int step = 16; step > 0; step >>= 1)
-            if (sm.u.w.first[t + step] <= o) t += step;
-        const int q = o - sm.u.w.first[t];
-        const int* rt = sm.u.w.res[t];
-        const kt::WalkPos w = kt::walk_pos<true>(a.ix(), a.C, a.nseq,
-                                                 a.chpt_exp, rt[1] + q);
-        const int p =
-            __ldg(a.rank_start + min(max(w.iseq, 0), a.nseq - 1)) + w.pos;
-        const int avail = rt[3];
-        sm.u.w.ext[t][q] = kt::text_extend(a.ix(), a.flat, p,
-                                           sm.base[rt[7] & 255] + avail,
-                                           avail);
-        ids[t * kt::kSwWcap + q] = w.iseq;
-    }
+    else switch_groups<1>(a, sm, total, ids, lane);
     __syncwarp();
     if (pend) {
         int best = 0, nid = 0;

@@ -1,11 +1,13 @@
 // Device functions of the text-compare hybrid, shared by kernel G
 // (text_extend.cu, the MEM funnel) and kernel E (greedy_search.cu, the
-// last variant level).
+// last variant level), and the walk to a text position that kernel H
+// (sa_lookup.cu) runs alone.
 //
 // A backward search whose SA interval is narrow (at most kSwWcap
 // occurrences) stops stepping the FM index: each occurrence is walked to
-// its text position (walk_pos), and the rest of the extension is a direct
-// comparison of the database text with the query (text_extend).  The
+// its text position (walk_group), and the rest of the extension is a
+// direct comparison of the database text with the query
+// (text_extend_group), each on a group of lanes sized to the work.  The
 // occurrences that reach the longest extension are exactly the FM interval
 // the steps would have ended on, in SA order, so their sequence ids stand
 // in for it as a virtual row: positions kVBase + slot .. + n, whose ids
@@ -25,21 +27,28 @@ struct WalkPos {
 
 // K4's _walk_pos (kaiju_tpu/ops/fused_mem2.py:345-416): get_suffix
 // (bwt.c:105-121) returning the content rank of the sequence and the
-// offset in it.  LF-walks from SA position k until a sampled slot, where
-// the sample gives (sa_seq, sa_off + steps), or a terminator, where the LF
-// result is the content rank and the offset the steps taken.  kRank1:
-// each step's rank through rank1 (its loads issued four at a time).
-template <bool kRank1 = false, class Ix>
-__device__ __forceinline__ WalkPos walk_pos(const Ix& ix,
-                                            const int* __restrict__ C,
-                                            int nseq, int chpt_exp, int k) {
+// offset in it, walked by a group of G lanes (1, 2, 4 or 8; gl: the
+// lane's place in it, gmask: the group's lanes, as for kt::rank2), every
+// lane of which gets it.  LF-walks from SA position k until a sampled
+// slot, where the sample gives (sa_seq, sa_off + steps), or a terminator,
+// where the LF result is the content rank and the offset the steps
+// taken.  A group takes a step in one memory latency (lf_group); one lane
+// reads the letter, then its rank through rank1, as kt::sa_walk does.
+template <int G, class Ix>
+__device__ __forceinline__ WalkPos walk_group(const Ix& ix,
+                                              const int* __restrict__ C,
+                                              int nseq, int chpt_exp, int k,
+                                              int gl, unsigned gmask) {
     const int check = (1 << chpt_exp) - 1;
     int steps = 0;
     while (k & check) {
-        const int c = bwt_byte(ix.row(k >> 7), k & 127);
-        int kn;
-        if constexpr (kRank1) kn = rank1(ix, C, c, k);
-        else kn = rank(ix, C, c, k);
+        int c, kn;
+        if constexpr (G == 1) {
+            c = bwt_byte(ix.row(k >> 7), k & 127);
+            kn = rank1(ix, C, c, k);
+        } else {
+            kn = lf_group<G>(ix, C, k, gl, gmask, &c);
+        }
         if (c == 0) return {kn, steps};
         k = kn;
         ++steps;
@@ -49,56 +58,37 @@ __device__ __forceinline__ WalkPos walk_pos(const Ix& ix,
     return {ix.seq(idx), ix.off(idx) + steps};
 }
 
-// K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274): the longest u
-// with text[p-1-t] == flat[qg-1-t] for every t < u, stopping at t = avail,
-// at t = p (the text's start) and at a text code of 0 (a separator).  The
-// bytes go 8 at a time: their 16 loads are issued together, so a chunk
-// costs one memory latency, not eight.
-template <class Ix>
-__device__ __forceinline__ int text_extend(const Ix& ix,
-                                           const uint8_t* __restrict__ flat,
-                                           int p, int qg, int avail) {
-    constexpr int kChunk = 8;
+// K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274) by a group of G
+// lanes (1, 2, 4 or 8): the longest u with text[p-1-t] == flat[qg-1-t] for
+// every t < u, stopping at t = avail, at t = p (the text's start) and at
+// a text code of 0 (a separator).  Lane gl compares letters gl * 8 .. + 8
+// of each round of 8 G, their 16 loads issued together, so that a round
+// costs one memory latency; the first stop is the group's least.
+template <int G, class Ix>
+__device__ __forceinline__ int text_extend_group(
+    const Ix& ix, const uint8_t* __restrict__ flat, int p, int qg, int avail,
+    int gl, unsigned gmask) {
+    constexpr int kC = 8;
     const int lim = min(avail, p);
-    for (int u = 0; u < lim; u += kChunk) {
-        const int n = min(kChunk, lim - u);
-        int t[kChunk], q[kChunk];
+    for (int u = 0; u < lim; u += kC * G) {
+        const int base = u + gl * kC;
+        int t[kC], q[kC];
 #pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-            t[k] = k < n ? ix.letter(p - 1 - u - k) : 0;
-            q[k] = k < n ? __ldg(flat + qg - 1 - u - k) : 0;
+        for (int k = 0; k < kC; ++k) {
+            const bool in = base + k < lim;
+            t[k] = in ? ix.letter(p - 1 - base - k) : 0;
+            q[k] = in ? __ldg(flat + qg - 1 - base - k) : 0;
         }
+        int stop = 0x7fffffff;
 #pragma unroll
-        for (int k = 0; k < kChunk; ++k)
-            if (k >= n || t[k] == 0 || t[k] != q[k]) return u + k;
+        for (int k = kC - 1; k >= 0; --k)
+            if (base + k >= lim || t[k] == 0 || t[k] != q[k]) stop = base + k;
+#pragma unroll
+        for (int m = G / 2; m > 0; m >>= 1)
+            stop = min(stop, __shfl_xor_sync(gmask, stop, m, G));
+        if (stop != 0x7fffffff) return min(stop, lim);
     }
     return lim;
-}
-
-// The whole switch of one interval on one thread: walk each occurrence
-// s0 + q (q < s1 - s0 <= kSwWcap) to its text start, compare backwards
-// from query position qg with avail letters left, and keep the
-// occurrences that reach the longest extension.  Returns that extension;
-// ids[0, *n) receives their sequence ids in SA order.
-template <class Ix>
-__device__ __forceinline__ int switch_serial(
-    const Ix& ix, const int* __restrict__ C, int nseq, int chpt_exp,
-    const int* __restrict__ rank_start, const uint8_t* __restrict__ flat,
-    int s0, int s1, int qg, int avail, int* ids, int* n) {
-    int best = -1;
-    *n = 0;
-    for (int k = s0; k < s1; ++k) {
-        const WalkPos w = walk_pos(ix, C, nseq, chpt_exp, k);
-        const int p =
-            __ldg(rank_start + min(max(w.iseq, 0), nseq - 1)) + w.pos;
-        const int e = text_extend(ix, flat, p, qg, avail);
-        if (e > best) {
-            best = e;
-            *n = 0;
-        }
-        if (e == best) ids[(*n)++] = w.iseq;
-    }
-    return best;
 }
 
 }  // namespace kt

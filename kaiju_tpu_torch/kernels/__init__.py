@@ -73,9 +73,9 @@ _SIGNATURES = {
                       "ppppp" "ipii" "pip" "pppp" "iiiiii" "ppp" "pppp"
                       "pppp" "iii" "p" "p"),
     # rec nb1 C sa_seq sa_off nsamp nseq chpt_exp | text rank_start | flat
-    # P frag_off F sw_len | i s0 s1 | out_i out_s0 out_s1 sw_ids
+    # P frag_off F sw_len | i s0 s1 | out_i out_s0 out_s1 sw_ids | scratch
     "text_extend": ("kt_text_extend",
-                    "pip" "ppiii" "pp" "pipii" "ppp" "pppp" "p"),
+                    "pip" "ppiii" "pp" "pipii" "ppp" "pppp" "p" "p"),
     # rec nb1 C | sa_seq sa_off nsamp nseq chpt_exp | k n | iseq pos
     "sa_lookup": ("kt_sa_lookup", "pip" "ppiii" "pi" "pp" "p"),
     # rec nb1 C flat | base pos sub start_i s0 s1 act n | i s0 s1
@@ -112,9 +112,10 @@ _SIGNATURES.update({
     "mem_extend_sharded": ("kt_mem_extend_sharded",
                            SHARD_SIG + "p" "pppi" "pipiii" "piii" "ppp" "p"),
     # SHARD | C nseq chpt_exp | rank_start flat P frag_off F sw_len | i s0
-    # s1 | out_i out_s0 out_s1 sw_ids
+    # s1 | out_i out_s0 out_s1 sw_ids | scratch
     "text_extend_sharded": ("kt_text_extend_sharded",
-                            SHARD_SIG + "pii" "ppipii" "ppp" "pppp" "p"),
+                            SHARD_SIG + "pii" "ppipii" "ppp" "pppp" "p"
+                            "p"),
     # maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | SHARD | C | seq_tax ntax
     # parent depth maxtax | R cap nseq chpt_exp | sw_ids nsw | out
     "read_lca_sharded": ("kt_read_lca_sharded",

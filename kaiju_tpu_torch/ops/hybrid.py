@@ -154,12 +154,15 @@ def text_extend(i, s0, s1, flat, frag_off, sw_len, text, rank_start, rec, C,
     if P:
         if F < 1:
             raise ValueError("lanes without a fragment to own them")
+        # the kernel's lists: counters, a lane's 6 words, 8 occurrences
+        scratch = torch.empty(4 + (6 + SW_WCAP) * P, dtype=torch.int32,
+                              device=dev)
         if sharded:
             kernels.launch("text_extend_sharded", *idx_args, C, nseq,
                            chpt_exp, rank_start, flat, P, frag_off, F, sw_len,
-                           i, s0, s1, out[0], out[1], out[2], sw_ids)
+                           i, s0, s1, out[0], out[1], out[2], sw_ids, scratch)
         else:
             kernels.launch("text_extend", *idx_args, rank_start, flat, P,
                            frag_off, F, sw_len, i, s0, s1, out[0], out[1],
-                           out[2], sw_ids)
+                           out[2], sw_ids, scratch)
     return out[0], out[1], out[2], sw_ids

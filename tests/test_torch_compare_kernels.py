@@ -1,8 +1,9 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
-checkout beside the first, and kernels B's, E's, D's and F's calls (D and
-F on a flat and a deep taxonomy) routed through that copy's wrappers
-(here their plain versions, as the CPU takes them), sharded index arrays
-rebuilt as the copy's class.  The results must equal this copy's, bit for
+checkout beside the first, and kernels B's, G's, E's, D's, F's and H's
+calls (D and F on a flat and a deep taxonomy, H on tie rows and on a
+BatchRunner round) routed through that copy's wrappers (here their plain
+versions, as the CPU takes them), sharded index arrays rebuilt as the
+copy's class.  The results must equal this copy's, bit for
 bit.  Imports neither jax nor kaiju_tpu."""
 
 import importlib
@@ -19,7 +20,7 @@ from kaiju_tpu_torch.index import py_builder
 from kaiju_tpu_torch.index.alphabet import trans_table
 from kaiju_tpu_torch.ops import device_index as tdev
 from kaiju_tpu_torch.io.taxonomy import Taxonomy
-from kaiju_tpu_torch.ops import greedy, search
+from kaiju_tpu_torch.ops import greedy, hybrid, search
 from kaiju_tpu_torch.ops.kmer import KmerTables
 from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
 from kaiju_tpu_torch.tools.readgen import DeepTaxonomy, make_reads
@@ -71,7 +72,23 @@ def env():
         tails["read_lca" + suffix] = (*stats[:2], *stats[3:], rf_rows,
                                       *tail)
         tails["ranges_lca" + suffix] = (found[2], found[3], *tail)
-    return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails}
+    # G on the lanes B stops for it; H on the tie rows' positions and on a
+    # BatchRunner round
+    sw_len = search.SEED_K + hybrid.S1_STEPS
+    g = (*search.mem_extend(*ext, sw_steps=hybrid.S1_STEPS), flat,
+         frag_off, sw_len, dv.text, dv.rank_start, dv.rec, dv.C, dv.sa_seq,
+         dv.sa_off, dv.nseq, dv.chpt_exp)
+    assert hybrid.switched(*g[:3], frag_off, sw_len).any()
+    s0, s1 = stats[3].reshape(-1), stats[4].reshape(-1)
+    k = torch.unique(s0[s1 > s0]).to(torch.int32)
+    h = {"sa_lookup": (dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq,
+                       dv.chpt_exp, k)}
+    h["sa_lookup (tie rows)"] = h["sa_lookup"][:-1] + (k[::2].contiguous(),)
+    round_ = ck.runner_round(idx, reads, device="cpu")
+    h["sa_lookup (BatchRunner)"] = (dv.rec, dv.C, dv.sa_seq, dv.sa_off,
+                                    *round_[4:])
+    return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails,
+            "g": g, "h": h}
 
 
 def _call(env, name):
@@ -80,6 +97,10 @@ def _call(env, name):
         return env["ge"], {"hyb": None}
     if name.startswith("mem_extend"):
         return env["ext"], {"bloom": None, "sw_steps": 0}
+    if name == "text_extend":
+        return env["g"], {}
+    if name.startswith("sa_lookup"):
+        return env["h"][name], {}
     return env["tails"][name], {"sw_ids": None}
 
 
@@ -98,6 +119,8 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     assert {k: m for k, m in sys.modules.items()
             if k.startswith("kaiju_tpu_torch")} == before
     assert other["ops.classify"].kernels is other["kernels"]
+    assert other["ops.hybrid"].kernels is other["kernels"]
+    assert other["ops.device_index"].kernels is other["kernels"]
     a, kw = _call(env, name)
     want = ck.design_call(this, name, a, kw)[0]()
     if shards:

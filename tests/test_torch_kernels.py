@@ -1173,3 +1173,168 @@ def test_lca_edge_reads_match_plain(edge_env, lca_env, cuda, case, S):
         assert order.tolist() == [0, 0, 0, 0, 0, 1, 1, 1, 1]
     elif case == "virtual":
         assert (g_s0 >= hybrid.VBASE).any() and (n_ids > 1).any()
+
+
+# ---------------------------------------------------------------------------
+# edge cases of G's block lists and of the group walk to a text position
+# (csrc/text_common.cuh) that G, E and H share, on the flat index (S = 0)
+# and in 4 shards
+# ---------------------------------------------------------------------------
+
+BLOCK = 256  # positions a block of kernel G's first pass
+
+
+@pytest.fixture(scope="module")
+def rep_env():
+    """A small index of gene families, family w holding w copies of a
+    core of 150 letters (w = 1..8, and 10, past the widest switch), each
+    between flanks of its own, odd copy c with a point substitution at
+    core position 30 + 10 c; G's lanes on fragments cut from the cores,
+    each piece starting a block of 256 positions, the last piece the last
+    fragment, after 40 empty fragments (more fragment starts than a
+    warp's 32 positions hold)."""
+    rng = random.Random(12)
+
+    def rand(n):
+        return "".join(rng.choice(AA) for _ in range(n))
+
+    cores = {w: rand(150) for w in (*range(1, 9), 10)}
+    records = []
+    for w, core in cores.items():
+        for c in range(w):
+            body = list(core)
+            if c % 2:
+                x = 30 + 10 * c
+                body[x] = AA[(AA.index(body[x]) + 1) % 20]
+            records.append((f"F{w}C{c}.1_{[101, 102, 201, 100][c % 4]}",
+                            rand(rng.randint(20, 60)) + "".join(body)
+                            + rand(rng.randint(20, 60))))
+    records += [(f"R{i}.1_{[101, 102, 201, 100][i % 4]}",
+                 rand(rng.randint(40, 300))) for i in range(30)]
+    idx = py_builder.build_index(records)
+    trans = trans_table(idx.alphabet)
+    # pieces of 24, 40 and 130 letters, each starting a block of G's
+    # first pass: blocks listing from a few to hundreds of occurrences
+    frags = []
+    for w in cores:
+        for st, n in ((100, 24), (0, 40), (10, 130)):
+            frags += [cores[w][st:st + n], rand(BLOCK - n)]
+    frags += [rand(BLOCK - 7), *[""] * 40, cores[5][5:145]]
+    codes = [np.array([trans[ord(ch)] for ch in f], dtype=np.uint8)
+             for f in frags]
+    off = np.zeros(len(frags) + 1, dtype=np.int32)
+    off[1:] = np.cumsum([len(f) for f in frags])
+    flat = torch.from_numpy(np.concatenate(codes))
+    frag_off = torch.from_numpy(off)
+    dv = tdev.DeviceIndex(idx, "cpu")
+    seed = tuple(torch.from_numpy(a) for a in KmerTables.build(
+        idx, search.SEED_K).planar_seed(search.SEED_K))
+    lanes = search.mem_extend_plain(dv.rec, dv.C, *seed, flat, frag_off,
+                                    search.SEED_K, MIN_LEN - 1,
+                                    sw_steps=hybrid.S1_STEPS)
+    fm = search.mem_extend_plain(dv.rec, dv.C, *seed, flat, frag_off,
+                                 search.SEED_K, MIN_LEN - 1)
+    return {"idx": idx, "dv": dv, "flat": flat, "frag_off": frag_off,
+            "lanes": lanes, "fm": fm}
+
+
+def _g_args(env, ix, dev):
+    sw_len = search.SEED_K + hybrid.S1_STEPS
+    return (*(_to(a, dev) for a in (*env["lanes"], env["flat"],
+                                     env["frag_off"])),
+            sw_len, ix.text, ix.rank_start, ix.rec, ix.C, ix.sa_seq,
+            ix.sa_off, env["dv"].nseq, env["dv"].chpt_exp)
+
+
+def _runs(mask):
+    """The lengths of the runs of True in a bool [P] tensor."""
+    at = torch.nonzero(mask).squeeze(1).numpy()
+    return [len(r) for r in np.split(at, np.flatnonzero(np.diff(at) != 1)
+                                     + 1) if len(r)]
+
+
+@pytest.mark.parametrize("S", [0, 4])
+def test_text_extend_group_cases_match_plain(rep_env, cuda, S):
+    """G against its plain version, every output equal (the ids, in SA
+    order, included): intervals of 1 to 8 occurrences, ties among them
+    (all or some of an interval's occurrences reaching the longest
+    extension), runs of more than 32 switched lanes, switched lanes in the
+    last fragment, behind more than 32 empty fragments."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    env = rep_env
+    dv = env["dv"]
+    args = _g_args(env, dv, "cpu")
+    want = hybrid.text_extend_plain(*args)
+    i, s0, s1 = env["lanes"]
+    frag_off = env["frag_off"]
+    sw = hybrid.switched(i, s0, s1, frag_off, args[5])
+    width, n_ach = (s1 - s0)[sw], (want[2] - want[1])[sw]
+    assert set(width.tolist()) == set(range(1, 9))
+    assert (n_ach > 1).any() and (n_ach < width).any()
+    assert max(_runs(sw)) >= 32
+    assert sw[int(frag_off[-2]):].any()
+    assert int((frag_off == frag_off[-2]).sum()) > 32
+    # the virtual rows hold what the FM steps end on
+    assert torch.equal(want[0], env["fm"][0])
+    assert torch.equal(want[2] - want[1], env["fm"][2] - env["fm"][1])
+    ix = (tdev.DeviceIndex(env["idx"], cuda) if S == 0
+          else ShardedIndex(env["idx"], S, cuda))
+    got = hybrid.text_extend(*_g_args(env, ix, cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _walks(dv, length):
+    """(LF steps, ended at a terminator) of the walk from every SA
+    position of dv's index, as sa_walk takes them."""
+    check = (1 << dv.chpt_exp) - 1
+    k = torch.arange(length, dtype=torch.int32)
+    steps = torch.zeros_like(k)
+    term = torch.zeros(length, dtype=torch.bool)
+    todo = torch.nonzero(k & check).squeeze(1)
+    while todo.numel():
+        kk = k[todo]
+        rows = dv.rec[torch.clamp(kk >> 7, max=dv.rec.shape[0] - 1).long()]
+        c = tdev._block_bytes(rows).gather(1, (kk & 127).long()[:, None])[:, 0]
+        kn = tdev.rank(dv.rec, dv.C, c, kk)
+        end = c == 0
+        term[todo[end]] = True
+        todo, kn = todo[~end], kn[~end]
+        steps[todo] += 1
+        k[todo] = kn
+        todo = todo[(kn & check) != 0]
+    return steps, term
+
+
+@pytest.mark.parametrize("S", [0, 4])
+@pytest.mark.parametrize("n", [500, 40_000, 90_000, 300_000])
+def test_sa_lookup_walk_cases_match_plain(rep_env, cuda, n, S):
+    """H against its plain version on n positions (a group of 8 lanes
+    each; up to 2,400,000 threads at n = 300,000): positions at a sampled
+    slot (no step), walks that end at a terminator at once and after
+    steps, every walk of the index's maximal length, and random
+    positions."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    env = rep_env
+    idx, dv = env["idx"], env["dv"]
+    steps, term = _walks(dv, idx.length)
+    pos = torch.arange(idx.length, dtype=torch.int32)
+    zero = pos[(pos & ((1 << dv.chpt_exp) - 1)) == 0]
+    cases = (zero, pos[term & (steps == 0)], pos[term & (steps > 0)],
+             pos[steps == steps.max()])
+    assert all(c.numel() for c in cases) and int(steps.max()) >= 20
+    rng = np.random.default_rng(n)
+    k = torch.cat([*cases, torch.from_numpy(
+        rng.integers(0, idx.length, n).astype(np.int32))])[:n]
+    args = (dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
+    want = tdev.sa_lookup_plain(*args, k)
+    ix = (tdev.DeviceIndex(idx, cuda) if S == 0
+          else ShardedIndex(idx, S, cuda))
+    got = tdev.sa_lookup(ix.rec, ix.C, ix.sa_seq, ix.sa_off, dv.nseq,
+                         dv.chpt_exp, k.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
