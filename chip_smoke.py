@@ -16,41 +16,46 @@ Phases, any failure exits non-zero:
      Greedy) into its cache; generate 65,536 reads (bench.py's count) and
      check that the threaded host fragmenter gives the same bytes as one
      thread;
-  3. hold every kernel of both paths against its plain PyTorch version on
-     the card, on the inputs the main path gives it, on each index: the
-     depth-5 seed-table probes for A; the first 4,096-read batch of the
-     MEM path for B, C, D (and G) and of the Greedy path at -e 3 for B, E,
-     F.  On the text index B screens its lanes, G finishes the narrow
-     ones, E runs its last-level hybrid and D, F read virtual rows.
-     Then the verbose paths' kernels: one batch of each -v pipeline on
-     the card records the inputs of its first launch of H (the SA
-     positions of the MEM batch's ties), K (B's lanes of the Greedy batch,
-     Lmap 7, screened on the text index) and I (the first co-simulation
-     round's variant lanes, also run in the code-row form), and J gets
-     the MEM batch's fragments as a padded matrix.  Integer outputs
-     equal; time both.  Then each kernel that reads the index (A, J, H,
-     B, G, D, E, F) launched on the index in 2 and 4 shards (K16's sharded
+  3. hold every kernel of both paths against its plain PyTorch version
+     on the card, on the inputs the main path gives it, on each index:
+     the seed-table build's last depth for A (its letters form on the
+     20^4 intervals of depth 4, its probe form on their 20^5 repeated
+     probes, both with bytes and latency floors); the first 4,096-read
+     batch of the MEM path for B, C (and its floors), D (and G) and of
+     the Greedy path at -e 3 for B, E, F.  On the text index B screens
+     its lanes, G finishes the narrow ones, E runs its last-level hybrid
+     and D, F read virtual rows. Then the verbose paths' kernels: one
+     batch of each -v pipeline on the card records the inputs of its
+     first launch of H (the SA positions of the MEM batch's ties), K
+     (B's lanes of the Greedy batch, Lmap 7, screened on the text index)
+     and I (the first co-simulation round's variant lanes, also run in
+     the code-row form), and J gets the MEM batch's fragments as a
+     padded matrix.  Integer outputs equal; time both.  Then each kernel
+     that reads the index (A in both forms, J, H, B, G, D, E, F)
+     launched on the index in 2 and 4 shards (K16's sharded
      instantiations) on the same inputs must equal the unsharded kernel,
-     and on the text index its plain version on the shards (timed).  B and
-     E also print a second floor: the plain versions' longest chain of
-     dependent row reads times the card's L2 latency, which csrc/chase.cu
-     measures first.  D and F run twice on each index: with the flat tree
-     of phase 4 and with every sequence mapped to a species of a taxonomy
-     of NCBI's size and depth (readgen.DeepTaxonomy: 2.5 M nodes, species
-     20-40 levels deep, taxids up to 3 M; its nodes.dmp written under
-     build/chip_smoke/), each with both floors, bytes and the plain
-     versions' longest chain of dependent loads (range expansion, SA walk
-     rounds, sample, taxon, depth, lift and climb rounds) times the L2
-     latency.  Then B (the MEM batch screened with the hybrid's stop on
-     the text index, unscreened without it on db.ktx; the Greedy batch), E
-     (-e 3, with and without the hybrid), D and F (both trees; on the deep
-     one each gene family's copies lie under one random clade, so that
-     their LCAs fall at mixed depths) on a DB with repeats
-     (readgen.gen_realistic, bench.py's generator, 8 M letters, one batch
-     of 4,096 of its reads), equal to their plain versions, timed.  Then
-     P1 and P2 through their benchmark, tools.bench_gather (250,000 rows of
-     512 bytes, 262,144 random rows): each equal to its plain version, bit
-     for bit, timed beside torch.index_select and tab[idx].sum(1);
+     and on the text index its plain version on the shards (timed).  B
+     and E also print a second floor: the plain versions' longest chain
+     of dependent row reads times the card's L2 latency, which
+     csrc/chase.cu measures first.  D and F run twice on each index:
+     with the flat tree of phase 4 and with every sequence mapped to a
+     species of a taxonomy of NCBI's size and depth
+     (readgen.DeepTaxonomy: 2.5 M nodes, species 20-40 levels deep,
+     taxids up to 3 M; its nodes.dmp written under build/chip_smoke/),
+     each with both floors, bytes and the plain versions' longest chain
+     of dependent loads (range expansion, SA walk rounds, sample, taxon,
+     depth, lift and climb rounds) times the L2 latency.  Then B (the
+     MEM batch screened with the hybrid's stop on the text index,
+     unscreened without it on db.ktx; the Greedy batch), E (-e 3, with
+     and without the hybrid), D and F (both trees; on the deep one each
+     gene family's copies lie under one random clade, so that their LCAs
+     fall at mixed depths), A in both forms and C on a DB with repeats
+     (readgen.gen_realistic, bench.py's generator, 8 M letters, one
+     batch of 4,096 of its reads), equal to their plain versions, timed.
+     Then P1 and P2 through their benchmark, tools.bench_gather (250,000
+     rows of 512 bytes, 262,144 random rows): each equal to its plain
+     version, bit for bit, timed beside torch.index_select and
+     tab[idx].sum(1);
   4. classify the reads in batches of 4,096 (bench.py's batch) through
      kaiju_tpu_torch.tools.kaiju.main, with -a mem and with the default
      flags (Greedy), on each index, counting each kernel's launches in
@@ -64,18 +69,18 @@ Phases, any failure exits non-zero:
      steady rate and the host seconds of each stage, and traced by
      torch.profiler for the device's idle share;
   4c. the verbose paths: tools.kaiju.main with -a mem -v and with -v on
-     the first 16,384 reads (four batches) of db_text.ktx and on one batch
-     of db.ktx, counting launches (MEM -v must launch A, B, C, H, Greedy
-     -v A, B, K, I, H; on the text index every B screened, G never), each
-     line's first three columns equal to phase 4's line of the same read,
-     path and index, 256 sampled lines equal to ExactClassifier's with
-     verbose=True, and on the text index the steady -v rate beside phase
-     4b's with the host seconds of each stage, and the device's idle share
-     of a traced pass; then a small
-     constructed index whose read has a fragment with nine ties (more
-     than TIE_CAP) through MEM -v: J must launch, equal its plain version
-     on the inputs of each of its calls there, and every line equal
-     ExactClassifier's;
+     the first 16,384 reads (four batches) of db_text.ktx and on one
+     batch of db.ktx, counting launches (MEM -v must launch A's letters
+     form, B, C, H, Greedy -v A in both forms, B, K, I, H; on the text
+     index every B screened, G never), each line's first three columns
+     equal to phase 4's line of the same read, path and index, 256
+     sampled lines equal to ExactClassifier's with verbose=True, and on
+     the text index the steady -v rate beside phase 4b's with the host
+     seconds of each stage, and the device's idle share of a traced
+     pass; then a small constructed index whose read has a fragment with
+     nine ties (more than TIE_CAP) through MEM -v: J must launch, equal
+     its plain version on the inputs of each of its calls there, and
+     every line equal ExactClassifier's;
   4d. the taxonomy-free tools on db.ktx, through their main and
      engine.batch.BatchRunner: kaijux -a mem on 16,384 reads, kaijux
      (Greedy) on 4,096, kaijup (Greedy) on 4,096 protein reads of
@@ -164,6 +169,7 @@ BATCH = 4096
 AA = "ACDEFGHIKLMNPQRSTVWY"
 REPLACES = {
     "update_si": "kaiju_tpu/ops/device_index.py:333",
+    "update_si_letters": "kaiju_tpu/ops/kmer.py:94",
     "mem_extend": "kaiju_tpu/ops/fused_mem2.py:528",
     "mem_stats": "kaiju_tpu/ops/fused_mem2.py:921",
     "read_lca": "kaiju_tpu/ops/fused_classify.py:298",
@@ -177,6 +183,7 @@ REPLACES = {
     "gather_rows": "bench_pallas_gather.py:75",
     "gather_sum": "bench_pallas_gather.py:125",
     "update_si_sharded": "kaiju_tpu/parallel/sharded_index.py:102",
+    "update_si_letters_sharded": "kaiju_tpu/parallel/sharded_index.py:102",
     "extend_all_sharded": "kaiju_tpu/parallel/sharded_index.py:123",
     "sa_lookup_sharded": "kaiju_tpu/parallel/sharded_index.py:185",
     "mem_extend_sharded": "kaiju_tpu/parallel/sharded_fused.py:52",
@@ -193,10 +200,11 @@ LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
 # profiler rows phase 4b sums into its total
 PASSES = {"G": ("text_extend_list", "text_extend_switch", "text_extend_keep")}
 # the kernels that read the index, whose sharded instantiations (K16) the
-# index-sharded paths run (A for the seed tables; B, G, D for MEM; B, E, F
-# for Greedy; H and J beside them)
-SHARDED = ("update_si", "extend_all", "sa_lookup", "mem_extend",
-           "text_extend", "read_lca", "greedy_search", "ranges_lca")
+# index-sharded paths run (A's letters form for the seed tables; B, G, D
+# for MEM; B, E, F for Greedy; A's probe form, H and J beside them)
+SHARDED = ("update_si", "update_si_letters", "extend_all", "sa_lookup",
+           "mem_extend", "text_extend", "read_lca", "greedy_search",
+           "ranges_lca")
 MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
 MESH_READS = 4 * BATCH  # reads of each phase 4e and 4f run
 NPROCS = 2  # processes of each phase 4f run, process p on cuda:{p % cards}
@@ -205,21 +213,23 @@ NPROCS = 2  # processes of each phase 4f run, process p on cuda:{p % cards}
 PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
              (4, "greedy"))
 # the kernels each path launches on an index without text (the text index
-# adds G to MEM), and the CLI flags that select the path
+# adds G to MEM), A's letters form where the seed tables are built, and the
+# CLI flags that select the path
 PATHS = {
-    "mem": (("update_si", "mem_extend", "mem_stats", "read_lca"),
+    "mem": (("update_si_letters", "mem_extend", "mem_stats", "read_lca"),
             ["-a", "mem"]),
-    "greedy": (("update_si", "mem_extend", "greedy_search", "ranges_lca"),
-               []),
+    "greedy": (("update_si_letters", "mem_extend", "greedy_search",
+                "ranges_lca"), []),
 }
 BLOOM_M = {"mem": 11, "greedy": 7}  # -m 11; Lmap = min(-l 7, -m 11)
 # the kernels each verbose path launches (J only on a fragment with more
-# than TIE_CAP ties), and its flags
+# than TIE_CAP ties; Greedy's co-simulation probes through A's probe form),
+# and its flags
 VERBOSE_PATHS = {
-    "mem": (("update_si", "mem_extend", "mem_stats", "sa_lookup"),
+    "mem": (("update_si_letters", "mem_extend", "mem_stats", "sa_lookup"),
             ["-a", "mem", "-v"]),
-    "greedy": (("update_si", "mem_extend", "greedy_map", "extend_from",
-                "sa_lookup"), ["-v"]),
+    "greedy": (("update_si_letters", "update_si", "mem_extend",
+                "greedy_map", "extend_from", "sa_lookup"), ["-v"]),
 }
 V_READS = 4 * BATCH  # reads of the verbose runs on the text index
 # phase 4d, on db.ktx: each run of a taxonomy-free tool (tool, flags, kind
@@ -610,8 +620,7 @@ def check_sa_lookup(h, lat_ns: float, note: str):
                    f"{floor_note(dep['walks'] + 2, lat_ns)}")
 
 
-def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
-                  deep=None):
+def check_kernels(index, reads, ktx_dir, lat_ns: float, deep=None):
     """Per kernel: (max_abs_err, ms, plain_ms, bound_ms, note), on the
     index at ktx_dir; with a text copy, B screens (its bitmaps cached in
     ktx_dir), G finishes the narrow MEM lanes, E runs its last-level hybrid
@@ -624,7 +633,9 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
     (seq_tax int32 [nseq], readgen.DeepTaxonomy), on the deep one too
     ("read_lca (deep tree)", "ranges_lca (deep tree)").  H runs on the SA
     positions of the MEM batch's tie rows ("sa_lookup (tie rows)", its
-    floor in its note too).  full=False: A and C run unchecked."""
+    floor in its note too).  A's ("update_si_letters", "update_si") and
+    C's notes carry their latency floors, their chains of dependent loads
+    times lat_ns."""
     import numpy as np
     import torch
 
@@ -652,12 +663,29 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
         if call is not None:
             inputs[name] = (dv, *call, args[-2], args[-1])
 
-    # A at the seed-table build's last depth: 20 * 20^4 probes
+    # A at the seed-table build's last depth: its letters form on the
+    # 20^4 intervals of depth 4, then its probe form on their 20 * 20^4
+    # repeated probes (the build's form before the letters form)
     kt = KmerTables.build_device(index, search.SEED_K, dv)
     p0, p1 = (torch.from_numpy(a.astype(np.int32)).to(cuda)
               for a in kt.tables[search.SEED_K - 2])
+    m = p0.shape[0]
+    la = (dv.rec, dv.C, p0, p1)
+    touched = []
+    want = device_index.update_si_letters_plain(*la, touched)
+    probe_bound = (row_bytes(touched)[0] + NLET * m * (12 + 9)) / \
+        HBM_BYTES_PER_S * 1e3
+    # the interval, then its rows
+    report("update_si_letters", device_index.update_si_letters(*la), want,
+           lambda: device_index.update_si_letters(*la),
+           lambda: device_index.update_si_letters_plain(*la), touched,
+           m * 8 + NLET * m * 8,
+           f"{m:,} intervals ({int((p0 < p1).sum()):,} alive), "
+           f"{NLET * m:,} results; the probe form's bound on the same "
+           f"results {probe_bound:.4f} ms; {floor_note(2, lat_ns, 'loads')}",
+           call=(la, {}))
     c = torch.arange(1, NLET + 1, dtype=torch.int32,
-                     device=cuda).repeat_interleave(p0.shape[0])
+                     device=cuda).repeat_interleave(m)
     s0, s1 = p0.repeat(NLET), p1.repeat(NLET)
     n = c.shape[0]
     chunk = 1 << 18
@@ -669,12 +697,14 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
         return tuple(torch.cat([p[t] for p in parts]) for t in range(3))
 
     touched = []
-    if full:
-        want = update_si_plain(touched)
-        report("update_si", device_index.update_si(dv.rec, dv.C, c, s0, s1),
-               want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
-               update_si_plain, touched, n * (12 + 9), f"{n:,} probes",
-               call=((dv.rec, dv.C, c, s0, s1), {}))
+    want = update_si_plain(touched)
+    # the probe, then its row
+    report("update_si", device_index.update_si(dv.rec, dv.C, c, s0, s1),
+           want, lambda: device_index.update_si(dv.rec, dv.C, c, s0, s1),
+           update_si_plain, touched, n * (12 + 9),
+           f"{n:,} probes; {floor_note(2, lat_ns, 'loads')}",
+           call=((dv.rec, dv.C, c, s0, s1), {}))
+    del want, touched
 
     # B (screened, stopping the narrow lanes), G, C, D on the first batch
     # of the MEM path
@@ -780,11 +810,21 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, full: bool = True,
 
     st = (*lanes, frag_off, min_len, T)
     stats = search.mem_stats(*st)
-    if full:
-        report("mem_stats", stats, search.mem_stats_plain(*st),
-               lambda: search.mem_stats(*st),
-               lambda: search.mem_stats_plain(*st), [],
-               12 * P + 4 * (F + 1) + F * (8 + 12 * T), f"{F:,} fragments")
+    want = search.mem_stats_plain(*st)
+    flen = frag_off[1:] - frag_off[:-1]
+    stored = int(torch.clamp(want[1], max=T).sum())
+    out_bytes = 4 * (F + 1) + F * (8 + 12 * T)
+    every_lane = (12 * P + out_bytes) / HBM_BYTES_PER_S * 1e3
+    # every lane's i, the stored ties' (s0, s1), the outputs; the chain:
+    # the fragment's start, its i, the ties' (s0, s1)
+    report("mem_stats", stats, want, lambda: search.mem_stats(*st),
+           lambda: search.mem_stats_plain(*st), [],
+           4 * P + 8 * stored + out_bytes,
+           f"{F:,} fragments of {P:,} positions (longest {int(flen.max())}, "
+           f"{int((flen > 64).sum()):,} past 64), {stored:,} ties stored "
+           f"({int(want[1].sum()):,} in all); with every lane's (s0, s1) "
+           f"the bound is {every_lane:.4f} ms; "
+           f"{floor_note(3, lat_ns, 'loads')}", call=(st, {}))
     # H on the SA positions that the MEM -v path resolves first: each real
     # tie row's first max_match_ids + 6 (engine/mem_fast.py's chunk)
     chunk = cli_config("mem", True).max_match_ids + 6
@@ -1060,6 +1100,8 @@ def check_sharded(index, inputs, n_shards: int, timed: bool):
     from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
 
     fns = {"update_si": (device_index.update_si, device_index.update_si_plain),
+           "update_si_letters": (device_index.update_si_letters,
+                                 device_index.update_si_letters_plain),
            "extend_all": (device_index.extend_all,
                           device_index.extend_all_plain),
            "sa_lookup": (device_index.sa_lookup, device_index.sa_lookup_plain),
@@ -1552,7 +1594,8 @@ def x_kernel_checks(first, name, lat_ns: float):
             dvi.update_si(*a), want, lambda: dvi.update_si(*a),
             lambda: dvi.update_si_plain(*a), touched, n * (12 + 9),
             f"{name}: the first round's {n:,} probes, "
-            f"{int((a[4] == a[3]).sum()):,} on empty intervals")
+            f"{int((a[4] == a[3]).sum()):,} on empty intervals; "
+            f"{floor_note(2, lat_ns, 'loads')}")
     if "sa_lookup" in first:
         a = first["sa_lookup"]
         out["sa_lookup"] = check_sa_lookup(
@@ -1939,7 +1982,8 @@ def spy_first_calls(mode: str) -> dict:
     from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
                                      kmer, search)
 
-    where = {"update_si": (kmer, device_index.update_si_plain)}
+    where = {"update_si_letters": (kmer,
+                                   device_index.update_si_letters_plain)}
     if mode == "mem":
         where.update(mem_extend=(classify, search.mem_extend_plain),
                      text_extend=(classify, hybrid.text_extend_plain),
@@ -2454,10 +2498,11 @@ def log_checks(checks: dict, tag: str) -> None:
 
 def check_repeats(seed: int, lat_ns: float) -> dict:
     """Phase 3 on the DB with repeats (make_repeats_db), one batch of 4,096
-    of its reads: B on the MEM batch (screened, the hybrid's narrow lanes
-    stopping, on the text index; unscreened and not stopping on db.ktx),
-    G on the text index's stopped lanes (intervals of 1 to 8
-    occurrences), H on the tie rows' SA positions, B on the Greedy batch,
+    of its reads: A in both forms at the seed-table build's last depth, B
+    on the MEM batch (screened, the hybrid's narrow lanes stopping, on the
+    text index; unscreened and not stopping on db.ktx), G on the text
+    index's stopped lanes (intervals of 1 to 8 occurrences), C, H on the
+    tie rows' SA positions, B on the Greedy batch,
     E at -e 3 (its last level's hybrid on the text index, none on
     db.ktx), and D and F on the flat and the deep tree (each gene family
     under one clade), against their plain versions.  Returns {index tag:
@@ -2471,7 +2516,7 @@ def check_repeats(seed: int, lat_ns: float) -> dict:
         index = KaijuIndex.load(ktx[tag])
         tree = deep_tree(seed)
         out[tag], _inputs = check_kernels(
-            index, reads, ktx[tag], lat_ns, full=False,
+            index, reads, ktx[tag], lat_ns,
             deep=(deep_seq_tax(tree, index, seed, families), tree))
         log_checks(out[tag], f"repeats, {tag}")
     return out
@@ -2579,12 +2624,13 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
-    # B, G, E, D, F and H on the DB with repeats; their errors, D's and
-    # F's on the deep tree and H's on the tie rows join the line's
+    # A, B, G, C, E, D, F and H on the DB with repeats; their errors, D's
+    # and F's on the deep tree and H's on the tie rows join the line's
     repeats = check_repeats(args.seed, lat_ns)
     for tag, rc in repeats.items():
         checks["repeats " + tag] = rc
-    for name in ("mem_extend", "text_extend", "greedy_search", "read_lca",
+    for name in ("update_si", "update_si_letters", "mem_extend",
+                 "text_extend", "mem_stats", "greedy_search", "read_lca",
                  "ranges_lca", "sa_lookup"):
         fold_errors(checks["text"], name, checks["fmi"], *repeats.values())
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernels B (mem_extend), G (text_extend), E (greedy_search), D
-(read_lca), F (ranges_lca) and H (sa_lookup) of this checkout against the
-same kernels of other checkouts of the port, on one NVIDIA GPU.
+"""Kernels A (update_si, update_si_letters), B (mem_extend), G
+(text_extend), C (mem_stats), E (greedy_search), D (read_lca), F
+(ranges_lca) and H (sa_lookup) of this checkout against the same kernels
+of other checkouts of the port, on one NVIDIA GPU.
 
     python3 compare_kernels.py OTHER [OTHER ...] [--seed 20240817]
         [--db-letters N]
@@ -10,19 +11,29 @@ OTHER is a directory that holds another checkout's kaiju_tpu_torch, for
 example the parent commit unpacked with ``git archive`` into a directory
 that .gitignore lists, or a copy of this checkout with a kernel's source
 changed; each design is named by its directory.  Its wrappers
-``ops.search.mem_extend``, ``ops.hybrid.text_extend``,
+``ops.device_index.update_si``, ``ops.search.mem_extend``,
+``ops.hybrid.text_extend``, ``ops.search.mem_stats``,
 ``ops.greedy.greedy_search``, ``ops.classify.read_lca``,
 ``ops.classify.ranges_lca`` and ``ops.device_index.sa_lookup`` must take
-the arguments this checkout's take.  The packages are imported side by
+the arguments this checkout's take; a design without
+``ops.device_index.update_si_letters`` (A's seed-table form) runs its
+update_si on the 20 repeated probes of each interval instead, made
+outside the timed call, its outputs masked and shaped as
+update_si_letters' for the comparison (the seed-table build's launch
+before that form).  The packages are imported side by
 side in this process, each with its own kernel loader, which builds its
 checkout's kernels into that checkout's build/ directory; nothing of any
 loader is replaced.
 
 On chip_smoke.py phase 3's inputs (both 64 Maa indexes, the DB with
 repeats with and without text, and the 64 Maa indexes in 4 shards),
+A's letters form on the seed-table build's last depth and its probe
+form on the same depth's repeated probes and, on db.ktx alone, on the
+first Probes round of a BatchRunner (kaijux, Greedy, phase 4d's),
 B on the MEM and the Greedy batch, G on the text indexes' stopped MEM
-lanes, E at -e 3, D and F on the flat tree and on the taxonomy of NCBI
-depth, H on the SA positions of the MEM batch's tie rows and, on the
+lanes, C on the MEM batch's lanes (not in shards: C reads no index, and
+the sharded path gives it the same lanes), E at -e 3, D and F on the
+flat tree and on the taxonomy of NCBI depth, H on the SA positions of the MEM batch's tie rows and, on the
 64 Maa indexes, of the MEM -v batch's first round (phase 3's -v check)
 and, on db.ktx alone, of the first SaLookup round of a BatchRunner
 (kaijux -a mem, phase 4d's, unsharded): this checkout's kernels against
@@ -50,12 +61,16 @@ PKG = "kaiju_tpu_torch"
 # counts their launches, and the class of a sharded index array
 MODULES = ("kernels", "ops.search", "ops.hybrid", "ops.greedy",
            "ops.classify", "ops.device_index")
-# phase 3's calls of B, G, E, D, F and H, by their name in
-# chip_smoke.check_kernels (H's -v call: check_verbose_kernels), and H's
-# BatchRunner round
-COMPARED = {"mem_extend": ("ops.search", "mem_extend"),
+# phase 3's calls of A, B, G, C, E, D, F and H, by their name in
+# chip_smoke.check_kernels (H's -v call: check_verbose_kernels), and A's
+# and H's BatchRunner rounds
+COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
+            "update_si": ("ops.device_index", "update_si"),
+            "update_si (BatchRunner)": ("ops.device_index", "update_si"),
+            "mem_extend": ("ops.search", "mem_extend"),
             "mem_extend (Greedy batch)": ("ops.search", "mem_extend"),
             "text_extend": ("ops.hybrid", "text_extend"),
+            "mem_stats": ("ops.search", "mem_stats"),
             "greedy_search": ("ops.greedy", "greedy_search"),
             "read_lca": ("ops.classify", "read_lca"),
             "read_lca (deep tree)": ("ops.classify", "read_lca"),
@@ -66,9 +81,11 @@ COMPARED = {"mem_extend": ("ops.search", "mem_extend"),
             "sa_lookup (BatchRunner)": ("ops.device_index", "sa_lookup")}
 # the calls not repeated on the index in shards: their paths never run
 # sharded (Greedy's B is timed on the MEM batch; kaijux refuses
-# --mesh-index)
-UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)")
+# --mesh-index), or they read no index (C)
+UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)",
+             "update_si (BatchRunner)", "mem_stats")
 SHARDS = 4  # phase 4e's widest split
+NLET = 20  # letters of the seed tables: A's letters form's rows
 
 
 def _ours() -> dict:
@@ -110,40 +127,70 @@ def to_design(x, mods: dict):
     return x
 
 
+def letters_stand_in(mods: dict, args):
+    """(a call, the map of its outputs) standing in for update_si_letters
+    on args = (rec, C, s0, s1) in a design without it: the design's
+    update_si on the NLET * n repeated probes of the intervals, made here
+    and not in the call, its (n0, n1, ok) masked (ok, a live interval)
+    and shaped [NLET, n] by the map."""
+    import torch
+
+    rec, C, s0, s1 = args
+    update_si = mods["ops.device_index"].update_si
+    n = s0.shape[0]
+    c = torch.arange(1, NLET + 1, dtype=torch.int32,
+                     device=s0.device).repeat_interleave(n)
+    rs0, rs1 = s0.repeat(NLET), s1.repeat(NLET)
+    alive = (s0 < s1).repeat(NLET)
+
+    def shaped(out):
+        keep = out[2] & alive
+        return tuple(torch.where(keep, x, 0).view(NLET, n) for x in out[:2])
+
+    return (lambda: update_si(rec, C, c, rs0, rs1)), shaped
+
+
 def design_call(mods: dict, name: str, args, kw):
-    """A call of kernel `name`'s wrapper of the design's package on
-    args, kw, and the name of the kernel it launches."""
+    """(a call of kernel `name`'s wrapper of the design's package on
+    args, kw; the name of the kernel it launches; the map of its outputs
+    to this checkout's form, outside the call).  A design without A's
+    letters form runs letters_stand_in."""
     mod, fn = COMPARED[name]
-    wrapper = getattr(mods[mod], fn)
     a = to_design(tuple(args), mods)
     k = {key: to_design(v, mods) for key, v in kw.items()}
-    sharded = any(type(x).__name__ == "Shards" for x in args)
-    kname = fn + ("_sharded" if sharded else "")
-    return (lambda: wrapper(*a, **k)), kname
+    suffix = ("_sharded" if any(type(x).__name__ == "Shards" for x in args)
+              else "")
+    if fn == "update_si_letters" and not hasattr(mods[mod], fn):
+        call, shaped = letters_stand_in(mods, a)
+        return call, "update_si" + suffix, shaped
+    wrapper = getattr(mods[mod], fn)
+    return (lambda: wrapper(*a, **k)), fn + suffix, (lambda out: out)
 
 
-def runner_round(index, reads, device=None):
-    """The arguments of BatchRunner's first SaLookup launch (kernel H) on
-    a batch of reads, as kaijux -a mem classifies them (phase 4d); device
-    as for BatchRunner."""
+def runner_round(index, reads, device=None, wrapper="sa_lookup",
+                 run="kaijux mem"):
+    """The arguments of BatchRunner's first launch through `wrapper`
+    (engine.batch's sa_lookup: kernel H's SaLookup round; update_si: A's
+    Probes round) on a batch of reads, as the tool of chip_smoke's
+    X_RUNS[run] classifies them (phase 4d); device as for BatchRunner."""
     import chip_smoke as cs
     from kaiju_tpu_torch.engine import batch
 
     first = []
-    real = batch.sa_lookup
+    real = getattr(batch, wrapper)
 
     def spy(*a):
         first.append(a)
         return real(*a)
 
-    batch.sa_lookup = spy
+    setattr(batch, wrapper, spy)
     try:
-        batch.BatchRunner(index, None, cs.x_config("kaijux mem"),
+        batch.BatchRunner(index, None, cs.x_config(run),
                           device=device).classify_batch(reads)
     finally:
-        batch.sa_lookup = real
+        setattr(batch, wrapper, real)
     if not first:
-        raise RuntimeError("the BatchRunner round launched no H")
+        raise RuntimeError(f"the BatchRunner round launched no {wrapper}")
     return first[0]
 
 
@@ -191,13 +238,12 @@ def run(args) -> int:
         want, then timed."""
         calls = {tag: design_call(mods, name, a, kw)
                  for tag, mods in designs.items()}
-        kname = calls["this"][1]
-        for tag, (call, _k) in calls.items():
+        for tag, (call, kname, shaped) in calls.items():
             before = {t: dict(m["kernels"].LAUNCHES)
                       for t, m in designs.items()}
-            err = cs.max_abs_err(call(), want)
-            moved = {t: m["kernels"].LAUNCHES[kname] - before[t][kname]
-                     for t, m in designs.items()}
+            err = cs.max_abs_err(shaped(call()), want)
+            moved = {t: m["kernels"].LAUNCHES.get(kname, 0)
+                     - before[t].get(kname, 0) for t, m in designs.items()}
             if err or moved != {t: int(t == tag) for t in designs}:
                 bad.append((name, where, tag, err, moved))
         times = {tag: [] for tag in designs}
@@ -211,19 +257,24 @@ def run(args) -> int:
     for where, path, rd, fam in cases:
         index = KaijuIndex.load(path)
         checks, inputs = cs.check_kernels(
-            index, rd, path, lat_ns, full=False,
+            index, rd, path, lat_ns,
             deep=(cs.deep_seq_tax(tree, index, args.seed, fam), tree))
         if where in ("fmi", "text"):  # H on the -v path's positions
             v_checks, v_inputs = cs.check_verbose_kernels(
                 index, nodes, rd, path, lat_ns)
             checks["sa_lookup"] = v_checks["sa_lookup"]
             inputs["sa_lookup"] = v_inputs["sa_lookup"]
-        if where == "fmi":  # and on a BatchRunner round
+        if where == "fmi":  # H and A on a BatchRunner round
             h = runner_round(index, rd[:cs.BATCH])
             inputs["sa_lookup (BatchRunner)"] = (None, h, {}, None, None)
             checks["sa_lookup (BatchRunner)"] = cs.check_sa_lookup(
                 h, lat_ns, f"{h[-1].shape[0]:,} SA positions of a "
                 "BatchRunner round (kaijux -a mem)")
+            u = runner_round(index, rd[:cs.BATCH], wrapper="update_si",
+                             run="kaijux greedy")
+            inputs["update_si (BatchRunner)"] = (None, u, {}, None, None)
+            checks["update_si (BatchRunner)"] = cs.x_kernel_checks(
+                {"update_si": u}, "kaijux greedy", lat_ns)["update_si"]
         cs.log_checks(checks, where)
         bad += [(n, where, "plain", v[0]) for n, v in checks.items() if v[0]]
         sh = (ShardedIndex(index, SHARDS, torch.device("cuda"))

@@ -4,9 +4,10 @@ Every ``kaiju_tpu_torch/csrc/<source>.cu`` is compiled by ``nvcc`` for
 sm_90a into its own plain-C shared library,
 ``build/kaiju_tpu_torch/lib<source>.so`` at the repository root, and loaded
 with ctypes.  A kernel is one C entry point of a source: most sources hold
-one kernel of their own name; ``gather.cu`` holds P1 and P2,
-``big_mem.cu`` L and M (the int64 step over an index above 2^31 letters,
-K17, ``ops/big_mem.py``), and a
+one kernel of their own name; ``update_si.cu`` holds kernel A's two
+forms (``update_si``, the probes, and ``update_si_letters``, the seed
+tables), ``gather.cu`` P1 and P2, ``big_mem.cu`` L and M (the int64 step
+over an index above 2^31 letters, K17, ``ops/big_mem.py``), and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
 split into shards (K16, ``parallel/sharded_index.py``); ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
@@ -50,6 +51,8 @@ NVCC_FLAGS = [
 _SIGNATURES = {
     # rec nb1 C | c s0 s1 n | n0 n1 ok
     "update_si": ("kt_update_si", "pip" "pppi" "ppp" "p"),
+    # rec nb1 C | s0 s1 n | n0 n1 (the seed-table form, csrc/update_si.cu)
+    "update_si_letters": ("kt_update_si_letters", "pip" "ppi" "pp" "p"),
     # rec nb1 C | seed_s0 seed_s1 seed_d nseed | flat P frag_off F K j0 |
     # words m lb sw_steps | i s0 s1
     "mem_extend": ("kt_mem_extend", "pip" "pppi" "pipiii" "piii" "ppp" "p"),
@@ -101,6 +104,9 @@ _SIGNATURES.update({
     # SHARD | C | c s0 s1 n | n0 n1 ok
     "update_si_sharded": ("kt_update_si_sharded",
                           SHARD_SIG + "p" "pppi" "ppp" "p"),
+    # SHARD | C | s0 s1 n | n0 n1
+    "update_si_letters_sharded": ("kt_update_si_letters_sharded",
+                                  SHARD_SIG + "p" "ppi" "pp" "p"),
     # SHARD | C nseq chpt_exp | k n | iseq pos
     "sa_lookup_sharded": ("kt_sa_lookup_sharded",
                           SHARD_SIG + "pii" "pi" "pp" "p"),
@@ -137,8 +143,9 @@ _SIGNATURES.update({
 # kernel's own name
 _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
            "big_extend_all": "big_mem", "big_sa_walk": "big_mem",
-           **{n: n[:-len("_sharded")] for n in _SIGNATURES
-              if n.endswith("_sharded")}}
+           "update_si_letters": "update_si"}
+_SOURCE.update({n: _SOURCE.get(n[:-len("_sharded")], n[:-len("_sharded")])
+                for n in _SIGNATURES if n.endswith("_sharded")})
 # sources that hold no kernel of a path, only entry points whose
 # signatures their users set (csrc/peer.cu: parallel/peer_shards.py;
 # csrc/chase.cu: chase_ns)

@@ -1,6 +1,7 @@
 """Device-resident FM index, its rank, the SA walk, and the kernels that
-work on the index alone: A (``update_si``), H (``sa_lookup``), I
-(``extend_from``) and J (``extend_all``).
+work on the index alone: A (``update_si`` for probes, ``update_si_letters``
+for the seed tables), H (``sa_lookup``), I (``extend_from``) and J
+(``extend_all``).
 
 The index sits on the card as fused rank records, one int32 row of 64
 words per 128-character BWT block (``build_fused_records``), so a rank
@@ -247,6 +248,32 @@ def update_si_plain(rec, C, c, s0, s1, touched=None):
     return n0, n1, n0 < n1
 
 
+NLET = 20  # letter codes 1..20 of the seed tables
+_LETTERS_CHUNK = 1 << 14  # intervals of a plain round: 20x the probes
+
+
+def update_si_letters_plain(rec, C, s0, s1, touched=None):
+    """update_si_plain on every (letter, interval) pair of the live
+    intervals (s0 < s1), each pair kept where its new interval is not
+    empty: (n0, n1) int32 [NLET, n], letter c in row c - 1, zeros for a
+    dead interval or an empty pair.  touched: as for rank (no row of a
+    dead interval is read)."""
+    n = s0.shape[0]
+    n0 = torch.zeros((NLET, n), dtype=torch.int32, device=s0.device)
+    n1 = torch.zeros_like(n0)
+    live = torch.nonzero(s0 < s1).squeeze(1)
+    letters = torch.arange(1, NLET + 1, dtype=torch.int32, device=s0.device)
+    for lo in range(0, live.shape[0], _LETTERS_CHUNK):
+        x = live[lo:lo + _LETTERS_CHUNK]
+        m = x.shape[0]
+        r0, r1, ok = update_si_plain(rec, C, letters.repeat_interleave(m),
+                                     s0[x].repeat(NLET), s1[x].repeat(NLET),
+                                     touched)
+        n0[:, x] = torch.where(ok, r0, 0).view(NLET, m)
+        n1[:, x] = torch.where(ok, r1, 0).view(NLET, m)
+    return n0, n1
+
+
 def sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp, k, touched=None):
     """Plain batched get_suffix (bwt.c:105-121): (iseq, pos) per SA
     position k, int32 [N].  Walks LF until a sampled slot or a terminator,
@@ -322,6 +349,37 @@ def update_si(rec, C, c, s0, s1):
         kernels.launch("update_si", rec, rec.shape[0], C, c, s0, s1, n,
                        n0, n1, ok)
     return n0, n1, ok
+
+
+def update_si_letters(rec, C, s0, s1):
+    """UpdateSI of every letter c = 1..NLET on each interval (s0, s1)
+    (int32 [n]), the step of the seed-table build: (n0, n1) int32
+    [NLET, n], row c - 1 = FMindex(c, s0), FMindex(c, s1) where the
+    interval is alive and the new one non-empty, else zeros; equal to
+    update_si on the NLET * n repeated probes, masked.  Kernel A's letters
+    form (csrc/update_si.cu) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if rec.device.type == "cpu":
+        return update_si_letters_plain(rec, C, s0, s1)
+    dev = rec.device
+    kernels.check(C, "C", torch.int32, dev, 1)
+    n = s0.shape[0]
+    _check_lanes(dev, n, (s0, "s0", torch.int32), (s1, "s1", torch.int32))
+    n0 = torch.empty((NLET, n), dtype=torch.int32, device=dev)
+    n1 = torch.empty((NLET, n), dtype=torch.int32, device=dev)
+    if isinstance(rec, Shards):
+        args = shard_args(dev, rec)
+        if n:
+            kernels.launch("update_si_letters_sharded", *args, C, s0, s1, n,
+                           n0, n1)
+        return n0, n1
+    kernels.check(rec, "rec", torch.int32, dev, 2)
+    if rec.shape[1] != 64:
+        raise ValueError("rec: rows of 64 words expected")
+    if n:
+        kernels.launch("update_si_letters", rec, rec.shape[0], C, s0, s1, n,
+                       n0, n1)
+    return n0, n1
 
 
 def _check_lanes(dev, n, *named):

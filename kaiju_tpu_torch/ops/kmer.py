@@ -7,8 +7,9 @@ table lookup; most non-matching end positions die inside the table.
 
 This is new relative to the reference (which starts every extension from
 scratch, bwt.c:267-269) but exact: the table IS the first K steps.  The
-tables are built on the device with kernel A (``update_si``) or on the
-host with numpy; both give the same arrays.
+tables are built on the device with kernel A's letters form
+(``update_si_letters``, one launch a depth) or on the host with numpy;
+both give the same arrays.
 """
 
 from __future__ import annotations
@@ -19,9 +20,7 @@ import numpy as np
 import torch
 
 from ..index.core import KaijuIndex
-from .device_index import update_si
-
-NLET = 20  # letter codes 1..20 (makedb alphabet)
+from .device_index import NLET, update_si_letters
 
 
 def default_depth(index: KaijuIndex) -> int:
@@ -32,7 +31,7 @@ def default_depth(index: KaijuIndex) -> int:
 
     k = math.ceil(math.log(max(index.length, 2), NLET)) + 1
     return max(4, min(6, k))
-DEVICE_CHUNK = 1 << 22  # UpdateSI probes a launch while building
+DEVICE_CHUNK = 1 << 22  # previous intervals a launch while building
 
 
 class KmerTables:
@@ -95,32 +94,26 @@ class KmerTables:
 
     @classmethod
     def build_device(cls, index: KaijuIndex, K: int, device_index) -> "KmerTables":
-        """Build the per-depth interval tables with batched UpdateSI probes
-        on the device index's device: every (letter, previous k-mer) pair,
-        20 * 20^(d-1) probes at depth d, through kernel A on the card."""
+        """Build the per-depth interval tables on the device index's device:
+        UpdateSI of every letter on every previous interval, through kernel
+        A's letters form on the card (one launch a depth up to DEVICE_CHUNK
+        intervals), which reads each interval's rows once for all NLET
+        letters and leaves dead intervals and empty pairs at (0, 0)."""
         dv = device_index
         codes = np.arange(1, NLET + 1, dtype=np.int64)
         tables = [(index.C[codes], index.C[codes + 1])]
-        letters = torch.arange(1, NLET + 1, dtype=torch.int32, device=dv.device)
         p0, p1 = (torch.from_numpy(t.astype(np.int32)).to(dv.device)
                   for t in tables[0])
         for _d in range(2, K + 1):
             n = p0.shape[0]
-            c = letters.repeat_interleave(n)
-            s0 = p0.repeat(NLET)
-            s1 = p1.repeat(NLET)
-            n0 = torch.zeros_like(s0)
-            n1 = torch.zeros_like(s1)
-            for lo in range(0, n * NLET, DEVICE_CHUNK):
-                hi = min(n * NLET, lo + DEVICE_CHUNK)
-                r0, r1, ok = update_si(dv.rec, dv.C, c[lo:hi], s0[lo:hi],
-                                       s1[lo:hi])
-                n0[lo:hi] = torch.where(ok, r0, 0)
-                n1[lo:hi] = torch.where(ok, r1, 0)
-            # empty previous intervals must stay empty
-            alive = (p0 < p1).repeat(NLET)
-            p0 = torch.where(alive, n0, 0)
-            p1 = torch.where(alive, n1, 0)
+            parts = [update_si_letters(dv.rec, dv.C, p0[lo:lo + DEVICE_CHUNK],
+                                       p1[lo:lo + DEVICE_CHUNK])
+                     for lo in range(0, n, DEVICE_CHUNK)]
+            # [NLET, n], letter-major: the k-mer index (c - 1) * n + prev
+            p0, p1 = (parts[0][t] if len(parts) == 1 else
+                      torch.cat([q[t] for q in parts], 1)
+                      for t in range(2))
+            p0, p1 = p0.reshape(-1), p1.reshape(-1)
             tables.append(
                 (p0.cpu().numpy().astype(np.int64),
                  p1.cpu().numpy().astype(np.int64))

@@ -1,15 +1,17 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
-checkout beside the first, and kernels B's, G's, E's, D's, F's and H's
-calls (D and F on a flat and a deep taxonomy, H on tie rows and on a
-BatchRunner round) routed through that copy's wrappers (here their plain
-versions, as the CPU takes them), sharded index arrays rebuilt as the
-copy's class.  The results must equal this copy's, bit for
-bit.  Imports neither jax nor kaiju_tpu."""
+checkout beside the first, and kernels A's, B's, G's, C's, E's, D's, F's
+and H's calls (A in both forms and on a BatchRunner round, D and F on a
+flat and a deep taxonomy, H on tie rows and on a BatchRunner round)
+routed through that copy's wrappers (here their plain versions, as the
+CPU takes them), sharded index arrays rebuilt as the copy's class; a copy
+without A's letters form runs its stand-in.  The results must equal this
+copy's, bit for bit.  Imports neither jax nor kaiju_tpu."""
 
 import importlib
 import os
 import random
 import sys
+import types
 
 import pytest
 import torch
@@ -41,8 +43,8 @@ def env():
                for i in range(40)]
     idx = py_builder.build_index(records)
     dv = tdev.DeviceIndex(idx, "cpu")
-    seed = tuple(torch.from_numpy(a) for a in KmerTables.build(
-        idx, search.SEED_K).planar_seed(search.SEED_K))
+    kt = KmerTables.build(idx, search.SEED_K)
+    seed = tuple(torch.from_numpy(a) for a in kt.planar_seed(search.SEED_K))
     reads = [(n, s, None) for n, s in make_reads(rng, records, n=40)]
     frag = NativeFragmenter2("greedy", 11, 65, True, False)
     flat, chars, frag_off, n_frags, _k, rf_rows, _o = frag.run(
@@ -87,8 +89,20 @@ def env():
     round_ = ck.runner_round(idx, reads, device="cpu")
     h["sa_lookup (BatchRunner)"] = (dv.rec, dv.C, dv.sa_seq, dv.sa_off,
                                     *round_[4:])
+    # A's letters form on the depth-2 intervals, its probe form on their
+    # repeated probes and on a BatchRunner's Probes round; C on B's lanes
+    p0, p1 = (torch.from_numpy(t.astype("int32")) for t in kt.tables[1])
+    c = torch.arange(1, ck.NLET + 1,
+                     dtype=torch.int32).repeat_interleave(p0.shape[0])
+    probes = ck.runner_round(idx, reads, device="cpu", wrapper="update_si",
+                             run="kaijux greedy")
+    a = {"update_si_letters": (dv.rec, dv.C, p0, p1),
+         "update_si": (dv.rec, dv.C, c, p0.repeat(ck.NLET),
+                       p1.repeat(ck.NLET)),
+         "update_si (BatchRunner)": (dv.rec, dv.C, *probes[2:]),
+         "mem_stats": (*lanes, frag_off, 11, 8)}
     return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails,
-            "g": g, "h": h}
+            "g": g, "h": h, "a": a}
 
 
 def _call(env, name):
@@ -101,6 +115,8 @@ def _call(env, name):
         return env["g"], {}
     if name.startswith("sa_lookup"):
         return env["h"][name], {}
+    if name in env["a"]:
+        return env["a"][name], {}
     return env["tails"][name], {"sw_ids": None}
 
 
@@ -123,7 +139,8 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     assert other["ops.device_index"].kernels is other["kernels"]
     a, kw = _call(env, name)
     want = ck.design_call(this, name, a, kw)[0]()
-    if shards:
+    holds = any(x is env["dv"].rec for x in a)  # C reads no index
+    if shards and holds:
         sh = ShardedIndex(env["idx"], shards, "cpu")
         a, kw = chip_smoke.shard_call(sh, env["dv"], a, kw)
         rec = a[list(map(id, _call(env, name)[0])).index(id(env["dv"].rec))]
@@ -133,9 +150,10 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
         assert not isinstance(moved, tdev.Shards)
         assert moved.parts == rec.parts and moved.per == rec.per
         assert moved.shape == rec.shape
-    call, kname = ck.design_call(other, name, a, kw)
-    assert kname == ck.COMPARED[name][1] + ("_sharded" if shards else "")
-    got = call()
+    call, kname, shaped = ck.design_call(other, name, a, kw)
+    assert kname == ck.COMPARED[name][1] + ("_sharded" if shards and holds
+                                            else "")
+    got = shaped(call())
     if isinstance(want, torch.Tensor):  # D's rows
         got, want = (got,), (want,)
     assert len(got) == len(want)
@@ -143,6 +161,31 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
         assert (g is None) == (w is None)
         if g is not None:
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_design_without_letters_form_runs_its_probes(env, shards):
+    """A design whose device_index has update_si but not
+    update_si_letters (the parent of A's letters form) is timed on its
+    update_si over the repeated probes, and its outputs, masked and
+    shaped, equal the letters form's."""
+    this = {n: importlib.import_module(f"kaiju_tpu_torch.{n}")
+            for n in ck.MODULES}
+    old = dict(this)
+    old["ops.device_index"] = types.SimpleNamespace(
+        update_si=tdev.update_si, Shards=tdev.Shards)
+    a, kw = _call(env, "update_si_letters")
+    if shards:
+        a, kw = chip_smoke.shard_call(
+            ShardedIndex(env["idx"], shards, "cpu"), env["dv"], a, kw)
+    want = ck.design_call(this, "update_si_letters", a, kw)[0]()
+    call, kname, shaped = ck.design_call(old, "update_si_letters", a, kw)
+    assert kname == "update_si" + ("_sharded" if shards else "")
+    got = shaped(call())
+    assert len(got) == len(want) == 2
+    assert (want[0] < want[1]).any()  # live pairs compared
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_no_card_no_comparison(monkeypatch):

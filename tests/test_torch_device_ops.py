@@ -93,6 +93,52 @@ def test_update_si_matches_probe_updates(env):
         np.testing.assert_array_equal(g, w)
 
 
+def _intervals(jidx, kt):
+    """100 previous intervals of the seed-table build: the index's depth-2
+    seed intervals (live and dead), intervals across a block boundary,
+    inside one block, ending at N (the end row), and dead ones."""
+    N = jidx.length
+    extra = [(0, N), (100, 300), (127, 128), (128, 129), (N - 5, N),
+             (N - 200, N), (N // 128 * 128 - 3, N), (5, 5), (9, 3), (0, 0)]
+    s0 = np.concatenate([kt.tables[1][0][:90], [a for a, _ in extra]])
+    s1 = np.concatenate([kt.tables[1][1][:90], [b for _, b in extra]])
+    return s0.astype(np.int32), s1.astype(np.int32)
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_update_si_letters_matches_probe_updates(env, shards):
+    """A's letters form (its plain path) equals update_si_plain and the
+    JAX probe_updates on the 20 repeated probes of each interval, masked
+    as the build masks them: a pair is kept where the interval is alive
+    and the new one non-empty.  With shards, on a 2-shard ShardedIndex.
+    The 2,000 probes take the shape test_update_si_matches_probe_updates
+    compiled."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    jidx, jd, td = env["jidx"], env["jd"], env["td"]
+    s0, s1 = _intervals(jidx, KmerTables.build(jidx, 2))
+    n = s0.shape[0]
+    c = np.repeat(np.arange(1, 21, dtype=np.int32), n)
+    rs0, rs1 = np.tile(s0, 20), np.tile(s1, 20)
+    keep = np.tile(s0 < s1, 20)
+    jn0, jn1, jok = (np.asarray(a) for a in jdev.probe_updates(
+        jd.blocks, jd.occ, jd.C, c, rs0, rs1))
+    pn0, pn1, pok = (a.numpy() for a in tdev.update_si_plain(
+        td.rec, td.C, _t(c), _t(rs0), _t(rs1)))
+    ix = td if not shards else ShardedIndex(jidx, shards, "cpu")
+    got = [a.numpy() for a in tdev.update_si_letters(ix.rec, ix.C, _t(s0),
+                                                     _t(s1))]
+    for g, jw, pw, jk, pk in zip(got, (jn0, jn1), (pn0, pn1), (jok, pok),
+                                 (jok, pok)):
+        assert g.shape == (20, n)
+        np.testing.assert_array_equal(
+            g.reshape(-1), np.where(jk & keep, jw, 0))
+        np.testing.assert_array_equal(
+            g.reshape(-1), np.where(pk & keep, pw, 0))
+    assert (got[0] < got[1]).sum() > 100  # live pairs compared
+    assert not got[0][:, s0 >= s1].any() and not got[1][:, s0 >= s1].any()
+
+
 def test_sa_walk_matches_sa_lookup_fused(env):
     jidx, jd, td = env["jidx"], env["jd"], env["td"]
     k = np.arange(jidx.nseq, jidx.length, dtype=np.int32)  # every position

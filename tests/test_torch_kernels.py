@@ -1338,3 +1338,159 @@ def test_sa_lookup_walk_cases_match_plain(rep_env, cuda, n, S):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# kernel C on hand-laid lanes, and kernel A's two forms on the flat index
+# and in 2 and 4 shards
+# ---------------------------------------------------------------------------
+
+# fragment lengths around C's group of 8 lanes and its 64 registers
+STATS_LENGTHS = (0, 1, 7, 8, 9, 32, 33, 63, 64, 65, 128, 129, 300)
+STATS_CASES = ("random", "ties", "no_jstop", "mixed")
+
+
+def stats_lanes(seed, lengths, case):
+    """(i, s0, s1, frag_off) int32 of hand-laid B lanes, one fragment of
+    each length.  "random": i_j uniform in 0..j + 1 (j + 1: a lane that
+    matched nothing); "ties": every lane from j = 11 on a match of 12
+    letters, the last lane reaching i <= 1 at j = 12, so a fragment of n
+    positions has n - 12 ties (more than T past 20); "no_jstop": i_j >= 2
+    on every lane; "mixed": matches of 9 to 13 letters, a twentieth of
+    the lanes reaching i = 1."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    off = np.zeros(len(lengths) + 1, dtype=np.int64)
+    off[1:] = np.cumsum(lengths)
+    P = int(off[-1])
+    j = np.arange(P) - np.repeat(off[:-1], lengths)
+    if case == "random":
+        i = rng.integers(0, j + 2)
+    elif case == "ties":
+        i = np.where(j >= 11, j - 11, j + 1)
+    elif case == "no_jstop":
+        i = rng.integers(2, j + 4)
+    else:
+        i = np.maximum(j + 1 - rng.choice([9, 11, 12, 12, 13, 13], P), 0)
+        i[rng.random(P) < 0.05] = 1
+    s0 = rng.integers(0, 1 << 24, P)
+    s1 = s0 + rng.integers(0, 40, P)
+    return tuple(torch.from_numpy(a.astype(np.int32))
+                 for a in (i, s0, s1, off))
+
+
+@pytest.mark.parametrize("case", [*STATS_CASES, "phase 3"])
+def test_mem_stats_fragment_cases_match_plain(cuda, case):
+    """C against its plain version on fragments of 0 to 300 positions in
+    a shuffled order (groups of one warp hold fragments of unlike
+    lengths), and at phase 3's size: 634,026 positions in fragments of
+    random lengths, about 25 a fragment (the MEM batch's mean)."""
+    rng = np.random.default_rng(len(case))
+    if case == "phase 3":
+        lengths = []
+        while sum(lengths) < 634_026:
+            lengths.append(int(rng.integers(0, 50)))
+        lengths[-1] -= sum(lengths) - 634_026
+        i, s0, s1, off = stats_lanes(9, lengths, "mixed")
+    else:
+        lengths = rng.permutation(np.repeat(STATS_LENGTHS, 5))
+        i, s0, s1, off = stats_lanes(9, lengths, case)
+    want = search.mem_stats_plain(i, s0, s1, off, MIN_LEN, T)
+    got = search.mem_stats(i.to(cuda), s0.to(cuda), s1.to(cuda),
+                           off.to(cuda), MIN_LEN, T)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if case == "ties":
+        assert int(want[1].max()) > T
+
+
+def _letter_intervals(env):
+    """Previous intervals of A's letters form: the index's depth-2 and
+    depth-3 seed intervals (live and dead), intervals that cross a block
+    boundary, end at the end row (s1 = N) or lie in one block, and dead
+    ones (s0 == s1, s0 > s1)."""
+    idx = env["idx"]
+    kt = KmerTables.build(idx, 3)
+    N = idx.length
+    extra = [(0, N), (100, 300), (127, 128), (128, 129), (N - 5, N),
+             (N - 200, N), (5, 5), (9, 3), (0, 0), (256, 250)]
+    s0 = np.concatenate([kt.tables[1][0], kt.tables[2][0],
+                         [a for a, _ in extra]])
+    s1 = np.concatenate([kt.tables[1][1], kt.tables[2][1],
+                         [b for _, b in extra]])
+    return (torch.from_numpy(s0.astype(np.int32)),
+            torch.from_numpy(s1.astype(np.int32)))
+
+
+@pytest.mark.parametrize("S", [0, 2, 4])
+def test_update_si_letters_kernel_matches_plain(env, cuda, S):
+    """A's letters form against its plain version on the flat index and
+    in S shards, and against update_si_plain on the repeated probes; only
+    its own instantiation launches."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    dv = env["dv"]
+    s0, s1 = _letter_intervals(env)
+    want = tdev.update_si_letters_plain(dv.rec, dv.C, s0, s1)
+    n = s0.shape[0]
+    c = torch.arange(1, 21, dtype=torch.int32).repeat_interleave(n)
+    r0, r1, ok = tdev.update_si_plain(dv.rec, dv.C, c, s0.repeat(20),
+                                      s1.repeat(20))
+    keep = ok & (s0 < s1).repeat(20)
+    assert torch.equal(want[0], torch.where(keep, r0, 0).view(20, n))
+    assert torch.equal(want[1], torch.where(keep, r1, 0).view(20, n))
+    ix = (tdev.DeviceIndex(env["idx"], cuda) if S == 0
+          else ShardedIndex(env["idx"], S, cuda))
+    kernels.reset_counts()
+    got = tdev.update_si_letters(ix.rec, ix.C, s0.to(cuda), s1.to(cuda))
+    torch.cuda.synchronize()
+    name = "update_si_letters" + ("_sharded" if S else "")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {name: 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[0] < want[1]).sum()) > 100
+
+
+@pytest.mark.parametrize("S", [0, 2, 4])
+def test_update_si_kernel_cases_match_plain(env, cuda, S):
+    """A's probe form against its plain version on the flat index and in
+    S shards: random probes of every code of C, both ends in one block
+    and in two, ends at 0, at block boundaries and at N (the end row)."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx, dv = env["idx"], env["dv"]
+    rng = np.random.default_rng(30 + S)
+    n = 30_000
+    c = rng.integers(0, dv.C.shape[0], n).astype(np.int32)
+    s0 = rng.integers(0, idx.length + 1, n).astype(np.int32)
+    s1 = np.minimum(s0 + rng.integers(0, 300, n), idx.length).astype(np.int32)
+    ends = np.array([0, 127, 128, 129, idx.length - 1, idx.length,
+                     idx.length // 128 * 128], dtype=np.int32)
+    s0[:7], s1[:7] = ends, ends[::-1].copy()
+    s0[7:14], s1[7:14] = ends, np.full(7, idx.length, dtype=np.int32)
+    c, s0, s1 = (torch.from_numpy(a) for a in (c, s0, s1))
+    want = tdev.update_si_plain(dv.rec, dv.C, c, s0, s1)
+    ix = (tdev.DeviceIndex(idx, cuda) if S == 0
+          else ShardedIndex(idx, S, cuda))
+    got = tdev.update_si(ix.rec, ix.C, c.to(cuda), s0.to(cuda), s1.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("S", [0, 2])
+def test_kmer_tables_on_the_card_match_host(env, cuda, S):
+    """KmerTables.build_device through A's letters form on the card, on
+    the flat index and in S shards, equals the host build."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx = env["idx"]
+    ix = (tdev.DeviceIndex(idx, cuda) if S == 0
+          else ShardedIndex(idx, S, cuda))
+    got = KmerTables.build_device(idx, 4, ix)
+    want = KmerTables.build(idx, 4)
+    for (g0, g1), (w0, w1) in zip(got.tables, want.tables):
+        np.testing.assert_array_equal(g0, w0)
+        np.testing.assert_array_equal(g1, w1)

@@ -162,3 +162,49 @@ def test_mem_extend_lanes_are_maximal_extensions(env):
                 assert got == (start[f, j], a0[f, j], a1[f, j]), (f, j)
                 seeded += 1
     assert seeded > 100
+
+
+def _stats_contract(i, s0, s1, frag_off, min_len, cap):
+    """kaiju_tpu's _mem_stats contract written out a fragment at a time:
+    jstop = the largest j with i_j <= 1 (-1 if none); maxl = the largest
+    l_j = j - i_j + 1 >= min_len over j >= jstop (0 if none); the ties the
+    j >= jstop with l_j == maxl > 0, ascending, the first cap stored."""
+    i, s0, s1, off = (a.tolist() for a in (i, s0, s1, frag_off))
+    F = len(off) - 1
+    maxl, cnt = np.zeros(F, np.int32), np.zeros(F, np.int32)
+    tj = np.full((F, cap), -1, np.int32)
+    ts0, ts1 = np.zeros((F, cap), np.int32), np.zeros((F, cap), np.int32)
+    for f in range(F):
+        st, n = off[f], off[f + 1] - off[f]
+        jstop = max((j for j in range(n) if i[st + j] <= 1), default=-1)
+        lens = {j: j - i[st + j] + 1 for j in range(max(jstop, 0), n)}
+        best = max((v for v in lens.values() if v >= min_len), default=0)
+        ties = [j for j, v in lens.items() if best and v == best]
+        maxl[f], cnt[f] = best, len(ties)
+        for r, j in enumerate(ties[:cap]):
+            tj[f, r], ts0[f, r], ts1[f, r] = j, s0[st + j], s1[st + j]
+    return maxl, cnt, tj, ts0, ts1
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "no_jstop", "mixed"])
+def test_mem_stats_fragment_cases_match_contract(case):
+    """Kernel C's plain path on hand-laid lanes (the card's cases of
+    tests/test_torch_kernels.py): fragments of 0, 1, 7, 8, 9, 32, 33,
+    63-65, 128, 129 and 300 positions, more than T ties, no jstop,
+    against the contract written out a fragment at a time."""
+    from test_torch_kernels import STATS_LENGTHS, stats_lanes
+
+    lengths = np.random.default_rng(len(case)).permutation(
+        np.repeat(STATS_LENGTHS, 5))
+    lanes = stats_lanes(9, lengths, case)
+    got = search.mem_stats(*lanes, MIN_LEN, T)
+    want = _stats_contract(*lanes, MIN_LEN, T)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    flen = np.asarray(lengths)
+    if case == "ties":  # n - 12 ties from 13 positions on
+        np.testing.assert_array_equal(want[1], np.maximum(flen - 12, 0))
+    if case == "no_jstop":
+        assert (want[0][flen > 13] > 0).all()
+    if case in ("random", "mixed"):
+        assert (want[1] > 0).sum() > 20
