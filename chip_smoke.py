@@ -133,10 +133,14 @@ Phases, any failure exits non-zero:
      (each run counted from 0; L and M must launch in each), the four
      arrays of S = 8 equal to S = 2's; L and M against their plain
      versions on the card on the S = 2 run's reads (timed, bound from the
-     distinct rows), an interval starting at 2^31 or later; a steady
-     big_mem_step over 65,536 reads (reads/s, L's and M's ms, the host
-     statistics' seconds), with build, save and load seconds, the card's
-     bytes for the index and the host's peak RSS;
+     distinct rows, latency floor from the plain versions' longest chain
+     of dependent rows times the device-memory latency, M's heads against
+     its lanes to walk and its longest walk), an interval starting at
+     2^31 or later; a steady big_mem_step over 65,536 reads (reads/s, the
+     host statistics' seconds) and L and M against their plain versions
+     on its reads (the same figures, the plain versions untimed), with
+     build, save and load seconds, the card's bytes for the index and the
+     host's peak RSS;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards, L's and M's on the big index; the
      launches of every run of phases 4, 4c, 4d, 4e, 4f and 4g, each
@@ -594,11 +598,11 @@ def floor_note(chain: int, lat_ns: float, what: str = "row reads") -> str:
 def measure(got, want, fn, plain_fn, touched, other_bytes, note):
     """(max_abs_err, ms, plain_ms, bound_ms, note) of a kernel whose
     outputs `got` its plain version gave as `want`: fn and plain_fn timed
-    on the card, the bound from the distinct record rows in `touched` and
-    `other_bytes`."""
+    on the card (a false plain_fn: not timed, plain_ms nan), the bound from
+    the distinct record rows in `touched` and `other_bytes`."""
     rb, nrows = row_bytes(touched)
     return (max_abs_err(got, want), cuda_ms(fn),
-            cuda_ms(plain_fn, reps=3, warm=1),
+            cuda_ms(plain_fn, reps=3, warm=1) if plain_fn else float("nan"),
             (rb + other_bytes) / HBM_BYTES_PER_S * 1e3,
             f"{note}, {nrows:,} row reads of {rb // 256:,} rows")
 
@@ -2319,11 +2323,33 @@ def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def big_checks(ix, reads, smi):
-    """L and M against their plain versions on the card on the 1,024
-    demo reads (65,536 lanes): {name: measure() tuple}; on an index past
-    2^31 + 10^6 letters also asserts that a lane's interval starts at 2^31
-    or later."""
+def run_heads(kf):
+    """The heads of kernel M's runs of equal kf (csrc/big_mem.cu): lanes
+    with kf >= 0 that open a warp-aligned window of 32 or differ from
+    the lane before.  Returns their count."""
+    import torch
+
+    lane = torch.arange(kf.numel(), device=kf.device)
+    prev = torch.roll(kf, 1)
+    return int(((kf >= 0) & ((lane % 32 == 0) | (kf != prev))).sum())
+
+
+def chain(touched, per_round=1) -> int:
+    """The rounds of a plain version's longest chain of dependent row
+    reads: the rounds that read rows, from its list of row indices
+    (per_round lists a round: 2 for L's rank pair)."""
+    return sum(1 for t in touched if t.numel()) // per_round
+
+
+def big_checks(ix, reads, smi, dram_ns, tag, plain=True):
+    """L and M against their plain versions on the card on the demo's
+    reads uint8 [R, 64] (tag names the shape): {name: measure() tuple};
+    the notes carry the latency floors (the plain versions' longest
+    chain of dependent rows, times the device-memory latency dram_ns)
+    and M's work (lanes walked by one thread each before, the heads of
+    the runs walked now, the longest walk).  plain=False leaves the
+    plain versions untimed.  On an index past 2^31 + 10^6 letters also
+    asserts that a lane's interval starts at 2^31 or later."""
     import torch
 
     from kaiju_tpu_torch.ops import big_mem
@@ -2333,34 +2359,44 @@ def big_checks(ix, reads, smi):
     got = big_mem.big_extend_all(ix, codes)
     touched = []
     want = big_mem.big_extend_all_plain(ix, codes, touched)
+    steps = chain(touched, 2)
     out = {"big_extend_all": measure(
         got, want, lambda: big_mem.big_extend_all(ix, codes),
-        lambda: big_mem.big_extend_all_plain(ix, codes), touched,
-        R * L * (1 + 4 + 8 + 8), f"[{R}, {L}] lanes")}
+        plain and (lambda: big_mem.big_extend_all_plain(ix, codes)), touched,
+        R * L * (1 + 4 + 8 + 8), f"{tag}: [{R}, {L}] lanes; longest chain "
+        f"{steps} steps + 1: latency floor "
+        f"{(steps + 1) * dram_ns / 1e6:.4f} ms at {dram_ns:.1f} ns")}
     i, s0, s1 = got
     kf = torch.where(s1 > s0, s0, -1).reshape(-1)
     ids = big_mem.big_sa_walk(ix, kf)
     touched, slots = [], []
     want_ids = big_mem.big_sa_walk_plain(ix, kf, touched, slots)
     walked = int((kf >= 0).sum())
+    heads = run_heads(kf)
+    longest = chain(touched)
     n_slots = int(torch.unique(torch.cat(slots)).numel()) if slots else 0
     out["big_sa_walk"] = measure(
         ids, want_ids, lambda: big_mem.big_sa_walk(ix, kf),
-        lambda: big_mem.big_sa_walk_plain(ix, kf), touched,
+        plain and (lambda: big_mem.big_sa_walk_plain(ix, kf)), touched,
         kf.numel() * 16 + 4 * n_slots,
-        f"{walked:,} walks of {kf.numel():,} lanes, {n_slots:,} samples")
+        f"{tag}: {walked:,} lanes to walk of {kf.numel():,}, {heads:,} heads "
+        f"walked ({heads / max(walked, 1):.3f}), {n_slots:,} samples; "
+        f"longest walk {longest} steps + 2: latency floor "
+        f"{(longest + 2) * dram_ns / 1e6:.4f} ms at {dram_ns:.1f} ns")
     big = int((s0 >= 1 << 31).sum())
-    log(f"4g: {big:,} of {s0.numel():,} lanes have s0 >= 2^31; largest s1 "
-        f"{int(s1.max()):,}, largest id {int(ids.max()):,} [{smi}]")
+    log(f"4g {tag}: {big:,} of {s0.numel():,} lanes have s0 >= 2^31; "
+        f"largest s1 {int(s1.max()):,}, largest id {int(ids.max()):,} "
+        f"[{smi}]")
     if not big and ix.N > (1 << 31) + 1_000_000:
         raise AssertionError("4g: no interval starts at 2^31 or later")
     return out
 
 
-def steady_big(ix, db, smi) -> None:
+def steady_big(ix, db, smi, dram_ns) -> dict:
     """A steady step over READS reads of the demo's length: big_mem_step's
-    reads/s (host clock, synchronised), L's and M's ms (CUDA events), the
-    host statistics' seconds."""
+    reads/s (host clock, synchronised), the host statistics' seconds, and
+    L and M against their plain versions on these reads (big_checks,
+    the plain versions untimed): {name + " (steady)": measure() tuple}."""
     import torch
 
     from kaiju_tpu_torch.ops import big_mem
@@ -2377,20 +2413,21 @@ def steady_big(ix, db, smi) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
-    i, s0, s1, _ids = step
-    kf = torch.where(s1 > s0, s0, -1).reshape(-1)
-    l_ms = cuda_ms(lambda: big_mem.big_extend_all(ix, codes), reps=5)
-    m_ms = cuda_ms(lambda: big_mem.big_sa_walk(ix, kf), reps=5)
     arrays = tuple(a.cpu().numpy() for a in step)
     t0 = time.perf_counter()
     _res, n_cls = big_classify.host_stats(reads, *arrays,
                                           ix.seq_tax.cpu().numpy())
     host_s = time.perf_counter() - t0
+    del step, codes
+    rows = {f"{k} (steady)": v for k, v in big_checks(
+        ix, reads, smi, dram_ns, f"{READS:,} reads", plain=False).items()}
     log(f"4g steady: {READS:,} reads of {BIG_LEN}: big_mem_step "
-        f"{step_s:.4f} s = {READS / step_s:,.1f} reads/s (L {l_ms:.3f} ms, "
-        f"M {m_ms:.3f} ms, {int((kf >= 0).sum()):,} walks); host "
-        f"statistics {host_s:.2f} s; with them {READS / (step_s + host_s):,.1f}"
-        f" reads/s; {n_cls:,} classified [{smi}]")
+        f"{step_s:.4f} s = {READS / step_s:,.1f} reads/s (L "
+        f"{rows['big_extend_all (steady)'][1]:.3f} ms, M "
+        f"{rows['big_sa_walk (steady)'][1]:.3f} ms); host statistics "
+        f"{host_s:.2f} s; with them {READS / (step_s + host_s):,.1f} reads/s;"
+        f" {n_cls:,} classified [{smi}]")
+    return rows
 
 
 def start_big_build(letters: int) -> dict:
@@ -2419,12 +2456,13 @@ def start_big_build(letters: int) -> dict:
     return box
 
 
-def run_phase_4g(build: dict, smi: str):
+def run_phase_4g(build: dict, smi: str, dram_ns: float):
     """Phase 4g: the big DB of `build` (start_big_build's box; waits for
     it), then tools.big_classify.run at S = 2 and 8 on the demo's reads
-    (each counted from 0), L and M against their plain versions, S = 8
-    against S = 2, the oracle on the sampled reads, a steady step.
-    Returns (measure() tuples, launch counts)."""
+    (each counted from 0), L and M against their plain versions on the
+    demo's reads and on a steady step's, S = 8 against S = 2, the oracle
+    on the sampled reads.  Returns (measure() tuples, the steady shape's
+    as "<name> (steady)", launch counts)."""
     import gc
 
     import numpy as np
@@ -2474,8 +2512,9 @@ def run_phase_4g(build: dict, smi: str):
         if S == BIG_SHARDS[0]:
             if res["summary"]["verified"] != BIG_VERIFY:
                 raise AssertionError("4g: the oracle checked too few reads")
-            rows = big_checks(ix, res["reads"], smi)
-            steady_big(ix, db, smi)
+            rows = big_checks(ix, res["reads"], smi, dram_ns,
+                              f"{BIG_READS:,} reads")
+            rows.update(steady_big(ix, db, smi, dram_ns))
         else:
             same = all(np.array_equal(a, b) for a, b in
                        zip(arrays[S], arrays[BIG_SHARDS[0]]))
@@ -2533,17 +2572,17 @@ def fold_errors(checks: dict, name: str, *more: dict) -> None:
     checks[name] = (err, *rest)
 
 
-def latency(smi: str) -> float:
+def latency(smi: str) -> tuple[float, float]:
     """Logs the card's dependent-load latency in the L2 (a 16 MiB cycle,
     walked twice) and in device memory (a 256 MiB cycle, on addresses not
-    walked before); returns the L2's, in ns."""
+    walked before); returns both, in ns."""
     from kaiju_tpu_torch import kernels
 
     l2 = kernels.chase_ns(1 << 22, cached=True)
     dram = kernels.chase_ns(1 << 26, cached=False)
     log(f"latency: {l2:.1f} ns a dependent load in the L2, {dram:.1f} ns "
         f"in device memory (csrc/chase.cu; {smi})")
-    return l2
+    return l2, dram
 
 
 # ---------------------------------------------------------------------------
@@ -2573,7 +2612,7 @@ def run(args) -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    lat_ns = latency(smi)
+    lat_ns, dram_ns = latency(smi)
 
     # ---- 2. database and reads ----------------------------------------
     t0 = time.perf_counter()
@@ -2721,12 +2760,14 @@ def run(args) -> int:
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
-    big_rows, big_launches = run_phase_4g(big_build, smi)
+    big_rows, big_launches = run_phase_4g(big_build, smi, dram_ns)
     for name, v in big_rows.items():
         log(f"kernel {name}: max_abs_err {v[0]}, {v[1]:.4f} ms (plain "
             f"{v[2]:.3f} ms, bound {v[3]:.4f} ms) [{v[4]}]")
     if any(v[0] for v in big_rows.values()):
         raise AssertionError("L or M differs from its plain version")
+    for name in BIG_KERNELS:  # the steady shape's errors join the line's
+        fold_errors(big_rows, name)
     launches.update(big_launches)
 
     # ---- 5. result lines ----------------------------------------------

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Kernels A (update_si, update_si_letters), B (mem_extend), G
 (text_extend), C (mem_stats), E (greedy_search), D (read_lca), F
-(ranges_lca) and H (sa_lookup) of this checkout against the same kernels
-of other checkouts of the port, on one NVIDIA GPU.
+(ranges_lca), H (sa_lookup), L (big_extend_all) and M (big_sa_walk) of
+this checkout against the same kernels of other checkouts of the port,
+on one NVIDIA GPU.
 
     python3 compare_kernels.py OTHER [OTHER ...] [--seed 20240817]
-        [--db-letters N]
+        [--db-letters N] [--only-big] [--big-dir DIR]
 
 OTHER is a directory that holds another checkout's kaiju_tpu_torch, for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -14,7 +15,8 @@ changed; each design is named by its directory.  Its wrappers
 ``ops.device_index.update_si``, ``ops.search.mem_extend``,
 ``ops.hybrid.text_extend``, ``ops.search.mem_stats``,
 ``ops.greedy.greedy_search``, ``ops.classify.read_lca``,
-``ops.classify.ranges_lca`` and ``ops.device_index.sa_lookup`` must take
+``ops.classify.ranges_lca``, ``ops.device_index.sa_lookup``,
+``ops.big_mem.big_extend_all`` and ``ops.big_mem.big_sa_walk`` must take
 the arguments this checkout's take; a design without
 ``ops.device_index.update_si_letters`` (A's seed-table form) runs its
 update_si on the 20 repeated probes of each interval instead, made
@@ -36,10 +38,15 @@ the sharded path gives it the same lanes), E at -e 3, D and F on the
 flat tree and on the taxonomy of NCBI depth, H on the SA positions of the MEM batch's tie rows and, on the
 64 Maa indexes, of the MEM -v batch's first round (phase 3's -v check)
 and, on db.ktx alone, of the first SaLookup round of a BatchRunner
-(kaijux -a mem, phase 4d's, unsharded): this checkout's kernels against
-their plain versions (phase 3's check, with both floors), each
+(kaijux -a mem, phase 4d's, unsharded); and on phase 4g's index above
+2^31 letters at S = 2 (built here beside the rest, on every host thread,
+~380 s on 8; or --big-dir), L on the demo's 1,024 reads of 64 and on
+the steady step's 65,536 and M on the kf of each (--only-big: L and M
+alone): this checkout's kernels against
+their plain versions (phase 3's and 4g's checks, with the floors), each
 design's outputs against this checkout's kernel (they must be equal, and
-each design's launches must be counted by its own package), then each
+each design's launches must be counted by its own package; a big index
+goes to a design as its own BigIndex class), then each
 design timed twice in turns, the others, this, this, the others in
 reverse (CUDA events, the median of 15 launches).  Prints a line a
 shape and exits non-zero when a design disagrees, a launch went to the
@@ -60,7 +67,8 @@ PKG = "kaiju_tpu_torch"
 # the modules a design is called through: the wrappers, the loader that
 # counts their launches, and the class of a sharded index array
 MODULES = ("kernels", "ops.search", "ops.hybrid", "ops.greedy",
-           "ops.classify", "ops.device_index")
+           "ops.classify", "ops.device_index", "ops.big_mem",
+           "parallel.big_index")
 # phase 3's calls of A, B, G, C, E, D, F and H, by their name in
 # chip_smoke.check_kernels (H's -v call: check_verbose_kernels), and A's
 # and H's BatchRunner rounds
@@ -78,7 +86,16 @@ COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
             "ranges_lca (deep tree)": ("ops.classify", "ranges_lca"),
             "sa_lookup": ("ops.device_index", "sa_lookup"),
             "sa_lookup (tie rows)": ("ops.device_index", "sa_lookup"),
-            "sa_lookup (BatchRunner)": ("ops.device_index", "sa_lookup")}
+            "sa_lookup (BatchRunner)": ("ops.device_index", "sa_lookup"),
+            "big_extend_all": ("ops.big_mem", "big_extend_all"),
+            "big_extend_all (steady)": ("ops.big_mem", "big_extend_all"),
+            "big_sa_walk": ("ops.big_mem", "big_sa_walk"),
+            "big_sa_walk (steady)": ("ops.big_mem", "big_sa_walk")}
+# L's and M's shapes on chip_smoke phase 4g's index at S = 2, by the
+# suffix of their names: (reads of 64, big_classify.make_reads' seed),
+# the demo's 1,024 (big_classify.run's seed) and the steady step's 65,536
+BIG = {"": (1_024, 7), " (steady)": (65_536, 8)}
+BIG_SHARDS = 2
 # the calls not repeated on the index in shards: their paths never run
 # sharded (Greedy's B is timed on the MEM batch; kaijux refuses
 # --mesh-index), or they read no index (C)
@@ -118,10 +135,17 @@ def import_checkout(path: str) -> dict:
 def to_design(x, mods: dict):
     """x with every index array in shards (ops.device_index.Shards of
     this checkout) rebuilt as the Shards class of the design's modules,
-    inside tuples too; other values unchanged."""
+    and a big index (parallel.big_index.BigIndex) as its BigIndex over
+    the same arrays, inside tuples too; other values unchanged."""
     cls = mods["ops.device_index"].Shards
     if type(x).__name__ == "Shards" and not isinstance(x, cls):
         return cls(x.parts, x.per, x.shape[0], x.device, x.opened)
+    big = mods["parallel.big_index"].BigIndex
+    if type(x).__name__ == "BigIndex" and not isinstance(x, big):
+        y = big.__new__(big)
+        y.__dict__.update({k: to_design(v, mods)
+                           for k, v in vars(x).items()})
+        return y
     if isinstance(x, tuple):
         return tuple(to_design(y, mods) for y in x)
     return x
@@ -194,6 +218,49 @@ def runner_round(index, reads, device=None, wrapper="sa_lookup",
     return first[0]
 
 
+def big_index(big_dir, build=None, device=None, seed=None):
+    """(the big index at S = BIG_SHARDS, the dict of its text that
+    big_classify.make_reads reads): phase 4g's DB from `build`
+    (chip_smoke.start_big_build's box; waits for it) saved under build/,
+    or the directory big_dir that tools.big_classify --out saved, its text
+    made again from seed (by default phase 4g's, tools.big_classify's
+    default)."""
+    import json
+
+    import chip_smoke as cs
+    from kaiju_tpu_torch.parallel import big_index as bi
+
+    if big_dir:
+        seed = cs.BIG_SEED if seed is None else seed
+        with open(os.path.join(big_dir, "meta.json")) as f:
+            meta = json.load(f)
+        db = bi.make_text(None, meta["N"] - meta["nseq"], seed, True)
+        if (db["N"], db["nseq"]) != (meta["N"], meta["nseq"]):
+            raise ValueError(f"{big_dir} was not built from seed {seed}")
+        return bi.BigIndex.load(big_dir, device), db
+    build["thread"].join()
+    if "error" in build:
+        raise build["error"]
+    db = build.pop("db")
+    path = os.path.join(cs.ROOT, "build", "compare_kernels", "big")
+    bi.save_sharded_ktx(None, db, path, BIG_SHARDS)
+    return bi.BigIndex.load(path, device), db
+
+
+def big_calls(ix, reads) -> dict:
+    """{kernel: (args, kwargs)} of L on the read codes uint8 [R, L] and of
+    M on the kf of this checkout's L on them (phase 4g's step)."""
+    import torch
+
+    from kaiju_tpu_torch.ops import big_mem
+
+    codes = torch.from_numpy(reads).to(ix.device)
+    _i, s0, s1 = big_mem.big_extend_all(ix, codes)
+    kf = torch.where(s1 > s0, s0, -1).reshape(-1)
+    return {"big_extend_all": ((ix, codes), {}),
+            "big_sa_walk": ((ix, kf), {})}
+
+
 def run(args) -> int:
     import torch
 
@@ -222,15 +289,19 @@ def run(args) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     cs.log(smi)
-    lat_ns = cs.latency(smi)
-    records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
-    reads = cs.make_reads(args.seed, records, cs.BATCH)
-    r_records, r_ktx, families = cs.make_repeats_db(args.seed)
-    r_reads = cs.make_reads(args.seed, r_records, cs.BATCH)
-    tree = cs.deep_tree(args.seed)
-    cases = [(tag, ktx[tag], reads, None) for tag in ("fmi", "text")]
-    cases += [(f"repeats, {tag}", r_ktx[tag], r_reads, families)
-              for tag in ("fmi", "text")]
+    lat_ns, dram_ns = cs.latency(smi)
+    # phase 4g's DB builds beside the other kernels' comparisons
+    build = None if args.big_dir else cs.start_big_build(cs.BIG_LETTERS)
+    cases = []
+    if not args.only_big:
+        records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
+        reads = cs.make_reads(args.seed, records, cs.BATCH)
+        r_records, r_ktx, families = cs.make_repeats_db(args.seed)
+        r_reads = cs.make_reads(args.seed, r_records, cs.BATCH)
+        tree = cs.deep_tree(args.seed)
+        cases = [(tag, ktx[tag], reads, None) for tag in ("fmi", "text")]
+        cases += [(f"repeats, {tag}", r_ktx[tag], r_reads, families)
+                  for tag in ("fmi", "text")]
     bad = []
 
     def compare(name, where, a, kw, want):
@@ -290,6 +361,21 @@ def run(args) -> int:
                 compare(name, f"{where}, {SHARDS} shards", sa, skw, want)
         del inputs, sh
         torch.cuda.empty_cache()
+    from kaiju_tpu_torch.tools import big_classify
+
+    ix, db = big_index(args.big_dir, build)
+    where = f"big index, S = {ix.S}"
+    for suffix, (n, seed) in BIG.items():
+        rd = big_classify.make_reads(db, n, cs.BIG_LEN, seed=seed)[0]
+        checks = {k + suffix: v for k, v in cs.big_checks(
+            ix, rd, smi, dram_ns, f"{n:,} reads", plain=not suffix).items()}
+        cs.log_checks(checks, where)
+        bad += [(k, where, "plain", v[0]) for k, v in checks.items() if v[0]]
+        for name, (a, kw) in big_calls(ix, rd).items():
+            want = design_call(designs["this"], name + suffix, a, kw)[0]()
+            compare(name + suffix, where, a, kw, want)
+            del want
+        torch.cuda.empty_cache()
     if bad:
         cs.log(f"designs differ or launched the wrong kernels: {bad}")
         return 1
@@ -304,6 +390,11 @@ def main(argv=None) -> int:
                     f"checkout's {PKG}")
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)
+    ap.add_argument("--only-big", action="store_true",
+                    help="compare L and M alone")
+    ap.add_argument("--big-dir", default=None, help="the big index as "
+                    "tools.big_classify --out saved it, from its default "
+                    "seed (default: phase 4g's DB, built here)")
     args = ap.parse_args(argv)
     try:
         return run(args)

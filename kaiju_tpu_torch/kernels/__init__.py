@@ -93,8 +93,9 @@ _SIGNATURES = {
     # the big index (K17, csrc/big_mem.cu): rec_tab nb_s S C base alen |
     # codes R L | i s0 s1
     "big_extend_all": ("kt_big_extend_all", "piippi" "pii" "ppp" "p"),
-    # rec_tab nb_s S C base alen | seq_tab ns_s first e | kf n | ids
-    "big_sa_walk": ("kt_big_sa_walk", "piippi" "piqi" "pq" "p" "p"),
+    # rec_tab nb_s S C base alen | seq_tab ns_s first e | kf n | ids |
+    # scratch
+    "big_sa_walk": ("kt_big_sa_walk", "piippi" "piqi" "pq" "p" "p" "p"),
 }
 # The shard arguments that take the place of rec/nb1 (and of the SA samples
 # and the text) in a sharded entry point: rec_tab nb_s seq_tab off_tab ns_s

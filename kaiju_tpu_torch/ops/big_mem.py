@@ -148,8 +148,8 @@ def big_extend_all(ix, codes):
 def big_sa_walk(ix, kf):
     """The content-rank sequence id int64 [n] of each SA row kf int64 [n]
     (-1 where kf < 0): an LF walk to a sampled row or a terminator.
-    Kernel M (csrc/big_mem.cu) for CUDA tensors, the plain version for CPU
-    tensors."""
+    Kernel M (csrc/big_mem.cu: one walk for each run of equal kf) for
+    CUDA tensors, the plain version for CPU tensors."""
     if kf.device.type == "cpu":
         return big_sa_walk_plain(ix, kf)
     dev = kf.device
@@ -158,8 +158,11 @@ def big_sa_walk(ix, kf):
     ids = torch.empty(n, dtype=torch.int64, device=dev)
     args = _index_args(ix, dev)
     if n:
+        # the kernel's list of the runs of equal kf: two counters, then
+        # (kf, lane << 6 | run length) a run
+        scratch = torch.empty(2 + 2 * n, dtype=torch.int64, device=dev)
         kernels.launch("big_sa_walk", *args, ix.sa_seq.table, ix.ns_s,
-                       ix.first, ix.e, kf, n, ids)
+                       ix.first, ix.e, kf, n, ids, scratch)
     return ids
 
 

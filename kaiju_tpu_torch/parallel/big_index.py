@@ -77,11 +77,10 @@ def _draw_lengths(rng, letters):
     return rng.integers(150, 451, size=n)
 
 
-def build_db(fh, letters, threads, seed, allow_small):
-    """A synthetic protein DB of `letters` letters from `seed` (uniform
-    codes 1..alen-1, sequences of 150..450, taxa 100 + i mod 97) indexed
-    by the int64 threaded builder kt_build_bwt_big with e = 5; the demo's
-    dict of arrays."""
+def make_text(fh, letters, seed, allow_small):
+    """The text of build_db's DB, without its index: the dict of alen, N,
+    nseq, text, starts, ends, seq_len and taxids (what
+    tools.big_classify.make_reads reads)."""
     alen = len(MAKEDB_ALPHABET)
     rng = np.random.default_rng(seed)
     t0 = time.time()
@@ -99,12 +98,23 @@ def build_db(fh, letters, threads, seed, allow_small):
         j = min(N, i + chunk)
         text[i:j] = rng.integers(1, alen, size=j - i, dtype=np.uint8)
     text[ends - 1] = 0
-    tstart = np.zeros(nseq + 1, dtype=np.int64)
-    tstart[1:] = ends
     # taxid per INPUT sequence (bench-style star tree under root)
     taxids = (100 + np.arange(nseq, dtype=np.int64) % 97).astype(np.int32)
     log(fh, f"text ready: N={N} ({N/2**31:.2f} x 2^31) nseq={nseq} "
             f"{time.time()-t0:.0f}s RSS {peak_rss_gb():.1f}G")
+    return dict(alen=alen, N=N, nseq=nseq, text=text, starts=starts,
+                ends=ends, seq_len=seq_len, taxids=taxids)
+
+
+def build_db(fh, letters, threads, seed, allow_small):
+    """A synthetic protein DB of `letters` letters from `seed` (uniform
+    codes 1..alen-1, sequences of 150..450, taxa 100 + i mod 97) indexed
+    by the int64 threaded builder kt_build_bwt_big with e = 5; the demo's
+    dict of arrays."""
+    db = make_text(fh, letters, seed, allow_small)
+    alen, N, nseq, text = db["alen"], db["N"], db["nseq"], db["text"]
+    tstart = np.zeros(nseq + 1, dtype=np.int64)
+    tstart[1:] = db["ends"]
 
     e = 5
     first = ((nseq + (1 << e) - 1) >> e) << e
@@ -127,12 +137,9 @@ def build_db(fh, letters, threads, seed, allow_small):
     )
     assert rc == 0, f"kt_build_bwt_big rc={rc}"
     log(fh, f"BWT built in {time.time()-t0:.0f}s RSS {peak_rss_gb():.1f}G")
-    return dict(
-        alen=alen, N=N, nseq=nseq, e=e, first=first, text=text,
-        starts=starts, ends=ends, seq_len=seq_len, bwt=bwt,
-        content_rank=content_rank, sa_seq=sa_seq, sa_off=sa_off64,
-        taxids=taxids,
-    )
+    db.update(e=e, first=first, bwt=bwt, content_rank=content_rank,
+              sa_seq=sa_seq, sa_off=sa_off64)
+    return db
 
 
 def block_counts(blocks: np.ndarray, alen: int) -> np.ndarray:
@@ -258,6 +265,10 @@ class BigIndex:
         nb_s, ns_s, alen = self.nb_s, self.ns_s, self.alen
         if alen > 32:
             raise ValueError(f"alen {alen}: a record row holds 32 counts")
+        if self.N >= BLOCK * INT32_CAP:
+            raise ValueError(
+                f"N = {self.N:,} letters, 2^38 or more: the kernels number "
+                "the BWT blocks in int32")
         if nb_s * BLOCK >= INT32_CAP:
             raise ValueError(
                 f"a shard of {nb_s} blocks holds {nb_s * BLOCK:,} positions, "

@@ -290,6 +290,16 @@ def test_loader_refuses_a_shard_of_2_31_positions():
                              "cpu")
 
 
+def test_loader_refuses_an_index_of_2_38_letters():
+    """The kernels number the BWT blocks in int32: BigIndex refuses an
+    index of 2^38 letters or more, whatever its shards."""
+    meta = dict(N=1 << 38, nseq=1, alen=21, e=5, first=32, n_shards=1 << 9,
+                nb_s=1 << 22, ns_s=1)
+    with pytest.raises(ValueError, match="2\\^38"):
+        BigIndex.from_arrays(meta, [], [], None, None, None, None, None,
+                             "cpu")
+
+
 def test_oracle_walk_returns_the_content_rank(env):
     """The port's HostOracle.sa_id returns the LF result at a terminator,
     the content rank of the sequence (KaijuIndex.get_suffix's), where the

@@ -1,11 +1,13 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
-checkout beside the first, and kernels A's, B's, G's, C's, E's, D's, F's
-and H's calls (A in both forms and on a BatchRunner round, D and F on a
-flat and a deep taxonomy, H on tie rows and on a BatchRunner round)
-routed through that copy's wrappers (here their plain versions, as the
-CPU takes them), sharded index arrays rebuilt as the copy's class; a copy
-without A's letters form runs its stand-in.  The results must equal this
-copy's, bit for bit.  Imports neither jax nor kaiju_tpu."""
+checkout beside the first, and kernels A's, B's, G's, C's, E's, D's, F's,
+H's, L's and M's calls (A in both forms and on a BatchRunner round, D and
+F on a flat and a deep taxonomy, H on tie rows and on a BatchRunner
+round, L and M on a toy index of the big layout loaded as --big-dir
+loads one) routed through that copy's wrappers (here their plain
+versions, as the CPU takes them), sharded index arrays and big indexes
+rebuilt as the copy's classes; a copy without A's letters form runs its
+stand-in.  The results must equal this copy's, bit for bit.  Imports
+neither jax nor kaiju_tpu."""
 
 import importlib
 import os
@@ -13,6 +15,7 @@ import random
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,7 +27,10 @@ from kaiju_tpu_torch.ops import device_index as tdev
 from kaiju_tpu_torch.io.taxonomy import Taxonomy
 from kaiju_tpu_torch.ops import greedy, hybrid, search
 from kaiju_tpu_torch.ops.kmer import KmerTables
+from kaiju_tpu_torch.parallel.big_index import (BigIndex, build_db,
+                                                save_sharded_ktx)
 from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+from kaiju_tpu_torch.tools import big_classify
 from kaiju_tpu_torch.tools.readgen import DeepTaxonomy, make_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +42,7 @@ AA = "ACDEFGHIKLMNPQRSTVWY"
 
 
 @pytest.fixture(scope="module")
-def env():
+def env(tmp_path_factory):
     rng = random.Random(5)
     records = [(f"P{i}_{100 + i % 3}",
                 "".join(rng.choice(AA) for _ in range(rng.randint(30, 200))))
@@ -101,8 +107,20 @@ def env():
                        p1.repeat(ck.NLET)),
          "update_si (BatchRunner)": (dv.rec, dv.C, *probes[2:]),
          "mem_stats": (*lanes, frag_off, 11, 8)}
+    # L and M on a toy index of the big layout (K17), loaded as
+    # --big-dir loads one, on fewer reads of each of its shapes
+    bdb = build_db(None, 50_000, 2, 25, True)
+    bdir = tmp_path_factory.mktemp("big")
+    save_sharded_ktx(None, bdb, str(bdir), ck.BIG_SHARDS)
+    bix, text = ck.big_index(str(bdir), device="cpu", seed=25)
+    big = {}
+    for suffix, (_n, seed) in ck.BIG.items():
+        rd = big_classify.make_reads(text, 48, 64, seed=seed)[0]
+        want = big_classify.make_reads(bdb, 48, 64, seed=seed)[0]
+        assert np.array_equal(rd, want)  # the text made again
+        big.update({k + suffix: v for k, v in ck.big_calls(bix, rd).items()})
     return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails,
-            "g": g, "h": h, "a": a}
+            "g": g, "h": h, "a": a, "big": big}
 
 
 def _call(env, name):
@@ -117,6 +135,8 @@ def _call(env, name):
         return env["h"][name], {}
     if name in env["a"]:
         return env["a"][name], {}
+    if name in env["big"]:
+        return env["big"][name]
     return env["tails"][name], {"sw_ids": None}
 
 
@@ -186,6 +206,35 @@ def test_design_without_letters_form_runs_its_probes(env, shards):
     assert (want[0] < want[1]).any()  # live pairs compared
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_big_index_goes_to_a_design_as_its_class(env):
+    """A BigIndex reaches a design's wrappers as that design's BigIndex
+    over the same arrays, its shard tables as the design's Shards; the
+    design's L and M equal this checkout's on it."""
+    other = ck.import_checkout(REPO)
+    (ix, codes), _kw = env["big"]["big_extend_all"]
+    moved = ck.to_design((ix, codes), other)
+    assert isinstance(moved[0], other["parallel.big_index"].BigIndex)
+    assert not isinstance(moved[0], BigIndex)
+    assert moved[1] is codes
+    for arr in ("rec", "sa_seq"):
+        got, want = getattr(moved[0], arr), getattr(ix, arr)
+        assert isinstance(got, other["ops.device_index"].Shards)
+        assert got.parts == want.parts and got.per == want.per
+    assert moved[0].C is ix.C and moved[0].N == ix.N
+    got = other["ops.big_mem"].big_mem_step(moved[0], codes)
+    want = importlib.import_module(
+        "kaiju_tpu_torch.ops.big_mem").big_mem_step(ix, codes)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (want[3] >= 0).any()
+
+
+def test_big_dir_of_another_seed_is_refused(env, tmp_path):
+    db = build_db(None, 20_000, 2, 3, True)
+    save_sharded_ktx(None, db, str(tmp_path), 2)
+    with pytest.raises(ValueError, match="seed 4"):
+        ck.big_index(str(tmp_path), device="cpu", seed=4)
 
 
 def test_no_card_no_comparison(monkeypatch):

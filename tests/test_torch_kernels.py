@@ -817,6 +817,125 @@ def test_big_kernels_match_plain(big_dbs, cuda, tmp_path, name, S):
         big_mem.big_extend_all(gpu, codes.to(cuda).int())
 
 
+@pytest.fixture(scope="module")
+def big_ix(big_dbs, tmp_path_factory):
+    """{(db name, S): (the BigIndex on the card, on the CPU)}, loaded at
+    first use."""
+    from kaiju_tpu_torch.parallel.big_index import BigIndex, save_sharded_ktx
+
+    cache = {}
+
+    def get(name, S):
+        if (name, S) not in cache:
+            path = str(tmp_path_factory.mktemp(f"big_{name}_{S}"))
+            save_sharded_ktx(None, big_dbs[name], path, S)
+            cache[name, S] = tuple(BigIndex.load(path, d)
+                                   for d in ("cuda", "cpu"))
+        return cache[name, S]
+
+    return get
+
+
+BIG_CASES = [("padded", 1), ("padded", 2), ("padded", 3), ("full", 2)]
+
+
+@pytest.mark.parametrize("L", [1, 40, 64, 100])
+@pytest.mark.parametrize("name,S", BIG_CASES)
+def test_big_extend_all_edge_cases(big_dbs, big_ix, cuda, name, S, L):
+    """L on exact substrings of the DB (their lanes take up to L - 1
+    steps, and merge into their neighbours' once their match is unique),
+    the demo's reads and a read of only code 0, R x L not a multiple of
+    the block's lanes (L = 100: reads cut across blocks), equal to its
+    plain version; one launch a call."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import big_mem
+    from kaiju_tpu_torch.tools.big_classify import make_reads
+
+    db = big_dbs[name]
+    gpu, cpu = big_ix(name, S)
+    rng = np.random.default_rng(S * 100 + L)
+    starts = db["starts"][rng.integers(0, db["nseq"], size=40)]
+    exact = np.stack([db["text"][p:p + L] for p in starts])
+    reads = np.concatenate([exact, np.zeros((1, L), np.uint8),
+                            make_reads(db, 26, L, seed=S)[0]])
+    codes = torch.from_numpy(reads)
+    kernels.reset_counts()
+    got = big_mem.big_extend_all(gpu, codes.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_extend_all"] == 1
+    want = big_mem.big_extend_all_plain(cpu, codes)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    i = want[0][:40].long()
+    assert (i == 0).all()  # every exact lane reached its read's start
+    assert (want[0][40] == torch.arange(L)).all()  # the code-0 read
+    assert (want[1][40] == cpu.C[1]).all() and (want[2][40] == cpu.C[2]).all()
+
+
+def _lf(cpu, k):
+    """(BWT letter, LF result) of SA rows k int64 on the CPU index."""
+    from kaiju_tpu_torch.ops import big_mem
+
+    rows = cpu.rec[k >> 7]
+    c = rows[:, 32:].contiguous().view(torch.uint8).gather(
+        1, (k & 127)[:, None])[:, 0].long()
+    return c, big_mem.big_rank_plain(cpu, c, k)
+
+
+def _hand_kf(cpu, N):
+    """M's hand-laid kf arrays: {case: int64 [n]}."""
+    gen = torch.Generator().manual_seed(N)
+    k = torch.arange(N, dtype=torch.int64)
+    sampled = (k >= cpu.first) & (((k - cpu.first) & ((1 << cpu.e) - 1))
+                                  == 0)
+    c, lf = _lf(cpu, k)
+    term = k[(c == 0) & ~sampled]  # a terminator at once
+    lf_term = torch.isin(lf, term) & (c > 0) & ~sampled
+    before = k[lf_term]  # one step before a terminator
+    plain = k[~sampled & (c > 0)]
+    pick = plain[torch.randint(0, plain.numel(), (8,), generator=gen)]
+    runs = torch.cat([pick[:5],
+                      pick[1].repeat(31), pick[2].repeat(32),
+                      pick[3].repeat(33), pick[4].repeat(100),
+                      torch.tensor([-1]), pick[4].repeat(40),
+                      k[sampled][:3].repeat_interleave(20)])
+    many = torch.randint(0, N, (700_000,), generator=gen)
+    many[::7] = -1
+    return {"all -1": torch.full((100,), -1, dtype=torch.int64),
+            "all one row": pick[0].repeat(100),
+            "runs across warps": runs,
+            "sampled": k[sampled][:50],
+            "terminator": term[:50],
+            "one step before a terminator": before[:50],
+            "n = 1": pick[5:6], "n = 31": runs[3:34], "n = 33": runs[40:73],
+            "many heads": many}
+
+
+@pytest.mark.parametrize("name,S", BIG_CASES)
+def test_big_sa_walk_edge_cases(big_dbs, big_ix, cuda, name, S):
+    """M on hand-laid kf, each array equal to its plain version: all -1;
+    all one row; runs of 31, 32, 33 and 100 across warp boundaries and
+    a run cut by -1; rows already sampled; terminators at once and one
+    step before; n = 1, 31 and 33; 700,000 random rows (more heads than
+    the card's groups, taken in chunks); one launch a call."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import big_mem
+
+    gpu, cpu = big_ix(name, S)
+    for case, kf in _hand_kf(cpu, big_dbs[name]["N"]).items():
+        assert kf.numel(), case
+        kernels.reset_counts()
+        got = big_mem.big_sa_walk(gpu, kf.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["big_sa_walk"] == 1, case
+        want = big_mem.big_sa_walk_plain(cpu, kf)
+        assert torch.equal(got.cpu(), want), case
+        if case == "all -1":
+            assert (want == -1).all()
+        else:
+            assert (want >= 0).any(), case
+
+
 # ---------------------------------------------------------------------------
 # edge cases of B's block lists and E's shared-memory views and windows,
 # on hand-laid batches, on the flat index (S = 0) and in S shards
