@@ -21,23 +21,24 @@ Phases, any failure exits non-zero:
      the seed-table build's last depth for A (its letters form on the
      20^4 intervals of depth 4, its probe form on their 20^5 repeated
      probes, both with bytes and latency floors); the first 4,096-read
-     batch of the MEM path for B, C (and its floors), D (and G) and of
-     the Greedy path at -e 3 for B, E, F.  On the text index B screens
+     batch of the MEM path for B, C (and its floors), D (and G) and J
+     (its fragments as a 0-padded code matrix) and of the Greedy path at
+     -e 3 for B, E, F.  On the text index B screens
      its lanes, G finishes the narrow ones, E runs its last-level hybrid
      and D, F read virtual rows. Then the verbose paths' kernels: one
      batch of each -v pipeline on the card records the inputs of its
      first launch of H (the SA positions of the MEM batch's ties), K
      (B's lanes of the Greedy batch, Lmap 7, screened on the text index)
      and I (the first co-simulation round's variant lanes, also run in
-     the code-row form), and J gets the MEM batch's fragments as a
-     padded matrix.  Integer outputs equal; time both.  Then each kernel
+     the code-row form; its note counts the lanes that reach another
+     lane's state, lane_meetings).  Integer outputs equal; time both.  Then each kernel
      that reads the index (A in both forms, J, H, B, G, D, E, F)
      launched on the index in 2 and 4 shards (K16's sharded
      instantiations) on the same inputs must equal the unsharded kernel,
-     and on the text index its plain version on the shards (timed).  B
-     and E also print a second floor: the plain versions' longest chain
-     of dependent row reads times the card's L2 latency, which
-     csrc/chase.cu measures first.  D and F run twice on each index:
+     and on the text index its plain version on the shards (timed).
+     Every kernel also prints a second floor: the plain versions' longest
+     chain of dependent row reads (or loads) times the card's L2
+     latency, which csrc/chase.cu measures first.  D and F run twice on each index:
      with the flat tree of phase 4 and with every sequence mapped to a
      species of a taxonomy of NCBI's size and depth
      (readgen.DeepTaxonomy: 2.5 M nodes, species 20-40 levels deep,
@@ -49,7 +50,7 @@ Phases, any failure exits non-zero:
      unscreened without it on db.ktx; the Greedy batch), E (-e 3, with
      and without the hybrid), D and F (both trees; on the deep one each
      gene family's copies lie under one random clade, so that their LCAs
-     fall at mixed depths), A in both forms and C on a DB with repeats
+     fall at mixed depths), A in both forms, C and J on a DB with repeats
      (readgen.gen_realistic, bench.py's generator, 8 M letters, one
      batch of 4,096 of its reads), equal to their plain versions, timed.
      Then P1 and P2 through their benchmark, tools.bench_gather (250,000
@@ -829,6 +830,30 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, deep=None):
            f"({int(want[1].sum()):,} in all); with every lane's (s0, s1) "
            f"the bound is {every_lane:.4f} ms; "
            f"{floor_note(3, lat_ns, 'loads')}", call=(st, {}))
+    # J on the MEM batch's fragments as a 0-padded code matrix
+    fl = flen.to(torch.int32)
+    L = max(int(fl.max()), 1)
+    x = torch.arange(L, dtype=torch.int32, device=cuda)
+    valid = x < fl[:, None]
+    codes = torch.where(valid, flat[torch.clamp(
+        frag_off[:-1, None] + x, max=P - 1).long()], 0).to(torch.uint8)
+    j_args = (dv.rec, dv.C, codes.contiguous(), fl)
+    touched = []
+    want = device_index.extend_all_plain(*j_args, touched)
+    steps = int((x - want[0])[valid].sum())
+    tiles, mean_it, max_it, j_steps = j_tiles(*j_args)
+    # the lane's letter, its interval (C), then one row pair a step
+    report("extend_all", device_index.extend_all(*j_args), want,
+           lambda: device_index.extend_all(*j_args),
+           lambda: device_index.extend_all_plain(*j_args), touched,
+           F * L * (1 + 12) + 4 * F,
+           f"{F:,} fragments of the MEM batch as [{F:,}, {L}] codes, "
+           f"{P:,} valid lanes, {steps:,} steps; the kernel's tiles "
+           f"(j_tiles): {tiles:,} tiles of {mean_it:.2f} iterations "
+           f"(largest {max_it}), {j_steps:,} steps; "
+           f"{floor_note(row_rounds(touched, 2) + 2, lat_ns)}",
+           call=(j_args, {}))
+    del want, touched
     # H on the SA positions that the MEM -v path resolves first: each real
     # tie row's first max_match_ids + 6 (engine/mem_fast.py's chunk)
     chunk = cli_config("mem", True).max_match_ids + 6
@@ -915,15 +940,136 @@ def check_kernels(index, reads, ktx_dir, lat_ns: float, deep=None):
     return out, inputs
 
 
+def j_tiles(rec, C, codes, flen, lanes=64):
+    """Kernel J's tiles (csrc/extend_all.cu) stepped as its plain rank
+    steps them, all tiles at once: the valid lanes of the fragments packed
+    into tiles of `lanes`, whole fragments while they fit (the kernel's
+    cut, over all fragments rather than each block's), each lane merging
+    where it reaches the interval that the last unmerged lane to its left
+    had at the same position.  Returns (tiles, iterations a tile: mean,
+    largest; the steps taken)."""
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch.ops import device_index
+
+    F, L = codes.shape
+    fl = torch.clamp(flen.long(), 0, L).cpu().numpy()
+    first = np.concatenate([[0], np.cumsum(fl)])
+    cut, at, q = [], 0, 0  # the tiles' first lanes
+    while at < first[-1]:
+        while first[q + 1] <= at:
+            q += 1
+        e = q
+        while e < F and first[e + 1] - at <= lanes:
+            e += 1
+        cut.append(at)
+        at = first[e] if e > q else min(at + lanes, first[-1])
+    if not cut:
+        return 0, 0.0, 0, 0
+    dev = codes.device
+    lane = torch.arange(int(first[-1]), device=dev)
+    f = torch.from_numpy(np.repeat(np.arange(F), fl)).to(dev)
+    j = lane - torch.from_numpy(first[:-1]).to(dev)[f]
+    cut = torch.tensor(cut, device=dev)
+    tile = torch.searchsorted(cut, lane, right=True) - 1
+    slot = lane - cut[tile]
+    row = codes.reshape(-1).long()
+    base = f * L
+    c = row[base + j]
+    s0, s1, i = C[c].long(), C[c + 1].long(), j.clone()
+    n, nt = lane.shape[0], cut.shape[0]
+    t0 = torch.zeros((nt, lanes), dtype=torch.long, device=dev)
+    t1 = torch.zeros_like(t0)
+    who = torch.full_like(t0, -1)
+    t0[tile, slot], t1[tile, slot], who[tile, slot] = s0, s1, slot
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    stop = torch.zeros(n, dtype=torch.long, device=dev)
+    steps, k = 0, 0
+    while bool(active.any()):
+        go = torch.nonzero(active & (i > 0)).squeeze(1)
+        x = row[base[go] + i[go] - 1].int()
+        n0 = device_index.rank(rec, C, x, s0[go].int()).long()
+        n1 = device_index.rank(rec, C, x, s1[go].int()).long()
+        steps += go.numel()
+        ok = torch.zeros(n, dtype=torch.bool, device=dev)
+        ok[go] = n0 < n1
+        stop[active & ~ok] = k
+        active &= ok
+        g = go[(n0 < n1)]
+        s0[g], s1[g], i[g] = n0[n0 < n1], n1[n0 < n1], i[g] - 1
+        ps = slot[g] - (j[g] - i[g])
+        g, ps = g[ps >= 0], ps[ps >= 0]
+        tg = tile[g]
+        merged = ((who[tg, ps] >= 0) & (t0[tg, ps] == s0[g])
+                  & (t1[tg, ps] == s1[g]))
+        active[g[merged]] = False
+        stop[g[merged]] = k
+        w, pw = g[~merged], ps[~merged]
+        t0[tile[w], pw], t1[tile[w], pw] = s0[w], s1[w]
+        who[tile[w], pw] = slot[w]
+        k += 1
+    iters = torch.zeros(nt, dtype=torch.long, device=dev)
+    iters.scatter_reduce_(0, tile, stop + 1, reduce="amax")
+    return nt, float(iters.float().mean()), int(iters.max()), steps
+
+
+def lane_meetings(rec, C, flat, base, pos, sub, start_i, s0, s1, act):
+    """Kernel I's lanes stepped as its plain version steps them, round by
+    round: (the lanes that reach a state (base, i, s0, s1) that another
+    lane reached in an earlier round, or in the same round with a lower
+    index; the rounds they take after it; the launch's longest chain in
+    rounds if each of them stopped there).  Lanes in one state extend
+    alike from it, so this is what merging I's lanes, as J merges its
+    lanes, would save."""
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch.ops import device_index
+
+    i, a0, a1 = start_i.clone(), s0.clone(), s1.clone()
+    live = torch.nonzero(act & (i > 0)).squeeze(1)
+    states, rnd = [], 0  # (lane, round, base, i, s0, s1) at each round's top
+    while live.numel():
+        states.append(torch.stack([live, torch.full_like(live, rnd)] + [
+            t[live].long() for t in (base, i, a0, a1)], 1).cpu())
+        x = i[live] - 1
+        c = torch.where(x == pos[live], sub[live],
+                        flat[(base[live] + x).long()].to(torch.int32))
+        n0 = device_index.rank(rec, C, c, a0[live])
+        n1 = device_index.rank(rec, C, c, a1[live])
+        ok = n0 < n1
+        live = live[ok]
+        a0[live], a1[live], i[live] = n0[ok], n1[ok], x[ok]
+        live = live[i[live] > 0]
+        rnd += 1
+    if not states:
+        return 0, 0, 0
+    st = torch.cat(states).numpy()
+    st = st[np.lexsort((st[:, 0], st[:, 1], st[:, 5], st[:, 4], st[:, 3],
+                        st[:, 2]))]
+    later = np.zeros(st.shape[0], dtype=bool)
+    later[1:] = (st[1:, 2:] == st[:-1, 2:]).all(1)
+    n = start_i.shape[0]
+    rounds = np.zeros(n, dtype=np.int64)
+    np.maximum.at(rounds, st[:, 0], st[:, 1] + 1)
+    meet = np.full(n, np.iinfo(np.int64).max)
+    np.minimum.at(meet, st[later, 0], st[later, 1])
+    met = meet < rounds
+    return (int(met.sum()), int((rounds - meet)[met].sum()),
+            int(np.where(met, meet, rounds).max()))
+
+
 def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
-    """H, I, J and K against their plain versions on the inputs the -v
-    paths give them, on the index at ktx_dir: one batch through each -v
+    """H, I and K against their plain versions on the inputs the -v paths
+    give them, on the index at ktx_dir: one batch through each -v
     pipeline on the card records the first launch of H (MEM: the SA
     positions of the batch's ties), K (Greedy: B's lanes, Lmap 7) and I
-    (Greedy: the first co-simulation round's variant lanes); J takes the
-    MEM batch's fragments as a 0-padded code matrix.  I runs its code-row
-    form on the same lanes too (each lane's parent codes with its
-    substitution), which must agree.  Same tuple as check_kernels."""
+    (Greedy: the first co-simulation round's variant lanes).  I runs its
+    code-row form on the same lanes too (each lane's parent codes with
+    its substitution), which must agree.  Same tuples as check_kernels,
+    with I's and K's latency floors; I's note also counts its lanes'
+    meetings (lane_meetings)."""
     import numpy as np
     import torch
 
@@ -991,30 +1137,17 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
     if max_abs_err(rows, got):
         raise AssertionError("I: the code-row form differs from the flat form")
     steps = int((start - got[0])[act].sum())
+    meet, saved, longest = lane_meetings(*i_args)
+    # the lane, its first letter, then one row pair a step
     report("extend_from", got, want, lambda: device_index.extend_from(*i_args),
            lambda: device_index.extend_from_plain(*i_args), touched,
            n * (25 + 12) + steps + n,
            f"{n:,} variant lanes of the first Greedy -v round, {steps:,} "
-           "steps; the code-row form agrees")
-
-    # J on the MEM batch's fragments
-    enc = [mem_pipe._encode(f) for f in mem_pipe._frags]
-    F, L = len(enc), max(len(e) for e in enc)
-    codes = np.zeros((F, L), dtype=np.uint8)
-    for t, e in enumerate(enc):
-        codes[t, : len(e)] = e
-    flen = np.asarray([len(e) for e in enc], dtype=np.int32)
-    j_args = (mem_pipe.dev.rec, mem_pipe.dev.C,
-              torch.from_numpy(codes).to(rec.device),
-              torch.from_numpy(flen).to(rec.device))
-    touched = []
-    want = device_index.extend_all_plain(*j_args, touched)
-    report("extend_all", device_index.extend_all(*j_args), want,
-           lambda: device_index.extend_all(*j_args),
-           lambda: device_index.extend_all_plain(*j_args), touched,
-           F * L * (1 + 12) + 4 * F,
-           f"{F:,} fragments of the MEM -v batch as [{F:,}, {L}] codes",
-           call=(j_args, {}))
+           f"steps; the code-row form agrees; {meet:,} lanes meet an "
+           f"earlier lane's (base, i, s0, s1), {saved:,} rounds after it, "
+           f"the longest chain {longest} rounds with them stopped there; "
+           f"{floor_note(row_rounds(touched, 2) + 2, lat_ns)}",
+           call=(i_args, {}))
 
     # K on B's lanes of the Greedy batch: i of every lane, s0 and s1 of
     # each lane that makes a row, and the rows
@@ -1035,7 +1168,9 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
            lambda: search.greedy_map_plain(*k_args), [],
            4 * P + 4 * (F + 1) + (8 + 20) * nr + 4,
            f"{P:,} lanes of {F:,} fragments of the Greedy -v batch, "
-           f"Lmap {k_args[4]}, {nr:,} rows (compared as sorted sets)")
+           f"Lmap {k_args[4]}, {nr:,} rows (compared as sorted sets); the "
+           "fragment's start, its lanes' i, the rows' reservation: "
+           f"{floor_note(3, lat_ns, 'loads')}")
     del mem_pipe
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1576,7 +1711,8 @@ def x_kernel_checks(first, name, lat_ns: float):
             dvi.extend_all(*a), want, lambda: dvi.extend_all(*a),
             lambda: dvi.extend_all_plain(*a), touched,
             F * L * (1 + 12) + 4 * F,
-            f"{name}: the warm-up's first length group, [{F:,}, {L}] codes")
+            f"{name}: the warm-up's first length group, [{F:,}, {L}] codes; "
+            f"{floor_note(row_rounds(touched, 2) + 2, lat_ns)}")
     if "extend_rows" in first:
         a = first["extend_rows"]
         N, L = a[2].shape
@@ -1588,7 +1724,8 @@ def x_kernel_checks(first, name, lat_ns: float):
             got, want, lambda: dvi.extend_rows(*a), lambda: rows_plain(*a),
             touched, N * (13 + 12) + steps + N,
             f"{name}: the first round's {N:,} ExtendFrom lanes as [{N:,}, "
-            f"{L}] code rows, {steps:,} steps")
+            f"{L}] code rows, {steps:,} steps; "
+            f"{floor_note(row_rounds(touched, 2) + 2, lat_ns)}")
     if "update_si" in first:
         a = first["update_si"]
         n = a[2].shape[0]
@@ -2334,7 +2471,7 @@ def run_heads(kf):
     return int(((kf >= 0) & ((lane % 32 == 0) | (kf != prev))).sum())
 
 
-def chain(touched, per_round=1) -> int:
+def row_rounds(touched, per_round=1) -> int:
     """The rounds of a plain version's longest chain of dependent row
     reads: the rounds that read rows, from its list of row indices
     (per_round lists a round: 2 for L's rank pair)."""
@@ -2359,7 +2496,7 @@ def big_checks(ix, reads, smi, dram_ns, tag, plain=True):
     got = big_mem.big_extend_all(ix, codes)
     touched = []
     want = big_mem.big_extend_all_plain(ix, codes, touched)
-    steps = chain(touched, 2)
+    steps = row_rounds(touched, 2)
     out = {"big_extend_all": measure(
         got, want, lambda: big_mem.big_extend_all(ix, codes),
         plain and (lambda: big_mem.big_extend_all_plain(ix, codes)), touched,
@@ -2373,7 +2510,7 @@ def big_checks(ix, reads, smi, dram_ns, tag, plain=True):
     want_ids = big_mem.big_sa_walk_plain(ix, kf, touched, slots)
     walked = int((kf >= 0).sum())
     heads = run_heads(kf)
-    longest = chain(touched)
+    longest = row_rounds(touched)
     n_slots = int(torch.unique(torch.cat(slots)).numel()) if slots else 0
     out["big_sa_walk"] = measure(
         ids, want_ids, lambda: big_mem.big_sa_walk(ix, kf),
@@ -2540,8 +2677,9 @@ def check_repeats(seed: int, lat_ns: float) -> dict:
     of its reads: A in both forms at the seed-table build's last depth, B
     on the MEM batch (screened, the hybrid's narrow lanes stopping, on the
     text index; unscreened and not stopping on db.ktx), G on the text
-    index's stopped lanes (intervals of 1 to 8 occurrences), C, H on the
-    tie rows' SA positions, B on the Greedy batch,
+    index's stopped lanes (intervals of 1 to 8 occurrences), C, J on the
+    MEM batch's fragments, H on the tie rows' SA positions, B on the
+    Greedy batch,
     E at -e 3 (its last level's hybrid on the text index, none on
     db.ktx), and D and F on the flat and the deep tree (each gene family
     under one clade), against their plain versions.  Returns {index tag:
@@ -2663,14 +2801,14 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
-    # A, B, G, C, E, D, F and H on the DB with repeats; their errors, D's
-    # and F's on the deep tree and H's on the tie rows join the line's
+    # A, B, G, C, J, E, D, F and H on the DB with repeats; their errors,
+    # D's and F's on the deep tree and H's on the tie rows join the line's
     repeats = check_repeats(args.seed, lat_ns)
     for tag, rc in repeats.items():
         checks["repeats " + tag] = rc
     for name in ("update_si", "update_si_letters", "mem_extend",
-                 "text_extend", "mem_stats", "greedy_search", "read_lca",
-                 "ranges_lca", "sa_lookup"):
+                 "text_extend", "mem_stats", "extend_all", "greedy_search",
+                 "read_lca", "ranges_lca", "sa_lookup"):
         fold_errors(checks["text"], name, checks["fmi"], *repeats.values())
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Kernels A (update_si, update_si_letters), B (mem_extend), G
-(text_extend), C (mem_stats), E (greedy_search), D (read_lca), F
-(ranges_lca), H (sa_lookup), L (big_extend_all) and M (big_sa_walk) of
-this checkout against the same kernels of other checkouts of the port,
-on one NVIDIA GPU.
+(text_extend), C (mem_stats), J (extend_all), I (extend_from), E
+(greedy_search), D (read_lca), F (ranges_lca), H (sa_lookup), L
+(big_extend_all) and M (big_sa_walk) of this checkout against the same
+kernels of other checkouts of the port, on one NVIDIA GPU.
 
     python3 compare_kernels.py OTHER [OTHER ...] [--seed 20240817]
-        [--db-letters N] [--only-big] [--big-dir DIR]
+        [--db-letters N] [--only-big | --no-big] [--big-dir DIR]
 
 OTHER is a directory that holds another checkout's kaiju_tpu_torch, for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -14,9 +14,11 @@ that .gitignore lists, or a copy of this checkout with a kernel's source
 changed; each design is named by its directory.  Its wrappers
 ``ops.device_index.update_si``, ``ops.search.mem_extend``,
 ``ops.hybrid.text_extend``, ``ops.search.mem_stats``,
-``ops.greedy.greedy_search``, ``ops.classify.read_lca``,
-``ops.classify.ranges_lca``, ``ops.device_index.sa_lookup``,
-``ops.big_mem.big_extend_all`` and ``ops.big_mem.big_sa_walk`` must take
+``ops.device_index.extend_all``, ``ops.device_index.extend_from``,
+``ops.device_index.extend_rows``, ``ops.greedy.greedy_search``,
+``ops.classify.read_lca``, ``ops.classify.ranges_lca``,
+``ops.device_index.sa_lookup``, ``ops.big_mem.big_extend_all`` and
+``ops.big_mem.big_sa_walk`` must take
 the arguments this checkout's take; a design without
 ``ops.device_index.update_si_letters`` (A's seed-table form) runs its
 update_si on the 20 repeated probes of each interval instead, made
@@ -34,7 +36,13 @@ form on the same depth's repeated probes and, on db.ktx alone, on the
 first Probes round of a BatchRunner (kaijux, Greedy, phase 4d's),
 B on the MEM and the Greedy batch, G on the text indexes' stopped MEM
 lanes, C on the MEM batch's lanes (not in shards: C reads no index, and
-the sharded path gives it the same lanes), E at -e 3, D and F on the
+the sharded path gives it the same lanes), J on the MEM batch's
+fragments as a 0-padded code matrix and, on db.ktx alone, on the first
+ExtendAll launch of a BatchRunner (kaijux -a mem, phase 4d's,
+unsharded), I (no sharded form) on the 64 Maa indexes' first Greedy -v
+co-simulation round's variant lanes and, on db.ktx alone, in its
+code-row form (extend_rows) on the first ExtendFrom round of a
+BatchRunner (kaijux, Greedy, phase 4d's), E at -e 3, D and F on the
 flat tree and on the taxonomy of NCBI depth, H on the SA positions of the MEM batch's tie rows and, on the
 64 Maa indexes, of the MEM -v batch's first round (phase 3's -v check)
 and, on db.ktx alone, of the first SaLookup round of a BatchRunner
@@ -42,7 +50,7 @@ and, on db.ktx alone, of the first SaLookup round of a BatchRunner
 2^31 letters at S = 2 (built here beside the rest, on every host thread,
 ~380 s on 8; or --big-dir), L on the demo's 1,024 reads of 64 and on
 the steady step's 65,536 and M on the kf of each (--only-big: L and M
-alone): this checkout's kernels against
+alone; --no-big: all but L and M): this checkout's kernels against
 their plain versions (phase 3's and 4g's checks, with the floors), each
 design's outputs against this checkout's kernel (they must be equal, and
 each design's launches must be counted by its own package; a big index
@@ -69,9 +77,9 @@ PKG = "kaiju_tpu_torch"
 MODULES = ("kernels", "ops.search", "ops.hybrid", "ops.greedy",
            "ops.classify", "ops.device_index", "ops.big_mem",
            "parallel.big_index")
-# phase 3's calls of A, B, G, C, E, D, F and H, by their name in
-# chip_smoke.check_kernels (H's -v call: check_verbose_kernels), and A's
-# and H's BatchRunner rounds
+# phase 3's calls of A, B, G, C, J, I, E, D, F and H, by their name in
+# chip_smoke.check_kernels (H's and I's -v calls: check_verbose_kernels),
+# and A's, J's, I's and H's BatchRunner rounds
 COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
             "update_si": ("ops.device_index", "update_si"),
             "update_si (BatchRunner)": ("ops.device_index", "update_si"),
@@ -79,6 +87,10 @@ COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
             "mem_extend (Greedy batch)": ("ops.search", "mem_extend"),
             "text_extend": ("ops.hybrid", "text_extend"),
             "mem_stats": ("ops.search", "mem_stats"),
+            "extend_all": ("ops.device_index", "extend_all"),
+            "extend_all (BatchRunner)": ("ops.device_index", "extend_all"),
+            "extend_from": ("ops.device_index", "extend_from"),
+            "extend_rows (BatchRunner)": ("ops.device_index", "extend_rows"),
             "greedy_search": ("ops.greedy", "greedy_search"),
             "read_lca": ("ops.classify", "read_lca"),
             "read_lca (deep tree)": ("ops.classify", "read_lca"),
@@ -98,9 +110,12 @@ BIG = {"": (1_024, 7), " (steady)": (65_536, 8)}
 BIG_SHARDS = 2
 # the calls not repeated on the index in shards: their paths never run
 # sharded (Greedy's B is timed on the MEM batch; kaijux refuses
-# --mesh-index), or they read no index (C)
+# --mesh-index; I has no sharded form), or they read no index (C)
 UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)",
-             "update_si (BatchRunner)", "mem_stats")
+             "update_si (BatchRunner)", "extend_all (BatchRunner)",
+             "extend_from", "extend_rows (BatchRunner)", "mem_stats")
+# the kernel a wrapper launches, where its name differs
+LAUNCHED = {"extend_rows": "extend_from"}
 SHARDS = 4  # phase 4e's widest split
 NLET = 20  # letters of the seed tables: A's letters form's rows
 
@@ -188,14 +203,16 @@ def design_call(mods: dict, name: str, args, kw):
         call, shaped = letters_stand_in(mods, a)
         return call, "update_si" + suffix, shaped
     wrapper = getattr(mods[mod], fn)
-    return (lambda: wrapper(*a, **k)), fn + suffix, (lambda out: out)
+    return ((lambda: wrapper(*a, **k)), LAUNCHED.get(fn, fn) + suffix,
+            (lambda out: out))
 
 
 def runner_round(index, reads, device=None, wrapper="sa_lookup",
                  run="kaijux mem"):
     """The arguments of BatchRunner's first launch through `wrapper`
     (engine.batch's sa_lookup: kernel H's SaLookup round; update_si: A's
-    Probes round) on a batch of reads, as the tool of chip_smoke's
+    Probes round; extend_all: J's first length group; extend_rows: I's
+    ExtendFrom round) on a batch of reads, as the tool of chip_smoke's
     X_RUNS[run] classifies them (phase 4d); device as for BatchRunner."""
     import chip_smoke as cs
     from kaiju_tpu_torch.engine import batch
@@ -291,7 +308,8 @@ def run(args) -> int:
     cs.log(smi)
     lat_ns, dram_ns = cs.latency(smi)
     # phase 4g's DB builds beside the other kernels' comparisons
-    build = None if args.big_dir else cs.start_big_build(cs.BIG_LETTERS)
+    build = (None if args.big_dir or args.no_big
+             else cs.start_big_build(cs.BIG_LETTERS))
     cases = []
     if not args.only_big:
         records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
@@ -330,12 +348,13 @@ def run(args) -> int:
         checks, inputs = cs.check_kernels(
             index, rd, path, lat_ns,
             deep=(cs.deep_seq_tax(tree, index, args.seed, fam), tree))
-        if where in ("fmi", "text"):  # H on the -v path's positions
+        if where in ("fmi", "text"):  # H and I on the -v path's inputs
             v_checks, v_inputs = cs.check_verbose_kernels(
                 index, nodes, rd, path, lat_ns)
-            checks["sa_lookup"] = v_checks["sa_lookup"]
-            inputs["sa_lookup"] = v_inputs["sa_lookup"]
-        if where == "fmi":  # H and A on a BatchRunner round
+            for name in ("sa_lookup", "extend_from"):
+                checks[name] = v_checks[name]
+                inputs[name] = v_inputs[name]
+        if where == "fmi":  # H, A, J and I on a BatchRunner round
             h = runner_round(index, rd[:cs.BATCH])
             inputs["sa_lookup (BatchRunner)"] = (None, h, {}, None, None)
             checks["sa_lookup (BatchRunner)"] = cs.check_sa_lookup(
@@ -346,6 +365,15 @@ def run(args) -> int:
             inputs["update_si (BatchRunner)"] = (None, u, {}, None, None)
             checks["update_si (BatchRunner)"] = cs.x_kernel_checks(
                 {"update_si": u}, "kaijux greedy", lat_ns)["update_si"]
+            j = runner_round(index, rd[:cs.BATCH], wrapper="extend_all")
+            inputs["extend_all (BatchRunner)"] = (None, j, {}, None, None)
+            checks["extend_all (BatchRunner)"] = cs.x_kernel_checks(
+                {"extend_all": j}, "kaijux mem", lat_ns)["extend_all"]
+            r = runner_round(index, rd[:cs.BATCH], wrapper="extend_rows",
+                             run="kaijux greedy")
+            inputs["extend_rows (BatchRunner)"] = (None, r, {}, None, None)
+            checks["extend_rows (BatchRunner)"] = cs.x_kernel_checks(
+                {"extend_rows": r}, "kaijux greedy", lat_ns)["extend_from"]
         cs.log_checks(checks, where)
         bad += [(n, where, "plain", v[0]) for n, v in checks.items() if v[0]]
         sh = (ShardedIndex(index, SHARDS, torch.device("cuda"))
@@ -363,19 +391,23 @@ def run(args) -> int:
         torch.cuda.empty_cache()
     from kaiju_tpu_torch.tools import big_classify
 
-    ix, db = big_index(args.big_dir, build)
-    where = f"big index, S = {ix.S}"
-    for suffix, (n, seed) in BIG.items():
-        rd = big_classify.make_reads(db, n, cs.BIG_LEN, seed=seed)[0]
-        checks = {k + suffix: v for k, v in cs.big_checks(
-            ix, rd, smi, dram_ns, f"{n:,} reads", plain=not suffix).items()}
-        cs.log_checks(checks, where)
-        bad += [(k, where, "plain", v[0]) for k, v in checks.items() if v[0]]
-        for name, (a, kw) in big_calls(ix, rd).items():
-            want = design_call(designs["this"], name + suffix, a, kw)[0]()
-            compare(name + suffix, where, a, kw, want)
-            del want
-        torch.cuda.empty_cache()
+    if not args.no_big:
+        ix, db = big_index(args.big_dir, build)
+        where = f"big index, S = {ix.S}"
+        for suffix, (n, seed) in BIG.items():
+            rd = big_classify.make_reads(db, n, cs.BIG_LEN, seed=seed)[0]
+            checks = {k + suffix: v for k, v in cs.big_checks(
+                ix, rd, smi, dram_ns, f"{n:,} reads",
+                plain=not suffix).items()}
+            cs.log_checks(checks, where)
+            bad += [(k, where, "plain", v[0]) for k, v in checks.items()
+                    if v[0]]
+            for name, (a, kw) in big_calls(ix, rd).items():
+                want = design_call(designs["this"], name + suffix, a,
+                                   kw)[0]()
+                compare(name + suffix, where, a, kw, want)
+                del want
+            torch.cuda.empty_cache()
     if bad:
         cs.log(f"designs differ or launched the wrong kernels: {bad}")
         return 1
@@ -390,8 +422,11 @@ def main(argv=None) -> int:
                     f"checkout's {PKG}")
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)
-    ap.add_argument("--only-big", action="store_true",
-                    help="compare L and M alone")
+    big = ap.add_mutually_exclusive_group()
+    big.add_argument("--only-big", action="store_true",
+                     help="compare L and M alone")
+    big.add_argument("--no-big", action="store_true",
+                     help="compare all but L and M")
     ap.add_argument("--big-dir", default=None, help="the big index as "
                     "tools.big_classify --out saved it, from its default "
                     "seed (default: phase 4g's DB, built here)")

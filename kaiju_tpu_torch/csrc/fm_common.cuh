@@ -92,29 +92,6 @@ __device__ __forceinline__ int bwt_byte(const int* row, int off) {
     return (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
 }
 
-// FMindex(c, k) = C[c] + #c in bwt[0, k): the reference's rank with the
-// count excluding k (compactfmi.c:4-19).  One record row: the occ word
-// of c, then a packed-byte compare over the first k & 127 bytes with
-// 16-byte loads.
-template <class Ix>
-__device__ __forceinline__ int rank(const Ix& ix, const int* __restrict__ C,
-                                    int c, int k) {
-    const int* row = ix.row(k >> 7);
-    const int off = k & 127;
-    const unsigned pat = 0x01010101u * (unsigned)c;
-    const uint4* w4 = reinterpret_cast<const uint4*>(row + 32);
-    int cnt = 0;
-    for (int q = 0; q * 16 < off; ++q) {
-        const uint4 v = __ldg(w4 + q);
-        const int b = off - q * 16;  // bytes of this 16-byte group to count
-        cnt += count_eq_bytes(v.x, pat, b);
-        cnt += count_eq_bytes(v.y, pat, b - 4);
-        cnt += count_eq_bytes(v.z, pat, b - 8);
-        cnt += count_eq_bytes(v.w, pat, b - 12);
-    }
-    return __ldg(C + c) + __ldg(row + c) + cnt;
-}
-
 // Bytes equal to the byte in every lane of pat among the first nbytes
 // (any int: <= 0 counts none, >= 16 all) of a 16-byte group.
 __device__ __forceinline__ int count_eq16(const uint4& v, unsigned pat,
@@ -127,9 +104,9 @@ __device__ __forceinline__ int count_eq16(const uint4& v, unsigned pat,
 
 // The bytes equal to c among the first o0 (*a) and the first o1 (*b) BWT
 // bytes of a record row, its 16-byte loads issued four at a time before
-// they are counted: at most two memory latencies, where rank()'s loop may
-// wait for each of its loads in turn, and 16 registers of loads in
-// flight.
+// they are counted: at most two memory latencies, where a loop that
+// counts each load as it comes may wait for each in turn, and 16
+// registers of loads in flight.
 __device__ __forceinline__ void count_row(const int* row, int c, int o0,
                                           int o1, int* a, int* b) {
     const unsigned pat = 0x01010101u * (unsigned)c;
@@ -152,7 +129,10 @@ __device__ __forceinline__ void count_row(const int* row, int c, int o0,
     *b = y;
 }
 
-// rank() through count_row's loads.
+// FMindex(c, k) = C[c] + #c in bwt[0, k): the reference's rank with the
+// count excluding k (compactfmi.c:4-19), by one thread from one record
+// row: the occ word of c, then count_row's loads over the first k & 127
+// BWT bytes.
 template <class Ix>
 __device__ __forceinline__ int rank1(const Ix& ix, const int* __restrict__ C,
                                      int c, int k) {
@@ -163,7 +143,7 @@ __device__ __forceinline__ int rank1(const Ix& ix, const int* __restrict__ C,
 }
 
 // The rank pair of one FM step, *n0 = FMindex(c, k0) and *n1 =
-// FMindex(c, k1), as rank() gives each (fused_greedy.py:_paired_rank2),
+// FMindex(c, k1), as rank1() gives each (fused_greedy.py:_paired_rank2),
 // computed by a group of G threads (1, 2, 4 or 8; gl: the thread's place
 // in it, gmask: the group's lanes), every thread of which gets both.
 // Thread gl loads the row's 16-byte groups gl, gl + G, ..., so a group of
@@ -216,6 +196,56 @@ __device__ __forceinline__ void rank2(const Ix& ix,
         const int cc = __ldg(C + c);
         a += cc + __ldg(r0 + c);
         b += cc + __ldg(r1 + c);
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(gmask, a, o, G);
+        b += __shfl_xor_sync(gmask, b, o, G);
+    }
+    *n0 = a;
+    *n1 = b;
+}
+
+// rank2's pair for the kernels whose groups step together (I, J; the
+// int32 kt::rank2_64): on = false, a group with no step to take loads no
+// row and gets 0, 0, but takes part in the group's shuffles, and every
+// load of a step (the BWT bytes, the occ words, C[c]) is issued before any
+// is counted, selected rather than branched around, so that a warp waits
+// for one memory latency a step whichever rows its groups read (G = 2, 4
+// or 8).  B, E and A keep rank2: B ran 3-8 % slower on this form's loads
+// (PERF.md, section 6).
+template <int G, class Ix>
+__device__ __forceinline__ void rank2_on(const Ix& ix,
+                                         const int* __restrict__ C, bool on,
+                                         int c, int k0, int k1, int gl,
+                                         unsigned gmask, int* n0, int* n1) {
+    static_assert(G >= 2 && G <= 8, "a group of 2, 4 or 8 threads");
+    if (!on) c = 0, k0 = k1 = 0;
+    const bool one = k0 >> 7 == k1 >> 7;
+    const int* r0 = ix.row(k0 >> 7);
+    const int* r1 = one ? r0 : ix.row(k1 >> 7);
+    const int o0 = k0 & 127, o1 = k1 & 127;
+    const int h0 = one ? max(o0, o1) : o0;  // the bytes of r0 to load
+    const unsigned pat = 0x01010101u * (unsigned)c;
+    const uint4* w0 = reinterpret_cast<const uint4*>(r0 + 32);
+    const uint4* w1 = reinterpret_cast<const uint4*>(r1 + 32);
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    uint4 v0[8 / G], v1[8 / G];
+#pragma unroll
+    for (int t = 0; t < 8 / G; ++t) {
+        const int q = gl + t * G;
+        v0[t] = q * 16 < h0 ? __ldg(w0 + q) : zero;
+        v1[t] = !one && q * 16 < o1 ? __ldg(w1 + q) : zero;
+    }
+    const bool head = on && gl == 0;  // C[c] and the occ words
+    const int cc = head ? __ldg(C + c) : 0;
+    int a = head ? cc + __ldg(r0 + c) : 0;
+    int b = head ? cc + __ldg(r1 + c) : 0;
+#pragma unroll
+    for (int t = 0; t < 8 / G; ++t) {
+        const int q = gl + t * G;
+        a += count_eq16(v0[t], pat, o0 - 16 * q);
+        b += count_eq16(one ? v0[t] : v1[t], pat, o1 - 16 * q);
     }
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1) {

@@ -1,13 +1,18 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
-checkout beside the first, and kernels A's, B's, G's, C's, E's, D's, F's,
-H's, L's and M's calls (A in both forms and on a BatchRunner round, D and
-F on a flat and a deep taxonomy, H on tie rows and on a BatchRunner
-round, L and M on a toy index of the big layout loaded as --big-dir
-loads one) routed through that copy's wrappers (here their plain
-versions, as the CPU takes them), sharded index arrays and big indexes
-rebuilt as the copy's classes; a copy without A's letters form runs its
-stand-in.  The results must equal this copy's, bit for bit.  Imports
-neither jax nor kaiju_tpu."""
+checkout beside the first, and kernels A's, B's, G's, C's, J's, I's,
+E's, D's, F's, H's, L's and M's calls (A in both forms and on a
+BatchRunner round, J on a padded code matrix and on a BatchRunner's
+first length group, I on lanes with substitutions and in its code-row
+form on a BatchRunner's ExtendFrom round, D and F on a flat and a deep
+taxonomy, H on tie rows and on a BatchRunner round, L and M on a toy
+index of the big layout loaded as --big-dir loads one) routed through
+that copy's wrappers (here their plain versions, as the CPU takes them),
+sharded index arrays and big indexes rebuilt as the copy's classes; a
+copy without A's letters form runs its stand-in.  The shards = 2 cases
+shard the index only for a kernel with a sharded form (a
+``<kernel>_sharded`` entry point): I has none, so its cases run
+unsharded at both values.  The results must equal this copy's, bit for
+bit.  Imports neither jax nor kaiju_tpu."""
 
 import importlib
 import os
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from kaiju_tpu_torch import kernels
 from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
 from kaiju_tpu_torch.engine.pipeline import _bucket
 from kaiju_tpu_torch.index import py_builder
@@ -107,6 +113,34 @@ def env(tmp_path_factory):
                        p1.repeat(ck.NLET)),
          "update_si (BatchRunner)": (dv.rec, dv.C, *probes[2:]),
          "mem_stats": (*lanes, frag_off, 11, 8)}
+    # J on the fragments as a 0-padded code matrix and on a BatchRunner's
+    # first length group; I on lanes resumed inside the fragments, a
+    # substitution below i in half of them, and in its code-row form on a
+    # BatchRunner's ExtendFrom round
+    off = frag_off.numpy()
+    flen = np.diff(off).astype(np.int32)
+    codes = np.zeros((flen.shape[0], int(flen.max())), dtype=np.uint8)
+    for t in range(flen.shape[0]):
+        codes[t, :flen[t]] = flat.numpy()[off[t]:off[t + 1]]
+    lrng = np.random.default_rng(7)
+    f = np.flatnonzero(flen > 1)[lrng.integers(0, int((flen > 1).sum()),
+                                                 300)]
+    j = 1 + (lrng.random(f.shape[0]) * (flen[f] - 1)).astype(np.int64)
+    c = flat.numpy()[off[f] + j].astype(np.int64)
+    pos = np.where(lrng.random(f.shape[0]) < 0.5, -1,
+                   (lrng.random(f.shape[0]) * j).astype(np.int64))
+    cols = (off[f], pos, lrng.integers(1, 21, f.shape[0]), j,
+            dv.C.numpy()[c], dv.C.numpy()[c + 1])
+    ij = {"extend_all": (dv.rec, dv.C, torch.from_numpy(codes),
+                         torch.from_numpy(flen)),
+          "extend_all (BatchRunner)": ck.runner_round(
+              idx, reads, device="cpu", wrapper="extend_all"),
+          "extend_from": (dv.rec, dv.C, flat, *(
+              torch.from_numpy(np.asarray(a, np.int32)) for a in cols),
+              torch.from_numpy(lrng.random(f.shape[0]) < 0.9)),
+          "extend_rows (BatchRunner)": ck.runner_round(
+              idx, reads, device="cpu", wrapper="extend_rows",
+              run="kaijux greedy")}
     # L and M on a toy index of the big layout (K17), loaded as
     # --big-dir loads one, on fewer reads of each of its shapes
     bdb = build_db(None, 50_000, 2, 25, True)
@@ -120,7 +154,7 @@ def env(tmp_path_factory):
         assert np.array_equal(rd, want)  # the text made again
         big.update({k + suffix: v for k, v in ck.big_calls(bix, rd).items()})
     return {"idx": idx, "dv": dv, "ext": ext, "ge": ge, "tails": tails,
-            "g": g, "h": h, "a": a, "big": big}
+            "g": g, "h": h, "a": a, "ij": ij, "big": big}
 
 
 def _call(env, name):
@@ -135,6 +169,8 @@ def _call(env, name):
         return env["h"][name], {}
     if name in env["a"]:
         return env["a"][name], {}
+    if name in env["ij"]:
+        return env["ij"][name], {}
     if name in env["big"]:
         return env["big"][name]
     return env["tails"][name], {"sw_ids": None}
@@ -159,7 +195,10 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     assert other["ops.device_index"].kernels is other["kernels"]
     a, kw = _call(env, name)
     want = ck.design_call(this, name, a, kw)[0]()
-    holds = any(x is env["dv"].rec for x in a)  # C reads no index
+    kernel = ck.LAUNCHED.get(ck.COMPARED[name][1], ck.COMPARED[name][1])
+    # C reads no index; I has no sharded form
+    holds = (any(x is env["dv"].rec for x in a)
+             and kernel + "_sharded" in kernels.LAUNCHES)
     if shards and holds:
         sh = ShardedIndex(env["idx"], shards, "cpu")
         a, kw = chip_smoke.shard_call(sh, env["dv"], a, kw)
@@ -171,8 +210,7 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
         assert moved.parts == rec.parts and moved.per == rec.per
         assert moved.shape == rec.shape
     call, kname, shaped = ck.design_call(other, name, a, kw)
-    assert kname == ck.COMPARED[name][1] + ("_sharded" if shards and holds
-                                            else "")
+    assert kname == kernel + ("_sharded" if shards and holds else "")
     got = shaped(call())
     if isinstance(want, torch.Tensor):  # D's rows
         got, want = (got,), (want,)

@@ -477,6 +477,153 @@ def test_extend_all_kernel_matches_plain(env, cuda):
         assert torch.equal(g.cpu(), w)
 
 
+def _j_matrix(env, frags):
+    """codes uint8 [F, L] (0-padded) and flen int32 [F] of fragments."""
+    L = max([len(f) for f in frags], default=0)
+    codes = np.zeros((len(frags), L), dtype=np.uint8)
+    for t, f in enumerate(frags):
+        codes[t, :len(f)] = [env["trans"][ord(ch)] for ch in f]
+    return codes, np.array([len(f) for f in frags], dtype=np.int32)
+
+
+def _j_case(env, case):
+    """J's corner cases as (codes, flen)."""
+    rng = random.Random(case)
+    if case == "long":  # fragments longer than a tile (64 lanes)
+        frags = [_piece(env, rng, n) for n in (63, 64, 65, 127, 128, 129,
+                                               200, 300)]
+        frags += ["A" * 300, env["base"],
+                  env["base"][:90] + "W" + env["base"][91:]]
+        frags += [_piece(env, rng, rng.randint(1, 30)) for _ in range(40)]
+    elif case == "exact":  # DB substrings and repeated letters: lanes merge
+        frags = [_piece(env, rng, rng.randint(1, 64)) for _ in range(300)]
+        frags += ["A" * 1, "A" * 17, "A" * 64, "G" * 60 + "A" * 4,
+                  env["base"][10:40] * 2]
+        frags += [_piece(env, rng, 40, mutate=2) for _ in range(50)]
+    elif case == "many":  # more fragments than a block takes (64)
+        frags = [_piece(env, rng, rng.randint(0, 12)) for _ in range(60_000)]
+    else:  # "edges": flen 0 over letters, flen past L or below 0, letter 0
+        frags = [_piece(env, rng, rng.randint(1, 50)) for _ in range(200)]
+    rng.shuffle(frags)
+    codes, flen = _j_matrix(env, frags)
+    if case == "edges":
+        codes[:, 5] = np.where(np.arange(len(frags)) % 3 == 0, 0, codes[:, 5])
+        flen[:10] = 0
+        flen[10:20] = codes.shape[1] + 7
+        flen[20:25] = -3
+    return torch.from_numpy(codes), torch.from_numpy(flen)
+
+
+@pytest.mark.parametrize("S", [0, 2, 4])
+@pytest.mark.parametrize("case", ["long", "exact", "edges", "many", "empty"])
+def test_extend_all_corner_cases_match_plain(edge_env, cuda, case, S):
+    """J on fragments longer than a tile, on exact DB substrings and
+    repeated letters (lanes merge into a neighbour's trajectory, most end
+    at i = 0), on flen 0, past L and below 0 and a letter 0 inside, on
+    60,000 short fragments, and on F * L = 0; flat (S = 0) and in S
+    shards, one launch a call."""
+    from kaiju_tpu_torch import kernels
+
+    dv = edge_env["dv"]
+    ix = _edge_index(edge_env, S, cuda)
+    name = "extend_all" + ("_sharded" if S else "")
+    shapes = ([(0, 10), (5, 0)] if case == "empty" else [None])
+    for shape in shapes:
+        if shape is None:
+            codes, flen = _j_case(edge_env, case)
+        else:
+            codes = torch.zeros(shape, dtype=torch.uint8)
+            flen = torch.full((shape[0],), shape[1], dtype=torch.int32)
+        want = tdev.extend_all_plain(dv.rec, dv.C, codes, flen)
+        kernels.reset_counts()
+        got = tdev.extend_all(ix.rec, ix.C, codes.to(cuda), flen.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == int(codes.numel() > 0)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert torch.equal(g.cpu(), w)
+        if case == "exact":
+            j = torch.arange(codes.shape[1])
+            valid = j < flen[:, None]
+            assert (want[0][valid] == 0).float().mean() > 0.5
+
+
+def _i_lanes(env, case):
+    """I's corner cases: lanes resumed at start_i = j inside fragments of
+    DB pieces from the interval of the letter at j; (flat, base, pos,
+    sub, start_i, s0, s1, act).  2,037 lanes: the last warp partly
+    filled."""
+    rng = random.Random(case)
+    nrng = np.random.default_rng(len(case))
+    if case == "mixed":  # chains of 0 to ~300 steps in one launch
+        frags = ["A" * 300, env["base"]]
+        frags += [_piece(env, rng, rng.randint(1, 150)) for _ in range(200)]
+        frags += ["".join(rng.choice(AA) for _ in range(30))
+                  for _ in range(200)]
+    else:
+        frags = [_piece(env, rng, rng.randint(1, 80), mutate=rng.randint(0, 2))
+                 for _ in range(400)]
+    flat, off = _layout(env, frags)
+    off = off.numpy()
+    flen = np.diff(off)
+    n = 2037
+    f = nrng.choice(np.flatnonzero(flen > 0), n)
+    j = (nrng.random(n) * flen[f]).astype(np.int64)
+    if case == "mixed":
+        j = np.where(nrng.random(n) < 0.5, flen[f] - 1, j)
+    if case == "zero":  # lanes at i = 0
+        j[::2] = 0
+    c = flat.numpy()[off[f] + j].astype(np.int64)
+    C = env["dv"].C.numpy()
+    if case == "none":
+        pos = np.full(n, -1)
+    elif case == "first":  # the substitution at the first step
+        pos = j - 1
+    else:
+        pos = np.where(nrng.random(n) < 0.5, -1,
+                       (nrng.random(n) * j).astype(np.int64))
+    act = (nrng.random(n) < 0.5 if case == "inactive"
+           else np.ones(n, dtype=bool))
+    cols = (off[f], pos, nrng.integers(1, 21, n), j, C[c], C[c + 1])
+    return (flat, *(torch.from_numpy(np.asarray(a, np.int32)) for a in cols),
+            torch.from_numpy(act))
+
+
+@pytest.mark.parametrize("case", ["first", "none", "inactive", "zero",
+                                  "mixed"])
+def test_extend_from_corner_cases_match_plain(edge_env, cuda, case):
+    """I on pos = start_i - 1, pos = -1, inactive lanes, lanes at i = 0
+    and lanes whose chains run from 0 to ~300 steps in one launch, in its
+    flat form and in its code-row form (each lane's codes with its
+    substitution), one launch a call."""
+    from kaiju_tpu_torch import kernels
+
+    dv = edge_env["dv"]
+    lanes = _i_lanes(edge_env, case)
+    want = tdev.extend_from_plain(dv.rec, dv.C, *lanes)
+    kernels.reset_counts()
+    got = tdev.extend_from(dv.rec.to(cuda), dv.C.to(cuda),
+                           *(a.to(cuda) for a in lanes))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["extend_from"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    flat, base, pos, sub, start, s0, s1, act = lanes
+    steps = start - want[0]
+    assert torch.equal(want[0][~act], start[~act])
+    if case == "mixed":
+        assert int(steps.max()) >= 100 and int((steps[act] == 0).sum()) > 0
+    L = max(int(start.max()), 1)
+    x = torch.arange(L, dtype=torch.int32)
+    codes = flat[torch.clamp(base[:, None] + x, max=flat.shape[0] - 1).long()]
+    codes = torch.where(x == pos[:, None], sub[:, None].to(torch.uint8), codes)
+    rows = tdev.extend_rows(*(a.to(cuda) for a in (
+        dv.rec, dv.C, codes.contiguous(), start, s0, s1, act)))
+    torch.cuda.synchronize()
+    for g, w in zip(rows, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("screened", [False, True])
 def test_greedy_map_kernel_matches_plain(env, cuda, screened):
     """K on B's lanes of a Greedy batch (Lmap 7, screened or not): the
