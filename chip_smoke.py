@@ -28,10 +28,11 @@ Phases, any failure exits non-zero:
      and D, F read virtual rows. Then the verbose paths' kernels: one
      batch of each -v pipeline on the card records the inputs of its
      first launch of H (the SA positions of the MEM batch's ties), K
-     (B's lanes of the Greedy batch, Lmap 7, screened on the text index)
-     and I (the first co-simulation round's variant lanes, also run in
-     the code-row form; its note counts the lanes that reach another
-     lane's state, lane_meetings).  Integer outputs equal; time both.  Then each kernel
+     (B's lanes of the Greedy batch, Lmap 7, screened on the text index;
+     its rows row for row; and the batch's longest fragment alone, the
+     lazy launch's shape) and I (the first co-simulation round's variant
+     lanes, also run in the code-row form; its note counts the lanes that
+     reach another lane's state, lane_meetings).  Integer outputs equal; time both.  Then each kernel
      that reads the index (A in both forms, J, H, B, G, D, E, F)
      launched on the index in 2 and 4 shards (K16's sharded
      instantiations) on the same inputs must equal the unsharded kernel,
@@ -52,7 +53,8 @@ Phases, any failure exits non-zero:
      gene family's copies lie under one random clade, so that their LCAs
      fall at mixed depths), A in both forms, C and J on a DB with repeats
      (readgen.gen_realistic, bench.py's generator, 8 M letters, one
-     batch of 4,096 of its reads), equal to their plain versions, timed.
+     batch of 4,096 of its reads), and the verbose paths' H, I and K on
+     the same batch, equal to their plain versions, timed.
      Then P1 and P2 through their benchmark, tools.bench_gather (250,000
      rows of 512 bytes, 262,144 random rows): each equal to its plain
      version, bit for bit, timed beside torch.index_select and
@@ -1060,6 +1062,19 @@ def lane_meetings(rec, C, flat, base, pos, sub, start_i, s0, s1, act):
             int(np.where(met, meet, rounds).max()))
 
 
+def longest_fragment(i, s0, s1, frag_off, lmap):
+    """Kernel K's arguments (i, s0, s1, frag_off, lmap) cut to the longest
+    fragment of frag_off alone: the shape of the Greedy -v pipeline's lazy
+    launch of one fragment."""
+    import torch
+
+    f = int(torch.argmax(frag_off[1:] - frag_off[:-1]))
+    a, b = int(frag_off[f]), int(frag_off[f + 1])
+    return (i[a:b].contiguous(), s0[a:b].contiguous(), s1[a:b].contiguous(),
+            torch.tensor([0, b - a], dtype=torch.int32,
+                         device=frag_off.device), lmap)
+
+
 def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
     """H, I and K against their plain versions on the inputs the -v paths
     give them, on the index at ktx_dir: one batch through each -v
@@ -1067,10 +1082,11 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
     positions of the batch's ties), K (Greedy: B's lanes, Lmap 7) and I
     (Greedy: the first co-simulation round's variant lanes).  I runs its
     code-row form on the same lanes too (each lane's parent codes with
-    its substitution), which must agree.  Same tuples as check_kernels,
+    its substitution), which must agree; K runs on the batch's longest
+    fragment alone too ("greedy_map (one fragment)"), and its rows must
+    equal the plain version's row for row.  Same tuples as check_kernels,
     with I's and K's latency floors; I's note also counts its lanes'
     meetings (lane_meetings)."""
-    import numpy as np
     import torch
 
     from kaiju_tpu_torch.engine import greedy_fast, mem_fast
@@ -1149,28 +1165,34 @@ def check_verbose_kernels(index, nodes, reads, ktx_dir, lat_ns: float):
            f"{floor_note(row_rounds(touched, 2) + 2, lat_ns)}",
            call=(i_args, {}))
 
-    # K on B's lanes of the Greedy batch: i of every lane, s0 and s1 of
+    # K on B's lanes of the Greedy batch and on its longest fragment alone
+    # (the lazy launch of one fragment): i of every lane, s0 and s1 of
     # each lane that makes a row, and the rows
-    k_args = seen["greedy_map"]
-    rows, n_rows = search.greedy_map(*k_args)
-    want, n_want = search.greedy_map_plain(*k_args)
-    nr = int(n_rows)
-    if nr != int(n_want):
-        raise AssertionError(f"K: {nr} rows, the plain version {int(n_want)}")
-
-    def order(r):
-        r = r.cpu().numpy()
-        return torch.from_numpy(r[np.lexsort((-r[:, 1], r[:, 0]))])
-
-    P, F = k_args[0].shape[0], k_args[3].shape[0] - 1
-    report("greedy_map", order(rows[:nr]), order(want),
-           lambda: search.greedy_map(*k_args),
-           lambda: search.greedy_map_plain(*k_args), [],
-           4 * P + 4 * (F + 1) + (8 + 20) * nr + 4,
-           f"{P:,} lanes of {F:,} fragments of the Greedy -v batch, "
-           f"Lmap {k_args[4]}, {nr:,} rows (compared as sorted sets); the "
-           "fragment's start, its lanes' i, the rows' reservation: "
-           f"{floor_note(3, lat_ns, 'loads')}")
+    li, _s0, _s1, off, lmap = seen["greedy_map"]
+    P, F = li.shape[0], off.shape[0] - 1
+    one = longest_fragment(*seen["greedy_map"])
+    for name, k_args, what in (
+            ("greedy_map", seen["greedy_map"],
+             f"{P:,} lanes of {F:,} fragments (mean {P / max(F, 1):.1f} "
+             "positions) of the Greedy -v batch"),
+            ("greedy_map (one fragment)", one,
+             f"the batch's longest fragment alone, {one[0].shape[0]} "
+             "lanes")):
+        rows, n_rows = search.greedy_map(*k_args)
+        want, n_want = search.greedy_map_plain(*k_args)
+        nr = int(n_rows)
+        if nr != int(n_want):
+            raise AssertionError(f"K: {nr} rows, the plain version "
+                                 f"{int(n_want)}")
+        p, f = k_args[0].shape[0], k_args[3].shape[0] - 1
+        # the fragment's start, its lanes' i, the rows' offset (the
+        # predecessors' status words), the rows' s0 and s1
+        report(name, rows[:nr], want,
+               lambda a=k_args: search.greedy_map(*a),
+               lambda a=k_args: search.greedy_map_plain(*a), [],
+               4 * p + 4 * (f + 1) + (8 + 20) * nr + 4,
+               f"{what}, Lmap {lmap}, {nr:,} rows (compared row for row); "
+               f"{floor_note(4, lat_ns, 'loads')}", call=(k_args, {}))
     del mem_pipe
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2672,7 +2694,7 @@ def log_checks(checks: dict, tag: str) -> None:
             f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms) [{note}]")
 
 
-def check_repeats(seed: int, lat_ns: float) -> dict:
+def check_repeats(seed: int, lat_ns: float, nodes: str) -> dict:
     """Phase 3 on the DB with repeats (make_repeats_db), one batch of 4,096
     of its reads: A in both forms at the seed-table build's last depth, B
     on the MEM batch (screened, the hybrid's narrow lanes stopping, on the
@@ -2681,9 +2703,12 @@ def check_repeats(seed: int, lat_ns: float) -> dict:
     MEM batch's fragments, H on the tie rows' SA positions, B on the
     Greedy batch,
     E at -e 3 (its last level's hybrid on the text index, none on
-    db.ktx), and D and F on the flat and the deep tree (each gene family
-    under one clade), against their plain versions.  Returns {index tag:
-    check_kernels' dict}."""
+    db.ktx), D and F on the flat and the deep tree (each gene family
+    under one clade), and H, I and K on the inputs the -v pipelines give
+    them on the same batch (check_verbose_kernels, the uniform DB's
+    nodes.dmp, whose taxa the records name too), against their plain
+    versions.  Returns {index tag: check_kernels' dict with
+    check_verbose_kernels'}."""
     from kaiju_tpu_torch.index.core import KaijuIndex
 
     records, ktx, families = make_repeats_db(seed)
@@ -2695,6 +2720,8 @@ def check_repeats(seed: int, lat_ns: float) -> dict:
         out[tag], _inputs = check_kernels(
             index, reads, ktx[tag], lat_ns,
             deep=(deep_seq_tax(tree, index, seed, families), tree))
+        out[tag].update(check_verbose_kernels(index, nodes, reads, ktx[tag],
+                                              lat_ns)[0])
         log_checks(out[tag], f"repeats, {tag}")
     return out
 
@@ -2801,14 +2828,16 @@ def run(args) -> int:
                 checks[tag][name] = (err, *(v[1:] if len(v) > 1 else
                                             checks[tag].get(name, (0,))[1:]))
         del inputs
-    # A, B, G, C, J, E, D, F and H on the DB with repeats; their errors,
-    # D's and F's on the deep tree and H's on the tie rows join the line's
-    repeats = check_repeats(args.seed, lat_ns)
+    # A, B, G, C, J, E, D, F and H, I, K on the DB with repeats; their
+    # errors, D's and F's on the deep tree, H's on the tie rows and K's on
+    # one fragment join the line's
+    repeats = check_repeats(args.seed, lat_ns, nodes)
     for tag, rc in repeats.items():
         checks["repeats " + tag] = rc
     for name in ("update_si", "update_si_letters", "mem_extend",
                  "text_extend", "mem_stats", "extend_all", "greedy_search",
-                 "read_lca", "ranges_lca", "sa_lookup"):
+                 "read_lca", "ranges_lca", "sa_lookup", "extend_from",
+                 "greedy_map"):
         fold_errors(checks["text"], name, checks["fmi"], *repeats.values())
     bad = [(t, n) for t, c in checks.items() for n, v in c.items() if v[0]]
     if bad:

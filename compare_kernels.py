@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Kernels A (update_si, update_si_letters), B (mem_extend), G
 (text_extend), C (mem_stats), J (extend_all), I (extend_from), E
-(greedy_search), D (read_lca), F (ranges_lca), H (sa_lookup), L
-(big_extend_all) and M (big_sa_walk) of this checkout against the same
-kernels of other checkouts of the port, on one NVIDIA GPU.
+(greedy_search), D (read_lca), F (ranges_lca), H (sa_lookup), K
+(greedy_map), L (big_extend_all) and M (big_sa_walk) of this checkout
+against the same kernels of other checkouts of the port, on one NVIDIA
+GPU.
 
     python3 compare_kernels.py OTHER [OTHER ...] [--seed 20240817]
         [--db-letters N] [--only-big | --no-big] [--big-dir DIR]
@@ -17,8 +18,8 @@ changed; each design is named by its directory.  Its wrappers
 ``ops.device_index.extend_all``, ``ops.device_index.extend_from``,
 ``ops.device_index.extend_rows``, ``ops.greedy.greedy_search``,
 ``ops.classify.read_lca``, ``ops.classify.ranges_lca``,
-``ops.device_index.sa_lookup``, ``ops.big_mem.big_extend_all`` and
-``ops.big_mem.big_sa_walk`` must take
+``ops.device_index.sa_lookup``, ``ops.search.greedy_map``,
+``ops.big_mem.big_extend_all`` and ``ops.big_mem.big_sa_walk`` must take
 the arguments this checkout's take; a design without
 ``ops.device_index.update_si_letters`` (A's seed-table form) runs its
 update_si on the 20 repeated probes of each interval instead, made
@@ -39,14 +40,18 @@ lanes, C on the MEM batch's lanes (not in shards: C reads no index, and
 the sharded path gives it the same lanes), J on the MEM batch's
 fragments as a 0-padded code matrix and, on db.ktx alone, on the first
 ExtendAll launch of a BatchRunner (kaijux -a mem, phase 4d's,
-unsharded), I (no sharded form) on the 64 Maa indexes' first Greedy -v
-co-simulation round's variant lanes and, on db.ktx alone, in its
-code-row form (extend_rows) on the first ExtendFrom round of a
-BatchRunner (kaijux, Greedy, phase 4d's), E at -e 3, D and F on the
-flat tree and on the taxonomy of NCBI depth, H on the SA positions of the MEM batch's tie rows and, on the
-64 Maa indexes, of the MEM -v batch's first round (phase 3's -v check)
-and, on db.ktx alone, of the first SaLookup round of a BatchRunner
-(kaijux -a mem, phase 4d's, unsharded); and on phase 4g's index above
+unsharded), I (no sharded form) on the first Greedy -v co-simulation
+round's variant lanes and, on db.ktx alone, in its code-row form
+(extend_rows) on the first ExtendFrom round of a BatchRunner (kaijux,
+Greedy, phase 4d's), E at -e 3, D and F on the flat tree and on the
+taxonomy of NCBI depth, H on the SA positions of the MEM batch's tie
+rows, of the MEM -v batch's first round (phase 3's -v check) and, on
+db.ktx alone, of the first SaLookup round of a BatchRunner
+(kaijux -a mem, phase 4d's, unsharded), K (not in shards: it reads no
+index) on B's lanes of the Greedy -v batch and on its longest fragment
+alone (the lazy launch's shape), its rows sorted by (f, j) before they
+are compared, since the parent's come in no fixed order (the -v checks
+of H, I and K on all four indexes); and on phase 4g's index above
 2^31 letters at S = 2 (built here beside the rest, on every host thread,
 ~380 s on 8; or --big-dir), L on the demo's 1,024 reads of 64 and on
 the steady step's 65,536 and M on the kf of each (--only-big: L and M
@@ -77,9 +82,9 @@ PKG = "kaiju_tpu_torch"
 MODULES = ("kernels", "ops.search", "ops.hybrid", "ops.greedy",
            "ops.classify", "ops.device_index", "ops.big_mem",
            "parallel.big_index")
-# phase 3's calls of A, B, G, C, J, I, E, D, F and H, by their name in
-# chip_smoke.check_kernels (H's and I's -v calls: check_verbose_kernels),
-# and A's, J's, I's and H's BatchRunner rounds
+# phase 3's calls of A, B, G, C, J, I, E, D, F, H and K, by their name in
+# chip_smoke.check_kernels (H's, I's and K's -v calls:
+# check_verbose_kernels), and A's, J's, I's and H's BatchRunner rounds
 COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
             "update_si": ("ops.device_index", "update_si"),
             "update_si (BatchRunner)": ("ops.device_index", "update_si"),
@@ -99,6 +104,8 @@ COMPARED = {"update_si_letters": ("ops.device_index", "update_si_letters"),
             "sa_lookup": ("ops.device_index", "sa_lookup"),
             "sa_lookup (tie rows)": ("ops.device_index", "sa_lookup"),
             "sa_lookup (BatchRunner)": ("ops.device_index", "sa_lookup"),
+            "greedy_map": ("ops.search", "greedy_map"),
+            "greedy_map (one fragment)": ("ops.search", "greedy_map"),
             "big_extend_all": ("ops.big_mem", "big_extend_all"),
             "big_extend_all (steady)": ("ops.big_mem", "big_extend_all"),
             "big_sa_walk": ("ops.big_mem", "big_sa_walk"),
@@ -110,10 +117,11 @@ BIG = {"": (1_024, 7), " (steady)": (65_536, 8)}
 BIG_SHARDS = 2
 # the calls not repeated on the index in shards: their paths never run
 # sharded (Greedy's B is timed on the MEM batch; kaijux refuses
-# --mesh-index; I has no sharded form), or they read no index (C)
+# --mesh-index; I has no sharded form), or they read no index (C, K)
 UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)",
              "update_si (BatchRunner)", "extend_all (BatchRunner)",
-             "extend_from", "extend_rows (BatchRunner)", "mem_stats")
+             "extend_from", "extend_rows (BatchRunner)", "mem_stats",
+             "greedy_map", "greedy_map (one fragment)")
 # the kernel a wrapper launches, where its name differs
 LAUNCHED = {"extend_rows": "extend_from"}
 SHARDS = 4  # phase 4e's widest split
@@ -189,11 +197,23 @@ def letters_stand_in(mods: dict, args):
     return (lambda: update_si(rec, C, c, rs0, rs1)), shaped
 
 
+def sorted_rows(out):
+    """K's (rows, n) as (its first n rows sorted by (f, j), n), on the
+    host: a design's rows in any order compare equal to this checkout's."""
+    import numpy as np
+    import torch
+
+    rows, n = out
+    r = rows[: int(n)].cpu().numpy()
+    return torch.from_numpy(r[np.lexsort((r[:, 1], r[:, 0]))]), n.cpu()
+
+
 def design_call(mods: dict, name: str, args, kw):
     """(a call of kernel `name`'s wrapper of the design's package on
     args, kw; the name of the kernel it launches; the map of its outputs
     to this checkout's form, outside the call).  A design without A's
-    letters form runs letters_stand_in."""
+    letters form runs letters_stand_in; K's rows are sorted
+    (sorted_rows)."""
     mod, fn = COMPARED[name]
     a = to_design(tuple(args), mods)
     k = {key: to_design(v, mods) for key, v in kw.items()}
@@ -204,7 +224,7 @@ def design_call(mods: dict, name: str, args, kw):
         return call, "update_si" + suffix, shaped
     wrapper = getattr(mods[mod], fn)
     return ((lambda: wrapper(*a, **k)), LAUNCHED.get(fn, fn) + suffix,
-            (lambda out: out))
+            sorted_rows if fn == "greedy_map" else (lambda out: out))
 
 
 def runner_round(index, reads, device=None, wrapper="sa_lookup",
@@ -348,12 +368,11 @@ def run(args) -> int:
         checks, inputs = cs.check_kernels(
             index, rd, path, lat_ns,
             deep=(cs.deep_seq_tax(tree, index, args.seed, fam), tree))
-        if where in ("fmi", "text"):  # H and I on the -v path's inputs
-            v_checks, v_inputs = cs.check_verbose_kernels(
-                index, nodes, rd, path, lat_ns)
-            for name in ("sa_lookup", "extend_from"):
-                checks[name] = v_checks[name]
-                inputs[name] = v_inputs[name]
+        # H, I and K on the -v paths' inputs
+        v_checks, v_inputs = cs.check_verbose_kernels(index, nodes, rd,
+                                                      path, lat_ns)
+        checks.update(v_checks)
+        inputs.update(v_inputs)
         if where == "fmi":  # H, A, J and I on a BatchRunner round
             h = runner_round(index, rd[:cs.BATCH])
             inputs["sa_lookup (BatchRunner)"] = (None, h, {}, None, None)
@@ -382,7 +401,8 @@ def run(args) -> int:
             if name not in inputs:  # G without text; H's other rounds
                 continue
             dv, a, kw, _b, _n = inputs[name]
-            want = design_call(designs["this"], name, a, kw)[0]()
+            call, _k, shaped = design_call(designs["this"], name, a, kw)
+            want = shaped(call())
             compare(name, where, a, kw, want)
             if sh is not None and name not in UNSHARDED:
                 sa, skw = cs.shard_call(sh, dv, a, kw)
@@ -403,8 +423,9 @@ def run(args) -> int:
             bad += [(k, where, "plain", v[0]) for k, v in checks.items()
                     if v[0]]
             for name, (a, kw) in big_calls(ix, rd).items():
-                want = design_call(designs["this"], name + suffix, a,
-                                   kw)[0]()
+                call, _k, shaped = design_call(designs["this"],
+                                               name + suffix, a, kw)
+                want = shaped(call())
                 compare(name + suffix, where, a, kw, want)
                 del want
             torch.cuda.empty_cache()

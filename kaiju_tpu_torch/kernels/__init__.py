@@ -85,8 +85,8 @@ _SIGNATURES = {
     "extend_from": ("kt_extend_from", "pipp" "pppppppi" "ppp" "p"),
     # rec nb1 C | codes flen F L | start si0 si1
     "extend_all": ("kt_extend_all", "pip" "ppii" "ppp" "p"),
-    # i s0 s1 frag_off F lmap | rows n_rows
-    "greedy_map": ("kt_greedy_map", "ppppii" "pp" "p"),
+    # i s0 s1 frag_off F lmap | rows n_rows | state state_len epoch
+    "greedy_map": ("kt_greedy_map", "ppppii" "pp" "pii" "p"),
     # tab idx n | out
     "gather_rows": ("kt_gather_rows", "ppi" "p" "p"),
     "gather_sum": ("kt_gather_sum", "ppi" "p" "p"),

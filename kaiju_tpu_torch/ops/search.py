@@ -25,6 +25,8 @@ fragment f that owns p.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .. import kernels
@@ -246,14 +248,39 @@ def greedy_map_plain(i, s0, s1, frag_off, lmap):
     return rows.to(torch.int32), n
 
 
+# kernel K's look-back status words, one buffer a (device, stream), kept
+# with the epoch of its last launch; zeroed when allocated, never before a
+# launch (csrc/greedy_map.cu)
+_K_STATE: dict = {}
+_K_LOCK = threading.Lock()
+_K_EPOCHS = (1 << 31) - 1  # the status word's epoch field, 0 unused
+_K_BLOCK_FRAGS = 32  # fragments a block of K (256 threads, 8 a fragment)
+
+
+def _k_state(dev, F):
+    """(the status buffer, this launch's epoch) of kernel K on dev's
+    current stream, for F fragments."""
+    blocks = -(-F // _K_BLOCK_FRAGS)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    with _K_LOCK:
+        buf, epoch = _K_STATE.get(key, (None, 0))
+        if buf is None or buf.shape[0] < blocks or epoch == _K_EPOCHS:
+            buf = torch.zeros(max(2 * blocks, 4096), dtype=torch.int64,
+                              device=dev)
+            epoch = 0
+        _K_STATE[key] = (buf, epoch + 1)
+    return buf, epoch + 1
+
+
 def greedy_map(i, s0, s1, frag_off, lmap):
     """The level-0 candidate map of the Greedy engine from B's lanes: a
     row (f, j, i, s0, s1) for every lane of fragment f with j >= jstop(f)
     and j - i + 1 >= lmap (see csrc/greedy_map.cu).  Returns (rows, n):
     rows int32 [>= n, 5], of which the first n (n: int32 [1], on the
-    device, so the call does not wait for the card) are the rows, in no
-    fixed order across fragments (the plain version's ascend in (f, j)).
-    Kernel K for CUDA tensors, the plain version for CPU tensors."""
+    device, so the call does not wait for the card) are the rows, in
+    ascending (f, j), the plain version's order too.  Kernel K for CUDA
+    tensors, one launch that also writes n; the plain version for CPU
+    tensors."""
     if lmap < 1:
         raise ValueError(f"lmap must be >= 1, got {lmap}")
     if i.device.type == "cpu":
@@ -267,7 +294,10 @@ def greedy_map(i, s0, s1, frag_off, lmap):
     kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
     F = frag_off.shape[0] - 1
     rows = torch.empty((P, 5), dtype=torch.int32, device=dev)
-    n = torch.zeros(1, dtype=torch.int32, device=dev)
-    if F > 0 and P > 0:
-        kernels.launch("greedy_map", i, s0, s1, frag_off, F, lmap, rows, n)
+    if F == 0 or P == 0:
+        return rows, torch.zeros(1, dtype=torch.int32, device=dev)
+    n = torch.empty(1, dtype=torch.int32, device=dev)
+    state, epoch = _k_state(dev, F)
+    kernels.launch("greedy_map", i, s0, s1, frag_off, F, lmap, rows, n,
+                   state, state.shape[0], epoch)
     return rows, n

@@ -1,18 +1,20 @@
 """compare_kernels.py on the CPU: a second copy of the port imported from a
 checkout beside the first, and kernels A's, B's, G's, C's, J's, I's,
-E's, D's, F's, H's, L's and M's calls (A in both forms and on a
+E's, D's, F's, H's, K's, L's and M's calls (A in both forms and on a
 BatchRunner round, J on a padded code matrix and on a BatchRunner's
 first length group, I on lanes with substitutions and in its code-row
 form on a BatchRunner's ExtendFrom round, D and F on a flat and a deep
-taxonomy, H on tie rows and on a BatchRunner round, L and M on a toy
+taxonomy, H on tie rows and on a BatchRunner round, K on B's lanes of
+a Greedy batch and on its longest fragment alone, L and M on a toy
 index of the big layout loaded as --big-dir loads one) routed through
 that copy's wrappers (here their plain versions, as the CPU takes them),
 sharded index arrays and big indexes rebuilt as the copy's classes; a
 copy without A's letters form runs its stand-in.  The shards = 2 cases
 shard the index only for a kernel with a sharded form (a
 ``<kernel>_sharded`` entry point): I has none, so its cases run
-unsharded at both values.  The results must equal this copy's, bit for
-bit.  Imports neither jax nor kaiju_tpu."""
+unsharded at both values, and so do C's and K's, which read no index.
+The results must equal this copy's, bit for bit (K's rows sorted by
+(f, j) on both sides).  Imports neither jax nor kaiju_tpu."""
 
 import importlib
 import os
@@ -112,7 +114,10 @@ def env(tmp_path_factory):
          "update_si": (dv.rec, dv.C, c, p0.repeat(ck.NLET),
                        p1.repeat(ck.NLET)),
          "update_si (BatchRunner)": (dv.rec, dv.C, *probes[2:]),
-         "mem_stats": (*lanes, frag_off, 11, 8)}
+         "mem_stats": (*lanes, frag_off, 11, 8),
+         "greedy_map": (*lanes, frag_off, 7),
+         "greedy_map (one fragment)": chip_smoke.longest_fragment(
+             *lanes, frag_off, 7)}
     # J on the fragments as a 0-padded code matrix and on a BatchRunner's
     # first length group; I on lanes resumed inside the fragments, a
     # substitution below i in half of them, and in its code-row form on a
@@ -194,9 +199,10 @@ def test_other_checkout_runs_its_own_wrappers(env, name, shards):
     assert other["ops.hybrid"].kernels is other["kernels"]
     assert other["ops.device_index"].kernels is other["kernels"]
     a, kw = _call(env, name)
-    want = ck.design_call(this, name, a, kw)[0]()
+    call, _k, shaped = ck.design_call(this, name, a, kw)
+    want = shaped(call())
     kernel = ck.LAUNCHED.get(ck.COMPARED[name][1], ck.COMPARED[name][1])
-    # C reads no index; I has no sharded form
+    # C and K read no index; I has no sharded form
     holds = (any(x is env["dv"].rec for x in a)
              and kernel + "_sharded" in kernels.LAUNCHES)
     if shards and holds:

@@ -627,7 +627,8 @@ def test_extend_from_corner_cases_match_plain(edge_env, cuda, case):
 @pytest.mark.parametrize("screened", [False, True])
 def test_greedy_map_kernel_matches_plain(env, cuda, screened):
     """K on B's lanes of a Greedy batch (Lmap 7, screened or not): the
-    same row set (rows sorted by (f, -j)) and count."""
+    same row set (rows sorted by (f, -j)) and count, and the same rows
+    row for row (both ascend in (f, j))."""
     dv = env["dv"]
     flat, frag_off, _rf = _batch(env, 16, "greedy")
     ext = (dv.rec, dv.C, *env["seed"], flat, frag_off, search.SEED_K, 6)
@@ -644,6 +645,90 @@ def test_greedy_map_kernel_matches_plain(env, cuda, screened):
         return r[np.lexsort((-r[:, 1], r[:, 0]))]
 
     np.testing.assert_array_equal(order(got), order(want.numpy()))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+K_CASES = ["one", "long", "empty", "none", "all", "jstop_last", "no_jstop",
+           "many", "order"]
+
+
+def k_corner(case):
+    """Kernel K's argument tuples (i, s0, s1, frag_off, lmap), CPU int32,
+    for a corner case, made with numpy from a seed: one fragment (the
+    lazy launch); fragments past the kernel's 64 positions in registers
+    (200-400); empty fragments (first, last and between); no row (n = 0);
+    every lane at or past jstop emitting (lmap = 1); jstop at each
+    fragment's last position; jstop = -1 (no lane reaches i <= 1); 60,000
+    fragments of 0-12 positions; and, for the kernel's row order across
+    blocks and launches, 5,000 fragments of 1-100 positions, then 100,
+    then the 5,000 again (three tuples).  A lane j of a fragment has a
+    match of length L in 0..j+1 and i = j - L + 1, as B gives it, except
+    where the case fixes i."""
+    rng = np.random.default_rng(K_CASES.index(case) + 160)
+    lmap = 7
+    if case == "one":
+        flen = [45]
+    elif case == "long":
+        flen = rng.integers(200, 401, 50)
+    elif case == "empty":
+        flen = np.where(rng.random(300) < 0.4, 0, rng.integers(1, 90, 300))
+        flen[[0, 1, -1]] = 0
+    elif case == "many":
+        flen = rng.integers(0, 13, 60_000)
+    elif case == "order":
+        flen = rng.integers(1, 101, 5_000)
+    else:
+        flen = rng.integers(1, 120, 400)
+    flen = np.asarray(flen, dtype=np.int64)
+    off = np.zeros(flen.shape[0] + 1, dtype=np.int64)
+    off[1:] = np.cumsum(flen)
+    j = np.arange(off[-1]) - np.repeat(off[:-1], flen)
+    i = j - (rng.random(j.shape[0]) * (j + 2)).astype(np.int64) + 1
+    if case == "none":
+        lmap = 1_000
+    elif case == "all":  # jstop = 1, every later lane of length >= 1
+        lmap = 1
+        i = np.where(j < 2, j, 2)
+    elif case == "jstop_last":
+        i = np.maximum(i, 2)
+        i[off[1:][flen > 0] - 1] = 0
+    elif case == "no_jstop":
+        i = np.maximum(i, 2)
+    s0 = rng.integers(0, 1 << 30, j.shape[0])
+    s1 = s0 + rng.integers(1, 50, j.shape[0])
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32))
+
+    args = (t(i), t(s0), t(s1), t(off), lmap)
+    if case != "order":
+        return [args]
+    a2 = (*(x[: off[100]] for x in args[:3]), t(off[:101]), lmap)
+    return [args, a2, args]
+
+
+@pytest.mark.parametrize("case", K_CASES)
+def test_greedy_map_corner_cases_match_plain(cuda, case):
+    """K on its corners (k_corner), one launch a call: the count and the
+    rows equal the plain version's row for row, in ascending (f, j)."""
+    from kaiju_tpu_torch import kernels
+
+    for args in k_corner(case):
+        want, n_want = search.greedy_map_plain(*args)
+        kernels.reset_counts()
+        rows, n = search.greedy_map(*(a.to(cuda) for a in args[:4]),
+                                    args[4])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["greedy_map"] == 1
+        assert int(n) == int(n_want) == want.shape[0]
+        assert torch.equal(rows[: int(n)].cpu(), want)
+        if case == "none":
+            assert int(n) == 0
+        elif case == "all":  # a lane of one position makes its row too
+            flen = args[3][1:] - args[3][:-1]
+            assert int(n) == int((flen - 1).clamp(min=1).sum())
+        elif case != "empty":
+            assert int(n) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from kaiju_tpu.ops.kmer import KmerTables as JaxKmerTables
 from kaiju_tpu_torch.ops import device_index as tdev
 from kaiju_tpu_torch.ops import search
 
+import test_torch_kernels
 from conftest import make_db_records
 from test_torch_search import _fragments
 
@@ -206,6 +207,34 @@ def test_greedy_map_rows_match_fused_greedy_map(env, screened):
     np.testing.assert_array_equal(order(got), order(want))
     # the plain version's rows ascend in (f, j)
     np.testing.assert_array_equal(got, got[np.lexsort((got[:, 1], got[:, 0]))])
+
+
+def _k_rule(i, s0, s1, frag_off, lmap):
+    """Kernel K's rule in numpy, a fragment at a time: jstop = the largest
+    j with i <= 1 (-1 if none), then a row (f, j, i, s0, s1) for every j
+    >= jstop with j - i + 1 >= lmap, in ascending (f, j)."""
+    rows = []
+    for f in range(frag_off.shape[0] - 1):
+        st, en = int(frag_off[f]), int(frag_off[f + 1])
+        ii = i[st:en]
+        stops = np.flatnonzero(ii <= 1)
+        jstop = int(stops[-1]) if stops.size else -1
+        for j in range(max(jstop, 0), en - st):
+            if j - ii[j] + 1 >= lmap:
+                rows.append((f, j, ii[j], s0[st + j], s1[st + j]))
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+
+
+@pytest.mark.parametrize("case", test_torch_kernels.K_CASES)
+def test_greedy_map_plain_matches_numpy_rule(case):
+    """K's plain version (the wrapper on CPU tensors) against a numpy
+    model of the rule on K's corner cases (test_torch_kernels.k_corner),
+    row for row and count; no JAX."""
+    for args in test_torch_kernels.k_corner(case):
+        rows, n = search.greedy_map(*args)
+        want = _k_rule(*(a.numpy() for a in args[:4]), args[4])
+        assert int(n) == want.shape[0] == rows.shape[0]
+        np.testing.assert_array_equal(rows.numpy(), want)
 
 
 def test_mem_search_matches_fused_mem_search2(env):
