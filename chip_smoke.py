@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 20240817] [--db-letters 64000000]
     python3 chip_smoke.py --only-processes    # phases 1, 2, 4 (text), 4f
+    python3 chip_smoke.py --only-warm         # phases 1, 2, 4h
 
 Phases, any failure exits non-zero:
   1. build the CUDA kernels from kaiju_tpu_torch/csrc with nvcc; print the
@@ -125,10 +126,26 @@ Phases, any failure exits non-zero:
      in its own memory (both launches timed); the card memory used after
      set-up, the index bytes held apart beside two whole copies, and the
      processes' wall beside the one-process main() of the same reads;
+  4h. warm start: tools.mkdb --aot -t nodes.dmp --aot-batch 4096, a
+     process of its own, on a FASTA of phase 2's first records up to 8 M
+     letters into build/chip_smoke/aot.ktx (the seconds of each step: the
+     libraries built into aot.ktx/aot/<key>/, the seed tables, each mode's
+     batch); then this script started again with --warm-worker, a fresh
+     process that runs tools.kaiju.main with -a mem and then the default
+     flags on phase 4's first 4,096 reads: on aot.ktx every library it
+     loads must come from aot.ktx/aot/<key>/ with 0 nvcc runs and A must
+     not launch (the tables are read); on a copy without aot/, kmer*/ and
+     bloom_* the libraries come from build/ and A builds the tables.  Each
+     prints one JSON line: its main()'s set-up split (libraries, index,
+     taxonomy, seed tables, bitmaps, the card's context and uploads, first
+     batch), launches, each library's directory, nvcc runs, imports.  Both
+     TSVs must equal tools.kaiju.main's in this process on aot.ktx byte for
+     byte; phase 1's build seconds are printed beside the prepared
+     process's library seconds;
   4g. the index above 2^31 letters (K17): a synthetic DB of 2.2 G
      letters (N about 1.03 x 2^31) from the demo's
      seed, built with the int64 builder on every host thread in a thread
-     of its own that starts after phase 4b and runs beside phases 4c-4f
+     of its own that starts after phase 4b and runs beside phases 4c-4h
      (it slows their host stages; 4b's steady rates run alone);
      then tools.big_classify.run on the demo's 1,024 reads of 64 at S = 2
      (saved, loaded onto the card, L then M twice, the host statistics,
@@ -146,7 +163,7 @@ Phases, any failure exits non-zero:
      host's peak RSS;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards, L's and M's on the big index; the
-     launches of every run of phases 4, 4c, 4d, 4e, 4f and 4g, each
+     launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h and 4g, each
      counted from 0, and of P1 and P2's benchmark; each error the largest
      of all the kernel's comparisons), then the result line.
 
@@ -252,6 +269,12 @@ X_RUNS = {
 }
 X_WRAPPERS = ("extend_all", "extend_rows", "update_si", "sa_lookup")
 X_STEADY = ("kaijux mem", "kaijux greedy")  # the runs timed again
+# phase 4h, warm start: the letters of the DB that mkdb --aot builds (phase
+# 2's first records), and the set-up steps a fresh process's main() is split
+# into
+AOT_LETTERS = 8_000_000
+WARM_STEPS = ("libraries", "index", "taxonomy", "seed_tables", "bitmaps",
+              "upload", "first_batch")
 # phase 4g, the index above 2^31 letters (K17): the DB's letters (N about
 # 1.03 x 2^31) and seed (the demo's default), the shards of the two runs,
 # the demo's reads, read length and sampled reads, and the kernels
@@ -2478,6 +2501,210 @@ def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: warm start (mkdb --aot) and fresh processes
+# ---------------------------------------------------------------------------
+
+
+def warm_worker(argv: list) -> int:
+    """One fresh process of phase 4h: tools.kaiju.main with -a mem, then
+    with the default flags (Greedy), on the index at ktx (argv: ktx,
+    nodes.dmp, FASTQ, output prefix), one batch of BATCH reads each.  Each
+    main() is split into WARM_STEPS: the seconds in kernels.load (builds
+    and dlopen, wherever they fall), loading the index, parsing the
+    taxonomy, the seed tables, the bitmaps, the rest of the runner's set-up
+    (the card's context, the uploads) and the first batch (the rest of
+    main()), each but the first without the library seconds inside it.
+    Prints one JSON line: the split and launches of each mode, where each
+    library came from (kernels.ORIGIN), this process's nvcc runs and its
+    import seconds."""
+    t0 = time.perf_counter()
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import pipeline
+    from kaiju_tpu_torch.tools import kaiju
+
+    imports = time.perf_counter() - t0
+    ktx, nodes, fq, prefix = argv
+    cur = {}
+
+    def timed(step, fn):
+        def wrap(*args, **kw):
+            lib0, t1 = kernels.LOADER["seconds"], time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                cur[step] += (time.perf_counter() - t1
+                              - (kernels.LOADER["seconds"] - lib0))
+        return wrap
+
+    kaiju.load_index = timed("index", kaiju.load_index)
+    kaiju.parse_nodes_dmp = timed("taxonomy", kaiju.parse_nodes_dmp)
+    kaiju.make_runner = timed("set_up", kaiju.make_runner)
+    pipeline.KmerTables.load_or_build = timed(
+        "seed_tables", pipeline.KmerTables.load_or_build)
+    pipeline.BloomScreen.load_or_build = timed(
+        "bitmaps", pipeline.BloomScreen.load_or_build)
+    report = {"imports": imports, "modes": {}}
+    rc = 0
+    for mode in PATHS:
+        cur.update(dict.fromkeys(("index", "taxonomy", "set_up",
+                                  "seed_tables", "bitmaps"), 0.0))
+        kernels.reset_counts()
+        lib0, t1 = kernels.LOADER["seconds"], time.perf_counter()
+        rc |= kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1],
+                          "-o", f"{prefix}{mode}.tsv", "-b", str(BATCH)])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t1
+        split = {"libraries": kernels.LOADER["seconds"] - lib0,
+                 **{k: cur[k] for k in ("index", "taxonomy", "seed_tables",
+                                        "bitmaps")},
+                 "upload": cur["set_up"] - cur["seed_tables"] - cur["bitmaps"]}
+        split["first_batch"] = total - sum(split.values())
+        report["modes"][mode] = {"main": total, "split": split,
+                                 "launches": dict(kernels.LAUNCHES)}
+    report.update(origin=dict(kernels.ORIGIN),
+                  nvcc_runs=kernels.LOADER["nvcc_runs"])
+    print(json.dumps(report), flush=True)
+    return rc
+
+
+def run_phase_4h(records, reads, nodes, build_secs: float) -> dict:
+    """Phase 4h: mkdb --aot -t nodes.dmp --aot-batch BATCH (a process of
+    its own) from a FASTA of phase 2's first records up to AOT_LETTERS
+    letters into build/chip_smoke/aot.ktx, its steps' seconds printed;
+    then warm_worker as a fresh process on that index, which must load
+    every library from aot.ktx/aot/<key>/ with no nvcc run and read the
+    seed tables (A launches in neither mode), and again on a copy without
+    aot/, kmer*/ and bloom_* (its libraries from build/, the tables built by
+    A, the bitmaps filled); both on the first BATCH reads of phase 4, their
+    TSVs byte-identical to tools.kaiju.main's in this process on aot.ktx.
+    Prints both set-up splits and phase 1's build seconds beside the
+    prepared process's library seconds.  Returns the launch counts of the
+    two processes and of the in-process runs, each counted from 0."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.tools import kaiju, readgen
+    from kaiju_tpu_torch.utils import aot
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    ktx, cold = (os.path.join(work, f"aot{t}.ktx") for t in ("", "_cold"))
+    for path in (ktx, cold):
+        shutil.rmtree(path, ignore_errors=True)
+    faa, fq = (os.path.join(work, f"aot.{x}") for x in ("faa", "fastq"))
+    letters = n_seq = 0
+    with open(faa, "w") as fh:
+        for name, seq in records:
+            if letters >= AOT_LETTERS:
+                break
+            fh.write(f">{name}\n{seq}\n")
+            letters, n_seq = letters + len(seq), n_seq + 1
+    readgen.write_fastq([(n, q) for n, q, _ in reads[:BATCH]], fq)
+    env = {k: v for k, v in os.environ.items() if k != "KAIJU_TPU_CACHE"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kaiju_tpu_torch.tools.mkdb", "-o", ktx,
+         "--aot", "-t", nodes, "--aot-batch", str(BATCH), faa], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-40:]:
+        log(f"4h mkdb --aot: {line}")
+    if proc.returncode:
+        raise AssertionError(f"mkdb --aot exited {proc.returncode}")
+    pre = aot.prebuilt_dir(ktx)
+    manifest = aot.read_manifest(pre)
+    libs = sorted(f for f in os.listdir(pre) if f.endswith(".so"))
+    log(f"4h mkdb --aot: {n_seq:,} sequences, {letters:,} letters, "
+        f"{wall:.2f} s of process wall; {len(libs)} libraries under "
+        f"{os.path.relpath(pre, ROOT)} (machine {json.dumps(manifest['machine'])}"
+        f"), nvcc {manifest['build_seconds']:.1f} s")
+    if libs != sorted(f"lib{s}.so" for s in kernels.SOURCES) or (
+            manifest["key"] != os.path.basename(pre)):
+        raise AssertionError(f"{pre}: libraries {libs}, manifest {manifest}")
+    shutil.copytree(ktx, cold, ignore=lambda d, names: [
+        n for n in names if d == ktx and (
+            n == "aot" or n.startswith(("kmer", "bloom_")))])
+
+    launches = {k: 0 for k in REPLACES}
+    reports = {}
+    for tag, path in (("prepared", ktx), ("unprepared", cold)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warm-worker", path,
+             nodes, fq, os.path.join(work, f"aot_out_{tag}_")], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            log(f"4h {tag} process ({proc.returncode}): "
+                + proc.stderr[-3000:])
+            raise AssertionError(f"4h: the {tag} process failed")
+        line = proc.stdout.strip().splitlines()[-1]
+        log(f"4h {tag} process: {line}")
+        rep = reports[tag] = json.loads(line)
+        rep["wall"] = wall
+        for mode, got in rep["modes"].items():
+            s = got["split"]
+            log(f"4h {tag} {mode}: main() {got['main']:.3f} s = "
+                + " + ".join(f"{k} {s[k]:.3f}" for k in WARM_STEPS)
+                + f"; process wall {wall:.2f} s with imports "
+                f"{rep['imports']:.2f} s")
+            for k in REPLACES:
+                launches[k] += got["launches"].get(k, 0)
+            idle = [k for k in kernels_of(mode, True, False)
+                    if k != "update_si_letters" and got["launches"][k] <= 0]
+            built = got["launches"]["update_si_letters"]
+            if idle or bool(built) != (tag == "unprepared" and mode == "mem"):
+                raise AssertionError(f"4h {tag} {mode}: kernels that did not "
+                                     f"launch {idle}; A's letters form "
+                                     f"{built} launches")
+    origin = reports["prepared"]["origin"]
+    if reports["prepared"]["nvcc_runs"] or not origin or set(
+            origin.values()) != {pre}:
+        raise AssertionError(f"4h prepared: {reports['prepared']['nvcc_runs']}"
+                             f" nvcc runs, libraries from {origin}")
+    if set(reports["unprepared"]["origin"].values()) != {kernels.BUILD_DIR}:
+        raise AssertionError("4h unprepared: libraries from "
+                             f"{reports['unprepared']['origin']}")
+
+    for mode in PATHS:  # the same reads on the same DB in this process
+        out = os.path.join(work, f"aot_out_here_{mode}.tsv")
+        kernels.reset_counts()
+        rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1],
+                         "-o", out, "-b", str(BATCH)])
+        torch.cuda.synchronize()
+        for k in REPLACES:
+            launches[k] += kernels.LAUNCHES[k]
+        with open(out, "rb") as fh:
+            want = fh.read()
+        same = []
+        for tag in reports:
+            with open(os.path.join(work, f"aot_out_{tag}_{mode}.tsv"),
+                      "rb") as fh:
+                same.append(fh.read() == want)
+        log(f"4h {mode}: the prepared and unprepared processes' TSVs "
+            f"{'equal' if all(same) else 'DIFFER FROM'} this process's "
+            f"({want.count(b'C'):,} of {BATCH:,} lines classified, sha256 "
+            f"{hashlib.sha256(want).hexdigest()[:16]})")
+        if rc or not all(same):
+            raise AssertionError(f"4h {mode}: TSVs differ ({same}, rc {rc})")
+    kernels.use_prebuilt(None)  # later phases load from build/ again
+    prep, unprep = reports["prepared"], reports["unprepared"]
+    log(f"4h nvcc bill: phase 1 built {len(kernels.SOURCES)} libraries in "
+        f"{build_secs:.1f} s and mkdb --aot in {manifest['build_seconds']:.1f}"
+        f" s; the prepared process loaded {len(origin)} of them from "
+        f"aot.ktx/aot/ in {sum(m['split']['libraries'] for m in prep['modes'].values()):.3f} s"
+        f" with 0 nvcc runs (the unprepared one {len(unprep['origin'])} from "
+        f"build/ in {sum(m['split']['libraries'] for m in unprep['modes'].values()):.3f} s, "
+        f"{unprep['nvcc_runs']} nvcc runs); MEM main() "
+        f"{prep['modes']['mem']['main']:.3f} s prepared, "
+        f"{unprep['modes']['mem']['main']:.3f} s unprepared")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4g: the index above 2^31 letters (K17)
 # ---------------------------------------------------------------------------
 
@@ -2592,7 +2819,7 @@ def steady_big(ix, db, smi, dram_ns) -> dict:
 def start_big_build(letters: int) -> dict:
     """Phase 4g's DB build (parallel.big_index.build_db on every host
     thread) started in a thread of its own, so that it runs beside phases
-    4c-4f: the builder releases the GIL.  Returns the box that
+    4c-4h: the index build releases the GIL.  Returns the box that
     receives "db" or "error", and "seconds", and holds the "thread"."""
     import threading
 
@@ -2640,7 +2867,7 @@ def run_phase_4g(build: dict, smi: str, dram_ns: float):
     db, threads = build.pop("db"), build["threads"]
     log(f"4g: built N = {db['N']:,} ({db['N'] / 2**31:.4f} x 2^31), "
         f"{db['nseq']:,} sequences, e = {db['e']} in {build['seconds']:.1f}"
-        f" s on {threads} threads beside phases 4c-4f (waited "
+        f" s on {threads} threads beside phases 4c-4h (waited "
         f"{time.perf_counter() - t0:.1f} s for it here), host peak RSS "
         f"{peak_rss_gb():.1f} GB")
     launches = {k: 0 for k in BIG_KERNELS}
@@ -2792,6 +3019,11 @@ def run(args) -> int:
     readgen.write_fastq([(n, s) for n, s, _ in reads], fq)
     check_fragmenter(reads)
 
+    if args.only_warm:  # phase 4h alone
+        run_phase_4h(records, reads, nodes, secs)
+        log("--only-warm: phases 1, 2 and 4h passed; no kernels line")
+        return 0
+
     if args.only_processes:  # phase 4f and the lines it is held against
         tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
                                        nodes, fq, mode, "text")[1]}
@@ -2871,7 +3103,7 @@ def run(args) -> int:
             rates[mode, tag] = steady_stream(indexes[tag], nodes, reads, warm,
                                              mode, tag)
 
-    # phase 4g's DB builds from here on, beside phases 4c-4f, whose host
+    # phase 4g's DB builds from here on, beside phases 4c-4h, whose host
     # stages it slows; the steady rates above ran alone
     big_build = start_big_build(BIG_LETTERS)
 
@@ -2926,6 +3158,10 @@ def run(args) -> int:
         launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
+    # ---- 4h. warm start: mkdb --aot, fresh processes, each counted from 0
+    for k, c in run_phase_4h(records, reads, nodes, secs).items():
+        launches[k] += c
+
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
     big_rows, big_launches = run_phase_4g(big_build, smi, dram_ns)
     for name, v in big_rows.items():
@@ -2963,6 +3199,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--kaiju-worker"]:  # one process of phase 4f
         return kaiju_worker(argv[1], argv[2:])
+    if argv[:1] == ["--warm-worker"]:  # one fresh process of phase 4h
+        return warm_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20240817)
     ap.add_argument("--db-letters", type=int, default=64_000_000)
@@ -2970,6 +3208,9 @@ def main(argv=None) -> int:
                     help="run phase 4f alone, with the phase 4 lines it is "
                     "held against (for a machine with several cards); no "
                     "kernels line and no result line")
+    ap.add_argument("--only-warm", action="store_true",
+                    help="run phase 4h (warm start) alone after phases 1 "
+                    "and 2; no kernels line and no result line")
     args = ap.parse_args(argv)
     try:
         return run(args)

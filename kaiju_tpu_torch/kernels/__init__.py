@@ -18,6 +18,19 @@ built at first use and again whenever its source or a shared header
 ``nvcc`` each.  Nothing is compiled when a module is
 imported, so the CPU tests import everything without a CUDA toolkit.
 
+Warm start: ``tools.mkdb --aot`` builds every library into a directory
+beside the index keyed by content (``utils/aot.py``), and a pipeline calls
+``use_prebuilt`` with its cache directory (``KAIJU_TPU_CACHE``, else the
+index's) before its first launch.  Where that directory's key matches
+this checkout and card, every library loaded afterwards comes from it and
+no ``nvcc`` runs; a library there that does not load raises, naming the
+file.  Without a matching directory the loader builds into ``build/`` as
+above.  A library already loaded stays loaded: a process that loaded
+some before it met a prebuilt directory keeps them.  ``ORIGIN`` records
+the directory each source's library was loaded from and ``LOADER`` the
+``nvcc`` runs of this process and its seconds in ``use_prebuilt`` and
+``load``.
+
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.  Wrappers
 count their launches in ``LAUNCHES`` (one per kernel launch, nowhere
@@ -164,9 +177,16 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 # launches of kernel B with its Bloom screen (each counted in LAUNCHES too)
 SCREENED = {"mem_extend": 0}
 
+# the directory each source's library was loaded from; this process's
+# nvcc runs and its seconds finding and loading libraries (use_prebuilt's
+# keys, builds and dlopen in load)
+ORIGIN: dict[str, str] = {}
+LOADER = {"nvcc_runs": 0, "seconds": 0.0}
+
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_prebuilt: str | None = None  # the matching prebuilt directory, if any
 
 
 def reset_counts() -> None:
@@ -199,25 +219,22 @@ def _stale(src: str) -> bool:
     return os.path.getmtime(lib) < max(os.path.getmtime(s) for s in srcs)
 
 
-def build(force: bool = False, verbose: bool = False) -> float:
-    """Compile every stale kernel library (all of them with force), one
-    nvcc process per source, all started together.  Returns the wall
-    seconds spent; raises with the compiler's output on a failure."""
-    t0 = time.perf_counter()
-    todo = [s for s in SOURCES if force or _stale(s)]
-    if not todo:
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def compile_into(out_dir: str, srcs, verbose: bool = False) -> None:
+    """Compile each csrc/<src>.cu of srcs into out_dir/lib<src>.so, one
+    nvcc process a source, all started together, each written to a
+    temporary file and renamed into place; raises with the compiler's
+    output on a failure."""
     nvcc = _nvcc()
     procs = []
-    for src in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    for src in srcs:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-o", tmp, os.path.join(CSRC_DIR, f"{src}.cu")]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
+        LOADER["nvcc_runs"] += 1
     errors = []
     for src, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -225,18 +242,56 @@ def build(force: bool = False, verbose: bool = False) -> float:
             os.unlink(tmp)
             errors.append(f"nvcc {src}.cu failed ({proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, _lib_path(src))
+        os.replace(tmp, os.path.join(out_dir, f"lib{src}.so"))
         if verbose and log.strip():
             print(f"nvcc {src}.cu:\n{log.strip()}", flush=True)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build(force: bool = False, verbose: bool = False) -> float:
+    """Compile every stale kernel library (all of them with force) into
+    BUILD_DIR, one nvcc process per source, all started together.  Returns
+    the wall seconds spent; raises with the compiler's output on a
+    failure."""
+    t0 = time.perf_counter()
+    todo = [s for s in SOURCES if force or _stale(s)]
+    if not todo:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    compile_into(BUILD_DIR, todo, verbose)
     return time.perf_counter() - t0
 
 
+def use_prebuilt(cache_dir: str | None, device=None) -> str | None:
+    """Take every library not loaded yet from cache_dir's prebuilt
+    directory (utils/aot.py) when its key matches this checkout's sources
+    and `device`'s machine; returns that directory, or None (then load
+    builds into BUILD_DIR by mtime).  A directory of another key is never
+    used.  Raises when the matching directory's manifest names another
+    key."""
+    global _prebuilt
+    from ..utils import aot
+
+    t0 = time.perf_counter()
+    path = aot.prebuilt_dir(cache_dir, device) if cache_dir else None
+    if path is not None and not os.path.isdir(path):
+        path = None
+    if path is not None:
+        got = aot.read_manifest(path).get("key")
+        if got != os.path.basename(path):
+            raise RuntimeError(f"{os.path.join(path, aot.MANIFEST)}: key "
+                               f"{got!r}, expected {os.path.basename(path)!r}")
+    _prebuilt = path
+    LOADER["seconds"] += time.perf_counter() - t0
+    return path
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`'s source, built first if needed
-    (the sources are checked once a process, at the first load), with the
-    C signature of every kernel it holds set."""
+    """The loaded library of kernel `name`'s source, with the C signature
+    of every kernel it holds set: from the prebuilt directory of
+    use_prebuilt, else from BUILD_DIR, built first if needed (the sources
+    are checked at each first load of a library)."""
     return load(source(name))
 
 
@@ -248,18 +303,36 @@ def load(src: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(src)
         if lib is None:
-            build()
-            lib = ctypes.CDLL(_lib_path(src))
-            for kname, (fn_name, sig) in _SIGNATURES.items():
-                if source(kname) != src:
-                    continue
-                fn = getattr(lib, fn_name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [_CTYPES[s] for s in sig]
-            lib.kt_error_string.restype = ctypes.c_char_p
-            lib.kt_error_string.argtypes = [ctypes.c_int]
+            t0 = time.perf_counter()
+            where = _prebuilt
+            if where is None:
+                build()
+                where = BUILD_DIR
+                lib = _bind(src, ctypes.CDLL(_lib_path(src)))
+            else:
+                path = os.path.join(where, f"lib{src}.so")
+                try:
+                    lib = _bind(src, ctypes.CDLL(path))
+                except (OSError, AttributeError) as e:
+                    raise RuntimeError(f"prebuilt kernel library {path} "
+                                       f"does not load: {e}") from e
+            ORIGIN[src] = where
+            LOADER["seconds"] += time.perf_counter() - t0
             _libs[src] = lib
         return lib
+
+
+def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """lib with the C signature of every kernel of csrc/<src>.cu set."""
+    for kname, (fn_name, sig) in _SIGNATURES.items():
+        if source(kname) != src:
+            continue
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[s] for s in sig]
+    lib.kt_error_string.restype = ctypes.c_char_p
+    lib.kt_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def launch(name: str, *args) -> None:

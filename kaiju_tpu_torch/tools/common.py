@@ -5,8 +5,10 @@ from __future__ import annotations
 import os
 import sys
 
+from .. import kernels
 from ..engine.config import KaijuConfig
 from ..index.core import KaijuIndex
+from ..ops.device_index import resolve_device
 
 
 def load_index(path: str) -> KaijuIndex:
@@ -25,8 +27,8 @@ def open_output(path: str | None):
 
 
 def _kmer_dir(index):
-    """Where the seed tables are cached: KAIJU_TPU_CACHE, else beside the
-    index."""
+    """Where the seed tables, the Bloom bitmaps and the prebuilt kernel
+    libraries are cached: KAIJU_TPU_CACHE, else beside the index."""
     return os.environ.get("KAIJU_TPU_CACHE") or getattr(
         index, "source_dir", None)
 
@@ -86,11 +88,15 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
         from ..engine.core import ExactClassifier
 
         return ExactClassifier(index, taxonomy, cfg)
+    kmer_dir = _kmer_dir(index)
+    if resolve_device(device).type == "cuda":
+        # the kernel libraries that mkdb --aot prebuilt beside the index
+        # or in KAIJU_TPU_CACHE, where their key matches (utils/aot.py)
+        kernels.use_prebuilt(kmer_dir, device)
     if cfg.taxonomy_free:
         from ..engine.batch import BatchRunner
 
         return BatchRunner(index, taxonomy, cfg, device=device)
-    kmer_dir = _kmer_dir(index)
     if cfg.verbose:
         if cfg.mode == "greedy":
             from ..engine.greedy_fast import GreedyFastPipeline as Pipeline

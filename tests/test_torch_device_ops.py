@@ -174,9 +174,10 @@ def test_kmer_tables_match(env, K):
 def test_port_imports_neither_jax_nor_kaiju_tpu():
     """Every module of the port (the verbose paths' engine.mem_fast and
     engine.greedy_fast, the index shards of parallel/, P1 and P2's
-    ops.gather and their benchmark tools.bench_gather among them), and
-    chip_smoke as a module, import without pulling in jax, any kaiju_tpu
-    module or a script of scripts/."""
+    ops.gather and their benchmark tools.bench_gather, the eight host tools
+    and utils.aot among them), and chip_smoke as a module, import without
+    pulling in jax, any kaiju_tpu module or a script of scripts/; makedb
+    reads its data files from kaiju_tpu_torch/data/."""
     code = r"""
 import importlib, pathlib, sys
 sys.path.insert(0, sys.argv[1])
@@ -192,10 +193,23 @@ assert {"kaiju_tpu_torch.engine.mem_fast", "kaiju_tpu_torch.engine.greedy_fast",
         "kaiju_tpu_torch.tools.bench_gather",
         "kaiju_tpu_torch.parallel.big_index", "kaiju_tpu_torch.ops.big_mem",
         "kaiju_tpu_torch.tools.big_build",
-        "kaiju_tpu_torch.tools.big_classify"} <= set(mods), mods
+        "kaiju_tpu_torch.tools.big_classify",
+        "kaiju_tpu_torch.tools.kaiju2table", "kaiju_tpu_torch.tools.kaiju2krona",
+        "kaiju_tpu_torch.tools.kaiju_addTaxonNames",
+        "kaiju_tpu_torch.tools.kaiju_mergeOutputs",
+        "kaiju_tpu_torch.tools.gbk2faa", "kaiju_tpu_torch.tools.convert_nr",
+        "kaiju_tpu_torch.tools.convert_refseq", "kaiju_tpu_torch.tools.makedb",
+        "kaiju_tpu_torch.utils.aot"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")
+makedb = sys.modules["kaiju_tpu_torch.tools.makedb"]
+data = pathlib.Path(makedb.DATA_DIR).resolve()
+assert data == (pkg / "data").resolve(), data
+for f in (makedb.DEFAULT_EXCLUDED, makedb.DEFAULT_TAXONLIST):
+    assert pathlib.Path(f).resolve().parent == data and pathlib.Path(f).is_file(), f
+assert not any("kaiju_tpu/" in p.read_text() or "kaiju_tpu." in p.read_text()
+               for p in data.iterdir()), sorted(data.iterdir())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "kaiju_tpu" or m.startswith("kaiju_tpu.")

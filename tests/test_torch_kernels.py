@@ -1845,3 +1845,76 @@ def test_kmer_tables_on_the_card_match_host(env, cuda, S):
     for (g0, g1), (w0, w1) in zip(got.tables, want.tables):
         np.testing.assert_array_equal(g0, w0)
         np.testing.assert_array_equal(g1, w1)
+
+
+WARM_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from kaiju_tpu_torch import kernels
+from kaiju_tpu_torch.tools import kaiju
+ktx, nodes, fq, out = sys.argv[2:6]
+for mode, flags in (("mem", ["-a", "mem"]), ("greedy", [])):
+    assert kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *flags,
+                       "-o", out + mode + ".tsv"]) == 0
+print(json.dumps({"origin": kernels.ORIGIN, "loader": kernels.LOADER,
+                  "launches": kernels.LAUNCHES}))
+"""
+
+
+def test_mkdb_aot_libraries_load_in_a_fresh_process(cuda, tmp_path,
+                                                    monkeypatch):
+    """mkdb --aot builds every library into db.ktx/aot/<key>/; a fresh
+    kaiju process (MEM, then Greedy) loads each library it uses from there
+    with no nvcc run, reads the seed tables instead of building them, and
+    writes the TSV of the same reads classified in this process."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.tools import kaiju, mkdb
+    from kaiju_tpu_torch.tools.readgen import write_fastq
+    from kaiju_tpu_torch.utils import aot
+
+    monkeypatch.setattr(kernels, "_prebuilt", None)
+    monkeypatch.delenv("KAIJU_TPU_CACHE", raising=False)
+    rng = random.Random(91)
+    records = [(f"ACC{i:04d}.1_{[101, 102, 201, 100][i % 4]}",
+                "".join(rng.choice(AA) for _ in range(rng.randint(60, 400))))
+               for i in range(300)]
+    fasta, nodes = str(tmp_path / "db.faa"), str(tmp_path / "nodes.dmp")
+    with open(fasta, "w") as fh:
+        fh.writelines(f">{n}\n{s}\n" for n, s in records)
+    with open(nodes, "w") as fh:
+        fh.writelines(f"{t}\t|\t{p}\t|\tspecies\t|\n" for t, p in NODES.items())
+    fq = str(tmp_path / "reads.fastq")
+    write_fastq(make_reads(rng, records, n=500), fq)
+    ktx = str(tmp_path / "db.ktx")
+    assert mkdb.main(["-o", ktx, "--aot", "-t", nodes, "--aot-batch", "256",
+                      fasta]) == 0
+    pre = aot.prebuilt_dir(ktx)
+    assert sorted(f for f in os.listdir(pre) if f.endswith(".so")) == sorted(
+        f"lib{s}.so" for s in kernels.SOURCES)
+    assert aot.read_manifest(pre)["key"] == os.path.basename(pre)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", WARM_WORKER, repo, ktx, nodes, fq,
+         str(tmp_path / "warm_")], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["loader"]["nvcc_runs"] == 0
+    assert set(got["origin"].values()) == {pre}
+    assert {"mem_extend", "mem_stats", "read_lca", "greedy_search",
+            "ranges_lca"} <= set(got["origin"])
+    assert got["launches"]["update_si_letters"] == 0  # tables read
+    for mode, flags in (("mem", ["-a", "mem"]), ("greedy", [])):
+        out = str(tmp_path / f"here_{mode}.tsv")
+        assert kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *flags,
+                           "-o", out]) == 0
+        with open(out) as a, open(str(tmp_path / f"warm_{mode}.tsv")) as b:
+            here, warm = a.read(), b.read()
+        assert here == warm and here.count("\n") == 500
+        assert here.count("C\t") > 100

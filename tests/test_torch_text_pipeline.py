@@ -229,5 +229,6 @@ def test_mkdb_output_matches_jax(env, kmer):
     assert sorted(got) == sorted(want)
     for name in want:
         assert got[name] == want[name], name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit) as exc:  # --aot needs -t, as in JAX
         mkdb.main(["-o", tdir, "--aot", env["fasta"]], device="cpu")
+    assert exc.value.code == 2
