@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 20240817] [--db-letters 64000000]
     python3 chip_smoke.py --only-processes    # phases 1, 2, 4 (text), 4f
+    python3 chip_smoke.py --only-cards        # phases 1, 2, 4 (text), 4i
     python3 chip_smoke.py --only-warm         # phases 1, 2, 4h
 
 Phases, any failure exits non-zero:
@@ -142,10 +143,33 @@ Phases, any failure exits non-zero:
      TSVs must equal tools.kaiju.main's in this process on aot.ktx byte for
      byte; phase 1's build seconds are printed beside the prepared
      process's library seconds;
+  4i. the index over the cards of one process: every visible card (on a
+     machine with one card ["cuda:0", "cuda:0"], two data rows and no
+     peer read); under torch.cuda.device(i) every kernel library's
+     runtime must take card i as current; then tools.kaiju.main(...,
+     device=cards) with -a mem and with the default flags, each with
+     --mesh-index 1, 2 and 4, on the first 16,384 reads of db_text.ktx
+     (seed tables built afresh by card 0 on its view): one pipeline a card
+     on its share of each batch (engine.pipeline.CardShare), each card
+     launching every kernel of its path (A on card 0 alone), counted per
+     card, no unsharded kernel, each card holding the shards of the rule
+     (card c: c mod S for D >= S, o mod D = c for D < S) and reading the
+     others in place from their holders' cards, with layout()'s bytes, and
+     the TSV equal to phase 4's lines byte for byte; with S > 1 each kernel
+     of the path on card 0's first call against its plain version and its
+     launch on copies of every shard on card 0 (both timed), at S = 4 J
+     and H on card 0's view too; steady passes over the cards and on one
+     card in turns (one, cards, cards, one) with each card's host seconds
+     by stage and its set-up seconds; then tools.big_classify.run over the
+     cards at S = 2 and 4 on a DB of 64 M letters (the demo's seed, built
+     here): shard o on card o mod D, the step on card 0, 24 sampled reads
+     held to the oracle lane for lane, S = 4 equal to S = 2, and at S = 4
+     L and M on the peer shards against their launches on copies on card 0
+     (timed) and the plain versions;
   4g. the index above 2^31 letters (K17): a synthetic DB of 2.2 G
      letters (N about 1.03 x 2^31) from the demo's
      seed, built with the int64 builder on every host thread in a thread
-     of its own that starts after phase 4b and runs beside phases 4c-4h
+     of its own that starts after phase 4b and runs beside phases 4c-4i
      (it slows their host stages; 4b's steady rates run alone);
      then tools.big_classify.run on the demo's 1,024 reads of 64 at S = 2
      (saved, loaded onto the card, L then M twice, the host statistics,
@@ -163,9 +187,9 @@ Phases, any failure exits non-zero:
      host's peak RSS;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards, L's and M's on the big index; the
-     launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h and 4g, each
-     counted from 0, and of P1 and P2's benchmark; each error the largest
-     of all the kernel's comparisons), then the result line.
+     launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h, 4i and 4g,
+     each counted from 0, and of P1 and P2's benchmark; each error the
+     largest of all the kernel's comparisons), then the result line.
 
 Needs a CUDA device; imports nothing of JAX or of kaiju_tpu.
 """
@@ -232,6 +256,11 @@ SHARDED = ("update_si", "update_si_letters", "extend_all", "sa_lookup",
 MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
 MESH_READS = 4 * BATCH  # reads of each phase 4e and 4f run
 NPROCS = 2  # processes of each phase 4f run, process p on cuda:{p % cards}
+# phase 4i, the index over the cards of one process: the --mesh-index of its
+# runs, and its big index's letters and shards (tools.big_classify.run)
+CARD_SHARDS = (1, 2, 4)
+CARD_BIG_LETTERS = 64_000_000
+CARD_BIG_SHARDS = (2, 4)
 # phase 4f's runs (--mesh-index, path): one index a process; the shards
 # held apart with N = S; N < S (two shards held and two mapped a process)
 PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
@@ -2097,6 +2126,26 @@ def run_mesh(index, reads, ktx, nodes, tag, mode, n_shards, base_tsv,
     return {k: launches[k] for k in REPLACES}
 
 
+def batch_codes(reads, dev):
+    """The fragments of the first MEM batch as J takes them: (codes uint8
+    [F, L], 0-padded, flen int32 [F]) on dev."""
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
+    from kaiju_tpu_torch.engine.mem import MemPipeline
+    from kaiju_tpu_torch.engine.pipeline import _bucket
+
+    frag = NativeFragmenter2("mem", 11, 65, True, False)
+    flat, _chars, off, nf, _k, _rf, _o = frag.run(
+        reads[:BATCH], MemPipeline.S_SLOTS, _bucket)
+    flen = np.diff(off[:nf + 1]).astype(np.int32)
+    codes = np.zeros((nf, int(flen.max())), dtype=np.uint8)
+    for t in range(nf):
+        codes[t, :flen[t]] = flat[off[t]:off[t + 1]]
+    return torch.from_numpy(codes).to(dev), torch.from_numpy(flen).to(dev)
+
+
 def run_sharded_primitives(index, reads, n_shards):
     """The sharded primitives of item 10a, which no CLI path reaches yet
     (--mesh-index with -v or a taxonomy-free tool raises): on the index in
@@ -2104,28 +2153,17 @@ def run_sharded_primitives(index, reads, n_shards):
     MEM batch as a padded code matrix, then sharded_sa_lookup (H) on the
     first SA position of every lane's match.  Counts from 0; then each
     output must equal the unsharded kernel's.  Returns the launch counts."""
-    import numpy as np
     import torch
 
     from kaiju_tpu_torch import kernels
-    from kaiju_tpu_torch.engine.fragments_native import NativeFragmenter2
-    from kaiju_tpu_torch.engine.mem import MemPipeline
-    from kaiju_tpu_torch.engine.pipeline import _bucket
     from kaiju_tpu_torch.ops import device_index
     from kaiju_tpu_torch.parallel.sharded_index import (ShardedIndex,
                                                         sharded_extend_all,
                                                         sharded_sa_lookup)
 
     cuda = torch.device("cuda")
-    frag = NativeFragmenter2("mem", 11, 65, True, False)
-    flat, chars, off, nf, _k, _rf, _o = frag.run(reads[:BATCH],
-                                                 MemPipeline.S_SLOTS, _bucket)
-    flen = np.diff(off[:nf + 1]).astype(np.int32)
-    codes = np.zeros((nf, int(flen.max())), dtype=np.uint8)
-    for t in range(nf):
-        codes[t, :flen[t]] = flat[off[t]:off[t + 1]]
-    codes = torch.from_numpy(codes).to(cuda)
-    flen = torch.from_numpy(flen).to(cuda)
+    codes, flen = batch_codes(reads, cuda)
+    nf = codes.shape[0]
     sh = ShardedIndex(index, n_shards, cuda)
     kernels.reset_counts()
     maps = sharded_extend_all(sh, codes, flen)
@@ -2160,11 +2198,15 @@ def run_sharded_primitives(index, reads, n_shards):
 # ---------------------------------------------------------------------------
 
 
-def spy_first_calls(mode: str) -> dict:
+_SPIED: list = []  # (module, name, wrapper) that spy_first_calls replaced
+
+
+def spy_first_calls(mode: str, only=None) -> dict:
     """Wrap the kernel wrappers of the path `mode` where its pipeline
     looks them up (A where the seed tables are built), so that each keeps
-    the arguments of its first call: {kernel: (wrapper, plain version,
-    args, kwargs)}, filled as the run goes."""
+    the arguments of its first call (of the first for which only() is
+    true, if given): {kernel: (wrapper, plain version, args, kwargs)},
+    filled as the run goes; unspy() puts the wrappers back."""
     from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
                                      kmer, search)
 
@@ -2183,22 +2225,32 @@ def spy_first_calls(mode: str) -> dict:
     for name, (mod, plain) in where.items():
         def wrap(*args, _fn=getattr(mod, name), _name=name, _plain=plain,
                  **kw):
-            first.setdefault(_name, (_fn, _plain, args, kw))
+            if only is None or only():
+                first.setdefault(_name, (_fn, _plain, args, kw))
             return _fn(*args, **kw)
 
+        _SPIED.append((mod, name, getattr(mod, name)))
         setattr(mod, name, wrap)
     return first
 
 
+def unspy() -> None:
+    """Undo spy_first_calls."""
+    while _SPIED:
+        mod, name, fn = _SPIED.pop()
+        setattr(mod, name, fn)
+
+
 def check_first_calls(first: dict, dev) -> dict:
     """Each kernel of `first` (spy_first_calls) on the arguments of its
-    first call, whose Shards hold the shards mapped from the peer process:
-    launched again, it must equal its plain version on the same Shards (on
-    copies made here of the shards that lie on another card, which the
-    plain versions refuse) and its launch on a Shards of copies of every
-    shard in this process's own memory; both launches timed.  Returns
-    {kernel: {"err", "ms" (mapped shards), "ms_local" (own copies),
-    "opened" (shards mapped)}}."""
+    first call, whose Shards hold the shards mapped from the peer process
+    (or held by another card of this process, phase 4i): launched again,
+    it must equal its plain version on the same Shards (on copies made
+    here of the shards that lie on another card, which the plain versions
+    refuse) and its launch on a Shards of copies of every shard in this
+    card's own memory; both launches timed.  Returns {kernel: {"err",
+    "ms" (mapped shards), "ms_local" (own copies), "opened" (shards read
+    from a peer)}}."""
     import torch
 
     from kaiju_tpu_torch.ops.device_index import Shards
@@ -2229,7 +2281,7 @@ def check_first_calls(first: dict, dev) -> dict:
         out[name + "_sharded" if name in SHARDED else name] = {
             "err": err, "ms": cuda_ms(lambda: fn(*args, **kw)),
             "ms_local": cuda_ms(lambda: fn(*largs, **lkw)),
-            "opened": max((len(sh.opened) for sh, _c in found.values()),
+            "opened": max((len(sh.peer) for sh, _c in found.values()),
                           default=0)}
         del found, largs, lkw
         torch.cuda.synchronize()
@@ -2498,6 +2550,405 @@ def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
             f"{mode} {'--mesh-index %d' % n if n else 'one index'} "
             f"{b:,} bytes" for (mode, n), b in used.items()))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the index over the cards of one process
+# ---------------------------------------------------------------------------
+
+
+def card_list() -> list:
+    """Phase 4i's cards: every visible card; on a machine with one card
+    ["cuda:0", "cuda:0"], two data rows there and no peer read."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(n)] if n > 1
+            else ["cuda:0", "cuda:0"])
+
+
+def sync_cards(cards) -> None:
+    import torch
+
+    for i in sorted({torch.device(c).index for c in cards}):
+        torch.cuda.synchronize(i)
+
+
+def check_library_devices(cards) -> None:
+    """Under torch.cuda.device(i), every kernel library's runtime must
+    take card i as current (kernels.library_device: its cudaGetDevice),
+    which is what lets kernels.launch put a kernel on its tensors' card
+    from any thread."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+
+    ids = sorted({torch.device(c).index for c in cards}, reverse=True)
+    bad = []
+    for i in ids:
+        with torch.cuda.device(i):
+            bad += [(src, i, got) for src in kernels.SOURCES
+                    if (got := kernels.library_device(src)) != i]
+    log(f"4i runtime: under torch.cuda.device(i) for i in {ids}, "
+        f"cudaGetDevice in each of the {len(kernels.SOURCES)} libraries "
+        f"(nvcc's static runtime) gave i: {'yes' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"4i: a library's current card does not follow "
+                             f"the device guard: {bad}")
+
+
+def card_steady(runner, batches, warm, engine) -> float:
+    """Seconds of a steady pass of `batches` through runner, warmed by one
+    batch of other reads (host clock, every card synchronised)."""
+    import torch
+
+    runner.classify_batch(warm)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    engine.reset_counts()
+    for pipe in getattr(runner, "pipes", [runner]):
+        pipe.host_seconds.clear()
+    t0 = time.perf_counter()
+    n = sum(len(r) for r in runner.classify_stream(batches))
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    if n != sum(len(b) for b in batches):
+        raise AssertionError("4i: a steady pass lost reads")
+    return time.perf_counter() - t0
+
+
+def card_primitives(index, reads, view, smi) -> dict:
+    """J and H on card 0's view of the shards over the cards (the shards
+    it does not hold read in place on their cards): equal to the
+    unsharded kernels on card 0, and timed against the same launches on a
+    copy of every shard on card 0.  Returns {kernel: error}."""
+    from kaiju_tpu_torch.ops import device_index
+    from kaiju_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                        sharded_extend_all,
+                                                        sharded_sa_lookup)
+
+    dev = view.device
+    codes, flen = batch_codes(reads, dev)
+    local = ShardedIndex(index, view.S, dev)
+    dv = device_index.DeviceIndex(index, dev)
+    maps = sharded_extend_all(view, codes, flen)
+    k = maps[1][maps[2] > maps[1]]
+    walks = sharded_sa_lookup(view, k)
+    err = {"extend_all_sharded": max_abs_err(maps, device_index.extend_all(
+        dv.rec, dv.C, codes, flen)), "sa_lookup_sharded": max_abs_err(
+        walks, device_index.sa_lookup(dv.rec, dv.C, dv.sa_seq, dv.sa_off,
+                                      dv.nseq, dv.chpt_exp, k))}
+    ms = {"extend_all_sharded": [cuda_ms(lambda ix=ix: sharded_extend_all(
+        ix, codes, flen)) for ix in (view, local)],
+        "sa_lookup_sharded": [cuda_ms(lambda ix=ix: sharded_sa_lookup(ix, k))
+                              for ix in (view, local)]}
+    for name, (peer, own) in ms.items():
+        log(f"4i kernel {name} [{view.S} shards, card {dev} reading "
+            f"{sorted(view.reads)} in place on "
+            f"{sorted({str(view.cards[c]) for c in view.reads.values()})}]: "
+            f"max_abs_err {err[name]} against the unsharded kernel; "
+            f"{peer:.4f} ms on the peer shards, {own:.4f} ms on copies on "
+            f"{dev} ({peer / own - 1:+.1%}); J over [{codes.shape[0]:,}, "
+            f"{codes.shape[1]}] codes, H on {k.shape[0]:,} positions [{smi}]")
+    if any(err.values()):
+        raise AssertionError(f"4i: J or H on peer shards differs: {err}")
+    del local, dv
+    return err
+
+
+def run_cards(index, reads, ktx, nodes, mode, n_shards, base_tsv, cards,
+              warm, smi):
+    """kaiju --mesh-index n_shards on the path `mode` through
+    tools.kaiju.main(..., device=cards) on the first MESH_READS reads of
+    the text index (seed tables built afresh, by card 0 on its view): a
+    CardShare of one pipeline a card, card c on local_rows(n, D, c) of
+    each batch.  Each card must launch every kernel of the path (A on card
+    0 alone, which builds the seed tables), no unsharded kernel may
+    launch, each card must hold the shards of peer_shards.held(c, D, S)
+    and read the others from their holders' cards, with layout()'s bytes,
+    and the TSV must equal phase 4's lines byte for byte.  With S > 1
+    each kernel of the path on card 0's first call is held against its
+    plain version on copies and timed on the peer shards against copies
+    on card 0 (check_first_calls), and at the most shards J and H too
+    (card_primitives).  Then steady passes, one card (the sharded pipeline
+    on cards[0]) and the cards in turns (one, cards, cards, one), with
+    each card's host seconds by stage and set-up seconds.  Returns (launch
+    counts, {kernel: error})."""
+    import threading
+
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine import greedy, mem
+    from kaiju_tpu_torch.engine.pipeline import CardShare
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.parallel import peer_shards, sharded_fused
+    from kaiju_tpu_torch.tools import kaiju
+
+    engine = greedy if mode == "greedy" else mem
+    Pipeline = (sharded_fused.ShardedGreedyPipeline if mode == "greedy"
+                else sharded_fused.ShardedMemPipeline)
+    D = len(cards)
+    name = f"{mode} --mesh-index {n_shards} on {D} cards"
+    path = kernels_of(mode, True, True)
+    fq = mesh_fastq(reads, ktx)
+    shutil.rmtree(os.path.join(ktx, "kmer5"), ignore_errors=True)
+    out_tsv = os.path.join(os.path.dirname(ktx),
+                           f"out_{mode}_cards{n_shards}.tsv")
+    first = spy_first_calls(mode, only=lambda: threading.current_thread(
+    ).name in ("MainThread", "card0_0")) if n_shards > 1 else {}
+    box = {}
+    make_runner = kaiju.make_runner
+
+    def keep(*args, **kw):
+        box["runner"] = make_runner(*args, **kw)
+        return box["runner"]
+
+    kaiju.make_runner = keep
+    kernels.reset_counts()
+    engine.reset_counts()
+    try:
+        sync_cards(cards)
+        t0 = time.perf_counter()
+        rc = kaiju.main(["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1],
+                         "--mesh-index", str(n_shards), "-o", out_tsv,
+                         "-b", str(BATCH)], device=cards)
+        sync_cards(cards)
+        dt = time.perf_counter() - t0
+    finally:
+        kaiju.make_runner = make_runner
+        unspy()
+    launches = dict(kernels.LAUNCHES)
+    share = box.get("runner")
+    if rc != 0 or not isinstance(share, CardShare):
+        raise AssertionError(f"4i {name}: main returned {rc}, runner "
+                             f"{type(share).__name__}")
+    log(f"4i e2e {name} ({', '.join(str(c) for c in share.cards)}): "
+        f"{MESH_READS:,} reads in {dt:.2f} s = {MESH_READS / dt:.1f} reads/s "
+        f"with set-up (set-up seconds a card "
+        f"{[round(x, 3) for x in share.setup_seconds]}); host replay "
+        f"{engine.HOST_REPLAY['flagged']} reads; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    unsharded = [k for k in SHARDED if launches[k]]
+    stray = [k for k in REPLACES if launches[k] and k not in path]
+    problems = []
+    if unsharded or stray:
+        problems.append(f"unsharded kernels {unsharded}, others {stray}")
+    for c, pipe in enumerate(share.pipes):
+        mine = share.launches[c]
+        need = [k for k in path if c == 0 or k != "update_si_letters_sharded"]
+        idle = [k for k in need if mine.get(k, 0) <= 0]
+        lay = pipe.dev.layout()
+        held = peer_shards.held(c, D, n_shards)
+        reads_from = {o: peer_shards.source(o, D) for o in range(n_shards)
+                      if o not in held}
+        placed = all(
+            getattr(pipe.dev, a).parts[o].device == share.cards[
+                reads_from.get(o, c)]
+            for a in ("rec", "sa_seq", "sa_off", "text")
+            for o in range(n_shards))
+        sums = {a: sum(getattr(pipe.dev, a).parts[o].nbytes for o in held)
+                for a in lay["bytes_held"]}
+        log(f"4i card {c} ({share.cards[c]}) {name}: holds {lay['held']} "
+            f"({json.dumps(lay['bytes_held'])} bytes), reads "
+            + (", ".join(f"{o} from card {h}" for o, h in lay["reads"]
+                         .items()) or "nothing")
+            + f" ({json.dumps(lay['bytes_read'])} bytes); launches "
+            f"{json.dumps(mine)}; host seconds in main() "
+            f"{json.dumps({k: round(v, 3) for k, v in pipe.host_seconds.items()})}")
+        if (idle or lay["held"] != held or lay["reads"] != reads_from
+                or not placed or sums != lay["bytes_held"]):
+            problems.append(f"card {c}: kernels that did not launch {idle}, "
+                            f"holds {lay['held']} reads {lay['reads']} (the "
+                            f"rule: {held}, {reads_from}), placed {placed}, "
+                            f"bytes {sums} against {lay['bytes_held']}")
+    for card in dict.fromkeys(share.cards):
+        log(f"4i memory {name}: {card} allocated "
+            f"{torch.cuda.memory_allocated(card):,} bytes")
+    with open(out_tsv) as fh:
+        got = fh.readlines()
+    with open(base_tsv) as fh:
+        want = [next(fh) for _ in range(MESH_READS)]
+    same = sum(g == w for g, w in zip(got, want))
+    log(f"4i check {name}: {same:,} of {MESH_READS:,} lines equal phase 4's "
+        f"{mode} lines on db_text.ktx")
+    if len(got) != MESH_READS or same != MESH_READS:
+        problems.append("the TSV differs from phase 4's")
+    if problems:
+        raise AssertionError(f"4i {name}: " + "; ".join(problems))
+
+    errs = {}
+    for k, c in check_first_calls(first, share.cards[0]).items():
+        errs[k] = c["err"]
+        log(f"4i kernel {k} [{name}, card 0's first call, {c['opened']} of "
+            f"{n_shards} shards read from other cards]: max_abs_err "
+            f"{c['err']} against its plain version and its launch on copies "
+            f"on {share.cards[0]}; {c['ms']:.4f} ms on the peer shards, "
+            f"{c['ms_local']:.4f} ms on the copies "
+            f"({c['ms'] / c['ms_local'] - 1:+.1%}) [{smi}]")
+    unchecked = [k for k in path if n_shards > 1 and k not in errs]
+    if unchecked or any(errs.values()):
+        raise AssertionError(f"4i {name}: kernels unchecked {unchecked} or "
+                             f"differing on the peer shards {errs}")
+    if n_shards == max(CARD_SHARDS):
+        errs.update(card_primitives(index, reads, share.pipes[0].dev, smi))
+
+    tax = Taxonomy(parse_nodes_dmp(nodes))
+    one = Pipeline(index, tax, cli_config(mode), n_shards,
+                   device=share.cards[0], kmer_cache_dir=ktx)
+    batches = [reads[i:i + BATCH] for i in range(0, MESH_READS, BATCH)]
+    walls = {"one": [], "cards": []}
+    for who in ("one", "cards", "cards", "one"):
+        walls[who].append(card_steady(one if who == "one" else share,
+                                      batches, warm, engine))
+    share.close()
+    rate = {k: [MESH_READS / w for w in v] for k, v in walls.items()}
+    log(f"4i steady {name}: over the cards {rate['cards'][0]:.1f} and "
+        f"{rate['cards'][1]:.1f} reads/s, one card ({share.cards[0]}) "
+        f"{rate['one'][0]:.1f} and {rate['one'][1]:.1f} reads/s (turns: one, "
+        f"cards, cards, one; {MESH_READS:,} reads in batches of {BATCH:,}, "
+        f"untraced); the cards' last pass, host seconds a card by stage: "
+        + "; ".join(f"card {c} " + json.dumps(
+            {k: round(v, 3) for k, v in p.host_seconds.items()})
+            for c, p in enumerate(share.pipes)) + f" [{smi}]")
+    del one, share, box
+    gc.collect()
+    for card in dict.fromkeys(cards):
+        with torch.cuda.device(card):
+            torch.cuda.empty_cache()
+    return {k: launches[k] for k in REPLACES}, errs
+
+
+def run_cards_big(cards, smi) -> tuple[dict, dict]:
+    """tools.big_classify.run over the cards at S = CARD_BIG_SHARDS on a DB
+    of CARD_BIG_LETTERS letters (the demo's generator and seed, built
+    here): shard o on card o mod D, the step on card 0; each run's
+    sampled reads held to the host oracle lane for lane, L and M launched
+    in each, S = 4's arrays equal to S = 2's; at the most shards L and M
+    on the peer shards against their launches on copies of every shard on
+    card 0 (timed) and the plain versions on the copies.  Returns (launch
+    counts, {kernel: error})."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import big_mem
+    from kaiju_tpu_torch.ops.device_index import Shards
+    from kaiju_tpu_torch.parallel.big_index import build_db
+    from kaiju_tpu_torch.parallel.multihost import local_cards
+    from kaiju_tpu_torch.tools import big_classify
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "big_cards")
+    shutil.rmtree(work, ignore_errors=True)
+    threads = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    db = build_db(None, CARD_BIG_LETTERS, threads, BIG_SEED, True)
+    log(f"4i big: built N = {db['N']:,} ({db['nseq']:,} sequences) in "
+        f"{time.perf_counter() - t0:.1f} s on {threads} threads")
+    devs = local_cards(cards)
+    launches = {k: 0 for k in BIG_KERNELS}
+    arrays, errs = {}, {}
+    for S in CARD_BIG_SHARDS:
+        out = os.path.join(work, f"s{S}")
+        args = big_classify.parse_args([
+            "--letters", str(CARD_BIG_LETTERS), "--threads", str(threads),
+            "--shards", str(S), "--reads", str(BIG_READS),
+            "--read-len", str(BIG_LEN), "--verify", str(BIG_VERIFY),
+            "--allow-small", "--out", out, "--device", ",".join(cards)])
+        kernels.reset_counts()
+        res = big_classify.run(args, db=db)
+        counts = {k: kernels.LAUNCHES[k] for k in BIG_KERNELS}
+        for k, c in counts.items():
+            launches[k] += c
+        ix, secs = res["index"], res["seconds"]
+        placed = all(p.device == devs[o % len(devs)] for sh in
+                     (ix.rec, ix.sa_seq) for o, p in enumerate(sh.parts))
+        log(f"4i big S = {S} on {len(devs)} cards: {res['summary']}; save "
+            f"{secs['save']:.1f} s, load {secs['load']:.1f} s, card bytes "
+            + ", ".join(f"{devs[c]} {b:,}" for c, b in
+                        sorted(ix.card_bytes.items()))
+            + f", shards read from other cards {sorted(ix.rec.peer)}; first "
+            f"step {secs['first_step']:.2f} s, steady step "
+            f"{secs['step']:.4f} s; launches {counts} [{smi}]")
+        if (not all(counts.values()) or not placed
+                or res["summary"]["verified"] != BIG_VERIFY):
+            raise AssertionError(f"4i big S = {S}: launches {counts}, placed "
+                                 f"{placed}, verified "
+                                 f"{res['summary']['verified']}")
+        arrays[S] = res["step"]
+        if S == max(CARD_BIG_SHARDS):
+            dev = ix.device
+            lx = copy.copy(ix)
+            for a in ("rec", "sa_seq"):
+                sh = getattr(ix, a)
+                setattr(lx, a, Shards([p.to(dev, copy=True)
+                                       for p in sh.parts], sh.per,
+                                      sh.shape[0], dev))
+            codes = torch.from_numpy(res["reads"]).to(dev)
+            got = big_mem.big_extend_all(ix, codes)
+            kf = torch.where(got[2] > got[1], got[1], -1).reshape(-1)
+            ids = big_mem.big_sa_walk(ix, kf)
+            errs["big_extend_all"] = max(
+                max_abs_err(got, big_mem.big_extend_all(lx, codes)),
+                max_abs_err(got, big_mem.big_extend_all_plain(lx, codes)))
+            errs["big_sa_walk"] = max(
+                max_abs_err(ids, big_mem.big_sa_walk(lx, kf)),
+                max_abs_err(ids, big_mem.big_sa_walk_plain(lx, kf)))
+            for name, fn in (("big_extend_all", big_mem.big_extend_all),
+                             ("big_sa_walk", big_mem.big_sa_walk)):
+                arg = codes if name == "big_extend_all" else kf
+                peer = cuda_ms(lambda: fn(ix, arg))
+                own = cuda_ms(lambda: fn(lx, arg))
+                log(f"4i kernel {name} [big index, S = {S}, {BIG_READS:,} "
+                    f"reads, card {dev} reading {sorted(ix.rec.peer)} in "
+                    f"place]: max_abs_err {errs[name]} against its launch "
+                    f"and its plain version on copies on {dev}; {peer:.4f} "
+                    f"ms on the peer shards, {own:.4f} ms on the copies "
+                    f"({peer / own - 1:+.1%}) [{smi}]")
+            del lx, codes, got, kf, ids
+        del res, ix
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(arrays[CARD_BIG_SHARDS[0]], arrays[CARD_BIG_SHARDS[-1]]))
+    log(f"4i big: S = {CARD_BIG_SHARDS[-1]} "
+        f"{'equals' if same else 'DIFFERS FROM'} S = {CARD_BIG_SHARDS[0]} on "
+        "all four arrays")
+    shutil.rmtree(work, ignore_errors=True)
+    if not same or any(errs.values()):
+        raise AssertionError(f"4i big: arrays differ or kernels on the peer "
+                             f"shards differ: {errs}")
+    return launches, errs
+
+
+def run_phase_4i(index, reads, ktx, nodes, tsvs, warm, smi):
+    """Phase 4i: the index over the cards of one process (card_list):
+    the runtime check, run_cards for each path and --mesh-index of
+    CARD_SHARDS on the text index, then run_cards_big.  Returns (launch
+    counts over all the runs, {kernel: largest error})."""
+    cards = card_list()
+    log(f"4i: cards {cards}: " + (
+        "each card holds its shards and reads the others in place over "
+        "NVLink" if len(set(cards)) > 1 else "one card, so two data rows on "
+        "cuda:0 and no peer read; the cross-card form was not run"))
+    check_library_devices(cards)
+    launches = {k: 0 for k in REPLACES}
+    errs: dict = {}
+    for n_shards in CARD_SHARDS:
+        for mode in PATHS:
+            counts, e = run_cards(index, reads, ktx, nodes, mode, n_shards,
+                                  tsvs[mode]["text"], cards, warm, smi)
+            for k, c in counts.items():
+                launches[k] += c
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0), v)
+    counts, e = run_cards_big(cards, smi)
+    for k, c in counts.items():
+        launches[k] += c
+    errs.update(e)
+    return launches, errs
 
 
 # ---------------------------------------------------------------------------
@@ -2819,7 +3270,7 @@ def steady_big(ix, db, smi, dram_ns) -> dict:
 def start_big_build(letters: int) -> dict:
     """Phase 4g's DB build (parallel.big_index.build_db on every host
     thread) started in a thread of its own, so that it runs beside phases
-    4c-4h: the index build releases the GIL.  Returns the box that
+    4c-4i: the index build releases the GIL.  Returns the box that
     receives "db" or "error", and "seconds", and holds the "thread"."""
     import threading
 
@@ -2867,7 +3318,7 @@ def run_phase_4g(build: dict, smi: str, dram_ns: float):
     db, threads = build.pop("db"), build["threads"]
     log(f"4g: built N = {db['N']:,} ({db['N'] / 2**31:.4f} x 2^31), "
         f"{db['nseq']:,} sequences, e = {db['e']} in {build['seconds']:.1f}"
-        f" s on {threads} threads beside phases 4c-4h (waited "
+        f" s on {threads} threads beside phases 4c-4i (waited "
         f"{time.perf_counter() - t0:.1f} s for it here), host peak RSS "
         f"{peak_rss_gb():.1f} GB")
     launches = {k: 0 for k in BIG_KERNELS}
@@ -2877,7 +3328,7 @@ def run_phase_4g(build: dict, smi: str, dram_ns: float):
         args = big_classify.parse_args([
             "--letters", str(db["N"] - db["nseq"]), "--threads", str(threads),
             "--shards", str(S), "--reads", str(BIG_READS),
-            "--read-len", str(BIG_LEN), "--out", out,
+            "--read-len", str(BIG_LEN), "--out", out, "--device", "cuda:0",
             "--verify", str(BIG_VERIFY if S == BIG_SHARDS[0] else 0)])
         kernels.reset_counts()
         res = big_classify.run(args, db=db)
@@ -3024,6 +3475,19 @@ def run(args) -> int:
         log("--only-warm: phases 1, 2 and 4h passed; no kernels line")
         return 0
 
+    if args.only_cards:  # phase 4i and the lines it is held against
+        tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
+                                       nodes, fq, mode, "text")[1]}
+                for mode in PATHS}
+        run_phase_4i(indexes["text"], reads, ktx["text"], nodes, tsvs,
+                     make_reads(args.seed + 1, records, BATCH), smi)
+        log("--only-cards: phases 1, 2, 4 on db_text.ktx and 4i passed; no "
+            "kernels line")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only_processes:  # phase 4f and the lines it is held against
         tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
                                        nodes, fq, mode, "text")[1]}
@@ -3103,7 +3567,7 @@ def run(args) -> int:
             rates[mode, tag] = steady_stream(indexes[tag], nodes, reads, warm,
                                              mode, tag)
 
-    # phase 4g's DB builds from here on, beside phases 4c-4h, whose host
+    # phase 4g's DB builds from here on, beside phases 4c-4i, whose host
     # stages it slows; the steady rates above ran alone
     big_build = start_big_build(BIG_LETTERS)
 
@@ -3162,6 +3626,18 @@ def run(args) -> int:
     for k, c in run_phase_4h(records, reads, nodes, secs).items():
         launches[k] += c
 
+    # ---- 4i. the index over the cards of one process, each run counted
+    # from 0; its errors join the sharded kernels' and L's and M's -----------
+    card_launches, card_errs = run_phase_4i(indexes["text"], reads,
+                                            ktx["text"], nodes, tsvs, warm,
+                                            smi)
+    for k, c in card_launches.items():
+        launches[k] += c
+    for k, e in card_errs.items():
+        if k in checks["text"]:
+            err, *rest = checks["text"][k]
+            checks["text"][k] = (max(err, e), *rest)
+
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
     big_rows, big_launches = run_phase_4g(big_build, smi, dram_ns)
     for name, v in big_rows.items():
@@ -3169,9 +3645,11 @@ def run(args) -> int:
             f"{v[2]:.3f} ms, bound {v[3]:.4f} ms) [{v[4]}]")
     if any(v[0] for v in big_rows.values()):
         raise AssertionError("L or M differs from its plain version")
-    for name in BIG_KERNELS:  # the steady shape's errors join the line's
+    for name in BIG_KERNELS:  # the steady shape's and 4i's errors join
         fold_errors(big_rows, name)
-    launches.update(big_launches)
+        err, *rest = big_rows[name]
+        big_rows[name] = (max(err, card_errs.get(name, 0)), *rest)
+        launches[name] += big_launches[name]
 
     # ---- 5. result lines ----------------------------------------------
     rows = {name: (*v, None) for name, v in checks["text"].items()}
@@ -3208,6 +3686,10 @@ def main(argv=None) -> int:
                     help="run phase 4f alone, with the phase 4 lines it is "
                     "held against (for a machine with several cards); no "
                     "kernels line and no result line")
+    ap.add_argument("--only-cards", action="store_true",
+                    help="run phase 4i alone, with the phase 4 lines it is "
+                    "held against (for a machine with several cards); no "
+                    "kernels line")
     ap.add_argument("--only-warm", action="store_true",
                     help="run phase 4h (warm start) alone after phases 1 "
                     "and 2; no kernels line and no result line")

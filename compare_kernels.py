@@ -162,7 +162,7 @@ def to_design(x, mods: dict):
     the same arrays, inside tuples too; other values unchanged."""
     cls = mods["ops.device_index"].Shards
     if type(x).__name__ == "Shards" and not isinstance(x, cls):
-        return cls(x.parts, x.per, x.shape[0], x.device, x.opened)
+        return cls(x.parts, x.per, x.shape[0], x.device, x.peer)
     big = mods["parallel.big_index"].BigIndex
     if type(x).__name__ == "BigIndex" and not isinstance(x, big):
         y = big.__new__(big)

@@ -393,3 +393,11 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
 KT_EXPORT const char* kt_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The card that this library's runtime takes as the calling thread's
+// current one (cudaGetDevice), which its entry points launch on; -1 on an
+// error.  kernels.launch holds it to PyTorch's device guard.
+KT_EXPORT int kt_device() {
+    int dev = -1;
+    return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
+}

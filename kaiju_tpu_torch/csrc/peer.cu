@@ -1,5 +1,6 @@
 // Host entry points that share index shards between the processes of one
-// host over CUDA IPC (parallel/peer_shards.py); no kernel.
+// host over CUDA IPC (parallel/peer_shards.py), and between the cards of
+// one process by peer access (kt_peer_enable); no kernel.
 //
 // The counterpart of kaiju_tpu's put_global with the psum over the index
 // axis (kaiju_tpu/parallel/multihost.py:55-65, parallel/sharded_fused.py:
@@ -52,3 +53,28 @@ KT_EXPORT int kt_peer_close(void* ptr) { return cudaIpcCloseMemHandle(ptr); }
 
 // free an allocation of kt_peer_alloc
 KT_EXPORT int kt_peer_free(void* ptr) { return cudaFree(ptr); }
+
+// let kernels on card `reader` read allocations of card `holder` (over
+// NVLink): peer access enabled while `reader` is current.  Access that is
+// already enabled (PyTorch enables it for a copy between the cards) counts
+// as success, its error cleared.  Returns cudaErrorPeerAccessUnsupported
+// where the two cards have no peer access; the caller's current card is
+// restored either way.
+KT_EXPORT int kt_peer_enable(int reader, int holder) {
+    int prev = 0;
+    cudaError_t e = cudaGetDevice(&prev);
+    if (e != cudaSuccess) return e;
+    int can = 0;
+    e = cudaDeviceCanAccessPeer(&can, reader, holder);
+    if (e == cudaSuccess && !can) e = cudaErrorPeerAccessUnsupported;
+    if (e == cudaSuccess) e = cudaSetDevice(reader);
+    if (e == cudaSuccess) {
+        e = cudaDeviceEnablePeerAccess(holder, 0);
+        if (e == cudaErrorPeerAccessAlreadyEnabled) {
+            cudaGetLastError();
+            e = cudaSuccess;
+        }
+    }
+    cudaError_t back = cudaSetDevice(prev);
+    return e != cudaSuccess ? e : back;
+}

@@ -45,7 +45,7 @@ from ..ops.greedy import (
 from ..ops.search import SEED_K
 from .config import KaijuConfig
 from .core import ClassifyResult
-from .pipeline import DevicePipeline, _bucket
+from .pipeline import DevicePipeline, _bucket, tally
 
 # the device flags that send a read to the host replay, by name
 REPLAY_FLAGS = {"tie_over": FLAG_TIE_OVER, "need_more": FLAG_NEED_MORE,
@@ -117,8 +117,8 @@ class GreedyPipeline(DevicePipeline):
             cfg.max_match_ids, self.dev.nseq, self.dev.chpt_exp, self.VCAP,
             bloom=self._bloom, hyb=self._hyb,
         )
-        HOST_SECONDS["fragment"] += t1 - t0
-        HOST_SECONDS["submit"] += time.perf_counter() - t1
+        tally(HOST_SECONDS, self.host_seconds, fragment=t1 - t0,
+              submit=time.perf_counter() - t1)
         return reads, replay, out
 
     def collect_batch(self, state) -> list[tuple[str, ClassifyResult]]:
@@ -130,11 +130,10 @@ class GreedyPipeline(DevicePipeline):
         flags = rows[:, 2]
         flagged = np.flatnonzero(
             replay | ((flags & sum(REPLAY_FLAGS.values())) != 0)).tolist()
-        HOST_REPLAY["reads"] += len(reads)
-        HOST_REPLAY["flagged"] += len(flagged)
-        HOST_REPLAY["host"] += int(replay.sum())
-        for why, bit in REPLAY_FLAGS.items():
-            HOST_REPLAY[why] += int(np.count_nonzero(flags & bit))
+        tally(HOST_REPLAY, reads=len(reads), flagged=len(flagged),
+              host=int(replay.sum()),
+              **{why: int(np.count_nonzero(flags & bit))
+                 for why, bit in REPLAY_FLAGS.items()})
         redo = self._replay(reads, flagged)
         t2 = time.perf_counter()
         # the float64 E-value gate, vectorized: np.power on float64 is the
@@ -165,7 +164,6 @@ class GreedyPipeline(DevicePipeline):
                 results.append((name, unclassified))
             else:
                 results.append((name, ClassifyResult(lca > 0, lca, score=best)))
-        HOST_SECONDS["wait"] += t1 - t0
-        HOST_SECONDS["replay"] += t2 - t1
-        HOST_SECONDS["results"] += time.perf_counter() - t2
+        tally(HOST_SECONDS, self.host_seconds, wait=t1 - t0,
+              replay=t2 - t1, results=time.perf_counter() - t2)
         return results

@@ -35,7 +35,7 @@ from ..ops.classify import FLAG_NEED_MORE, FLAG_TIE_OVER, fused_mem_classify
 from ..ops.search import SEED_K, TIE_CAP
 from .config import KaijuConfig
 from .core import ClassifyResult
-from .pipeline import DevicePipeline, _bucket
+from .pipeline import DevicePipeline, _bucket, tally
 
 # reads classified and reads replayed on the host, over all pipelines
 HOST_REPLAY = {"reads": 0, "flagged": 0}
@@ -87,8 +87,8 @@ class MemPipeline(DevicePipeline):
             self.R_BUDGET, cfg.max_match_ids, self.dev.nseq,
             self.dev.chpt_exp, bloom=self._bloom, hyb=self._hyb,
         )
-        HOST_SECONDS["fragment"] += t1 - t0
-        HOST_SECONDS["submit"] += time.perf_counter() - t1
+        tally(HOST_SECONDS, self.host_seconds, fragment=t1 - t0,
+              submit=time.perf_counter() - t1)
         return reads, oflow, out
 
     def collect_batch(self, state) -> list[tuple[str, ClassifyResult]]:
@@ -99,8 +99,7 @@ class MemPipeline(DevicePipeline):
         flagged = np.flatnonzero(
             (oflow != 0) | ((rows[:, 2] & (FLAG_TIE_OVER | FLAG_NEED_MORE)) != 0)
         ).tolist()
-        HOST_REPLAY["reads"] += len(reads)
-        HOST_REPLAY["flagged"] += len(flagged)
+        tally(HOST_REPLAY, reads=len(reads), flagged=len(flagged))
         redo = self._replay(reads, flagged)
         t2 = time.perf_counter()
         unclassified = ClassifyResult(False, 0)
@@ -114,7 +113,6 @@ class MemPipeline(DevicePipeline):
                 results.append((name, unclassified))
             else:
                 results.append((name, ClassifyResult(lca > 0, lca, score=score)))
-        HOST_SECONDS["wait"] += t1 - t0
-        HOST_SECONDS["replay"] += t2 - t1
-        HOST_SECONDS["results"] += time.perf_counter() - t2
+        tally(HOST_SECONDS, self.host_seconds, wait=t1 - t0,
+              replay=t2 - t1, results=time.perf_counter() - t2)
         return results

@@ -9,11 +9,15 @@ stream with its lookahead.  Each pipeline keeps its own counters
 (``HOST_REPLAY``, ``HOST_SECONDS`` in its module) and defines
 ``submit_batch`` and ``collect_batch``.  ``ProcessShare`` runs any of
 them as one process of several (``parallel.multihost``) on its share of
-each batch."""
+each batch; ``CardShare`` runs one on each card of a process, each on its
+share of each batch."""
 
 from __future__ import annotations
 
+import threading
+import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -28,6 +32,20 @@ from ..ops.kmer import KmerTables
 from .config import KaijuConfig
 from .core import ExactClassifier
 from .fragments_native import NativeFragmenter2
+
+
+_TALLY = threading.Lock()
+
+
+def tally(totals: dict, mine: Optional[dict] = None, **add) -> None:
+    """Add each of `add` to `totals` (a module's ``HOST_SECONDS`` or
+    ``HOST_REPLAY``, shared by the pipelines of every card of the process)
+    under one lock, and to `mine` (a pipeline's own) if given."""
+    with _TALLY:
+        for k, v in add.items():
+            totals[k] += v
+            if mine is not None:
+                mine[k] = mine.get(k, 0) + v
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -51,9 +69,8 @@ class DeviceSetup:
         self.device = resolve_device(device)
         self.dev = self._device_index(index)
         self.seed_K = seed_K
-        kmer = KmerTables.load_or_build(index, kmer_cache_dir, seed_K,
-                                        device_index=self.dev)
-        self._seed = tuple(self._put(a) for a in kmer.planar_seed(seed_K))
+        self._seed = tuple(self._put(a) for a in self._seed_tables(
+            index, kmer_cache_dir, seed_K))
         screen = BloomScreen.load_or_build(
             index, kmer_cache_dir or index.source_dir, bloom_m, self.device)
         self._bloom = None if screen is None else screen.args
@@ -62,6 +79,14 @@ class DeviceSetup:
         """The index on self.device that every kernel of the path reads
         (``parallel.sharded_fused`` gives it in shards)."""
         return DeviceIndex(index, self.device)
+
+    def _seed_tables(self, index: KaijuIndex, kmer_cache_dir, seed_K: int):
+        """Kernel B's seed inputs on the host (``KmerTables.planar_seed``),
+        the tables read from the cache or built by kernel A on self.dev
+        and saved there."""
+        kmer = KmerTables.load_or_build(index, kmer_cache_dir, seed_K,
+                                        device_index=self.dev)
+        return kmer.planar_seed(seed_K)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -95,6 +120,7 @@ class DevicePipeline(DeviceSetup):
             config.seg, config.input_is_protein,
         )
         self._exact = None  # host replay engine, made at first use
+        self.host_seconds: dict = {}  # this pipeline's, by stage (tally)
 
     def _replay(self, reads, flagged: list[int]) -> dict:
         """ExactClassifier's result for each read index in `flagged`."""
@@ -156,3 +182,92 @@ class ProcessShare:
 
         yield from DevicePipeline.classify_stream(self, batches)
         barrier()
+
+
+def _card_thread(card: torch.device, launches: dict) -> None:
+    """The start of a card's worker thread: the card made current, its
+    launches counted into `launches`."""
+    from .. import kernels
+
+    if card.type == "cuda":
+        torch.cuda.set_device(card)
+    kernels.count_into(launches)
+
+
+class CardShare:
+    """The pipelines of one process, one a card of `cards`
+    (``multihost.local_cards``; a card may repeat), each on its share of
+    every batch, card c of D the reads ``multihost.local_rows(n, D, c)``:
+    kaiju_tpu's data axis over the devices of a process
+    (kaiju_tpu/parallel/sharded_fused.py:506-545), one data row a card.
+
+    make(c) builds card c's pipeline; they are built one after another,
+    in order, so that what the first one writes to the cache directory
+    (seed tables, bitmaps) is there before the next one reads it.  Each
+    card's
+    submit_batch and collect_batch then run in one worker thread of its
+    own, with that card made current there (the kernels release the GIL
+    while they launch), and the results come back in read order with
+    LOOKAHEAD batches queued ahead, as ``DevicePipeline.classify_stream``
+    queues them.  A card whose share of a batch is empty does nothing for
+    it.  ``launches`` holds each card's kernel launches (its set-up's and
+    its batches'; ``kernels.count_into``), ``setup_seconds`` each card's
+    set-up, ``pipes[c].host_seconds`` its host seconds by stage.  The
+    threads start with the first batch; ``close`` stops them (a later
+    batch starts them again)."""
+
+    LOOKAHEAD = DevicePipeline.LOOKAHEAD
+
+    def __init__(self, make, cards: list):
+        from .. import kernels
+
+        self.cards = [torch.device(c) for c in cards]
+        self.launches = [{} for _ in self.cards]
+        self.setup_seconds = []
+        self.pipes = []
+        for c in range(len(self.cards)):
+            kernels.count_into(self.launches[c])
+            t0 = time.perf_counter()
+            try:
+                self.pipes.append(make(c))
+            finally:
+                kernels.count_into(None)
+            self.setup_seconds.append(time.perf_counter() - t0)
+        self._workers = None
+
+    def _worker(self, c: int) -> ThreadPoolExecutor:
+        if self._workers is None:
+            self._workers = [ThreadPoolExecutor(
+                1, thread_name_prefix=f"card{k}", initializer=_card_thread,
+                initargs=(card, self.launches[k]))
+                for k, card in enumerate(self.cards)]
+        return self._workers[c]
+
+    def submit_batch(self, reads):
+        from ..parallel.multihost import local_rows
+
+        D = len(self.cards)
+        jobs = []
+        for c, pipe in enumerate(self.pipes):
+            lo, hi = local_rows(len(reads), D, c)
+            if hi > lo:
+                jobs.append((c, self._worker(c).submit(pipe.submit_batch,
+                                                       reads[lo:hi])))
+        return jobs
+
+    def collect_batch(self, jobs) -> list:
+        done = [self._worker(c).submit(
+            lambda pipe=self.pipes[c], sub=sub: pipe.collect_batch(
+                sub.result())) for c, sub in jobs]
+        out = []
+        for f in done:
+            out.extend(f.result())
+        return out
+
+    classify_batch = DeviceSetup.classify_batch
+    classify_stream = DevicePipeline.classify_stream
+
+    def close(self) -> None:
+        for w in self._workers or ():
+            w.shutdown()
+        self._workers = None

@@ -31,11 +31,17 @@ the directory each source's library was loaded from and ``LOADER`` the
 ``nvcc`` runs of this process and its seconds in ``use_prebuilt`` and
 ``load``.
 
-Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0.  Wrappers
+Each C entry point launches on the stream it is given, on the card its
+library's runtime takes as current (``cudaGetDevice``), and returns
+``cudaGetLastError()``; ``launch`` makes the card of the tensor arguments
+current under PyTorch's device guard, passes that card's current stream,
+and raises when the return is not 0.  The libraries link ``nvcc``'s
+static runtime, whose current card follows the guard (it reads the
+thread's current context; ``library_device`` shows it).  Wrappers
 count their launches in ``LAUNCHES`` (one per kernel launch, nowhere
-else), and kernel B's launches with its Bloom screen in ``SCREENED`` too,
-so a run can show that it went through the kernels.
+else; and in a thread's own tally, ``count_into``), and kernel B's
+launches with its Bloom screen in ``SCREENED`` too, so a run can show that
+it went through the kernels.
 """
 
 from __future__ import annotations
@@ -185,6 +191,8 @@ LOADER = {"nvcc_runs": 0, "seconds": 0.0}
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # LAUNCHES, from the threads of many cards
+_local = threading.local()  # a thread's own tally (count_into)
 _libs: dict[str, ctypes.CDLL] = {}
 _prebuilt: str | None = None  # the matching prebuilt directory, if any
 
@@ -193,6 +201,13 @@ def reset_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     SCREENED["mem_extend"] = 0
+
+
+def count_into(counts: dict | None) -> None:
+    """Count the launches of the calling thread also into `counts` (kernel
+    -> launches), besides LAUNCHES: one card's pipeline's, in a run over
+    several cards (engine.pipeline.CardShare); None stops."""
+    _local.counts = counts
 
 
 def _nvcc() -> str:
@@ -336,28 +351,57 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point on the current stream with
-    `args` (tensors pass their data pointer, None a null pointer, ints
-    as int32 or int64 as the signature says) and count the launch; raises
-    on a CUDA error."""
+    """Call kernel `name`'s C entry point with `args` (tensors pass their
+    data pointer, None a null pointer, ints as int32 or int64 as the
+    signature says) on the card of its tensor arguments, under that card's
+    device guard and on its current stream, and count the launch.  Raises
+    when the tensors lie on two cards or off the card (a kernel reads the
+    shards of another card through a pointer table on its own), and on a
+    CUDA error."""
     lib = library(name)
     fn_name, sig = _SIGNATURES[name]
     conv = []
+    dev = None
     for a in args:
         if isinstance(a, torch.Tensor):
+            if dev is None:
+                dev = a.device
+            elif a.device != dev:
+                raise ValueError(f"{fn_name}: tensor arguments on {dev} and "
+                                 f"{a.device}")
             conv.append(ctypes.c_void_p(a.data_ptr()))
         elif a is None:
             conv.append(ctypes.c_void_p(None))
         else:
             conv.append(int(a))
-    conv.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if len(conv) != len(sig):
-        raise TypeError(f"{fn_name}: {len(conv)} arguments, expected {len(sig)}")
-    LAUNCHES[name] += 1
-    rc = getattr(lib, fn_name)(*conv)
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"{fn_name}: tensor arguments on {dev}, expected a "
+                         "CUDA device")
+    if len(conv) + 1 != len(sig):
+        raise TypeError(f"{fn_name}: {len(conv) + 1} arguments, expected "
+                        f"{len(sig)}")
+    with torch.cuda.device(dev):
+        conv.append(ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        with _count_lock:
+            LAUNCHES[name] += 1
+        mine = getattr(_local, "counts", None)
+        if mine is not None:
+            mine[name] = mine.get(name, 0) + 1
+        rc = getattr(lib, fn_name)(*conv)
     if rc != 0:
         msg = lib.kt_error_string(rc).decode()
         raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
+
+
+def library_device(src: str) -> int:
+    """The card that the library of csrc/<src>.cu takes as this thread's
+    current one (kt_device); under ``torch.cuda.device(i)`` it must be i,
+    which is what lets ``launch`` put a kernel on the card of its
+    tensors."""
+    lib = load(src)
+    lib.kt_device.restype = ctypes.c_int
+    lib.kt_device.argtypes = []
+    return lib.kt_device()
 
 
 def chase_ns(n_ints: int, cached: bool, steps: int = 20_000,

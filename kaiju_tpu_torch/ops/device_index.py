@@ -133,13 +133,14 @@ class Shards:
     element from its owner, so the plain versions read the shards as they
     read one tensor; ``shape`` is the whole array's.  ``table`` (int64
     [S], on `device`) holds the shards' addresses, which the sharded
-    kernels read.  A shard may be mapped from another process's memory
-    (``parallel.peer_shards``); `opened` names those that were mapped for
-    `device` and may lie on another card of the host, which the kernels
-    read over NVLink and the plain versions refuse."""
+    kernels read.  `peer` names the shards placed for a peer read: mapped
+    from another process's memory (``parallel.peer_shards``) or held by
+    another card of this process (``ShardedIndex.on_cards``), with peer
+    access enabled for `device`.  Those alone may lie on another card,
+    which the kernels read over NVLink and the plain versions refuse."""
 
     def __init__(self, parts: list, per: int, length: int, device=None,
-                 opened=()):
+                 peer=()):
         if not parts or per < 1:
             raise ValueError("shards need one or more parts and per >= 1")
         self.parts = list(parts)
@@ -149,7 +150,7 @@ class Shards:
         self.shape = torch.Size((int(length), *p0.shape[1:]))
         self.dtype = p0.dtype
         self.device = p0.device if device is None else torch.device(device)
-        self.opened = frozenset(opened)
+        self.peer = frozenset(peer)
         self.table = torch.tensor([p.data_ptr() for p in self.parts],
                                   dtype=torch.int64).to(self.device)
 
@@ -172,13 +173,13 @@ class Shards:
     def check(self, what: str, dtype: torch.dtype, device, rows: int) -> None:
         """Raise unless the shards are read on `device` and every shard is
         a contiguous tensor of `dtype` with `rows` rows on `device`, or on
-        another card when it was mapped for `device`."""
+        another card when it was placed there for a peer read."""
         if self.device != device:
             raise ValueError(f"{what}: shards read on {self.device}, "
                              f"expected {device}")
         for o, part in enumerate(self.parts):
             on = device
-            if o in self.opened and part.device.type == device.type:
+            if o in self.peer and part.device.type == device.type:
                 on = part.device
             kernels.check(part, f"{what} shard {o}", dtype, on)
             if part.shape[0] != rows:

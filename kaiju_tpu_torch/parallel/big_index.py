@@ -12,13 +12,19 @@ shards before o), the SA samples ``sa_seq.npy`` int32 and ``sa_off.npy``
 int64 [S, ns_s], ``seq_tax.npy`` (the taxon of each content-ranked
 sequence) and ``meta.json``.
 
-``BigIndex`` puts each shard on the device as an allocation of its own:
+``BigIndex`` puts each shard on a card as an allocation of its own:
 int32 rank records [nb_s + 1, 64], words 0..31 the shard's local occ row
 and words 32..63 the block's 128 bytes, and an end row (the shard's end
 counts, bytes 255) that serves k at the shard's end, read by the kernels
 through a table of shard pointers (``kt::BigShardIx``,
 csrc/big_common.cuh).  Where the JAX program takes each owner's count with
-a psum over its mesh, the kernels read the owner's row directly.
+a psum over its mesh, the kernels read the owner's row directly.  Over the
+D cards of a process (``multihost.local_cards``: every visible card by
+default) shard o lies on card o mod D, as the demo's ``Mesh(devs[:S]
+.reshape(1, S))`` places it (:206-250): one data row, computing on the
+first card, which reads the other cards' shards in place over NVLink
+(peer access, ``peer_shards.enable_peer``); the replicated arrays lie on
+the first card.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from .. import kernels
 from ..index.alphabet import MAKEDB_ALPHABET
 from ..native import get_lib
-from ..ops.device_index import Shards, resolve_device
+from ..ops.device_index import Shards
+from . import multihost, peer_shards
 
 BLOCK = 128
 INT32_CAP = 1 << 31
@@ -219,18 +226,22 @@ def save_sharded_ktx(fh, db, path, n_shards):
 
 
 class BigIndex:
-    """A sharded big index on one device: ``rec`` (``Shards`` of S int32
-    [nb_s + 1, 64] record tensors with local occ), ``C`` int64 [alen + 1],
-    ``base`` int64 [S, alen], ``sa_seq`` (``Shards`` of S int32 [ns_s])
-    and ``sa_off`` (int64 [S, ns_s], what the demo loads; the step reads
-    no offset), ``seq_tax`` int32 [nseq].  N, nseq, alen, e, first, S, nb_s
-    and ns_s are the meta's; ``nbytes`` maps each array to the device
-    bytes it takes."""
+    """A sharded big index over the cards of a process, computed on the
+    first (``device``): ``rec`` (``Shards`` of S int32 [nb_s + 1, 64]
+    record tensors with local occ, shard o on card o mod D), ``C`` int64
+    [alen + 1], ``base`` int64 [S, alen], ``sa_seq`` (``Shards`` of S
+    int32 [ns_s], placed as ``rec``) and ``sa_off`` (int64 [S, ns_s], what
+    the demo loads; the step reads no offset), ``seq_tax`` int32 [nseq].
+    N, nseq, alen, e, first, S, nb_s and ns_s are the meta's; ``cards``
+    lists the cards; ``nbytes`` maps each array to the device bytes it
+    takes and ``card_bytes`` each card (its place in ``cards``) to the
+    bytes it holds."""
 
     @classmethod
     def load(cls, path: str, device=None, fh=None) -> "BigIndex":
-        """The directory of save_sharded_ktx on `device` (the card unless
-        the caller asks for the CPU)."""
+        """The directory of save_sharded_ktx on the cards of `device`
+        (``multihost.local_cards``: None for every visible card, a device,
+        or a list of devices; "cpu" for the CPU)."""
         t0 = time.time()
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -243,12 +254,15 @@ class BigIndex:
             meta, [ld(f"blocks_{s}") for s in range(S)],
             [ld(f"occ_{s}") for s in range(S)], ld("C"), ld("shard_base"),
             ld("sa_seq"), ld("sa_off"), ld("seq_tax"), device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for card in self.cards:
+            if card.type == "cuda":
+                torch.cuda.synchronize(card)
         self.load_seconds = time.time() - t0
         log(fh, f"big index load: {self.load_seconds:.1f}s, "
-                f"{sum(self.nbytes.values()):,} bytes on {self.device} "
-                f"({S} shards of {meta['nb_s']} blocks)")
+                f"{sum(self.nbytes.values()):,} bytes on " + ", ".join(
+                    f"{self.cards[c]} {b:,}"
+                    for c, b in sorted(self.card_bytes.items()))
+                + f" ({S} shards of {meta['nb_s']} blocks)")
         return self
 
     @classmethod
@@ -256,9 +270,10 @@ class BigIndex:
                     seq_tax, device=None) -> "BigIndex":
         """A BigIndex over the arrays of the layout: blocks and occ are
         lists of S arrays (each shard's, uint8 [nb_s, 128] and int32
-        [nb_s + 1, alen]); sa_seq and sa_off [S, ns_s]."""
+        [nb_s + 1, alen]); sa_seq and sa_off [S, ns_s]; device as load's."""
         self = cls.__new__(cls)
-        where = resolve_device(device)
+        cards = self.cards = multihost.local_cards(device)
+        where = cards[0]
         for k in ("N", "nseq", "alen", "e", "first", "nb_s", "ns_s"):
             setattr(self, k, int(meta[k]))
         S = self.S = int(meta["n_shards"])
@@ -277,29 +292,36 @@ class BigIndex:
         if len(blocks) != S or len(occ) != S:
             raise ValueError(f"expected {S} shards of blocks and occ")
 
-        def put(a, dtype):
+        def put(a, dtype, to=where):
             a = np.ascontiguousarray(a, dtype=dtype)
-            return torch.from_numpy(a).to(where)
+            return torch.from_numpy(a).to(to)
 
         self.C = put(C, np.int64)
-        dev = self.device = self.C.device  # with its card's number
+        dev = self.device = where
+        D = len(cards)
+        home = [cards[o % D] for o in range(S)]  # the demo's devs[:S]
+        peer = {o for o in range(S) if o % D}
+        for o in sorted(peer):
+            peer_shards.enable_peer(dev, home[o])
         parts = []
         for s in range(S):
             if blocks[s].shape != (nb_s, BLOCK) or \
                     occ[s].shape != (nb_s + 1, alen):
                 raise ValueError(f"shard {s}: blocks {blocks[s].shape}, occ "
                                  f"{occ[s].shape}, nb_s {nb_s}")
-            rec = torch.zeros((nb_s + 1, 64), dtype=torch.int32, device=dev)
-            rec[:, :alen] = put(occ[s], np.int32)
-            rec[:nb_s, 32:] = put(blocks[s], np.uint8).view(torch.int32)
+            rec = torch.zeros((nb_s + 1, 64), dtype=torch.int32,
+                              device=home[s])
+            rec[:, :alen] = put(occ[s], np.int32, home[s])
+            rec[:nb_s, 32:] = put(blocks[s], np.uint8, home[s]).view(
+                torch.int32)
             rec[nb_s, 32:] = -1  # bytes 255: no letter
             parts.append(rec)
         nb = -(-self.N // BLOCK)
-        self.rec = Shards(parts, nb_s, nb + 1, dev)
+        self.rec = Shards(parts, nb_s, nb + 1, dev, peer)
         self.base = put(shard_base, np.int64)
         sa_seq = np.asarray(sa_seq).reshape(S, ns_s)
-        self.sa_seq = Shards([put(sa_seq[s], np.int32) for s in range(S)],
-                             ns_s, S * ns_s, dev)
+        self.sa_seq = Shards([put(sa_seq[s], np.int32, home[s])
+                              for s in range(S)], ns_s, S * ns_s, dev, peer)
         self.sa_off = put(np.asarray(sa_off).reshape(S, ns_s), np.int64)
         self.seq_tax = put(seq_tax, np.int32)
         if self.C.shape != (alen + 1,) or self.base.shape != (S, alen):
@@ -311,11 +333,17 @@ class BigIndex:
             "C + shard_base + seq_tax": (self.C.nbytes + self.base.nbytes
                                          + self.seq_tax.nbytes),
         }
+        self.card_bytes = dict.fromkeys(range(D), 0)
+        self.card_bytes[0] = (self.nbytes["sa_off"]
+                              + self.nbytes["C + shard_base + seq_tax"])
+        for o in range(S):
+            self.card_bytes[o % D] += (parts[o].nbytes
+                                       + self.sa_seq.parts[o].nbytes)
         return self
 
     def check(self, device) -> None:
         """Raise unless every array lies on `device` with the layout the
-        kernels read."""
+        kernels read, the shards of other cards there for a peer read."""
         self.rec.check("rec", torch.int32, device, self.nb_s + 1)
         self.sa_seq.check("sa_seq", torch.int32, device, self.ns_s)
         kernels.check(self.C, "C", torch.int64, device, 1)

@@ -11,7 +11,14 @@ per-process outputs, merged by read, are the single-process output byte
 for byte.  This is kaiju_tpu's ``local_data_rows`` (:66-78) on a mesh of
 one card a process, with the data axis over the processes.
 
-Each process runs on its own card, ``cuda:{p % device_count}``
+The cards of one process split each batch the same way: with
+``--mesh-index S`` and no ``--dist-*``, every visible card
+(``local_cards``) runs a pipeline on its share, card c of D taking the
+rows ``local_rows(n, D, c)`` (``engine.pipeline.CardShare``), and the
+index shards lie over the cards (``ShardedIndex.on_cards``): D data rows
+where kaiju_tpu's mesh of the process's devices has D / S (:40-53), for
+the same output, as for processes below.  Each process
+of a group runs on its own card, ``cuda:{p % device_count}``
 (``process_device``).  Without ``--mesh-index`` it keeps the whole index
 there.  With ``--mesh-index S`` it holds only its shards of the index and
 maps every other shard from the process that holds it
@@ -87,9 +94,36 @@ def process_device(pid: int, device=None) -> torch.device:
     return dev
 
 
+def local_cards(device=None) -> list[torch.device]:
+    """The cards of a run in one process (``--mesh-index`` without
+    ``--dist-*``): None, every visible card (raises when there is none);
+    a device or a string, that one device; a list, those devices in order,
+    where a device may come more than once (``["cpu"] * 4``: four slots
+    on the CPU, the tests' rehearsal; ``["cuda:0", "cuda:0"]``: two data
+    rows on one card).  A card is named with its number."""
+    if device is None:
+        resolve_device("cuda")  # raises without a card
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty list of cards")
+        return [numbered(d) for d in device]
+    return [numbered(device)]
+
+
+def numbered(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def local_rows(n: int, nprocs: int, pid: int) -> tuple[int, int]:
     """The reads [lo, hi) of an n-read batch that process pid of nprocs
-    owns (empty, lo == hi, when the batch ends before its share)."""
+    owns (empty, lo == hi, when the batch ends before its share); the same
+    split gives each card of one process its rows (``local_cards``,
+    ``engine.pipeline.CardShare``)."""
     per = -(-n // nprocs)
     lo = min(pid * per, n)
     return lo, min(lo + per, n)

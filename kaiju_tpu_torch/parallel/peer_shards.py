@@ -96,11 +96,42 @@ def _peer_lib() -> ctypes.CDLL:
                          ("kt_peer_handle", (p, p)),
                          ("kt_peer_open", (i, p, ctypes.POINTER(p))),
                          ("kt_peer_close", (p,)),
-                         ("kt_peer_free", (p,))):
+                         ("kt_peer_free", (p,)),
+                         ("kt_peer_enable", (i, i))):
             getattr(lib, fn).restype = i
             getattr(lib, fn).argtypes = args
         lib._kt_peer_set = True
     return lib
+
+
+_ENABLED: set = set()  # (reader, holder) card pairs with peer access on
+
+
+def enable_peer(reader: torch.device, holder: torch.device) -> None:
+    """Let kernels on card `reader` read tensors of card `holder` in place,
+    over NVLink (csrc/peer.cu kt_peer_enable); nothing to do for one card
+    or the CPU.  Raises, naming both cards, where they have no peer
+    access: a shard is never copied to the reader instead."""
+    if reader.type != "cuda" or holder.type != "cuda" or \
+            reader.index == holder.index or (reader.index,
+                                             holder.index) in _ENABLED:
+        return
+    if "expandable_segments:true" in os.environ.get(
+            "PYTORCH_CUDA_ALLOC_CONF", "").replace(" ", "").lower():
+        # such segments are mapped for their own card only; peer access
+        # enabled here does not reach them
+        raise RuntimeError(
+            f"cuda:{reader.index} cannot read the index shards of "
+            f"cuda:{holder.index} in place: PYTORCH_CUDA_ALLOC_CONF sets "
+            "expandable_segments")
+    lib = _peer_lib()
+    rc = lib.kt_peer_enable(reader.index, holder.index)
+    if rc != 0:
+        raise RuntimeError(
+            f"cuda:{reader.index} cannot read the index shards of "
+            f"cuda:{holder.index}: peer access failed with CUDA error {rc} "
+            f"({lib.kt_error_string(rc).decode()})")
+    _ENABLED.add((reader.index, holder.index))
 
 
 class _CudaArray:

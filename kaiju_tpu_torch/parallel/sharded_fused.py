@@ -28,8 +28,12 @@ does not.
 kaiju_tpu's capacity budgets (``CapStore``) and their retry, its v1
 fragmenter with the S = 16 slot fallback and its ``MemFastPipeline``
 fallback have no counterpart: the kernels take exact sizes.  In one
-process all shards live on the device the pipeline runs on.  Several
-processes each run a pipeline on their share of every batch
+process on one card all shards live on that card.  Over the D cards of
+one process, D pipelines share one placement of the shards
+(``ShardedIndex.on_cards``): each runs on its card, reads its card's view
+(the shards it holds, the others in place on their holders' cards) and
+classifies its share of every batch (``engine.pipeline.CardShare``).
+Several processes each run a pipeline on their share of every batch
 (``parallel.multihost``, ``engine.pipeline.ProcessShare``); given their
 group, each holds only its shards and maps the others from their holders
 (``parallel.peer_shards``).
@@ -50,7 +54,9 @@ from .sharded_index import ShardedIndex
 class _OnShards:
     """A device pipeline whose index is a ``ShardedIndex`` of n_index
     shards on its device; with a group of several processes, the shards
-    held apart by them (``ShardedIndex``'s group)."""
+    held apart by them (``ShardedIndex``'s group); given `view`, one
+    card's view of a placement over the cards of this process
+    (``ShardedIndex.on_cards``), on whose card the pipeline runs."""
 
     def __init__(
         self,
@@ -61,15 +67,34 @@ class _OnShards:
         device=None,
         kmer_cache_dir: Optional[str] = None,
         group=None,
+        view: Optional[ShardedIndex] = None,
     ):
         if n_index < 1:
             raise ValueError(f"--mesh-index must be >= 1, got {n_index}")
+        if view is not None and (view.S != n_index or group is not None):
+            raise ValueError("a card's view of n_index shards, no group")
         self.n_index = n_index
         self.group = group
-        super().__init__(index, taxonomy, config, device, kmer_cache_dir)
+        self.view = view
+        super().__init__(index, taxonomy, config,
+                         device if view is None else view.device,
+                         kmer_cache_dir)
 
     def _device_index(self, index: KaijuIndex) -> ShardedIndex:
+        if self.view is not None:
+            return self.view
         return ShardedIndex(index, self.n_index, self.device, self.group)
+
+    def _seed_tables(self, index: KaijuIndex, kmer_cache_dir, seed_K: int):
+        """As DeviceSetup's; the cards of one placement compute the host
+        arrays once (the first card's pipeline) and each uploads them."""
+        if self.view is None:
+            return super()._seed_tables(index, kmer_cache_dir, seed_K)
+        key = ("seed", seed_K, kmer_cache_dir)
+        if key not in self.view.shared:
+            self.view.shared[key] = super()._seed_tables(
+                index, kmer_cache_dir, seed_K)
+        return self.view.shared[key]
 
 
 class ShardedMemPipeline(_OnShards, MemPipeline):

@@ -18,12 +18,20 @@ assembles each step's value with a psum over the index axis of its mesh;
 the kernels read the owner's row directly (``kt::ShardIx``,
 csrc/fm_common.cuh), through a device table of shard pointers.
 
-Every shard is a tensor of its own.  In one process all S shards live on
-the device the pipeline runs on.  Given a group of N > 1 processes, each
-process uploads only the shards it holds and maps the others from the
-processes that hold them (``parallel.peer_shards``, CUDA IPC on the
-card), with the same layout: only the pointers in the tables change.
-Shards of one process on several cards are ROADMAP item 10e.
+Every shard is a tensor of its own.  In one process on one card all S
+shards live there.  Over the D cards of one process (``on_cards``:
+``kaiju --mesh-index S`` without ``--dist-*``, every visible card) card c
+holds shard c mod S for D >= S and the shards o with o mod D = c for D < S
+(``peer_shards.held``, kaiju_tpu's mesh of the process's devices with the
+index axis innermost), each allocated once on each card that holds it,
+and reads every other shard in place from card ``peer_shards.source(o,
+D)`` over NVLink (peer access, ``peer_shards.enable_peer``); each card has
+a view of its own (pointer tables, ``C``, ``seq_tax``, ``rank_start``),
+and with D = 1 that view is the one-card layout.  Given a group of N > 1
+processes, each process uploads only the shards it holds and maps the
+others from the processes that hold them (``parallel.peer_shards``, CUDA
+IPC on the card), with the same layout: only the pointers in the tables
+change.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ import torch
 
 from ..index.core import BLOCK, KaijuIndex
 from ..ops.device_index import (Shards, build_fused_records, extend_all,
-                                extend_all_plain, resolve_device, sa_lookup,
-                                sa_lookup_plain)
+                                extend_all_plain, sa_lookup, sa_lookup_plain)
+from . import multihost, peer_shards
 from .peer_shards import PeerShards
 
 
@@ -48,34 +56,22 @@ def _split(a: np.ndarray, S: int, per: int, extra: int, fill) -> list:
     return [a[o * per:o * per + per + extra] for o in range(S)]
 
 
-class ShardedIndex:
-    """The arrays of DeviceIndex (ops/device_index.py) with ``rec``,
-    ``sa_seq``, ``sa_off`` and ``text`` as ``Shards`` of S parts; ``C``,
-    ``seq_tax`` and ``rank_start`` are replicated.  nb_s, ns_s and ntb_s
-    are the blocks, sample slots and text rows of a shard.
+def _put(a, where: torch.device) -> torch.Tensor:
+    """A copy of a on `where`: every shard is an allocation of its own."""
+    return torch.from_numpy(np.array(a)).to(where)
 
-    group: None, or a torch.distributed group; with more than one process
-    in it, this process holds only its shards and maps the others from
-    their holders (``parallel.peer_shards``; every process of the group
-    makes its ShardedIndex together, and ``share.close`` releases them,
-    at the latest when the process leaves its group).
-    ``held`` lists the shards this process holds, ``opened`` maps each
-    other shard to the process it was mapped from."""
 
-    def __init__(self, index: KaijuIndex, n_shards: int, device=None,
-                 group=None):
-        if n_shards < 1:
-            raise ValueError(f"--mesh-index must be >= 1, got {n_shards}")
-        S = self.S = int(n_shards)
+class _Host:
+    """The host side of an index in S shards, built once: the split parts
+    ({array: S numpy parts}), each array's rows a shard and whole length,
+    and the replicated arrays and scalars."""
 
-        where = resolve_device(device)
-
-        def put(a):  # a copy: every shard is an allocation of its own
-            return torch.from_numpy(np.array(a)).to(where)
-
-        self.C = put(np.asarray(index.C, dtype=np.int32))
-        self.device = dev = self.C.device  # with its card's number
-        self.seq_tax = put(np.asarray(index.seq_taxids, dtype=np.int32))
+    def __init__(self, index: KaijuIndex, S: int):
+        if S < 1:
+            raise ValueError(f"--mesh-index must be >= 1, got {S}")
+        self.S = S
+        self.C = np.asarray(index.C, dtype=np.int32)
+        self.seq_tax = np.asarray(index.seq_taxids, dtype=np.int32)
         self.nseq = int(index.nseq)
         self.chpt_exp = int(index.chpt_exp)
         rec = build_fused_records(index)
@@ -84,35 +80,112 @@ class ShardedIndex:
         sa_seq = np.asarray(index.sa_seq, dtype=np.int32)
         ns = sa_seq.shape[0]
         self.ns_s = max(1, -(-ns // S))
-        host = {"rec": _split(rec, S, self.nb_s, 1, rec[-1]),
-                "sa_seq": _split(sa_seq, S, self.ns_s, 0, 0),
-                "sa_off": _split(np.asarray(index.sa_off, dtype=np.int32), S,
-                                 self.ns_s, 0, 0)}
-        size = {"rec": (self.nb_s, nb + 1), "sa_seq": (self.ns_s, ns),
-                "sa_off": (self.ns_s, ns)}
+        self.parts = {
+            "rec": _split(rec, S, self.nb_s, 1, rec[-1]),
+            "sa_seq": _split(sa_seq, S, self.ns_s, 0, 0),
+            "sa_off": _split(np.asarray(index.sa_off, dtype=np.int32), S,
+                             self.ns_s, 0, 0)}
+        self.size = {"rec": (self.nb_s, nb + 1), "sa_seq": (self.ns_s, ns),
+                     "sa_off": (self.ns_s, ns)}
         self.rank_start = None
         self.ntb_s = 0
         if index.text is not None:
             text = np.asarray(index.text, dtype=np.uint8)
             ntb = -(-text.shape[0] // BLOCK)
             self.ntb_s = max(1, -(-ntb // S))
-            host["text"] = _split(text, S, self.ntb_s * BLOCK, 0, 0)
-            size["text"] = (self.ntb_s * BLOCK, text.shape[0])
-            self.rank_start = put(index.rank_text_starts().astype(np.int32))
+            self.parts["text"] = _split(text, S, self.ntb_s * BLOCK, 0, 0)
+            self.size["text"] = (self.ntb_s * BLOCK, text.shape[0])
+            self.rank_start = index.rank_text_starts().astype(np.int32)
 
-        self.share = None
+
+class ShardedIndex:
+    """The arrays of DeviceIndex (ops/device_index.py) with ``rec``,
+    ``sa_seq``, ``sa_off`` and ``text`` as ``Shards`` of S parts; ``C``,
+    ``seq_tax`` and ``rank_start`` are replicated.  nb_s, ns_s and ntb_s
+    are the blocks, sample slots and text rows of a shard.  One object is
+    the view of one card (``device``), which the kernels read there.
+
+    group: None, or a torch.distributed group; with more than one process
+    in it, this process holds only its shards and maps the others from
+    their holders (``parallel.peer_shards``; every process of the group
+    makes its ShardedIndex together, and ``share.close`` releases them,
+    at the latest when the process leaves its group).
+    ``held`` lists the shards this card holds, ``opened`` maps each shard
+    mapped from another process to that process, and ``reads`` each shard
+    held by another card of this process (``on_cards``) to that card's
+    slot; ``cards`` lists the process's cards and ``slot`` is this one's
+    place among them, and ``shared`` is a dict that the views of one
+    placement share (the host seed tables, sharded_fused)."""
+
+    def __init__(self, index: KaijuIndex, n_shards: int, device=None,
+                 group=None):
+        host = _Host(index, int(n_shards))
+        dev = multihost.numbered(device)
+        share = None
         if group is not None:
             import torch.distributed as dist
 
             if dist.get_world_size(group) > 1:
-                self.share = PeerShards(dev, S, group)
-        if self.share is None:
-            parts = {k: [put(p) for p in v] for k, v in host.items()}
-            self.held, self.opened = list(range(S)), {}
-        else:
-            parts = self.share.parts(host)
-            self.held, self.opened = self.share.held, self.share.opened
-        sh = {k: Shards(parts[k], *size[k], dev, self.opened) for k in parts}
+                share = PeerShards(dev, host.S, group)
+        if share is None:
+            self._set(host, [dev], 0, {k: [_put(p, dev) for p in v]
+                                       for k, v in host.parts.items()},
+                      list(range(host.S)))
+            return
+        self._set(host, [dev], 0, share.parts(host.parts), share.held,
+                  opened=share.opened)
+        self.share = share
+
+    @classmethod
+    def on_cards(cls, index: KaijuIndex, n_shards: int,
+                 cards: list) -> list["ShardedIndex"]:
+        """The index in n_shards shards over the cards of one process
+        (``multihost.local_cards``; a card may repeat, as CPU slots do):
+        one view a card, in order.  Card c of D holds ``peer_shards.held(c,
+        D, S)``, each of its shards allocated once on it, and reads every
+        other shard o from card ``peer_shards.source(o, D)``, with peer
+        access enabled for it where the two are distinct cards (raises
+        where they have none).  The host records are built once."""
+        host = _Host(index, int(n_shards))
+        S, D = host.S, len(cards)
+        cards = [torch.device(c) for c in cards]
+        held = [peer_shards.held(c, D, S) for c in range(D)]
+        shared: dict = {}  # what the cards' pipelines compute once
+        mine = [{k: {o: _put(v[o], cards[c]) for o in held[c]}
+                 for k, v in host.parts.items()} for c in range(D)]
+        views = []
+        for c in range(D):
+            reads = {o: peer_shards.source(o, D) for o in range(S)
+                     if o not in held[c]}
+            for o, h in reads.items():
+                peer_shards.enable_peer(cards[c], cards[h])
+            parts = {k: [mine[c][k][o] if o in held[c]
+                         else mine[reads[o]][k][o] for o in range(S)]
+                     for k in host.parts}
+            view = cls.__new__(cls)
+            view._set(host, cards, c, parts, held[c], reads=reads)
+            view.shared = shared
+            views.append(view)
+        return views
+
+    def _set(self, host: _Host, cards: list, slot: int, parts: dict,
+             held: list, opened=None, reads=None):
+        dev = self.device = cards[slot]
+        self.cards, self.slot = list(cards), slot
+        self.S = host.S
+        self.nb_s, self.ns_s, self.ntb_s = host.nb_s, host.ns_s, host.ntb_s
+        self.nseq, self.chpt_exp = host.nseq, host.chpt_exp
+        self.C = _put(host.C, dev)
+        self.seq_tax = _put(host.seq_tax, dev)
+        self.rank_start = (None if host.rank_start is None
+                           else _put(host.rank_start, dev))
+        self.held = list(held)
+        self.opened = dict(opened or {})
+        self.reads = dict(reads or {})
+        self.share = None
+        self.shared: dict = {}
+        peer = set(self.opened) | set(self.reads)
+        sh = {k: Shards(parts[k], *host.size[k], dev, peer) for k in parts}
         self.rec, self.sa_seq, self.sa_off = (sh["rec"], sh["sa_seq"],
                                               sh["sa_off"])
         self.text = sh.get("text")
@@ -122,8 +195,9 @@ class ShardedIndex:
         return self.text is not None
 
     def layout(self) -> dict:
-        """The shards this process holds and maps: {"held": [o, ...],
-        "opened": {o: process}, "bytes_held", "bytes_opened": {array:
+        """The shards this card holds and reads: {"card": its device,
+        "held": [o, ...], "opened": {o: process}, "reads": {o: slot of the
+        holding card}, "bytes_held", "bytes_opened", "bytes_read": {array:
         bytes}}."""
         arrays = {"rec": self.rec, "sa_seq": self.sa_seq,
                   "sa_off": self.sa_off, "text": self.text}
@@ -132,9 +206,11 @@ class ShardedIndex:
             return {k: sum(a.parts[o].nbytes for o in shards)
                     for k, a in arrays.items() if a is not None}
 
-        return {"held": list(self.held), "opened": dict(self.opened),
+        return {"card": str(self.device), "held": list(self.held),
+                "opened": dict(self.opened), "reads": dict(self.reads),
                 "bytes_held": nbytes(self.held),
-                "bytes_opened": nbytes(self.opened)}
+                "bytes_opened": nbytes(self.opened),
+                "bytes_read": nbytes(self.reads)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
-"""Classify reads against an index of more than 2^31 letters on one card
-(K17): the counterpart of scripts/big_classify_demo.py's main (:493-627).
+"""Classify reads against an index of more than 2^31 letters on the cards
+of one process (K17): the counterpart of scripts/big_classify_demo.py's
+main (:493-627).
 
     python -m kaiju_tpu_torch.tools.big_classify [--letters 4400000000]
         [--threads 2] [--shards 8] [--reads 1024] [--read-len 64]
         [--verify 24] [--seed 20260821] [--allow-small] [--out DIR]
-        [--log PATH] [--device cpu]
+        [--log PATH] [--device cpu|cuda:0,cuda:1,...]
 
   1. build a synthetic protein DB of --letters letters with the int64
      threaded builder (``parallel.big_index.build_db``);
   2. save it as the demo's sharded layout in --out, --shards shards
      (local int32 occ a shard, int64 shard bases, C and SA samples);
-  3. load it onto the card, each shard an allocation of its own
-     (``BigIndex``), and record the load's seconds and bytes;
+  3. load it onto the cards (--device; every visible card by default),
+     each shard an allocation of its own on card o mod D, the step on the
+     first card reading the others' shards over NVLink (``BigIndex``),
+     and record the load's seconds and each card's bytes;
   4. classify --reads reads of --read-len letters (the demo's generator:
      substrings of DB sequences, every fourth mutated twice, every fourth
      junk) with ``ops.big_mem.big_mem_step``: kernel L extends every end
@@ -29,8 +32,8 @@ reference's get_suffix and the JAX step do; the demo's oracle returns the
 raw row there, :483-484), and the log goes to --log, by default
 ``big_classify.log`` inside --out (the demo overwrites BIGCLASSIFY.log at
 the repository root).  The last line of standard output is the demo's
-JSON summary.  Runs on the card unless --device cpu, where the plain
-PyTorch versions of L and M run.
+JSON summary.  Runs on the cards unless --device cpu (or cpu,cpu, ...:
+slots on the CPU), where the plain PyTorch versions of L and M run.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.big_mem import big_mem_step
-from ..ops.device_index import resolve_device
+from ..parallel.multihost import local_cards
 from ..parallel.big_index import (BigIndex, build_db, log, peak_rss_gb,
                                   save_sharded_ktx)
 from .big_build import BigRank
@@ -69,8 +72,10 @@ def parse_args(argv=None):
                     "(default: .bench_cache/bigktx)")
     ap.add_argument("--log", default=None, help="log file (default: "
                     "big_classify.log inside --out)")
-    ap.add_argument("--device", default=None, help="cuda (the default) or "
-                    "cpu")
+    ap.add_argument("--device", default=None, help="every visible card "
+                    "(the default), one device (cuda:1, cpu), or a comma "
+                    "list of them: shard o on the o mod D-th, the step on "
+                    "the first")
     return ap.parse_args(argv)
 
 
@@ -251,7 +256,9 @@ def run(args, db=None) -> dict:
     Returns {"summary", "index", "reads", "truth", "step" (the four
     arrays, numpy), "results", "db", "seconds" (build, save, load, first
     and steady step, host statistics)}."""
-    dev = resolve_device(args.device)
+    cards = local_cards(None if args.device is None
+                        else args.device.split(","))
+    dev = cards[0]
     out = args.out or os.path.join(ROOT, ".bench_cache", "bigktx")
     os.makedirs(out, exist_ok=True)
     secs = {}
@@ -266,10 +273,10 @@ def run(args, db=None) -> dict:
         secs["save"] = time.time() - t0
         reads, truth = make_reads(db, args.reads, args.read_len)
 
-        log(fh, f"device: {dev}"
-                + (f" ({torch.cuda.get_device_name(dev)})"
-                   if dev.type == "cuda" else ""))
-        ix = BigIndex.load(out, dev, fh)
+        log(fh, "devices: " + ", ".join(
+            str(c) + (f" ({torch.cuda.get_device_name(c)})"
+                      if c.type == "cuda" else "") for c in cards))
+        ix = BigIndex.load(out, cards, fh)
         secs["load"] = ix.load_seconds
         codes = torch.from_numpy(reads).to(dev)
 

@@ -43,7 +43,18 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     engine.greedy_fast), whose lines carry the names and fragments; MEM and
     Greedy otherwise run the device pipelines (engine.mem, engine.greedy),
     or with --mesh-index S their index-sharded forms
-    (parallel.sharded_fused), all S shards on one device in one process.
+    (parallel.sharded_fused).
+
+    device: None for the card (with --mesh-index in one process, every
+    visible card), "cpu" for the plain versions, or a list of devices, the
+    cards of a --mesh-index run in one process in order, where a device
+    may repeat (["cpu"] * 4: four slots on the CPU; ["cuda:0", "cuda:0"]:
+    two data rows on one card); a run without --mesh-index, or with
+    --dist-*, takes a list's first device.  With --mesh-index S in one
+    process the shards lie over those cards (ShardedIndex.on_cards) and
+    each card runs a pipeline on its share of every batch
+    (engine.pipeline.CardShare), as kaiju_tpu's mesh spans the process's
+    devices; on one card, the pipeline itself.
 
     Many processes (--dist-nprocs N > 1 with --dist-coordinator and
     --dist-pid, or KAIJU_TPU_NPROCS, _COORDINATOR and _PID, which kaiju_tpu
@@ -75,6 +86,14 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
             raise SystemExit("-d traces reads through the host engine in "
                              "one process: it does not run with --mesh-index"
                              " / --dist-*")
+    cards = None  # the cards of a --mesh-index run in one process
+    if n_index and nprocs <= 1:
+        from ..parallel import multihost
+
+        cards = multihost.local_cards(device)
+        device = cards[0]
+    elif isinstance(device, (list, tuple)):
+        device = device[0]
     group = None
     if nprocs > 1:
         import torch.distributed as dist
@@ -110,6 +129,14 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
         Pipeline = (sharded_fused.ShardedGreedyPipeline
                     if cfg.mode == "greedy"
                     else sharded_fused.ShardedMemPipeline)
+        if cards is not None and len(cards) > 1:
+            from ..engine.pipeline import CardShare
+            from ..parallel.sharded_index import ShardedIndex
+
+            views = ShardedIndex.on_cards(index, n_index, cards)
+            return CardShare(lambda c: Pipeline(
+                index, taxonomy, cfg, n_index, kmer_cache_dir=kmer_dir,
+                view=views[c]), cards)
         pipe = Pipeline(index, taxonomy, cfg, n_index, device=device,
                         kmer_cache_dir=kmer_dir, group=group)
     else:
@@ -209,9 +236,11 @@ def add_engine_args(ap, protein_tool=False):
                     help="reads per device batch")
     ap.add_argument("--mesh-index", dest="mesh_index", type=int, default=0,
                     help="split the index into N shards (MEM and Greedy "
-                         "without -v; 0 = one index): all on the process's "
-                         "card, or with --dist-* each held by one process "
-                         "and mapped by the others")
+                         "without -v; 0 = one index) over every card of "
+                         "the process, each card classifying its share of "
+                         "every batch; with --dist-* each process on one "
+                         "card, each shard held by one process and mapped "
+                         "by the others")
     ap.add_argument("--dist-coordinator", dest="dist_coordinator",
                     help="host:port of process 0 of a multi-process run "
                          "(or KAIJU_TPU_COORDINATOR)")

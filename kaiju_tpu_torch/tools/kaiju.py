@@ -4,7 +4,8 @@ Flag surface of the reference `kaiju` binary (src/kaiju.cpp:427-451).
 This port classifies Greedy (the default) and `-a mem` with a taxonomy on
 the GPU, with or without the verbose columns of `-v`; `-d` traces each
 read on stderr through the exact host engine.  Without `-v` and `-d`,
-`--mesh-index S` splits the index into S shards on the card, and the run
+`--mesh-index S` splits the index into S shards over every card of the
+process, each card classifying its share of every batch, and the run
 may be split over N processes, each writing its share of the reads:
 
     python -m kaiju_tpu_torch.tools.kaiju -t nodes.dmp -f db.fmi \
@@ -41,7 +42,9 @@ def build_parser():
 
 def main(argv=None, device=None):
     """Run the CLI; device: None for the GPU (with many processes, the
-    process's card), "cpu" for the plain versions on the CPU."""
+    process's card; with --mesh-index in one process, every visible card),
+    "cpu" for the plain versions on the CPU, or a list of devices, the
+    cards of a --mesh-index run in one process (tools.common.make_runner)."""
     args = build_parser().parse_args(argv)
     if args.protein and args.input2:
         print("Error: Protein input only supports one input file.", file=sys.stderr)
@@ -59,6 +62,8 @@ def main(argv=None, device=None):
     finally:
         if out is not sys.stdout:
             out.close()
+        if hasattr(runner, "close"):  # the threads of a run over cards
+            runner.close()
     return 0
 
 

@@ -31,7 +31,9 @@ from .common import (
 
 def main(argv=None, device=None):
     """Run the CLI; device: None for the GPU (with many processes, the
-    process's card), "cpu" for the plain versions on the CPU."""
+    process's card; with --mesh-index in one process, every visible card),
+    "cpu" for the plain versions on the CPU, or a list of devices, the
+    cards of a --mesh-index run in one process (tools.common.make_runner)."""
     ap = argparse.ArgumentParser(prog="kaiju-multi-tpu-torch",
                                  description=__doc__)
     ap.add_argument("-t", dest="nodes", required=True, help="nodes.dmp file")
@@ -55,14 +57,18 @@ def main(argv=None, device=None):
     tax = Taxonomy(parse_nodes_dmp(args.nodes))
     runner = make_runner(index, tax, cfg, args=args, device=device)
 
-    for f1, f2, fo in zip(in1, in2, outs):
-        out = open(fo, "w") if fo else sys.stdout
-        try:
-            classify_stream(runner, read_reads(f1, f2), out, cfg,
-                            args.batch_size)
-        finally:
-            if fo:
-                out.close()
+    try:
+        for f1, f2, fo in zip(in1, in2, outs):
+            out = open(fo, "w") if fo else sys.stdout
+            try:
+                classify_stream(runner, read_reads(f1, f2), out, cfg,
+                                args.batch_size)
+            finally:
+                if fo:
+                    out.close()
+    finally:
+        if hasattr(runner, "close"):  # the threads of a run over cards
+            runner.close()
     return 0
 
 

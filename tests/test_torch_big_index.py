@@ -178,6 +178,28 @@ def test_big_step_matches_jax(env, S):
         assert (s0 >= ix.nb_s * 128).any()  # an owner past shard 0
 
 
+@pytest.mark.parametrize("D, S", [(2, 2), (2, 4), (4, 2), (4, 4)])
+def test_big_step_over_cpu_slots_matches_jax(env, D, S):
+    """BigIndex over D CPU slots (the cards of one process): shard o on
+    slot o mod D, the others read in place from there, the step on slot
+    0; its four arrays equal the demo's step on every lane, and each
+    slot's bytes are those of its shards (slot 0 adds the replicated
+    arrays)."""
+    ix = BigIndex.load(str(env["work"] / f"port_main_S{S}"), ["cpu"] * D)
+    assert ix.rec.peer == ix.sa_seq.peer == {o for o in range(S) if o % D}
+    got = [a.numpy() for a in big_mem.big_mem_step(
+        ix, torch.from_numpy(env["reads"]))]
+    for g, w in zip(got, env["jax"]("main", S)):
+        np.testing.assert_array_equal(g, w)
+    assert sorted(ix.card_bytes) == list(range(D))
+    assert sum(ix.card_bytes.values()) == sum(ix.nbytes.values())
+    replicated = ix.nbytes["sa_off"] + ix.nbytes["C + shard_base + seq_tax"]
+    for c in range(D):
+        want = sum(ix.rec.parts[o].nbytes + ix.sa_seq.parts[o].nbytes
+                   for o in range(S) if o % D == c)
+        assert ix.card_bytes[c] == want + (replicated if c == 0 else 0)
+
+
 @pytest.mark.parametrize("S", SHARDS)
 def test_save_is_the_demos_bytes_and_loader_reads_the_demos_dir(env, S):
     """save_sharded_ktx writes the demo's files byte for byte, and

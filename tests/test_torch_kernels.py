@@ -997,6 +997,170 @@ def test_sharded_greedy_kernels_match_unsharded(env, cuda, S):
     assert (want[2] >= hybrid.VBASE).any()  # virtual tie rows exercised
 
 
+# ---------------------------------------------------------------------------
+# the cards of one process: launches on the tensors' card, peer access,
+# shards read in place from another card (--mesh-index over cards)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a kernel on one card reading "
+                    "shards of the other)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_launch_goes_to_the_card_of_its_tensors(env, two_cards):
+    """Every library's runtime takes the card of PyTorch's device guard as
+    current (kt_device), so a launch with tensors on cuda:1 while cuda:0
+    is current runs on cuda:1, equal to the plain version; tensors on two
+    cards raise, in the wrapper's checks and in kernels.launch."""
+    from kaiju_tpu_torch import kernels
+
+    c0, c1 = two_cards
+    for src in kernels.SOURCES:
+        for card in (c1, c0):
+            with torch.cuda.device(card):
+                assert kernels.library_device(src) == card.index, src
+    dv = env["dv"]
+    rng = np.random.default_rng(5)
+    n = 5000
+    c = torch.from_numpy(rng.integers(1, env["idx"].alen, n).astype(np.int32))
+    s0 = torch.from_numpy(rng.integers(0, env["idx"].length, n)
+                          .astype(np.int32))
+    s1 = torch.clamp(s0 + 300, max=env["idx"].length)
+    want = tdev.update_si_plain(dv.rec, dv.C, c, s0, s1)
+    with torch.cuda.device(c0):
+        got = tdev.update_si(*(t.to(c1) for t in (dv.rec, dv.C, c, s0, s1)))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(c1)
+    for g, w in zip(got, want):
+        assert g.device == c1 and torch.equal(g.cpu(), w)
+    on1 = [t.to(c1) for t in (dv.rec, dv.C, s0, s1)]
+    with pytest.raises(ValueError, match="c: on cuda:0, expected cuda:1"):
+        tdev.update_si(on1[0], on1[1], c.to(c0), on1[2], on1[3])
+    out = [torch.empty(n, dtype=dt, device=c1)
+           for dt in (torch.int32, torch.int32, torch.bool)]
+    before = kernels.LAUNCHES["update_si"]
+    with pytest.raises(ValueError, match="kt_update_si: tensor arguments on "
+                       "cuda:1 and cuda:0"):
+        kernels.launch("update_si", on1[0], on1[0].shape[0], on1[1],
+                       c.to(c0), on1[2], on1[3], n, *out)
+    assert kernels.LAUNCHES["update_si"] == before
+
+
+def test_peer_enable_between_two_cards(two_cards):
+    """kt_peer_enable: both ways, again (already enabled counts as
+    success), the caller's current card restored; Shards read on cuda:0
+    accept a part on cuda:1 placed there for a peer read, and the plain
+    versions refuse it."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel import peer_shards
+
+    c0, c1 = two_cards
+    lib = peer_shards._peer_lib()
+    with torch.cuda.device(c1):
+        for reader, holder in ((0, 1), (1, 0), (0, 1)):
+            assert lib.kt_peer_enable(reader, holder) == 0
+            assert kernels.library_device("peer") == 1
+            assert torch.cuda.current_device() == 1
+    peer_shards.enable_peer(c0, c1)
+    tab = torch.arange(4096 * 128, dtype=torch.int32, device=c1).view(4096,
+                                                                      128)
+    idx = torch.tensor([5, 4095, 0, 77], dtype=torch.int32, device=c0)
+    sh = tdev.Shards([tab[:2048].to(c0), tab[2048:].clone()], 2048, 4096,
+                     c0, peer=[1])
+    sh.check("tab", torch.int32, c0, 2048)
+    with pytest.raises(ValueError, match="shard 1 lies on cuda:1"):
+        sh[idx]
+    alone = tdev.Shards(sh.parts, 2048, 4096, c0)
+    with pytest.raises(ValueError, match="on cuda:1, expected cuda:0"):
+        alone.check("tab", torch.int32, c0, 2048)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_sharded_kernels_read_shards_of_another_card(env, two_cards, S):
+    """The index in S shards over two cards (ShardedIndex.on_cards): card
+    0's view holds the even shards and reads the odd ones in place on
+    cuda:1.  J, H, B (screened), G, C, D and E, F launched there equal
+    their launches on the same index with every shard copied to cuda:0;
+    only the sharded kernels launch."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                        sharded_extend_all,
+                                                        sharded_sa_lookup)
+
+    c0, c1 = two_cards
+    idx = env["idx"]
+    view = ShardedIndex.on_cards(idx, S, [c0, c1])[0]
+    assert view.layout()["reads"] == {o: 1 for o in range(1, S, 2)}
+    assert all(view.rec.parts[o].device == c1 for o in view.reads)
+    local = ShardedIndex(idx, S, c0)
+    flat, frag_off, rf_rows = (t.to(c0) for t in _batch(env, 16))
+    seed = tuple(a.to(c0) for a in env["seed"])
+    off = frag_off.cpu().numpy()
+    flen = np.diff(off).astype(np.int32)
+    codes = np.zeros((flen.shape[0], int(flen.max())), dtype=np.uint8)
+    for t in range(flen.shape[0]):
+        codes[t, :flen[t]] = flat.cpu().numpy()[off[t]:off[t + 1]]
+    codes = torch.from_numpy(codes).to(c0)
+    flen = torch.from_numpy(flen).to(c0)
+    scr = _screen(env, MIN_LEN, c0)
+    K, sw_len = search.SEED_K, search.SEED_K + hybrid.S1_STEPS
+    (_rec, _C, _seed, gflat, gfrag_off, grf_rows, _sq, _so, _st, par, dep,
+     tables, _K, lmap, mfl, min_score, e, T_, R, cap, nseq, chpt_exp,
+     vc) = _greedy_args(env, env["reads"], 3, c0)
+
+    def run(ix):
+        kernels.reset_counts()
+        out = {"J": sharded_extend_all(ix, codes, flen)}
+        out["H"] = sharded_sa_lookup(ix, out["J"][1][out["J"][2]
+                                                     > out["J"][1]])
+        lanes = search.mem_extend(ix.rec, ix.C, *seed, flat, frag_off, K,
+                                  MIN_LEN - 1, bloom=scr,
+                                  sw_steps=hybrid.S1_STEPS)
+        g = hybrid.text_extend(*lanes, flat, frag_off, sw_len, ix.text,
+                               ix.rank_start, ix.rec, ix.C, ix.sa_seq,
+                               ix.sa_off, ix.nseq, ix.chpt_exp)
+        stats = search.mem_stats(*g[:3], frag_off, MIN_LEN, T)
+        out["B"], out["G"] = lanes, g
+        out["D"] = classify.read_lca(
+            *stats[:2], *stats[3:], rf_rows, ix.rec, ix.C, ix.sa_seq,
+            ix.sa_off, ix.seq_tax, par, dep, 32, CAP, ix.nseq, ix.chpt_exp,
+            sw_ids=g[3])
+        glanes = search.mem_extend(ix.rec, ix.C, *seed, gflat, gfrag_off, K,
+                                   lmap - 1, bloom=_screen(env, lmap, c0))
+        found = greedy.greedy_search(
+            *glanes, gflat, gfrag_off, grf_rows, ix.rec, ix.C, tables, lmap,
+            mfl, min_score, e, T_, vc, hyb=(ix.text, ix.rank_start,
+                                            ix.sa_seq, ix.sa_off, nseq,
+                                            chpt_exp))
+        out["E"] = found
+        out["F"] = classify.ranges_lca(found[2], found[3], ix.rec, ix.C,
+                                       ix.sa_seq, ix.sa_off, ix.seq_tax, par,
+                                       dep, R, cap, nseq, chpt_exp,
+                                       sw_ids=found[4])
+        torch.cuda.synchronize(c0)
+        torch.cuda.synchronize(c1)
+        return out, dict(kernels.LAUNCHES)
+
+    got, counts = run(view)
+    want, _c = run(local)
+    for name, w in want.items():
+        w = w if isinstance(w, tuple) else (w,)
+        g = got[name] if isinstance(got[name], tuple) else (got[name],)
+        for a, b in zip(g, w):
+            if b is None:
+                assert a is None, name
+                continue
+            assert a.device == c0 and torch.equal(a.cpu(), b.cpu()), name
+    for name in ("extend_all", "sa_lookup", "mem_extend", "text_extend",
+                 "read_lca", "greedy_search", "ranges_lca"):
+        assert counts[name] == 0 and counts[name + "_sharded"] >= 1, name
+    assert got["H"][0].numel() > 100
+
+
 @pytest.fixture(scope="module")
 def big_dbs():
     """Two toy databases of the big-index layout (K17): one whose last

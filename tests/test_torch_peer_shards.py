@@ -70,7 +70,7 @@ def test_shards_of_memory_maps_read_as_the_whole_index(tmp_path, index, S):
         parts = _split(full, S, per, extra, full[-1] if extra else 0)
         shards = tdev.Shards([torch.from_numpy(parts[0].copy())]
                              + _mapped(tmp_path, name, parts[1:]),
-                             per, length, "cpu", opened=range(1, S))
+                             per, length, "cpu", peer=range(1, S))
         idx = torch.arange(length)
         assert torch.equal(shards[idx], getattr(whole, name)[idx])
         setattr(sh, name, shards)
@@ -91,7 +91,7 @@ def test_shards_of_memory_maps_read_as_the_whole_index(tmp_path, index, S):
 def test_plain_versions_refuse_a_shard_on_another_device():
     shards = tdev.Shards([torch.zeros(4, dtype=torch.int32),
                           torch.zeros(4, dtype=torch.int32, device="meta")],
-                         4, 8, "cpu", opened=[1])
+                         4, 8, "cpu", peer=[1])
     with pytest.raises(ValueError, match="shard 1 lies on meta"):
         shards[torch.arange(8)]
 

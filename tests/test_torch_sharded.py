@@ -355,3 +355,109 @@ def test_cli_mesh_index_tsv(env, monkeypatch, tag, shards):
             with open(out) as fh:
                 greedy[S] = fh.read()
         assert greedy[4] == greedy[0], _diff(greedy[4], greedy[0])
+
+
+SLOTS = 4  # CPU slots standing in for the cards of one process
+
+
+@pytest.mark.parametrize("D, S", [(1, 3), (2, 1), (2, 4), (3, 4), (4, 2),
+                                  (4, 4)])
+def test_layout_over_cards_follows_the_rule(env, D, S):
+    """ShardedIndex.on_cards over D CPU slots: slot c holds shard c mod S
+    (D >= S) or the shards o with o mod D = c (D < S), each allocated once
+    on each slot that holds it, and reads every other shard o in place
+    from slot o mod D; layout() reports both with their bytes; D = 1 is
+    the one-card layout."""
+    views = ShardedIndex.on_cards(env["index"]["text"], S, ["cpu"] * D)
+    one = ShardedIndex(env["index"]["text"], S, "cpu")
+    arrays = ("rec", "sa_seq", "sa_off", "text")
+    for c, v in enumerate(views):
+        lay = v.layout()
+        want = [c % S] if D >= S else [o for o in range(S) if o % D == c]
+        assert lay["held"] == want and v.slot == c
+        assert lay["reads"] == {o: o % D for o in range(S) if o not in want}
+        assert lay["opened"] == {}
+        for a in arrays:
+            sh = getattr(v, a)
+            assert sh.peer == frozenset(lay["reads"])
+            assert lay["bytes_held"][a] == sum(sh.parts[o].nbytes
+                                               for o in want)
+            assert lay["bytes_read"][a] == sum(sh.parts[o].nbytes
+                                               for o in lay["reads"])
+            for o in range(S):
+                holder = views[o % D if o in lay["reads"] else c]
+                assert sh.parts[o] is getattr(holder, a).parts[o]
+                assert torch.equal(sh.parts[o], getattr(one, a).parts[o])
+    if D == 1:
+        assert views[0].layout()["held"] == one.layout()["held"]
+    allocated = {id(getattr(v, a).parts[o]) for v in views for a in arrays
+                 for o in v.held}
+    assert len(allocated) == len(arrays) * sum(len(v.held) for v in views)
+
+
+@pytest.mark.parametrize("tag", ["fmi", "text"])
+def test_pipeline_rows_over_cpu_slots_match_data_rows(env, tag):
+    """kaiju --mesh-index 2 over 4 CPU slots: each slot's ShardedMemPipeline
+    (engine.pipeline.CardShare, one worker thread a slot, the shards
+    placed by ShardedIndex.on_cards) classifies local_rows(64, 4, c), and
+    its rows equal ShardedMemClassifier's data row c on its 4 x 2 mesh."""
+    from kaiju_tpu_torch.engine.pipeline import CardShare
+
+    cfg = TorchConfig(mode="mem", seg=True, use_Evalue=False)
+    tax = TorchTaxonomy(env["nodes"])
+    views = ShardedIndex.on_cards(env["index"][tag], 2, ["cpu"] * N_DATA)
+    share = CardShare(lambda c: ShardedMemPipeline(
+        env["index"][tag], tax, cfg, 2, kmer_cache_dir=_cache(env, tag),
+        view=views[c]), ["cpu"] * N_DATA)
+    try:
+        jobs = share.submit_batch(env["reads"])
+        want = np.asarray(env["jax"]()["classify"][tag])
+        assert [c for c, _f in jobs] == list(range(N_DATA))
+        for c, job in jobs:
+            _reads, oflow, rows = job.result()
+            assert not oflow.any()
+            assert rows.numpy().tolist() == want[c].tolist(), c
+    finally:
+        share.close()
+
+
+def _slot_fastq(env):
+    """The reads of the slot runs (seeded; repeats that replay on the
+    host) and the text index, written once for the module."""
+    if "slot_fq" not in env:
+        work = env["work"]
+        ktx = str(work / "db_slots.ktx")
+        env["index"]["text"].save(ktx)
+        rng = random.Random(35)
+        records = env["records"]
+        reads = make_reads(rng, records, n=90)
+        for t in range(4):
+            _, prot = records[rng.randrange(len(records))]
+            st = rng.randrange(0, len(prot) - 14)
+            reads.append((f"rep{t}", reverse_translate(
+                rng, ("W" + prot[st:st + 14]) * 9)))
+        fq = str(work / "reads_slots.fastq")
+        write_fastq(reads, fq)
+        argv = ["-t", env["nodes_dmp"], "-f", ktx, "-i", fq, "-a", "mem"]
+        out = str(work / "out_slots_one.tsv")
+        assert tkaiju.main(argv + ["-o", out], device="cpu") == 0
+        with open(out) as fh:
+            env["slot_fq"] = argv, fh.read()
+    return env["slot_fq"]
+
+
+@pytest.mark.parametrize("D", [2, SLOTS])
+def test_cli_mesh_index_over_cpu_slots(env, monkeypatch, D):
+    """kaiju -a mem --mesh-index S through main(..., device=["cpu"] * D),
+    S = 1, 2, 4, on the text index, writes the one-card TSV byte for
+    byte."""
+    monkeypatch.setenv("KAIJU_TPU_CACHE", _cache(env, "text"))
+    argv, one = _slot_fastq(env)
+    assert one.count("\nC\t") > 40
+    for S in (1, 2, 4):
+        out = str(env["work"] / f"out_slots_{D}_{S}.tsv")
+        assert tkaiju.main(argv + ["--mesh-index", str(S), "-o", out],
+                           device=["cpu"] * D) == 0
+        with open(out) as fh:
+            got = fh.read()
+        assert got == one, (D, S, _diff(got, one))

@@ -222,3 +222,73 @@ def test_cli_mesh_index_greedy_tsv(env, monkeypatch):
     nb = env["jidx"].bwt.shape[0] // 128
     padded = [S for S in (2, 3, 4) if S * -(-nb // S) > nb]
     assert 3 in padded, (nb, padded)
+
+
+N_DATA = 4  # data rows of the JAX mesh (4 x 2), CPU slots of the port
+
+
+@pytest.mark.parametrize("tag", ["fmi", "text"])
+def test_greedy_rows_over_cpu_slots_match_data_rows(env, tag):
+    """kaiju --mesh-index 2 over 4 CPU slots: each slot's
+    ShardedGreedyPipeline (engine.pipeline.CardShare, the shards placed by
+    ShardedIndex.on_cards) classifies local_rows(64, 4, c), and its rows
+    equal ShardedGreedyClassifier's data row c on its 4 x 2 mesh (the
+    port's own flags aside, as above)."""
+    from kaiju_tpu_torch.engine.pipeline import CardShare
+    from kaiju_tpu_torch.parallel.multihost import local_rows
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    cfg = TorchConfig(mode="greedy", mismatches=MISMATCHES)
+    tax = TorchTaxonomy(env["nodes"])
+    views = ShardedIndex.on_cards(env["index"][tag], N_INDEX,
+                                  ["cpu"] * N_DATA)
+    share = CardShare(lambda c: ShardedGreedyPipeline(
+        env["index"][tag], tax, cfg, N_INDEX,
+        kmer_cache_dir=_cache(env, tag), view=views[c]), ["cpu"] * N_DATA)
+    want = env["jax"]()[tag]
+    reads = env["reads"]
+    try:
+        jobs = share.submit_batch(reads)
+        assert [c for c, _f in jobs] == list(range(N_DATA))
+        for c, job in jobs:
+            lo, hi = local_rows(len(reads), N_DATA, c)
+            assert (lo, hi) == (c * want["per"], (c + 1) * want["per"])
+            rows = job.result()[2].numpy()
+            assert rows.shape[0] == hi - lo
+            for r, (lca, best, flags, n_ids) in enumerate(rows.tolist()):
+                if not flags & FLAG_SCRATCH:
+                    w = want["rows"][c][r]
+                    assert (lca, best, flags & 3, n_ids) == (
+                        w[0], w[1], w[2] & 3, w[3]), reads[lo + r][0]
+    finally:
+        share.close()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_cli_mesh_index_greedy_over_cpu_slots(env, monkeypatch, D):
+    """kaiju --mesh-index S with the default flags through main(...,
+    device=["cpu"] * D), S = 1, 2, 4, on the text index, writes the
+    one-card TSV byte for byte."""
+    monkeypatch.setenv("KAIJU_TPU_CACHE", _cache(env, "text"))
+    work = env["work"]
+    if "slot_tsv" not in env:
+        ktx = str(work / "db_slots.ktx")
+        env["index"]["text"].save(ktx)
+        rng = random.Random(41)
+        reads = make_reads(rng, env["records"], n=60)
+        fq = str(work / "reads_slots.fastq")
+        write_fastq(reads, fq)
+        argv = ["-t", env["nodes_dmp"], "-f", ktx, "-i", fq]
+        out = str(work / "out_slots_one.tsv")
+        assert tkaiju.main(argv + ["-o", out], device="cpu") == 0
+        with open(out) as fh:
+            env["slot_tsv"] = argv, fh.read()
+    argv, one = env["slot_tsv"]
+    assert one.count("\nC\t") > 20
+    for S in (1, 2, 4):
+        out = str(work / f"out_slots_{D}_{S}.tsv")
+        assert tkaiju.main(argv + ["--mesh-index", str(S), "-o", out],
+                           device=["cpu"] * D) == 0
+        with open(out) as fh:
+            got = fh.read()
+        assert got == one, (D, S, _diff(got, one))
