@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-processes    # phases 1, 2, 4 (text), 4f
     python3 chip_smoke.py --only-cards        # phases 1, 2, 4 (text), 4i
     python3 chip_smoke.py --only-warm         # phases 1, 2, 4h
+    python3 chip_smoke.py --only-hosts        # phases 1, 2, 4 (text, MEM), 4j
 
 Phases, any failure exits non-zero:
   1. build the CUDA kernels from kaiju_tpu_torch/csrc with nvcc; print the
@@ -185,9 +186,29 @@ Phases, any failure exits non-zero:
      on its reads (the same figures, the plain versions untimed), with
      build, save and load seconds, the card's bytes for the index and the
      host's peak RSS;
+  4j. processes on several hosts, rehearsed on one machine (each process
+     given a host label through peer_shards.host_name; every host is this
+     machine and the transport gloo over loopback): tools.kaiju.main -a
+     mem --mesh-index 2 as 2 processes on hosts a, b and --mesh-index 4
+     as 3 processes on a, a, b (and 4 processes on a, a, b, b where there
+     are four cards), process p on cuda:{p % cards}, on the first 16,384
+     reads of db.ktx and of db_text.ktx, each process with an empty
+     seed-table cache, so that the group builds the tables by rounds of
+     N: each process must launch N, O, C, W and Q and no one-host kernel
+     that reads the index, hold, map and have served in rounds the shards
+     of the routing rule, each read must be written once by its owner and
+     the merged lines equal phase 4's MEM lines; process 0 holds N, O, Q
+     and W on the arguments of their first rounds against their plain
+     versions on copies (timed); each process's main(), set-up and stream
+     seconds, the rounds a batch of each stage with their queries, bytes
+     and seconds in copies, transport and N, and the stream's rate against
+     a one-host group of 2 processes at --mesh-index 2 on the same reads;
+     then Greedy --mesh-index 2 on hosts a, b must exit in both processes
+     naming -a mem and the ROADMAP item;
   5. print the kernels' JSON line (the text index's measurements, the
-     sharded kernels' on 4 shards, L's and M's on the big index; the
-     launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h, 4i and 4g,
+     sharded kernels' on 4 shards, L's and M's on the big index, N, O, Q
+     and W from 4j's run at 4 shards on hosts a, a, b; the
+     launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h, 4i, 4j and 4g,
      each counted from 0, and of P1 and P2's benchmark; each error the
      largest of all the kernel's comparisons), then the result line.
 
@@ -241,6 +262,10 @@ REPLACES = {
     "ranges_lca_sharded": "kaiju_tpu/parallel/sharded_fused.py:278",
     "big_extend_all": "scripts/big_classify_demo.py:296",
     "big_sa_walk": "scripts/big_classify_demo.py:332",
+    "fm_serve": "kaiju_tpu/parallel/sharded_index.py:102",
+    "mem_extend_hosts": "kaiju_tpu/parallel/sharded_fused.py:52",
+    "walk_hosts": "kaiju_tpu/parallel/sharded_fused.py:78",
+    "read_lca_hosts": "kaiju_tpu/ops/fused_classify.py:298",
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
@@ -265,6 +290,14 @@ CARD_BIG_SHARDS = (2, 4)
 # held apart with N = S; N < S (two shards held and two mapped a process)
 PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
              (4, "greedy"))
+# phase 4j, processes on several hosts rehearsed on one machine: each run's
+# --mesh-index and hosts (process p labelled hosts[p]), four processes on
+# two hosts where there are four cards, and the kernels of the hosts path
+# (A's tables by rounds of N, O, C, W, Q)
+HOST_RUNS = ((2, "ab"), (4, "aab"))
+HOST_RUNS_4 = ((4, "aabb"),)
+HOST_PATH = ("fm_serve", "mem_extend_hosts", "mem_stats", "read_lca_hosts",
+             "walk_hosts")
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), A's letters form where the seed tables are built, and the
 # CLI flags that select the path
@@ -2291,9 +2324,12 @@ def check_first_calls(first: dict, dev) -> dict:
 
 def kaiju_worker(counts_path: str, argv: list) -> int:
     """One process of a phase 4f run: tools.kaiju.main(argv) on this
-    process's card (the --dist-* flags in argv).  Right after set-up (the
-    runner made) every process waits for the others and reads the card's
-    used memory; with --mesh-index it reports the shards it holds and maps
+    process's card (the --dist-* flags in argv; phase 4j puts `--host
+    NAME` first, the process's host label, and then process 0 checks the
+    hosts kernels instead, check_hosts_calls, and the exchange's counts
+    are reported).  Right after set-up (the runner made, its seconds
+    kept) every process waits for the others and reads the card's used
+    memory; with --mesh-index it reports the shards it holds and maps
     (ShardedIndex.layout), and process 0 keeps the arguments of each
     kernel's first call, which it checks after main() (check_first_calls),
     while the mapped shards are still open: they are released when the
@@ -2306,15 +2342,27 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     from kaiju_tpu_torch import kernels
     from kaiju_tpu_torch.tools import kaiju
 
+    from kaiju_tpu_torch.parallel import exchange, peer_shards
+
+    host = None
+    if argv[:1] == ["--host"]:  # phase 4j: this process's host label
+        host = argv[1]
+        argv = argv[2:]
+        peer_shards.host_name = lambda: host
     mesh = "--mesh-index" in argv
     pid = int(argv[argv.index("--dist-pid") + 1])
-    first = (spy_first_calls("mem" if "mem" in argv else "greedy")
-             if mesh and pid == 0 else {})
+    first = {}
+    if pid == 0 and host is not None:
+        first = spy_hosts_calls()
+    elif mesh and pid == 0:
+        first = spy_first_calls("mem" if "mem" in argv else "greedy")
     info = {}
     make_runner = kaiju.make_runner
 
     def keep(*args, **kw):
+        t0 = time.perf_counter()
         info["runner"] = runner = make_runner(*args, **kw)
+        info["setup"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         dist.barrier()  # every process set up
         free, total = torch.cuda.mem_get_info()
@@ -2332,7 +2380,11 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     runner = info.pop("runner")
     if mesh:
         info["layout"] = runner.pipe.dev.layout()
-    info["checks"] = check_first_calls(first, runner.pipe.device)
+    if host is not None:
+        info["rounds"] = exchange.COUNTS
+        info["checks"] = check_hosts_calls(first)
+    else:
+        info["checks"] = check_first_calls(first, runner.pipe.device)
     with open(counts_path, "w") as fh:
         json.dump({"rc": rc, "device": str(torch.cuda.current_device()),
                    "launches": launches, "seconds": seconds, **info}, fh)
@@ -2952,6 +3004,400 @@ def run_phase_4i(index, reads, ktx, nodes, tsvs, warm, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: processes on several hosts, rehearsed on one machine
+# ---------------------------------------------------------------------------
+
+
+def _snapshot(x):
+    """A copy of a call's argument: tensors cloned, the rest (the index's
+    Shards, scalars) as they are."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_snapshot(v) for v in x)
+    return x
+
+
+def spy_hosts_calls() -> dict:
+    """Wrap the hosts kernels' wrappers where the hosts path looks them up
+    (N in parallel.exchange; O, Q and W's two forms in ops.classify), so
+    that each keeps a copy of the arguments of its first call with work,
+    by form: {form: (wrapper, plain version, args, kwargs)}, filled as the
+    run goes; unspy() puts the wrappers back."""
+    from kaiju_tpu_torch.ops import classify, device_index, search
+    from kaiju_tpu_torch.parallel import exchange
+
+    def form(name):
+        def key(a, k):
+            if name == "fm_serve":  # the seed tables' ROW, or a round's
+                return f"fm_serve w{a[5]}", a[4].shape[0]
+            if name in ("mem_extend_hosts", "walk_hosts"):
+                start = k.get("parked") is None
+                work = (a[5].shape[0] if name == "mem_extend_hosts"
+                        else k["rows"].shape[0]) if start else \
+                    k["parked"].shape[0]
+                return f"{name} {'start' if start else 'resume'}", work
+            return name, a[0].shape[0]
+        return key
+
+    specs = ((exchange, "fm_serve", device_index.fm_serve_plain),
+             (classify, "mem_extend_hosts", search.mem_extend_hosts_plain),
+             (classify, "walk_hosts", device_index.walk_hosts_plain),
+             (classify, "read_lca_list", classify.read_lca_list_plain),
+             (classify, "read_lca_resolved", classify.read_lca_resolved_plain))
+    first = {}
+    for mod, name, plain in specs:
+        def wrap(*args, _fn=getattr(mod, name), _plain=plain,
+                 _key=form(name), **kw):
+            key, work = _key(args, kw)
+            if work and key not in first:
+                first[key] = (_fn, _plain, _snapshot(args),
+                              {k: _snapshot(v) for k, v in kw.items()})
+            return _fn(*args, **kw)
+
+        _SPIED.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, wrap)
+    return first
+
+
+def _by_lane(park, q):
+    """Parked lanes (and their queries) in lane order: a kernel parks them
+    in no fixed order."""
+    o = park[:, 0].long().argsort()
+    return park[o], q[o]
+
+
+def check_hosts_calls(first: dict) -> dict:
+    """Each hosts kernel of `first` (spy_hosts_calls) launched again on a
+    copy of its round's own arguments, against its plain version on
+    another copy (the parked lanes compared in lane order); both timed.
+    Returns {form: {"err", "ms", "plain_ms", "bytes" (the distinct record
+    rows the plain version read, with the other inputs and the outputs),
+    "work" (queries, lanes, walks or reads)}}."""
+    import torch
+
+    out = {}
+    for key, (fn, plain, args, kw) in first.items():
+        def fresh():
+            return [_snapshot(a) for a in args], {k: _snapshot(v)
+                                                  for k, v in kw.items()}
+
+        a1, k1 = fresh()
+        got = fn(*a1, **k1)
+        a2, k2 = fresh()
+        touched = []
+        if key.startswith(("fm_serve", "mem_extend_hosts", "walk_hosts")):
+            k2["touched"] = touched
+        want = plain(*a2, **k2)
+        k2.pop("touched", None)
+        name = key.split()[0]
+        if name == "fm_serve":
+            err = max_abs_err(got[0], want[0]) + int(got[1])
+            q = a1[4]
+            work = q.shape[0]
+            other = work * (8 + 4 * a1[5])
+        elif name == "mem_extend_hosts":
+            err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(_by_lane(*got[1:]), _by_lane(*want[1:])))
+            work = (k1["parked"].shape[0] if "parked" in k1
+                    else a1[5].shape[0])
+            other = 13 * got[0].shape[1] + 32 * (got[1].shape[0] + work)
+        elif name == "walk_hosts":
+            err = max(max_abs_err(a1[5], a2[5]),
+                      max_abs_err(_by_lane(*got), _by_lane(*want)))
+            work = (k1["parked"] if "parked" in k1 else k1["rows"]).shape[0]
+            other = 8 * work + 16 * got[0].shape[0]
+        elif name == "read_lca_list":
+            err = max_abs_err(got, want)
+            work = a1[4].shape[0]
+            other = sum(t.numel() * 4 for t in (*a1[:5], *got))
+        else:  # read_lca_resolved
+            err = max_abs_err(got, want)
+            work = a1[0].shape[0]
+            other = sum(t.numel() * 4 for t in (a1[0], a1[1], got))
+        a3, k3 = fresh()
+        a4, k4 = fresh()
+        out[key] = {
+            "err": err, "ms": cuda_ms(lambda: fn(*a3, **k3)),
+            "plain_ms": cuda_ms(lambda: plain(*a4, **k4), reps=3, warm=1),
+            "bytes": row_bytes(touched)[0] + other, "work": work}
+        torch.cuda.synchronize()
+    return out
+
+
+def hosts_routes(p: int, hosts: str, n_shards: int) -> tuple[dict, dict]:
+    """The routing rule over hosts (one letter a process), restated from
+    held_by_rule: ({shard: process it is mapped from}, {shard: process
+    that serves it in rounds}) for process p."""
+    N = len(hosts)
+    opened, remote = {}, {}
+    for o in range(n_shards):
+        if o in held_by_rule(p, N, n_shards):
+            continue
+        near = [q for q in range(N) if hosts[q] == hosts[p]
+                and o in held_by_rule(q, N, n_shards)]
+        if hosts[o % N] == hosts[p]:
+            opened[o] = o % N
+        elif near:
+            opened[o] = min(near)
+        else:
+            remote[o] = o % N
+    return opened, remote
+
+
+def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str):
+    """NPROCS = len(hosts) processes of this script as --kaiju-worker,
+    process p labelled host hosts[p] and on cuda:{p % cards}, each with an
+    empty seed-table cache of its own; returns (outputs, counts files,
+    logs, exit codes, wall seconds)."""
+    coord = f"127.0.0.1:{free_port()}"
+    outs, counts, logs, procs = [], [], [], []
+    t0 = time.perf_counter()
+    try:
+        for p, host in enumerate(hosts):
+            outs.append(os.path.join(work, f"out_hosts_{tag}_p{p}.tsv"))
+            counts.append(os.path.join(work, f"counts_hosts_{tag}_p{p}.json"))
+            logs.append(open(os.path.join(work, f"log_hosts_{tag}_p{p}.txt"),
+                             "w"))
+            env = dict(os.environ, KAIJU_TPU_CACHE=fresh_cache(
+                ktx, os.path.join(work, f"cache_hosts_{tag}_p{p}")))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
+                 counts[p], "--host", host, *argv, "-o", outs[p],
+                 "--dist-nprocs", str(len(hosts)), "--dist-coordinator",
+                 coord, "--dist-pid", str(p)], env=env, stdout=logs[p],
+                stderr=subprocess.STDOUT))
+        rcs = [proc.wait(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs:
+            fh.close()
+    return outs, counts, logs, rcs, time.perf_counter() - t0
+
+
+def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
+    """tools.kaiju.main -a mem --mesh-index n_shards as len(hosts)
+    processes, process p labelled host hosts[p] (peer_shards.host_name)
+    on cuda:{p % cards}, on the first MESH_READS reads: each process must
+    launch every kernel of the hosts path (N, O, C, W, Q) and no kernel
+    of the one-host paths that reads the index, hold, map and have served
+    in rounds the shards of the routing rule (hosts_routes), and the
+    lines merged by read must equal phase 4's (base_tsv).  Process 0
+    holds N, O, Q and W on their first rounds' arguments against their
+    plain versions (check_hosts_calls).  Returns (launch counts of all the
+    processes, each process's report, the wall seconds)."""
+    import torch
+
+    from kaiju_tpu_torch.parallel.multihost import local_rows
+
+    work = os.path.dirname(ktx)
+    name = f"mem --mesh-index {n_shards} on hosts {','.join(hosts)} ({tag})"
+    argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx),
+            *PATHS["mem"][1], "--mesh-index", str(n_shards), "-b", str(BATCH)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs, counts, logs, rcs, wall = start_workers(
+        argv, hosts, f"{tag}_{n_shards}_{hosts}", work, ktx)
+    if any(rcs):
+        for p, fh in enumerate(logs):
+            with open(fh.name) as f:
+                log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
+        raise AssertionError(f"{name}: exit codes {rcs}")
+    cards = torch.cuda.device_count()
+    across = len(set(hosts)) > 1
+    path = (HOST_PATH if across
+            else kernels_of("mem", index.text is not None, True))
+    launches = {k: 0 for k in REPLACES}
+    reports = []
+    for p, cpath in enumerate(counts):
+        with open(cpath) as fh:
+            got = json.load(fh)
+        reports.append(got)
+        idle = [k for k in path if got["launches"][k] <= 0]
+        stray = [k for k in REPLACES if k not in path and got["launches"][k]]
+        lay = got["layout"]
+        opened = {int(o): q for o, q in lay["opened"].items()}
+        remote = {int(o): q for o, q in lay["remote"].items()}
+        want = held_by_rule(p, len(hosts), n_shards)
+        log(f"4j {name} process {p} on host {hosts[p]}, cuda:"
+            f"{got['device']}: main() {got['seconds']:.2f} s, set-up "
+            f"{got['setup']:.2f} s, the stream {got['seconds'] - got['setup']:.2f}"
+            f" s; holds {lay['held']}, maps " + ", ".join(
+                f"{o} from {q}" for o, q in opened.items()) + ", served "
+            + ", ".join(f"{o} by {q}" for o, q in remote.items()) +
+            f" ({json.dumps(lay['bytes_held'])} held, "
+            f"{json.dumps(lay['bytes_remote'])} served, bytes); launches "
+            + json.dumps({k: v for k, v in got["launches"].items() if v}))
+        for stage, c in sorted(got["rounds"].items()):
+            r = max(c["rounds"], 1)
+            per = (f"{c['rounds'] / -(-MESH_READS // BATCH):.1f} a batch"
+                   if stage != "seed" else "at set-up")
+            log(f"4j rounds {name} process {p} {stage}: {c['rounds']} rounds "
+                f"({per}), {c['queries'] / r:,.1f} queries and "
+                f"{c['sent'] / r:,.1f} sent to a peer a round, "
+                f"{c['bytes'] / r:,.0f} bytes a round over gloo; seconds: "
+                f"copies {c['copy_s']:.4f}, transport {c['transport_s']:.4f}"
+                f", N {c['serve_s']:.4f}")
+        if idle or stray or got["device"] != str(p % cards):
+            raise AssertionError(f"{name} process {p}: kernels that did not "
+                                 f"launch {idle}, others {stray}, card "
+                                 f"{got['device']}")
+        if lay["held"] != want or (opened, remote) != hosts_routes(
+                p, hosts, n_shards):
+            raise AssertionError(f"{name} process {p}: holds {lay['held']}, "
+                                 f"maps {opened}, served {remote}; the rule "
+                                 f"gives {want}, "
+                                 f"{hosts_routes(p, hosts, n_shards)}")
+        if across and not all(got["rounds"].get(s, {}).get("rounds")
+                              for s in ("seed", "extend", "walk")):
+            raise AssertionError(f"{name} process {p}: a stage ran no round")
+        for k, c in got["checks"].items():
+            log(f"4j kernel {k} [{name}, process 0]: max_abs_err {c['err']} "
+                f"against its plain version on the round's own arguments "
+                f"({c['work']:,} items); {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.3f} ms), {c['bytes']:,} bytes")
+        if across and p == 0 and (len(got["checks"]) < 7 or any(
+                c["err"] for c in got["checks"].values())):
+            raise AssertionError(f"{name}: hosts kernels unchecked or "
+                                 "differing from their plain versions: "
+                                 f"{sorted(got['checks'])}")
+        for k in launches:
+            launches[k] += got["launches"][k]
+
+    names = [n for n, _q, _r in reads[:MESH_READS]]
+    owner = {}
+    for b0 in range(0, MESH_READS, BATCH):
+        for p in range(len(hosts)):
+            lo, hi = local_rows(min(BATCH, MESH_READS - b0), len(hosts), p)
+            owner.update((names[r], p) for r in range(b0 + lo, b0 + hi))
+    lines = {}
+    for p, out in enumerate(outs):
+        with open(out) as fh:
+            for ln in fh:
+                n = ln.split("\t")[1]
+                if n in lines or owner.get(n) != p:
+                    raise AssertionError(f"{name}: read {n} twice or in "
+                                         f"process {p}'s output")
+                lines[n] = ln
+    with open(base_tsv) as fh:
+        want = [next(fh) for _ in range(MESH_READS)]
+    same = sum(lines.get(n) == w for n, w in zip(names, want))
+    stream = max(r["seconds"] - r["setup"] for r in reports)
+    log(f"4j e2e {name}: {len(lines):,} reads written once each, {same:,} "
+        f"equal to phase 4's MEM lines; wall {wall:.2f} s; the stream after "
+        f"set-up {stream:.3f} s = {MESH_READS / stream:,.1f} reads/s (the "
+        f"slowest process); set-up {max(r['setup'] for r in reports):.2f} s")
+    if len(lines) != MESH_READS or same != MESH_READS:
+        raise AssertionError(f"{name}: the merged lines differ from phase 4's")
+    return launches, reports, MESH_READS / stream
+
+
+def refuse_greedy_hosts(reads, ktx, nodes) -> None:
+    """Greedy (the default flags) with --mesh-index 2 over hosts a, b: both
+    processes must exit non-zero with the message naming -a mem and the
+    ROADMAP item."""
+    work = os.path.dirname(ktx)
+    argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx),
+            "--mesh-index", "2", "-b", str(BATCH)]
+    _o, _c, logs, rcs, wall = start_workers(argv, "ab", "greedy", work, ktx)
+    said = []
+    for fh in logs:
+        with open(fh.name) as f:
+            said.append(f.read())
+    ok = all(rcs) and all("runs -a mem only" in s and "ROADMAP item 10e" in s
+                          for s in said)
+    log(f"4j Greedy --mesh-index 2 on hosts a, b: exit codes {rcs} in "
+        f"{wall:.2f} s; " + (said[0].strip().splitlines()[-1] if said[0]
+                             else "no message"))
+    if not ok:
+        raise AssertionError("Greedy across hosts did not exit with the "
+                             "ROADMAP message")
+
+
+def run_phase_4j(indexes, reads, ktx, nodes, base_tsv, lat_ns: float,
+                 smi: str) -> tuple[dict, dict]:
+    """Phase 4j: MEM with --mesh-index over processes labelled as several
+    hosts (HOST_RUNS, and HOST_RUNS_4 where there are four cards) on both
+    indexes, a one-host group of the same size as the reference rate, and
+    Greedy's refusal.  Returns (launch counts over all the runs, the
+    kernels line's rows of N, O, Q and W: (err, ms, plain_ms, bound_ms,
+    note), from the text index's run at S = 4, errors over every run)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    runs = HOST_RUNS + (HOST_RUNS_4 if cards >= 4 else ())
+    log(f"4j: processes on hosts labelled by peer_shards.host_name, process "
+        f"p on cuda:{{p % {cards}}}; every host is this machine and the "
+        "transport gloo over loopback: no run spans two real hosts "
+        f"({smi})")
+    launches = {k: 0 for k in REPLACES}
+    rows: dict = {}
+    errs: dict = {}
+    ref = {}
+    for n_shards, hosts in ((2, "aa"),) + runs:
+        for tag in ("text", "fmi"):
+            if len(set(hosts)) == 1 and tag == "fmi":
+                continue
+            counts, reports, rate = run_hosts(
+                indexes[tag], reads, ktx[tag], nodes, n_shards, hosts,
+                base_tsv, tag)
+            for k, c in counts.items():
+                launches[k] += c
+            if len(set(hosts)) == 1:
+                ref[n_shards] = rate
+                continue
+            log(f"4j rate {n_shards} shards on hosts {hosts} ({tag}): "
+                f"{rate:,.1f} reads/s against {ref[2]:,.1f} of the one-host "
+                f"group (2 processes, --mesh-index 2, db_text.ktx), the "
+                "stream after set-up")
+            for key, c in reports[0]["checks"].items():
+                name = {"read_lca_list": "read_lca_hosts",
+                        "read_lca_resolved": "read_lca_hosts"}.get(
+                            key, key.split()[0])
+                errs[name] = max(errs.get(name, 0), c["err"])
+            if (tag, n_shards, hosts) == ("text", 4, "aab"):
+                rows = hosts_rows(reports[0]["checks"], lat_ns)
+    refuse_greedy_hosts(reads, ktx["fmi"], nodes)
+    for name, e in errs.items():
+        rows[name] = (max(e, rows[name][0]), *rows[name][1:])
+    return launches, rows
+
+
+def hosts_rows(checks: dict, lat_ns: float) -> dict:
+    """The kernels line's rows of N, O, Q and W from process 0's checks:
+    N on a round of the extension (RANK), O and Q on their start forms, W
+    as its two forms together; bound: the bytes at 3.35 TB/s, the note
+    with the latency floor (N: one row a query; Q: its walks' steps; O as
+    B; W reads no index row)."""
+    def row(forms, note):
+        cs = [checks[f] for f in forms]
+        b = sum(c["bytes"] for c in cs)
+        work = ", ".join(f"{f} {c['work']:,}" for f, c in zip(forms, cs))
+        return (max(c["err"] for c in cs), sum(c["ms"] for c in cs),
+                sum(c["plain_ms"] for c in cs), b / HBM_BYTES_PER_S * 1e3,
+                f"{note}; {work}")
+
+    n = "fm_serve w1" if "fm_serve w1" in checks else "fm_serve w20"
+    return {
+        "fm_serve": row([n], "a round's queries, one record row each: "
+                        + floor_note(1, lat_ns)),
+        "mem_extend_hosts": row(["mem_extend_hosts start"],
+                                "B's pass 1 and the steps on this host's "
+                                "rows"),
+        "walk_hosts": row(["walk_hosts start"],
+                          "the walks' steps on this host's rows"),
+        "read_lca_hosts": row(["read_lca_list", "read_lca_resolved"],
+                              "D without its walks: statistics rows, "
+                              "positions, ids and rows out"),
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 4h: warm start (mkdb --aot) and fresh processes
 # ---------------------------------------------------------------------------
 
@@ -3488,6 +3934,21 @@ def run(args) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only_hosts:  # phase 4j and the lines it is held against
+        base = run_cli(indexes["text"], reads, ktx["text"], nodes, fq, "mem",
+                       "text")[1]
+        counts, rows = run_phase_4j(indexes, reads, ktx, nodes, base, lat_ns,
+                                    smi)
+        log_checks(rows, "4j, text index, 4 shards on hosts a, a, b")
+        log("4j launches: " + json.dumps(
+            {k: c for k, c in counts.items() if c}))
+        log("--only-hosts: phases 1, 2, 4 on db_text.ktx (MEM) and 4j "
+            "passed; no kernels line")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only_processes:  # phase 4f and the lines it is held against
         tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
                                        nodes, fq, mode, "text")[1]}
@@ -3638,6 +4099,17 @@ def run(args) -> int:
             err, *rest = checks["text"][k]
             checks["text"][k] = (max(err, e), *rest)
 
+    # ---- 4j. processes on several hosts, each run counted from 0; N, O, Q
+    # and W join the line ------------------------------------------------
+    host_launches, host_rows = run_phase_4j(indexes, reads, ktx, nodes,
+                                            tsvs["mem"]["text"], lat_ns, smi)
+    for k, c in host_launches.items():
+        launches[k] += c
+    log_checks(host_rows, "4j, text index, 4 shards on hosts a, a, b")
+    if any(v[0] for v in host_rows.values()):
+        raise AssertionError("N, O, Q or W differs from its plain version")
+    checks["text"].update(host_rows)
+
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
     big_rows, big_launches = run_phase_4g(big_build, smi, dram_ns)
     for name, v in big_rows.items():
@@ -3690,6 +4162,10 @@ def main(argv=None) -> int:
                     help="run phase 4i alone, with the phase 4 lines it is "
                     "held against (for a machine with several cards); no "
                     "kernels line")
+    ap.add_argument("--only-hosts", action="store_true",
+                    help="run phase 4j (processes on several hosts, "
+                    "labels on this machine) alone, with the phase 4 MEM "
+                    "lines it is held against; no kernels line")
     ap.add_argument("--only-warm", action="store_true",
                     help="run phase 4h (warm start) alone after phases 1 "
                     "and 2; no kernels line and no result line")

@@ -87,6 +87,30 @@ struct ShardIx {
     }
 };
 
+// ShardIx over a group of processes on several hosts: a shard that no
+// process of this host holds has null pointers in the tables (kernel N of
+// its owner serves its rows and samples in rounds, fm_serve.cu and
+// parallel/exchange.py), and the hosts kernels (N, O, Q, W) test the
+// shard of a row or slot before they read it.
+struct HostIx : ShardIx {
+    __device__ __forceinline__ int row_shard(int b) const {
+        return min(b / nb_s, S - 1);
+    }
+    __device__ __forceinline__ bool row_here(int b) const {
+        return rec[row_shard(b)] != nullptr;
+    }
+    __device__ __forceinline__ bool slot_here(int idx) const {
+        return sa_seq[min(idx / ns_s, S - 1)] != nullptr;
+    }
+};
+
+// The kinds of an exchange query (kernel N): a query is int32 (op, x),
+// op = kind << 8 | letter.  RANK (c, k): FMindex(c, k).  ROW k: the 20
+// letters' FMindex(c, k), c = 1..20.  LF k: the walk's next row
+// FMindex(c, k) for the letter c at k, or ~that (< 0) at a terminator
+// (c == 0).  SAMPLE slot: sa_seq[slot] (and sa_off[slot]).
+constexpr int kQRank = 0, kQRow = 1, kQLf = 2, kQSample = 3;
+
 // The BWT byte at offset off (0..127) of a record row.
 __device__ __forceinline__ int bwt_byte(const int* row, int off) {
     return (__ldg(row + 32 + (off >> 2)) >> ((off & 3) * 8)) & 255;
@@ -313,13 +337,36 @@ __device__ __forceinline__ int lf_group(const Ix& ix,
     return __ldg(C + letter) + occ + cnt;
 }
 
+// One LF step of an SA walk from k by a group of G lanes (1, 2, 4 or 8;
+// gl, gmask as for rank2), every lane of which gets it: *c = the BWT
+// letter at k, the result FMindex(*c, k).  A group takes it in one memory
+// latency (lf_group); one lane reads the letter, then its rank through
+// rank1.  kt::sa_walk and kernel Q (walk_hosts.cu) step through it.
+template <int G, class Ix>
+__device__ __forceinline__ int lf_step(const Ix& ix,
+                                       const int* __restrict__ C, int k,
+                                       int gl, unsigned gmask, int* c) {
+    if constexpr (G == 1) {
+        *c = bwt_byte(ix.row(k >> 7), k & 127);
+        return rank1(ix, C, *c, k);
+    } else {
+        return lf_group<G>(ix, C, k, gl, gmask, c);
+    }
+}
+
+// The SA sample slot of a sampled position k (k divisible by
+// 2^chpt_exp), clipped into the nsamp slots.
+__device__ __forceinline__ int sample_slot(int k, int nseq, int chpt_exp,
+                                           int nsamp) {
+    const int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
+    return min(max(idx, 0), nsamp - 1);
+}
+
 // get_suffix (bwt.c:105-121) reduced to the sequence index, walked by a
 // group of G lanes (1, 2, 4 or 8; gl, gmask as for rank2), every lane of
-// which gets it: LF-walk from SA position k until a sampled slot (k
-// divisible by 2^chpt_exp) or a terminator.  At a terminator (c == 0) the
-// LF result itself is the content rank of the sequence.  A group takes a
-// step in one memory latency (lf_group); one lane reads the letter, then
-// its rank through rank1.
+// which gets it: LF-walk from SA position k (lf_step) until a sampled
+// slot (k divisible by 2^chpt_exp) or a terminator.  At a terminator
+// (c == 0) the LF result itself is the content rank of the sequence.
 template <int G, class Ix>
 __device__ __forceinline__ int sa_walk(const Ix& ix,
                                        const int* __restrict__ C, int nseq,
@@ -327,19 +374,12 @@ __device__ __forceinline__ int sa_walk(const Ix& ix,
                                        unsigned gmask) {
     const int check = (1 << chpt_exp) - 1;
     while (k & check) {
-        int c, kn;
-        if constexpr (G == 1) {
-            c = bwt_byte(ix.row(k >> 7), k & 127);
-            kn = rank1(ix, C, c, k);
-        } else {
-            kn = lf_group<G>(ix, C, k, gl, gmask, &c);
-        }
+        int c;
+        const int kn = lf_step<G>(ix, C, k, gl, gmask, &c);
         if (c == 0) return kn;
         k = kn;
     }
-    int idx = (k >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1;
-    idx = min(max(idx, 0), ix.nsamp - 1);
-    return ix.seq(idx);
+    return ix.seq(sample_slot(k, nseq, chpt_exp, ix.nsamp));
 }
 
 // Warp helpers: every lane of the warp calls them.
@@ -387,6 +427,8 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
         rec_tab, nb_s, seq_tab, off_tab, ns_s, nsamp, text_tab, nt_s,    \
             nshards                                                      \
     }
+// The same arguments as a kt::HostIx (a remote shard's pointers null).
+#define KT_HOST_IX kt::HostIx{KT_SHARD_IX}
 
 // Error text for a code returned by an entry point (each library has its
 // own copy).

@@ -26,9 +26,10 @@
 // lift and the climb follow parent links, 20-40 of them on NCBI's tree.
 // Design: one warp per read, every stage spread over the lanes, none on
 // one lane while the others wait.
-//   1. Ranges 32 at a time: a warp prefix sum of their sizes gives each
+//   1. Ranges 32 at a time: a warp prefix sum of their sizes (each
+//      counted up to R + 1, so that the sum cannot pass 2^31) gives each
 //      its offset; the nonempty ones are written out in turn by the whole
-//      warp, up to R positions, into shared memory.
+//      warp, up to R positions, into shared memory (list_positions).
 //   2. Positions 32 at a time: each walked by a group of G lanes, G = 8,
 //      4 or 2 for at most 4, 8 or 16 positions (kt::lf_group: a step in
 //      one memory latency), one lane a position past 16 (kt::rank1's
@@ -81,48 +82,55 @@ __device__ __forceinline__ int walk_taxon(
     return __ldg(seq_tax + min(max(iseq, 0), ntax - 1));
 }
 
-// Whole warp.  range(g, &start, &size) gives range g of G (size 0: not
-// contributing), from any lane; sh is lca_warp_ints(R) ints of the warp's
-// shared memory.  Every lane gets the read's result.  ix: the index the
-// SA walks read (kt::FlatIx or kt::ShardIx; fm_common.cuh).
-template <class Range, class Ix>
-__device__ LcaResult ranges_lca_warp(
-    const Range& range, int G, int* sh, const Ix& ix,
-    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
-    const int* __restrict__ parent, const int* __restrict__ depth,
-    int maxtax, int R, int cap, int nseq, int chpt_exp,
-    const int* __restrict__ sw_ids, int nsw) {
+// Step 1, whole warp: the first R positions of the ranges, in range
+// order, into pos (shared memory).  range(g, &start, &size) gives range g
+// of G (size <= 0: not contributing), from any lane.  *total: the
+// positions of all the ranges, each range counted up to R + 1 (only
+// min(total, R) and total > R matter, so this is exact where it counts
+// and never overflows: S x T = 128 intervals near 2^31 would pass an
+// int32 sum); *n_ranges: the ranges that contribute.
+template <class Range>
+__device__ __forceinline__ void list_positions(const Range& range, int G,
+                                               int* pos, int R, int* total,
+                                               int* n_ranges) {
     const int lane = threadIdx.x & 31;
-    int* pos = sh;
-    int* list = sh + R;
-    const int listcap = max(min(R, cap + 2), 0);
-
-    // 1. the first R positions of the ranges, in order
-    int total = 0, n_ranges = 0;
+    int tot = 0, nr = 0;
     for (int g0 = 0; g0 < G; g0 += 32) {
         int a = 0, size = 0;
         if (g0 + lane < G) range(g0 + lane, a, size);
+        size = min(max(size, 0), R + 1);
         const int inc = warp_incl_sum(size, lane);
         const unsigned live = __ballot_sync(kFullMask, size > 0);
         for (unsigned w = live; w != 0; w &= w - 1) {
             const int src = __ffs(w) - 1;
             const int ra = __shfl_sync(kFullMask, a, src);
             const int rs = __shfl_sync(kFullMask, size, src);
-            const int ro = total + __shfl_sync(kFullMask, inc - size, src);
+            const int ro = tot + __shfl_sync(kFullMask, inc - size, src);
             if (ro >= R) break;
             for (int x = lane; x < rs && ro + x < R; x += 32)
                 pos[ro + x] = ra + x;
         }
-        total += __shfl_sync(kFullMask, inc, 31);
-        n_ranges += __popc(live);
+        tot += __shfl_sync(kFullMask, inc, 31);
+        nr += __popc(live);
     }
-    const int n = min(total, R);
+    *total = tot;
+    *n_ranges = nr;
     __syncwarp();  // every lane's positions are visible to the warp
+}
 
-    // 2-3. chunks of 32 positions: their taxa, then the new ones listed
-    int n_uniq = 0;
-    for (int r0 = 0; r0 < n && n_uniq < cap + 2; r0 += 32) {
-        const int m = min(32, n - r0);
+// The taxa of the listed positions by SA walks: taxon of position r0 +
+// lane (of m from r0) in every lane, groups of gs lanes a walk.
+template <class Ix>
+struct WalkTaxa {
+    const int* pos;
+    const Ix& ix;
+    const int* C;
+    const int* seq_tax;
+    int ntax, nseq, chpt_exp;
+    const int* sw_ids;
+    int nsw;
+
+    __device__ __forceinline__ int operator()(int r0, int m, int lane) const {
         const int* p = pos + r0;
         const int gs = m <= 4 ? 8 : m <= 8 ? 4 : m <= 16 ? 2 : 1;
         int t;  // the taxon of position r0 + lane / gs
@@ -139,7 +147,30 @@ __device__ LcaResult ranges_lca_warp(
             t = walk_taxon<1>(p, m, lane, ix, C, seq_tax, ntax, nseq,
                               chpt_exp, sw_ids, nsw);
         // position r0 + lane's taxon, from the first lane of its group
-        const int tax = __shfl_sync(kFullMask, t, min(lane * gs, 31));
+        return __shfl_sync(kFullMask, t, min(lane * gs, 31));
+    }
+};
+
+// Steps 2-4, whole warp: the taxa of the n listed positions chunk by chunk
+// (taxa(r0, m, lane): the taxon of position r0 + lane of the m from r0,
+// every lane calling), the capped set and the LCA.  sh is
+// lca_warp_ints(R) ints of the warp's shared memory (its positions, if
+// listed there, are read by taxa only).  Every lane gets the result.
+template <class Taxa>
+__device__ LcaResult lca_of_positions(
+    const Taxa& taxa, int n, int total, int n_ranges, int* sh,
+    const int* __restrict__ parent, const int* __restrict__ depth,
+    int maxtax, int R, int cap) {
+    const int lane = threadIdx.x & 31;
+    int* pos = sh;
+    int* list = sh + R;
+    const int listcap = max(min(R, cap + 2), 0);
+
+    // 2-3. chunks of 32 positions: their taxa, then the new ones listed
+    int n_uniq = 0;
+    for (int r0 = 0; r0 < n && n_uniq < cap + 2; r0 += 32) {
+        const int m = min(32, n - r0);
+        const int tax = taxa(r0, m, lane);
         const bool valid = lane < m;
         bool seen = false;
         for (int j = 0; valid && !seen && j < n_uniq; ++j)
@@ -205,6 +236,25 @@ __device__ LcaResult ranges_lca_warp(
     }
     res.lca = ref;
     return res;
+}
+
+// Whole warp: steps 1-4 (list_positions, then lca_of_positions with the
+// SA walks of WalkTaxa).  range as for list_positions; sh is
+// lca_warp_ints(R) ints of the warp's shared memory.  Every lane gets the
+// read's result.  ix: the index the SA walks read (kt::FlatIx or
+// kt::ShardIx; fm_common.cuh).
+template <class Range, class Ix>
+__device__ LcaResult ranges_lca_warp(
+    const Range& range, int G, int* sh, const Ix& ix,
+    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
+    const int* __restrict__ parent, const int* __restrict__ depth,
+    int maxtax, int R, int cap, int nseq, int chpt_exp,
+    const int* __restrict__ sw_ids, int nsw) {
+    int total, n_ranges;
+    list_positions(range, G, sh, R, &total, &n_ranges);
+    return lca_of_positions(
+        WalkTaxa<Ix>{sh, ix, C, seq_tax, ntax, nseq, chpt_exp, sw_ids, nsw},
+        min(total, R), total, n_ranges, sh, parent, depth, maxtax, R, cap);
 }
 
 }  // namespace kt

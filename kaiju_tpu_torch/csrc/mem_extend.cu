@@ -51,6 +51,17 @@
 // (kt::ShardIx): the search phases of K16e,
 // kaiju_tpu/parallel/sharded_fused.py:make_sharded_mem_classify
 // (:178-275), on the owner-computes rank of _make_rank1 (:52-75).
+//
+// Kernel O (kt_mem_extend_hosts) is B for a group of processes on several
+// hosts (kt::HostIx, without the hybrid's stop): the same pass 1
+// (seed_and_list), then each listed lane steps while both rows of its
+// step lie on this host; at a row that no process of the host holds it
+// parks with its rank-pair queries, which the owners answer (kernel N,
+// fm_serve.cu) in rounds (parallel/exchange.py), and the resume form
+// applies the answers and steps on.  Its lanes' final (i, s0, s1) are
+// B's.  Bound: B's, plus one row a parked step at its owner; design: B's
+// block list in the start form, a group of kG threads a parked lane in the
+// resume form, one global atomic a parked lane.
 #include "text_common.cuh"
 
 namespace {
@@ -73,19 +84,20 @@ __device__ __forceinline__ int owner(const int* __restrict__ frag_off,
     return lo;
 }
 
-template <class Ix>
-__global__ void __launch_bounds__(kThreads) mem_extend_kernel(
-    const Ix ix, const int* __restrict__ C,
+// The block's share of the positions, [p0, p0 + kPos): its fragment
+// starts staged in shared memory, then pass 1 (a position a thread): the
+// screen, the seed, and every lane that ends there written; a lane that
+// steps is appended to the block's list s_item (a ballot and one shared
+// atomic a warp).  Returns the list's length, after a barrier.
+__device__ __forceinline__ int seed_and_list(
     const int* __restrict__ seed_s0, const int* __restrict__ seed_s1,
     const int8_t* __restrict__ seed_d, int nseed,
     const uint8_t* __restrict__ flat, int P,
     const int* __restrict__ frag_off, int F, int K, int j0,
-    const unsigned* __restrict__ words, int m, int lb, int sw_steps,
+    const unsigned* __restrict__ words, int m, int lb,
     int* __restrict__ out_i, int* __restrict__ out_s0,
-    int* __restrict__ out_s1) {
-    __shared__ int s_off[kOffCap + 1];
-    __shared__ int4 s_item[kPos];  // a listed lane: p, i, s0, s1
-    __shared__ int s_f0, s_f1, s_n, s_next;
+    int* __restrict__ out_s1, int* s_off, int4* s_item, int& s_f0,
+    int& s_f1, int& s_n, int& s_next) {
     const int tid = threadIdx.x, lane = tid & 31;
     const int p0 = blockIdx.x * kPos;
     if (tid == 0) {
@@ -102,7 +114,6 @@ __global__ void __launch_bounds__(kThreads) mem_extend_kernel(
         for (int t = tid; t <= nf; t += kThreads) s_off[t] = frag_off[f0 + t];
     __syncthreads();
 
-    // ---- pass 1: screen and seed every position, list the lanes that step
     for (int r = 0; r < kPer; ++r) {
         const int p = p0 + r * kThreads + tid;
         bool listed = false;
@@ -157,11 +168,32 @@ __global__ void __launch_bounds__(kThreads) mem_extend_kernel(
         if (listed) s_item[slot] = make_int4(p, i, a0, a1);
     }
     __syncthreads();
+    return s_n;
+}
+
+template <class Ix>
+__global__ void __launch_bounds__(kThreads) mem_extend_kernel(
+    const Ix ix, const int* __restrict__ C,
+    const int* __restrict__ seed_s0, const int* __restrict__ seed_s1,
+    const int8_t* __restrict__ seed_d, int nseed,
+    const uint8_t* __restrict__ flat, int P,
+    const int* __restrict__ frag_off, int F, int K, int j0,
+    const unsigned* __restrict__ words, int m, int lb, int sw_steps,
+    int* __restrict__ out_i, int* __restrict__ out_s0,
+    int* __restrict__ out_s1) {
+    __shared__ int s_off[kOffCap + 1];
+    __shared__ int4 s_item[kPos];  // a listed lane: p, i, s0, s1
+    __shared__ int s_f0, s_f1, s_n, s_next;
+    const int lane = threadIdx.x & 31;
+    const int n = seed_and_list(seed_s0, seed_s1, seed_d, nseed, flat, P,
+                                frag_off, F, K, j0, words, m, lb, out_i,
+                                out_s0, out_s1, s_off, s_item, s_f0, s_f1,
+                                s_n, s_next);
 
     // ---- pass 2: the listed lanes, each group of kG threads taking the
     // next one as soon as its own ends
     constexpr int G = kG;
-    const int n = s_n, gl = lane % G;
+    const int gl = lane % G;
     const unsigned gmask = kt::group_mask<G>(lane);
     int idx = gl == 0 ? atomicAdd(&s_next, 1) : 0;
     idx = __shfl_sync(gmask, idx, 0, G);
@@ -202,6 +234,110 @@ __global__ void __launch_bounds__(kThreads) mem_extend_kernel(
     }
 }
 
+// ---- kernel O: B over the shards of a group on several hosts -----------
+
+// A's lane p at (i, a0, a1), q = the flat index of the code before i,
+// stepped by a group of kG threads through kt::rank2 while both rows lie
+// on this host (i > 0 on entry); then its result is written, or, at a
+// row of a remote shard, the lane parks: (p, i, a0, a1) to park [*n_park]
+// with its rank-pair queries (kQRank c, a0), (kQRank c, a1) to qry, its
+// state written as its result for now.
+__device__ __forceinline__ void run_lane(
+    const kt::HostIx& ix, const int* __restrict__ C,
+    const uint8_t* __restrict__ flat, int p, int i, int a0, int a1, int q,
+    int gl, unsigned gmask, int* __restrict__ out_i,
+    int* __restrict__ out_s0, int* __restrict__ out_s1,
+    int* __restrict__ park, int* __restrict__ qry, int* __restrict__ n_park) {
+    while (i > 0) {
+        const int c = __ldg(flat + q);
+        if (!ix.row_here(a0 >> 7) || !ix.row_here(a1 >> 7)) {
+            if (gl == 0) {
+                const int s = atomicAdd(n_park, 1);
+                reinterpret_cast<int4*>(park)[s] = make_int4(p, i, a0, a1);
+                reinterpret_cast<int4*>(qry)[s] = make_int4(
+                    kt::kQRank << 8 | c, a0, kt::kQRank << 8 | c, a1);
+            }
+            break;
+        }
+        int n0, n1;
+        kt::rank2<kG>(ix, C, c, a0, a1, gl, gmask, &n0, &n1);
+        if (n0 >= n1) break;
+        a0 = n0;
+        a1 = n1;
+        --i;
+        --q;
+    }
+    if (gl == 0) {
+        out_i[p] = i;
+        out_s0[p] = a0;
+        out_s1[p] = a1;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads) mem_extend_hosts_kernel(
+    const kt::HostIx ix, const int* __restrict__ C,
+    const int* __restrict__ seed_s0, const int* __restrict__ seed_s1,
+    const int8_t* __restrict__ seed_d, int nseed,
+    const uint8_t* __restrict__ flat, int P,
+    const int* __restrict__ frag_off, int F, int K, int j0,
+    const unsigned* __restrict__ words, int m, int lb,
+    int* __restrict__ out_i, int* __restrict__ out_s0,
+    int* __restrict__ out_s1, int* __restrict__ park,
+    int* __restrict__ qry, int* __restrict__ n_park) {
+    __shared__ int s_off[kOffCap + 1];
+    __shared__ int4 s_item[kPos];  // a listed lane: p, i, s0, s1
+    __shared__ int s_f0, s_f1, s_n, s_next;
+    const int lane = threadIdx.x & 31, gl = lane % kG;
+    const unsigned gmask = kt::group_mask<kG>(lane);
+    const int n = seed_and_list(seed_s0, seed_s1, seed_d, nseed, flat, P,
+                                frag_off, F, K, j0, words, m, lb, out_i,
+                                out_s0, out_s1, s_off, s_item, s_f0, s_f1,
+                                s_n, s_next);
+    for (;;) {  // each group takes the next listed lane
+        int idx = gl == 0 ? atomicAdd(&s_next, 1) : 0;
+        idx = __shfl_sync(gmask, idx, 0, kG);
+        if (idx >= n) return;
+        const int4 it = s_item[idx];
+        run_lane(ix, C, flat, it.x, it.y, it.z, it.w, it.x - K, gl, gmask,
+                 out_i, out_s0, out_s1, park, qry, n_park);
+    }
+}
+
+// The parked lanes park_in [L, 4] with their answers ans_in [L, 2] (the
+// rank pair): the step applied as B applies it, then run_lane on.
+__global__ void __launch_bounds__(kThreads) mem_extend_resume_kernel(
+    const kt::HostIx ix, const int* __restrict__ C,
+    const uint8_t* __restrict__ flat, const int* __restrict__ frag_off,
+    int F, const int* __restrict__ park_in, const int* __restrict__ ans_in,
+    int L, int* __restrict__ out_i, int* __restrict__ out_s0,
+    int* __restrict__ out_s1, int* __restrict__ park,
+    int* __restrict__ qry, int* __restrict__ n_park) {
+    const int g = (blockIdx.x * kThreads + threadIdx.x) / kG;
+    if (g >= L) return;  // whole groups leave together
+    const int lane = threadIdx.x & 31, gl = lane % kG;
+    const unsigned gmask = kt::group_mask<kG>(lane);
+    const int4 it = reinterpret_cast<const int4*>(park_in)[g];
+    const int n0 = __ldg(ans_in + 2 * (size_t)g);
+    const int n1 = __ldg(ans_in + 2 * (size_t)g + 1);
+    int i = it.y, a0 = it.z, a1 = it.w;
+    const bool stepped = n0 < n1;  // else the interval emptied: it ends
+    if (stepped) {
+        a0 = n0;
+        a1 = n1;
+        --i;
+    }
+    if (stepped && i > 0) {
+        // the code before i: its fragment's start + i - 1
+        const int q = __ldg(frag_off + owner(frag_off, 0, F - 1, it.x)) + i - 1;
+        run_lane(ix, C, flat, it.x, i, a0, a1, q, gl, gmask, out_i, out_s0,
+                 out_s1, park, qry, n_park);
+    } else if (gl == 0) {
+        out_i[it.x] = i;
+        out_s0[it.x] = a0;
+        out_s1[it.x] = a1;
+    }
+}
+
 template <class Ix>
 int launch(const Ix& ix, const int* C, const int* seed_s0,
            const int* seed_s1, const int8_t* seed_d, int nseed,
@@ -237,4 +373,31 @@ KT_EXPORT int kt_mem_extend_sharded(
     return launch(KT_SHARD_IX, C, seed_s0, seed_s1, seed_d, nseed, flat, P,
                   frag_off, F, K, j0, words, m, lb, sw_steps, out_i, out_s0,
                   out_s1, stream);
+}
+
+// Kernel O: the start form (park_in null) runs B's pass 1 and then pass 2
+// on kt::HostIx, parking the lanes that need a remote row; the resume form
+// takes the parked lanes park_in [L, 4] and their answers ans_in [L, 2].
+// Both append to park_out [*n_park, 4] and q_out [*n_park, 2, 2].
+KT_EXPORT int kt_mem_extend_hosts(
+    KT_SHARD_PARAMS, const int* C, const int* seed_s0, const int* seed_s1,
+    const int8_t* seed_d, int nseed, const uint8_t* flat, int P,
+    const int* frag_off, int F, int K, int j0, const unsigned* words, int m,
+    int lb, const int* park_in, const int* ans_in, int L, int* out_i,
+    int* out_s0, int* out_s1, int* park_out, int* q_out, int* n_park,
+    cudaStream_t stream) {
+    if (park_in == nullptr) {
+        mem_extend_hosts_kernel<<<(P + kPos - 1) / kPos, kThreads, 0,
+                                  stream>>>(
+            KT_HOST_IX, C, seed_s0, seed_s1, seed_d, nseed, flat, P,
+            frag_off, F, K, j0, words, m, lb, out_i, out_s0, out_s1,
+            park_out, q_out, n_park);
+    } else {
+        const long long threads = (long long)L * kG;
+        mem_extend_resume_kernel<<<(int)((threads + kThreads - 1) / kThreads),
+                                   kThreads, 0, stream>>>(
+            KT_HOST_IX, C, flat, frag_off, F, park_in, ans_in, L, out_i,
+            out_s0, out_s1, park_out, q_out, n_park);
+    }
+    return static_cast<int>(cudaGetLastError());
 }

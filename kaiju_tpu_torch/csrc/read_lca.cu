@@ -24,6 +24,20 @@
 // (kt::ShardIx): the classify_tail of K16e,
 // kaiju_tpu/parallel/sharded_fused.py:make_sharded_mem_classify
 // (:178-275), whose SA walks are _make_walk's (:78-150).
+//
+// Kernel W (kt_read_lca_hosts) is D split around its SA walks, for a
+// group of processes on several hosts, where a walk's rows may lie on
+// another host and kernel Q (walk_hosts.cu) walks them in rounds.  Form 0
+// (list) runs D's slots and step 1 (kt::list_positions): the first R
+// positions of the read's contributing ties, in slot order then tie
+// order, into pos [B, R] (-1 past them) and info [B, 4] = (positions,
+// total, longest, tie_over).  Form 1 (resolved) runs D's steps 2-4
+// (kt::lca_of_positions) with each position's sequence from seq [B, R],
+// which Q resolved, and writes D's row.  D stops walking once the capped
+// set is full; W lists all R positions, which changes work, never a
+// result.  Bound: bytes, the statistics rows the reads touch, pos, seq
+// and the rows written, and the longest chain of parent loads (the LCA);
+// design: D's warp a read, without the walks.
 #include "lca_common.cuh"
 
 namespace {
@@ -42,23 +56,12 @@ struct SlotTies {
     }
 };
 
-template <class Ix>
-__global__ void read_lca_kernel(
-    const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
-    const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
-    const int* __restrict__ rf_rows, int B, int S, const Ix ix,
-    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
-    const int* __restrict__ parent, const int* __restrict__ depth,
-    int maxtax, int R, int cap, int nseq, int chpt_exp,
-    const int* __restrict__ sw_ids, int nsw, int* __restrict__ out) {
-    extern __shared__ int smem[];
-    const int w = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int b = blockIdx.x * kWarps + w;
-    if (b >= B) return;  // whole warps leave together
-    int* sh = smem + w * (kt::lca_warp_ints(R) + S);
-    int* rows = sh + kt::lca_warp_ints(R);  // the contributing slots' rows
-    const int* rf = rf_rows + (size_t)b * S;
+// D's first part, every lane: the read's longest over its slots, its
+// contributing slots' fragment rows (in slot order) into rows, and
+// whether one of them had more than T ties.
+__device__ __forceinline__ int contributing(
+    const int* __restrict__ maxl, const int* __restrict__ tie_cnt, int T,
+    const int* rf, int S, int lane, int* rows, int* nc_out, int* over_out) {
     int longest = 0;
     for (int s = lane; s < S; s += 32) {
         const int r = __ldg(rf + s);
@@ -77,7 +80,30 @@ __global__ void read_lca_kernel(
         nc += __popc(cm);
     }
     __syncwarp();
-    const int tie_over = __any_sync(kt::kFullMask, over);
+    *nc_out = nc;
+    *over_out = __any_sync(kt::kFullMask, over);
+    return longest;
+}
+
+template <class Ix>
+__global__ void read_lca_kernel(
+    const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
+    const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
+    const int* __restrict__ rf_rows, int B, int S, const Ix ix,
+    const int* __restrict__ C, const int* __restrict__ seq_tax, int ntax,
+    const int* __restrict__ parent, const int* __restrict__ depth,
+    int maxtax, int R, int cap, int nseq, int chpt_exp,
+    const int* __restrict__ sw_ids, int nsw, int* __restrict__ out) {
+    extern __shared__ int smem[];
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarps + w;
+    if (b >= B) return;  // whole warps leave together
+    int* sh = smem + w * (kt::lca_warp_ints(R) + S);
+    int* rows = sh + kt::lca_warp_ints(R);  // the contributing slots' rows
+    int nc, tie_over;
+    const int longest = contributing(maxl, tie_cnt, T, rf_rows + (size_t)b * S,
+                                     S, lane, rows, &nc, &tie_over);
     const kt::LcaResult res = kt::ranges_lca_warp(
         SlotTies{rows, tie_s0, tie_s1, T}, nc * T, sh, ix, C, seq_tax, ntax,
         parent, depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw);
@@ -86,6 +112,73 @@ __global__ void read_lca_kernel(
     o[0] = longest > 0 ? res.lca : 0;
     o[1] = longest;
     o[2] = tie_over * 1 + res.need_more * 2;
+    o[3] = res.n_ids;
+}
+
+// The taxon of position r0 + lane from the resolved table (a read's row
+// of seq), 0 past the m positions.
+struct TableTaxa {
+    const int* seq;
+    const int* seq_tax;
+    int ntax;
+
+    __device__ __forceinline__ int operator()(int r0, int m, int lane) const {
+        if (lane >= m) return 0;
+        const int s = __ldg(seq + r0 + lane);
+        return __ldg(seq_tax + min(max(s, 0), ntax - 1));
+    }
+};
+
+__global__ void read_lca_list_kernel(
+    const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
+    const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
+    const int* __restrict__ rf_rows, int B, int S, int R,
+    int* __restrict__ pos, int* __restrict__ info) {
+    extern __shared__ int smem[];
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarps + w;
+    if (b >= B) return;  // whole warps leave together
+    int* sh = smem + w * (R + S);
+    int* rows = sh + R;
+    int nc, over;
+    const int longest = contributing(maxl, tie_cnt, T, rf_rows + (size_t)b * S,
+                                     S, lane, rows, &nc, &over);
+    int total, n_ranges;
+    kt::list_positions(SlotTies{rows, tie_s0, tie_s1, T}, nc * T, sh, R,
+                       &total, &n_ranges);
+    const int n = min(total, R);
+    int* o = pos + (size_t)b * R;
+    for (int r = lane; r < R; r += 32) o[r] = r < n ? sh[r] : -1;
+    if (lane == 0) {
+        int* f = info + (size_t)b * 4;
+        f[0] = n;
+        f[1] = total;
+        f[2] = longest;
+        f[3] = over;
+    }
+}
+
+__global__ void read_lca_resolved_kernel(
+    const int* __restrict__ info, const int* __restrict__ seq, int B,
+    const int* __restrict__ seq_tax, int ntax,
+    const int* __restrict__ parent, const int* __restrict__ depth,
+    int maxtax, int R, int cap, int* __restrict__ out) {
+    extern __shared__ int smem[];
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarps + w;
+    if (b >= B) return;  // whole warps leave together
+    const int* f = info + (size_t)b * 4;
+    const int n = __ldg(f), total = __ldg(f + 1), longest = __ldg(f + 2);
+    const kt::LcaResult res = kt::lca_of_positions(
+        TableTaxa{seq + (size_t)b * R, seq_tax, ntax}, n, total, 0,
+        smem + w * kt::lca_warp_ints(R), parent, depth, maxtax, R, cap);
+    if (lane != 0) return;
+    int* o = out + (size_t)b * 4;
+    o[0] = longest > 0 ? res.lca : 0;
+    o[1] = longest;
+    o[2] = __ldg(f + 3) * 1 + res.need_more * 2;
     o[3] = res.n_ids;
 }
 
@@ -131,4 +224,25 @@ KT_EXPORT int kt_read_lca_sharded(
     return launch(maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S,
                   KT_SHARD_IX, C, seq_tax, ntax, parent, depth, maxtax, R,
                   cap, nseq, chpt_exp, sw_ids, nsw, out, stream);
+}
+
+// Kernel W: form 0 lists each read's positions (pos, info), form 1
+// finishes it from the resolved sequences seq [B, R] (out, D's row).
+KT_EXPORT int kt_read_lca_hosts(
+    int form, const int* maxl, const int* tie_cnt, const int* tie_s0,
+    const int* tie_s1, int T, const int* rf_rows, int B, int S,
+    const int* seq, const int* seq_tax, int ntax, const int* parent,
+    const int* depth, int maxtax, int R, int cap, int* pos, int* info,
+    int* out, cudaStream_t stream) {
+    const int blocks = (B + kWarps - 1) / kWarps;
+    if (form == 0) {
+        const size_t shmem = (size_t)kWarps * (R + S) * sizeof(int);
+        read_lca_list_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
+            maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, R, pos, info);
+    } else {
+        const size_t shmem = (size_t)kWarps * kt::lca_warp_ints(R) * sizeof(int);
+        read_lca_resolved_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
+            info, seq, B, seq_tax, ntax, parent, depth, maxtax, R, cap, out);
+    }
+    return static_cast<int>(cudaGetLastError());
 }

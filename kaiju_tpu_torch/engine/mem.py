@@ -72,24 +72,29 @@ class MemPipeline(DevicePipeline):
         """Fragment a batch on the host and queue its device work; the
         result is taken by collect_batch.  Submitting the next batch before
         collecting this one overlaps host work with the device's."""
-        cfg = self.cfg
         t0 = time.perf_counter()
         flat, chars, frag_off, n_frags, _keys, rf_rows, oflow = (
             self._fragmenter.run(reads, self.S_SLOTS, _bucket)
         )
         t1 = time.perf_counter()
-        out = fused_mem_classify(
-            self.dev.rec, self.dev.C, self._seed,
-            self._put(flat[:chars]), self._put(frag_off[: n_frags + 1]),
-            self._put(rf_rows), self.dev.sa_seq, self.dev.sa_off,
-            self.dev.seq_tax, self._parent, self._depth, self.seed_K,
-            cfg.min_fragment_length - 1, cfg.min_fragment_length, TIE_CAP,
-            self.R_BUDGET, cfg.max_match_ids, self.dev.nseq,
-            self.dev.chpt_exp, bloom=self._bloom, hyb=self._hyb,
-        )
+        out = self._device_rows(self._put(flat[:chars]),
+                                self._put(frag_off[: n_frags + 1]),
+                                self._put(rf_rows))
         tally(HOST_SECONDS, self.host_seconds, fragment=t1 - t0,
               submit=time.perf_counter() - t1)
         return reads, oflow, out
+
+    def _device_rows(self, flat, frag_off, rf_rows):
+        """The device's rows (lca, score, flags, n_ids) of a batch's
+        fragments (``ops.classify.fused_mem_classify``)."""
+        cfg = self.cfg
+        return fused_mem_classify(
+            self.dev.rec, self.dev.C, self._seed, flat, frag_off, rf_rows,
+            self.dev.sa_seq, self.dev.sa_off, self.dev.seq_tax, self._parent,
+            self._depth, self.seed_K, cfg.min_fragment_length - 1,
+            cfg.min_fragment_length, TIE_CAP, self.R_BUDGET,
+            cfg.max_match_ids, self.dev.nseq, self.dev.chpt_exp,
+            bloom=self._bloom, hyb=self._hyb)
 
     def collect_batch(self, state) -> list[tuple[str, ClassifyResult]]:
         reads, oflow, out = state

@@ -150,8 +150,14 @@ class ProcessShare:
     fragmented, uploaded and classified, and the results hold None for
     every read a peer owns (kaiju_tpu's collect_batch,
     parallel/sharded_fused.py:636-638).  A process whose share of a batch
-    is empty launches nothing for it.  The stream ends at a barrier of all
-    the processes."""
+    is empty launches nothing for it, except over a group on several hosts
+    (the pipeline's index has an ``exchange``): there every process runs
+    every batch, an empty share included, since each of its rounds is a
+    collective of the whole group.  The rounds run in submit_batch, and
+    every process submits the batches in stream order (collect_batch holds
+    no collective), so the lookahead cannot reorder them: every process
+    runs the same collectives in the same order.  The stream ends at a
+    barrier of all the processes."""
 
     LOOKAHEAD = DevicePipeline.LOOKAHEAD
 
@@ -159,12 +165,15 @@ class ProcessShare:
         self.pipe = pipe
         self.nprocs = nprocs
         self.pid = pid
+        dev = getattr(pipe, "dev", None)
+        self.lockstep = getattr(dev, "exchange", None) is not None
 
     def submit_batch(self, reads):
         from ..parallel.multihost import local_rows
 
         lo, hi = local_rows(len(reads), self.nprocs, self.pid)
-        sub = self.pipe.submit_batch(reads[lo:hi]) if hi > lo else None
+        sub = (self.pipe.submit_batch(reads[lo:hi])
+               if hi > lo or self.lockstep else None)
         return len(reads), lo, sub
 
     def collect_batch(self, state) -> list:

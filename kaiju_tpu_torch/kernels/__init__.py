@@ -9,7 +9,10 @@ forms (``update_si``, the probes, and ``update_si_letters``, the seed
 tables), ``gather.cu`` P1 and P2, ``big_mem.cu`` L and M (the int64 step
 over an index above 2^31 letters, K17, ``ops/big_mem.py``), and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
-split into shards (K16, ``parallel/sharded_index.py``); ``peer.cu`` holds
+split into shards (K16, ``parallel/sharded_index.py``), and ``fm_serve.cu``
+(N), ``walk_hosts.cu`` (Q), ``mem_extend_hosts`` (O) and ``read_lca_hosts``
+(W) run over the shards of a group of processes on several hosts
+(``parallel/exchange.py``); ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
 (``parallel/peer_shards.py``), and ``chase.cu`` a latency probe outside
 every path (``chase_ns``).  A library is
@@ -159,11 +162,32 @@ _SIGNATURES.update({
                               "ppppp" "ipii" + SHARD_SIG + "p" "pppp"
                               "iiiiii" "ppp" "pppp" "pii" "p" "p"),
 })
+# The hosts kernels, over a group of processes on several hosts
+# (kt::HostIx: SHARD_SIG with a remote shard's pointers 0;
+# parallel/exchange.py runs their rounds)
+_SIGNATURES.update({
+    # N: SHARD | C | q Q W | ans bad
+    "fm_serve": ("kt_fm_serve", SHARD_SIG + "p" "pii" "pp" "p"),
+    # O: SHARD | C | seed_s0 seed_s1 seed_d nseed | flat P frag_off F K j0
+    # | words m lb | park_in ans_in L | i s0 s1 | park_out q_out n_park
+    "mem_extend_hosts": ("kt_mem_extend_hosts",
+                         SHARD_SIG + "p" "pppi" "pipiii" "pii" "ppi" "ppp"
+                         "ppp" "p"),
+    # Q: SHARD | C nseq chpt_exp | rows W | park_in ans_in L | seq park_out
+    # q_out n_park
+    "walk_hosts": ("kt_walk_hosts",
+                   SHARD_SIG + "pii" "pi" "ppi" "pppp" "p"),
+    # W: form | maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | seq | seq_tax
+    # ntax parent depth maxtax | R cap | pos info out
+    "read_lca_hosts": ("kt_read_lca_hosts",
+                       "i" "ppppi" "pii" "p" "pippi" "ii" "ppp" "p"),
+})
 # the source file of each kernel (csrc/<source>.cu), where it is not the
 # kernel's own name
 _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
            "big_extend_all": "big_mem", "big_sa_walk": "big_mem",
-           "update_si_letters": "update_si"}
+           "update_si_letters": "update_si",
+           "mem_extend_hosts": "mem_extend", "read_lca_hosts": "read_lca"}
 _SOURCE.update({n: _SOURCE.get(n[:-len("_sharded")], n[:-len("_sharded")])
                 for n in _SIGNATURES if n.endswith("_sharded")})
 # sources that hold no kernel of a path, only entry points whose

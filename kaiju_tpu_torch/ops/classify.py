@@ -23,50 +23,48 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .device_index import Shards, sa_walk, shard_args
+from .device_index import Shards, sa_walk, shard_args, walk_hosts
 from .hybrid import S1_STEPS, VBASE, text_extend
-from .search import mem_extend, mem_stats
+from .search import mem_extend, mem_extend_hosts, mem_stats
 
 FLAG_TIE_OVER = 1  # a contributing fragment had more ties than T
 FLAG_NEED_MORE = 2  # position budget R exhausted before the id cap
 MAX_R = 1024  # positions a read: kernels D and F keep them in shared memory
 
 
-def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
-                     depth, R, cap, nseq, chpt_exp, touched=None,
-                     sw_ids=None):
-    """touched: None, or a list that receives the record rows read."""
+def _first_positions(g_s0, g_s1, R):
+    """The first R SA positions of each read's ranges g_s0, g_s1 int32
+    [B, G], in range order: (k int32 [B, R], -1 past them; valid [B, R];
+    total [B]; sizes [B, G]).  Each range counts up to R + 1, as kernels D
+    and F count it (csrc/lca_common.cuh list_positions): only min(total,
+    R) and total > R matter, and an int32 sum of S x T ranges near 2^31
+    would wrap."""
     dev = g_s0.device
     B, G = g_s0.shape
     i32 = torch.int32
-    if B == 0:
-        z = torch.zeros(0, dtype=i32, device=dev)
-        return z, z, z, z
-    sizes = torch.clamp(g_s1 - g_s0, min=0)
+    sizes = torch.clamp(g_s1 - g_s0, 0, R + 1)
     csum = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
                       torch.cumsum(sizes, 1, dtype=i32)], 1)
     total = csum[:, -1]
-
-    # ---- the first R positions: position r lies in the last range whose
-    # start is <= r -------------------------------------------------------
+    # position r lies in the last range whose start is <= r
     rr = torch.arange(R, dtype=i32, device=dev)
     seg = (csum[:, None, :] <= rr[None, :, None]).sum(2) - 1
     seg = torch.clamp(seg, 0, max(G - 1, 0))
     valid = rr[None, :] < torch.clamp(total, max=R)[:, None]
-    tax = torch.full((B, R), -1, dtype=i32, device=dev)
+    k = torch.full((B, R), -1, dtype=i32, device=dev)
     if G:
-        k = (g_s0.gather(1, seg) + rr[None, :] - csum.gather(1, seg))[valid]
-        virt = (k >= VBASE if sw_ids is not None
-                else torch.zeros_like(k, dtype=torch.bool))
-        iseq = torch.empty_like(k)
-        walked, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp,
-                               k[~virt], touched)
-        iseq[~virt] = walked
-        if sw_ids is not None:
-            iseq[virt] = sw_ids[torch.clamp(k[virt] - VBASE, max=max(
-                sw_ids.shape[0] - 1, 0)).long()]
-        tax[valid] = seq_tax[torch.clamp(iseq, 0, seq_tax.shape[0] - 1).long()]
+        k[valid] = (g_s0.gather(1, seg) + rr[None, :]
+                    - csum.gather(1, seg))[valid]
+    return k, valid, total, sizes
 
+
+def _lca_of_taxa(tax, valid, total, parent, depth, R, cap):
+    """The tail after the walks: the capped unique-id set of the taxa
+    tax int32 [B, R] (valid where listed), then the LCA.  Returns (lca,
+    n_ids, need_more, cut)."""
+    dev = tax.device
+    i32 = torch.int32
+    rr = torch.arange(R, dtype=i32, device=dev)
     # ---- capped unique-id set ------------------------------------------
     eq = (tax[:, :, None] == tax[:, None, :]) & valid[:, :, None] & valid[:, None, :]
     earlier = rr[None, :] < rr[:, None]  # [r, q]: q before r
@@ -77,7 +75,6 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
     n_uniq = uniq.sum(1, dtype=i32)
     need_more = (total > R) & (n_uniq <= cap)
     cut = (n_uniq > cap + 1) | ((total > R) & (n_uniq > cap))
-    tie_order = ((sizes > 0).sum(1) > 1) & cut
 
     # ---- LCA: drop taxa outside the tree, lift to the shallowest, then
     # climb in lock step ----------------------------------------------
@@ -105,7 +102,37 @@ def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
     first_uid = tax.gather(1, included.to(i32).argmax(1, keepdim=True))[:, 0]
     lca = torch.where(n_ids == 1, first_uid, lca)
     lca = torch.where(n_ids > 0, lca, 0)
-    return lca, n_ids, need_more.to(i32), tie_order.to(i32)
+    return lca, n_ids, need_more.to(i32), cut
+
+
+def ranges_lca_plain(g_s0, g_s1, rec, C, sa_seq, sa_off, seq_tax, parent,
+                     depth, R, cap, nseq, chpt_exp, touched=None,
+                     sw_ids=None):
+    """touched: None, or a list that receives the record rows read."""
+    dev = g_s0.device
+    B, G = g_s0.shape
+    i32 = torch.int32
+    if B == 0:
+        z = torch.zeros(0, dtype=i32, device=dev)
+        return z, z, z, z
+    pos, valid, total, sizes = _first_positions(g_s0, g_s1, R)
+    tax = torch.full((B, R), -1, dtype=i32, device=dev)
+    if G:
+        k = pos[valid]
+        virt = (k >= VBASE if sw_ids is not None
+                else torch.zeros_like(k, dtype=torch.bool))
+        iseq = torch.empty_like(k)
+        walked, _pos = sa_walk(rec, C, sa_seq, sa_off, nseq, chpt_exp,
+                               k[~virt], touched)
+        iseq[~virt] = walked
+        if sw_ids is not None:
+            iseq[virt] = sw_ids[torch.clamp(k[virt] - VBASE, max=max(
+                sw_ids.shape[0] - 1, 0)).long()]
+        tax[valid] = seq_tax[torch.clamp(iseq, 0, seq_tax.shape[0] - 1).long()]
+    lca, n_ids, need_more, cut = _lca_of_taxa(tax, valid, total, parent,
+                                              depth, R, cap)
+    tie_order = ((sizes > 0).sum(1) > 1) & cut
+    return lca, n_ids, need_more, tie_order.to(i32)
 
 
 def _up(parent, ids):
@@ -165,17 +192,14 @@ def _nsw(sw_ids):
     return 0 if sw_ids is None else sw_ids.shape[0]
 
 
-def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
-                   sa_off, seq_tax, parent, depth, R, cap, nseq, chpt_exp,
-                   touched=None, sw_ids=None):
-    """touched: None, or a list that receives the record rows read."""
+def _contributing(maxl, tie_cnt, tie_s0, tie_s1, rf_rows):
+    """The read's longest over its slots, whether a contributing fragment
+    had more than T ties, and the contributing ties' ranges in slot order
+    then tie order (int32 [B, S T], 0 where not contributing)."""
     dev = maxl.device
     F, T = tie_s0.shape
     B, S = rf_rows.shape
     i32 = torch.int32
-    if B == 0:
-        return torch.zeros((0, 4), dtype=i32, device=dev)
-    # ---- the read's longest over its slots, and the contributing ties --
     rf = torch.where(rf_rows >= 0, rf_rows, F).long()
     zero = torch.zeros(1, dtype=i32, device=dev)
     slot_maxl = torch.cat([maxl, zero])[rf]
@@ -187,11 +211,24 @@ def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
     keep = contrib.repeat_interleave(T, dim=1)
     t_s0 = torch.where(keep, torch.cat([tie_s0, zrow])[rf].reshape(B, S * T), 0)
     t_s1 = torch.where(keep, torch.cat([tie_s1, zrow])[rf].reshape(B, S * T), 0)
+    return longest, tie_over.to(i32), t_s0, t_s1
+
+
+def read_lca_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq,
+                   sa_off, seq_tax, parent, depth, R, cap, nseq, chpt_exp,
+                   touched=None, sw_ids=None):
+    """touched: None, or a list that receives the record rows read."""
+    B = rf_rows.shape[0]
+    i32 = torch.int32
+    if B == 0:
+        return torch.zeros((0, 4), dtype=i32, device=maxl.device)
+    longest, tie_over, t_s0, t_s1 = _contributing(maxl, tie_cnt, tie_s0,
+                                                  tie_s1, rf_rows)
     lca, n_ids, need_more, _order = ranges_lca_plain(
         t_s0, t_s1, rec, C, sa_seq, sa_off, seq_tax, parent, depth, R, cap,
         nseq, chpt_exp, touched, sw_ids)
     lca = torch.where(longest > 0, lca, 0)
-    flags = tie_over.to(i32) * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
+    flags = tie_over * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
     return torch.stack([lca, longest, flags, n_ids], 1).to(i32)
 
 
@@ -234,6 +271,132 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
                        parent.shape[0], R, cap, nseq, chpt_exp, sw_ids,
                        _nsw(sw_ids), out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel W: D split around its walks, for a group on several hosts
+# ---------------------------------------------------------------------------
+
+
+def read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
+    B = rf_rows.shape[0]
+    dev = maxl.device
+    if B == 0:
+        return (torch.zeros((0, R), dtype=torch.int32, device=dev),
+                torch.zeros((0, 4), dtype=torch.int32, device=dev))
+    longest, tie_over, t_s0, t_s1 = _contributing(maxl, tie_cnt, tie_s0,
+                                                  tie_s1, rf_rows)
+    pos, _valid, total, _sizes = _first_positions(t_s0, t_s1, R)
+    info = torch.stack([torch.clamp(total, max=R), total, longest, tie_over],
+                       1).to(torch.int32)
+    return pos, info
+
+
+def read_lca_resolved_plain(info, seq, seq_tax, parent, depth, R, cap):
+    B = info.shape[0]
+    dev = info.device
+    i32 = torch.int32
+    if B == 0:
+        return torch.zeros((0, 4), dtype=i32, device=dev)
+    n, total, longest, tie_over = info.unbind(1)
+    valid = torch.arange(R, dtype=i32, device=dev)[None, :] < n[:, None]
+    tax = torch.full((B, R), -1, dtype=i32, device=dev)
+    tax[valid] = seq_tax[torch.clamp(seq[valid], 0,
+                                     seq_tax.shape[0] - 1).long()]
+    lca, n_ids, need_more, _cut = _lca_of_taxa(tax, valid, total, parent,
+                                               depth, R, cap)
+    lca = torch.where(longest > 0, lca, 0)
+    flags = tie_over * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
+    return torch.stack([lca, longest, flags, n_ids], 1).to(i32)
+
+
+def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
+    """W's list form (csrc/read_lca.cu, kt_read_lca_hosts form 0): D's
+    slots and range expansion without the walks, (pos int32 [B, R], the
+    first R SA positions of each read's contributing ties, -1 past them;
+    info int32 [B, 4] = (positions, total, longest, tie_over)), total
+    counting each range up to R + 1.  Kernel W for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not 0 < R <= MAX_R:
+        raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+    if maxl.device.type == "cpu":
+        return read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R)
+    dev = maxl.device
+    F, T = tie_s0.shape
+    for t, what, nd in ((maxl, "maxl", 1), (tie_cnt, "tie_cnt", 1),
+                        (tie_s0, "tie_s0", 2), (tie_s1, "tie_s1", 2),
+                        (rf_rows, "rf_rows", 2)):
+        kernels.check(t, what, torch.int32, dev, nd)
+    if maxl.shape[0] != F or tie_cnt.shape[0] != F or tie_s1.shape != (F, T):
+        raise ValueError("maxl, tie_cnt, tie_s0 and tie_s1 disagree on F or T")
+    B, S = rf_rows.shape
+    pos = torch.empty((B, R), dtype=torch.int32, device=dev)
+    info = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch("read_lca_hosts", 0, maxl, tie_cnt, tie_s0, tie_s1, T,
+                       rf_rows, B, S, None, None, 0, None, None, 0, R, 0,
+                       pos, info, None)
+    return pos, info
+
+
+def read_lca_resolved(info, seq, seq_tax, parent, depth, R, cap):
+    """W's resolved form (kt_read_lca_hosts form 1): D's capped id set and
+    LCA for each read from info (read_lca_list) and the sequence of each
+    listed position, seq int32 [B, R] (kernel Q's walks): (lca, score,
+    flags, n_ids) int32 [B, 4], D's rows.  Kernel W for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not 0 < R <= MAX_R:
+        raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+    if info.device.type == "cpu":
+        return read_lca_resolved_plain(info, seq, seq_tax, parent, depth, R,
+                                       cap)
+    dev = info.device
+    B = info.shape[0]
+    for t, what, nd in ((info, "info", 2), (seq, "seq", 2),
+                        (seq_tax, "seq_tax", 1), (parent, "parent", 1),
+                        (depth, "depth", 1)):
+        kernels.check(t, what, torch.int32, dev, nd)
+    if info.shape[1] != 4 or seq.shape != (B, R):
+        raise ValueError("info [B, 4] and seq [B, R] expected")
+    _check_tail(parent, depth, R, None, dev)
+    out = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch("read_lca_hosts", 1, None, None, None, None, 0, None,
+                       B, 0, seq, seq_tax, seq_tax.shape[0], parent, depth,
+                       parent.shape[0], R, cap, None, info, out)
+    return out
+
+
+def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
+                             seq_tax, parent, depth, K, j0, min_len, T, R,
+                             cap, bloom=None):
+    """fused_mem_classify over a ``ShardedIndex`` of a group of processes
+    on several hosts (K16e across hosts), with no hybrid: A's tables come
+    in seed; O extends (its parked steps answered by their owners in rounds
+    of ``exchange``, parallel/exchange.py), C takes the statistics, W
+    lists each read's positions, Q walks them (rounds again) and W
+    resolves the reads.  Every process of the group calls it for every
+    batch, with its share (none: empty tensors), since each round is a
+    collective.  Returns fused_mem_classify's rows."""
+    out, parked, queries = mem_extend_hosts(sh.rec, sh.C, *seed, flat,
+                                            frag_off, K, j0, bloom=bloom)
+    exchange.rounds("extend", parked, queries, 1, lambda pk, ans:
+                    mem_extend_hosts(sh.rec, sh.C, *seed, flat, frag_off, K,
+                                     j0, bloom=bloom, out=out, parked=pk,
+                                     answers=ans.reshape(-1, 2))[1:])
+    stats = mem_stats(out[0], out[1], out[2], frag_off, min_len, T)
+    pos, info = read_lca_list(*stats[:2], *stats[3:], rf_rows, R)
+    listed = pos >= 0
+    rows = pos[listed]
+    ids = torch.empty_like(rows)
+    parked, queries = walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq,
+                                 sh.chpt_exp, ids, rows=rows)
+    exchange.rounds("walk", parked, queries, 1, lambda pk, ans:
+                    walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq, sh.chpt_exp,
+                               ids, parked=pk, answers=ans.reshape(-1)))
+    seq = torch.full_like(pos, -1)
+    seq[listed] = ids
+    return read_lca_resolved(info, seq, seq_tax, parent, depth, R, cap)
 
 
 def fused_mem_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off,

@@ -18,7 +18,11 @@ An index may also be split into shards (``Shards``, built by
 the text are each S tensors, the plain versions read them through the
 owner arithmetic of ``Shards.__getitem__``, and a wrapper launches the
 kernel's sharded instantiation (``<name>_sharded``, csrc/fm_common.cuh
-``kt::ShardIx``).
+``kt::ShardIx``).  Over a group of processes on several hosts some
+shards are remote (``Shards.remote``): kernel N (``fm_serve``) answers the
+queries of a round for the shards a process reads, and kernel Q
+(``walk_hosts``) walks the SA, parking the steps whose rows lie on another
+host (``parallel.exchange`` runs the rounds).
 """
 
 from __future__ import annotations
@@ -137,47 +141,83 @@ class Shards:
     from another process's memory (``parallel.peer_shards``) or held by
     another card of this process (``ShardedIndex.on_cards``), with peer
     access enabled for `device`.  Those alone may lie on another card,
-    which the kernels read over NVLink and the plain versions refuse."""
+    which the kernels read over NVLink and the plain versions refuse.
+
+    A part None is a remote shard: no process of this host holds it, in a
+    group of processes on several hosts (``parallel.peer_shards``); its
+    address in ``table`` is 0, ``remote`` names it, and its elements are
+    served by its owner in rounds (``parallel.exchange``).  Only the hosts
+    forms (kernels N, O, Q and their plain versions, which test a row's
+    shard first) accept such Shards; ``check`` refuses them elsewhere, and
+    indexing an element of a remote shard raises."""
 
     def __init__(self, parts: list, per: int, length: int, device=None,
-                 peer=()):
+                 peer=(), like=None):
+        """like: a part of the array (its dtype and row shape), needed
+        where every part is remote."""
         if not parts or per < 1:
             raise ValueError("shards need one or more parts and per >= 1")
         self.parts = list(parts)
         self.per = int(per)
         self.S = len(self.parts)
-        p0 = self.parts[0]
+        p0 = next((p for p in self.parts if p is not None), like)
+        if p0 is None:
+            raise ValueError("every shard remote: pass like")
         self.shape = torch.Size((int(length), *p0.shape[1:]))
         self.dtype = p0.dtype
         self.device = p0.device if device is None else torch.device(device)
         self.peer = frozenset(peer)
-        self.table = torch.tensor([p.data_ptr() for p in self.parts],
-                                  dtype=torch.int64).to(self.device)
+        self.remote = frozenset(o for o, p in enumerate(self.parts)
+                                if p is None)
+        self.table = torch.tensor(
+            [0 if p is None else p.data_ptr() for p in self.parts],
+            dtype=torch.int64).to(self.device)
+        self.here = torch.tensor([p is not None for p in self.parts],
+                                 device=self.device)
+
+    def owner(self, idx: torch.Tensor) -> torch.Tensor:
+        """The shard (int64) that holds each element of idx."""
+        return torch.clamp(idx.long() // self.per, 0, self.S - 1)
 
     def __getitem__(self, idx) -> torch.Tensor:
         for o, part in enumerate(self.parts):
-            if part.device != self.device:
+            if part is not None and part.device != self.device:
                 raise ValueError(
                     f"shard {o} lies on {part.device}: the plain versions "
                     f"read shards on {self.device} only")
         idx = torch.as_tensor(idx, device=self.device).long()
-        owner = torch.clamp(idx // self.per, 0, self.S - 1)
+        owner = self.owner(idx)
         local = idx - owner * self.per
         out = torch.empty((*idx.shape, *self.shape[1:]), dtype=self.dtype,
                           device=self.device)
         for o, part in enumerate(self.parts):
             m = owner == o
+            if part is None:
+                if bool(m.any()):
+                    raise ValueError(
+                        f"shard {o} lies on another host: its owner serves "
+                        "it in rounds (parallel.exchange); only the hosts "
+                        "forms read such shards")
+                continue
             out[m] = part[local[m]]
         return out
 
-    def check(self, what: str, dtype: torch.dtype, device, rows: int) -> None:
+    def check(self, what: str, dtype: torch.dtype, device, rows: int,
+              hosts: bool = False) -> None:
         """Raise unless the shards are read on `device` and every shard is
         a contiguous tensor of `dtype` with `rows` rows on `device`, or on
-        another card when it was placed there for a peer read."""
+        another card when it was placed there for a peer read; a remote
+        shard only where `hosts` (a hosts kernel reads the Shards)."""
         if self.device != device:
             raise ValueError(f"{what}: shards read on {self.device}, "
                              f"expected {device}")
         for o, part in enumerate(self.parts):
+            if part is None:
+                if not hosts:
+                    raise ValueError(
+                        f"{what} shard {o} lies on another host: only the "
+                        "hosts kernels (parallel.exchange) read it")
+                continue
             on = device
             if o in self.peer and part.device.type == device.type:
                 on = part.device
@@ -187,11 +227,13 @@ class Shards:
                                  f"expected {rows}")
 
 
-def shard_args(dev, rec, sa_seq=None, sa_off=None, text=None) -> tuple:
+def shard_args(dev, rec, sa_seq=None, sa_off=None, text=None,
+               hosts: bool = False) -> tuple:
     """The shard arguments of a sharded kernel (kernels.SHARD_SIG: rec_tab
     nb_s seq_tab off_tab ns_s nsamp text_tab nt_s S) after checking the
-    shards; the arrays a kernel does not read are None."""
-    rec.check("rec", torch.int32, dev, rec.per + 1)
+    shards; the arrays a kernel does not read are None.  hosts: the
+    kernel reads kt::HostIx, and a remote shard's pointers are 0."""
+    rec.check("rec", torch.int32, dev, rec.per + 1, hosts)
     if rec.shape[1] != 64:
         raise ValueError("rec: rows of 64 words expected")
     for a, what in ((sa_seq, "sa_seq"), (sa_off, "sa_off"), (text, "text")):
@@ -200,7 +242,7 @@ def shard_args(dev, rec, sa_seq=None, sa_off=None, text=None) -> tuple:
         if not isinstance(a, Shards) or a.S != rec.S:
             raise TypeError(f"{what}: expected {rec.S} shards like rec")
         a.check(what, torch.uint8 if what == "text" else torch.int32, dev,
-                a.per)
+                a.per, hosts)
     if sa_seq is not None and sa_off is not None and (
             sa_seq.per != sa_off.per or sa_seq.shape != sa_off.shape):
         raise ValueError("sa_seq, sa_off: shards of different sizes")
@@ -438,6 +480,176 @@ def sa_lookup(rec, C, sa_seq, sa_off, nseq, chpt_exp, k):
         kernels.launch("sa_lookup", rec, rec.shape[0], C, sa_seq, sa_off,
                        sa_seq.shape[0], nseq, chpt_exp, k, n, iseq, pos)
     return iseq, pos
+
+
+# ---------------------------------------------------------------------------
+# kernels N and Q: a group of processes on several hosts
+# ---------------------------------------------------------------------------
+
+# the kinds of an exchange query (op, x), op = kind << 8 | letter
+# (csrc/fm_common.cuh kQRank ...; kernel N's contract in csrc/fm_serve.cu)
+Q_RANK, Q_ROW, Q_LF, Q_SAMPLE = 0, 1, 2, 3
+
+
+def query_shard(rec, sa_seq, queries) -> torch.Tensor:
+    """The shard (int64 [Q]) that answers each query (op, x) of int32
+    [Q, 2]: a sample's slot owner, else the owner of row x >> 7."""
+    x = queries[:, 1]
+    return torch.where((queries[:, 0] >> 8) == Q_SAMPLE, sa_seq.owner(x),
+                       rec.owner(x >> 7))
+
+
+def _letter_at(rec, k):
+    """The BWT letter at each SA row k (int32 [N])."""
+    rows = rec[torch.clamp(k >> 7, max=rec.shape[0] - 1).long()]
+    return _block_bytes(rows).gather(1, (k & (BLOCK - 1)).long()[:, None])[:, 0]
+
+
+def fm_serve_plain(rec, C, sa_seq, sa_off, queries, width, touched=None):
+    """touched: as for rank."""
+    dev = queries.device
+    ans = torch.zeros((queries.shape[0], width), dtype=torch.int32,
+                      device=dev)
+    op, x = queries[:, 0], queries[:, 1]
+    kind, c = op >> 8, op & 255
+    if not bool(((kind >= Q_RANK) & (kind <= Q_SAMPLE)).all()):
+        raise ValueError("a query of an unknown kind")
+    m = kind == Q_RANK
+    if bool(m.any()):
+        ans[m, 0] = rank(rec, C, c[m], x[m], touched)
+    m = kind == Q_LF
+    if bool(m.any()):
+        letter = _letter_at(rec, x[m])
+        kn = rank(rec, C, letter, x[m], touched)
+        ans[m, 0] = torch.where(letter == 0, ~kn, kn)
+    m = kind == Q_SAMPLE
+    if bool(m.any()):
+        ans[m, 0] = sa_seq[x[m]]
+        if width > 1:
+            ans[m, 1] = sa_off[x[m]]
+    m = kind == Q_ROW
+    if bool(m.any()):
+        if width < NLET:
+            raise ValueError(f"Q_ROW answers take width >= {NLET}")
+        k = x[m]
+        n = k.shape[0]
+        letters = torch.arange(1, NLET + 1, dtype=torch.int32,
+                               device=dev).repeat_interleave(n)
+        ans[m, :NLET] = rank(rec, C, letters, k.repeat(NLET),
+                             touched).view(NLET, n).T
+    return ans, torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def fm_serve(rec, C, sa_seq, sa_off, queries, width):
+    """A round's queries to the shards this process reads (int32 [Q, 2],
+    (op, x); Q_RANK (c, k), Q_ROW k, Q_LF k, Q_SAMPLE slot, csrc/fm_serve.cu)
+    answered: (ans int32 [Q, width], bad int32 [1], the queries whose
+    shard is not read here or whose kind or width is wrong; the plain
+    version raises on one instead).  The kernel's launch waits for nothing
+    on the host.
+    Kernel N (csrc/fm_serve.cu) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    if queries.device.type == "cpu":
+        return fm_serve_plain(rec, C, sa_seq, sa_off, queries, width)
+    dev = queries.device
+    kernels.check(queries, "queries", torch.int32, dev, 2)
+    kernels.check(C, "C", torch.int32, dev, 1)
+    if queries.shape[1] != 2:
+        raise ValueError("queries: rows (op, x) expected")
+    args = shard_args(dev, rec, sa_seq, sa_off, hosts=True)
+    n = queries.shape[0]
+    ans = torch.empty((n, width), dtype=torch.int32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("fm_serve", *args, C, queries, n, width, ans, bad)
+    return ans, bad
+
+
+def walk_hosts_plain(rec, C, sa_seq, nseq, chpt_exp, seq, rows=None,
+                     parked=None, answers=None, touched=None):
+    """touched: as for rank."""
+    dev = seq.device
+    check = (1 << chpt_exp) - 1
+    nsamp = sa_seq.shape[0]
+    if parked is None:
+        w = torch.arange(rows.shape[0], dtype=torch.int32, device=dev)
+        k = rows.clone()
+    else:
+        w, k = parked[:, 0], parked[:, 1]
+        a = answers
+        lf = (k & check) != 0
+        end = ~lf | (a < 0)  # a sample's id, or a terminator's ~rank
+        seq[w[end].long()] = torch.where(lf, ~a, a)[end]
+        w, k = w[~end], a[~end]
+    out_w, out_k, out_q = [], [], []
+
+    def park(pw, pk, kind, x):
+        out_w.append(pw)
+        out_k.append(pk)
+        out_q.append(torch.stack([torch.full_like(x, kind << 8), x], 1))
+        seq[pw.long()] = -1
+
+    while w.numel():
+        at = (k & check) == 0
+        sw, sk = w[at], k[at]
+        idx = (sk >> chpt_exp) - ((nseq - 1) >> chpt_exp) - 1
+        idx = torch.clamp(idx, 0, nsamp - 1)
+        here = sa_seq.here[sa_seq.owner(idx)]
+        seq[sw[here].long()] = sa_seq[idx[here]]
+        park(sw[~here], sk[~here], Q_SAMPLE, idx[~here])
+        lw, lk = w[~at], k[~at]
+        here = rec.here[rec.owner(lk >> 7)]
+        park(lw[~here], lk[~here], Q_LF, lk[~here])
+        lw, lk = lw[here], lk[here]
+        letter = _letter_at(rec, lk)
+        kn = rank(rec, C, letter, lk, touched)
+        term = letter == 0
+        seq[lw[term].long()] = kn[term]
+        w, k = lw[~term], kn[~term]
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    pw = torch.cat(out_w) if out_w else z
+    pk = torch.cat(out_k) if out_k else z
+    q = torch.cat(out_q) if out_q else z.view(0, 2)
+    return torch.stack([pw, pk], 1), q.view(-1, 1, 2)
+
+
+def walk_hosts(rec, C, sa_seq, nseq, chpt_exp, seq, rows=None, parked=None,
+               answers=None):
+    """SA walks to sequence ids over the shards of a group on several
+    hosts (csrc/walk_hosts.cu for the contract): the start form walks
+    rows int32 [W] into seq int32 [W]; the resume form takes the parked
+    walks (w, k) int32 [L, 2] with their answers int32 [L].  Both write
+    seq in place (-1 for a walk that parks) and return the walks parked
+    now (int32 [L', 2]) with their queries (int32 [L', 1, 2]).  Kernel Q
+    (csrc/walk_hosts.cu) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if (rows is None) == (parked is None):
+        raise ValueError("rows (start) or parked and answers (resume)")
+    if seq.device.type == "cpu":
+        return walk_hosts_plain(rec, C, sa_seq, nseq, chpt_exp, seq, rows,
+                                parked, answers)
+    dev = seq.device
+    kernels.check(C, "C", torch.int32, dev, 1)
+    kernels.check(seq, "seq", torch.int32, dev, 1)
+    args = shard_args(dev, rec, sa_seq, hosts=True)
+    if parked is None:
+        _check_lanes(dev, seq.shape[0], (rows, "rows", torch.int32))
+        n = rows.shape[0]
+    else:
+        n = parked.shape[0]
+        kernels.check(parked, "parked", torch.int32, dev, 2)
+        _check_lanes(dev, n, (answers, "answers", torch.int32))
+    park = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    q = torch.empty((n, 1, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("walk_hosts", *args, C, nseq, chpt_exp, rows,
+                       0 if rows is None else n, parked, answers,
+                       0 if parked is None else n, seq, park, q, count)
+    m = int(count)
+    return park[:m], q[:m]
 
 
 # ---------------------------------------------------------------------------

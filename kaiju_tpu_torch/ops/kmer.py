@@ -9,7 +9,9 @@ This is new relative to the reference (which starts every extension from
 scratch, bwt.c:267-269) but exact: the table IS the first K steps.  The
 tables are built on the device with kernel A's letters form
 (``update_si_letters``, one launch a depth) or on the host with numpy;
-both give the same arrays.
+both give the same arrays.  Over a group of processes on several hosts
+they are built through the exchange's rounds, kernel N answering the 20
+letters' ranks of each row (``build_hosts``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..index.core import KaijuIndex
-from .device_index import NLET, update_si_letters
+from .device_index import NLET, Q_ROW, update_si_letters
 
 
 def default_depth(index: KaijuIndex) -> int:
@@ -120,6 +122,38 @@ class KmerTables:
             )
         return cls(tables)
 
+    @classmethod
+    def build_hosts(cls, index: KaijuIndex, K: int, sh) -> "KmerTables":
+        """build_device over the shards of a group of processes on several
+        hosts (``sh``, a ShardedIndex with an ``exchange``): each depth's
+        live intervals ask kernel N for the 20 letters' ranks at both ends
+        (Q_ROW, one round of ``parallel.exchange`` a chunk), each answered
+        by the process that reads the row's shard; every process of the
+        group builds the same tables in the same rounds."""
+        codes = np.arange(1, NLET + 1, dtype=np.int64)
+        tables = [(index.C[codes], index.C[codes + 1])]
+        p0, p1 = (torch.from_numpy(t.astype(np.int32)).to(sh.device)
+                  for t in tables[0])
+        for _d in range(2, K + 1):
+            n = p0.shape[0]
+            n0 = torch.zeros((NLET, n), dtype=torch.int32, device=sh.device)
+            n1 = torch.zeros_like(n0)
+            live = torch.nonzero(p0 < p1).squeeze(1)
+            for lo in range(0, live.shape[0], DEVICE_CHUNK):
+                x = live[lo:lo + DEVICE_CHUNK]
+                m = x.shape[0]
+                ends = torch.cat([p0[x], p1[x]])
+                q = torch.stack([torch.full_like(ends, Q_ROW << 8), ends], 1)
+                ans = sh.exchange.serve(q, NLET, "seed")
+                r0, r1 = ans[:m].T, ans[m:].T
+                ok = r0 < r1
+                n0[:, x] = torch.where(ok, r0, 0)
+                n1[:, x] = torch.where(ok, r1, 0)
+            p0, p1 = n0.reshape(-1), n1.reshape(-1)
+            tables.append((p0.cpu().numpy().astype(np.int64),
+                           p1.cpu().numpy().astype(np.int64)))
+        return cls(tables)
+
     # ---- persistence --------------------------------------------------
 
     def save(self, dirpath: str) -> None:
@@ -134,7 +168,17 @@ class KmerTables:
         """Tables of depth K from `cache_dir`/kmerK, else built (on the
         device index's device when one is given) and saved there."""
         path = os.path.join(cache_dir, f"kmer{K}") if cache_dir else None
-        if path and os.path.exists(os.path.join(path, f"si0_{K}.npy")):
+        found = bool(path) and os.path.exists(os.path.join(path,
+                                                           f"si0_{K}.npy"))
+        exchange = getattr(device_index, "exchange", None)
+        if exchange is not None and not exchange.all_agree(found):
+            # a group on several hosts builds by rounds, in which a process
+            # that found the tables still serves its peers
+            t = cls.build_hosts(index, K, device_index)
+            if not found:
+                t._save_quietly(path)
+            return t
+        if found:
             tables = [
                 (
                     np.load(os.path.join(path, f"si0_{d}.npy")),
@@ -147,12 +191,15 @@ class KmerTables:
             t = cls.build_device(index, K, device_index)
         else:
             t = cls.build(index, K)
+        t._save_quietly(path)
+        return t
+
+    def _save_quietly(self, path) -> None:
         if path:
             try:
-                t.save(path)
+                self.save(path)
             except OSError:
                 pass
-        return t
 
     # ---- packed single-lookup seed records ----------------------------
 

@@ -31,7 +31,7 @@ import torch
 
 from .. import kernels
 from .bloom import probe_plain
-from .device_index import Shards, rank, shard_args
+from .device_index import Q_RANK, Shards, rank, shard_args
 
 SEED_K = 5  # seed-table depth of the MEM search
 TIE_CAP = 8  # ties kept per fragment
@@ -57,13 +57,11 @@ def _lane_fragments(frag_off, P):
 SW_WCAP = 8  # the hybrid switches intervals of at most this many occurrences
 
 
-def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
-                     touched=None, bloom=None, sw_steps=0):
-    """touched: None, or a list that receives the record rows read."""
+def _seed_lanes(seed_s0, seed_s1, seed_d, flat, frag_off, K, j0, bloom):
+    """B's pass 1 on every flat position: (i, s0, s1) after the screen and
+    the seed, the lanes that go on stepping (int64, ascending) and each
+    position's fragment start."""
     P = flat.shape[0]
-    if P == 0:
-        z = torch.zeros(0, dtype=torch.int32, device=flat.device)
-        return z, z, z
     pos, f, base, flen = _lane_fragments(frag_off, P)
     j = pos - base
     c32 = flat.to(torch.int32)
@@ -79,6 +77,19 @@ def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
     s0 = torch.where(valid, seed_s0[kid], 0)
     s1 = torch.where(valid, seed_s1[kid], 0)
     live = torch.nonzero(valid & (d == K) & (i > 0)).squeeze(1)
+    return i, s0, s1, live, base
+
+
+def mem_extend_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
+                     touched=None, bloom=None, sw_steps=0):
+    """touched: None, or a list that receives the record rows read."""
+    P = flat.shape[0]
+    if P == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=flat.device)
+        return z, z, z
+    i, s0, s1, live, base = _seed_lanes(seed_s0, seed_s1, seed_d, flat,
+                                        frag_off, K, j0, bloom)
+    c32 = flat.to(torch.int32)
     steps = 0
     while live.numel():
         li, a0, a1 = i[live], s0[live], s1[live]
@@ -146,6 +157,144 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
         if words is not None:
             kernels.SCREENED["mem_extend"] += 1
     return out[0], out[1], out[2]
+
+
+# ---------------------------------------------------------------------------
+# kernel O: B over the shards of a group on several hosts
+# ---------------------------------------------------------------------------
+
+
+def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched):
+    """Step the lanes (int64 flat positions) from (i, s0, s1), q (int64)
+    the flat index of the code before i, while both rows of a step lie on
+    this host (``Shards.here``); a lane whose rows do not parks.  Writes
+    out (int32 [3, P]) for every lane that ends or parks and returns the
+    parked (p, i, s0, s1) int32 [L, 4] and their rank-pair queries int32
+    [L, 2, 2]."""
+    c32 = flat.to(torch.int32)
+    parked, queries = [], []
+    while lanes.numel():
+        c = c32[q]
+        here = rec.here[rec.owner(s0 >> 7)] & rec.here[rec.owner(s1 >> 7)]
+        stop = ~here
+        parked.append(torch.stack([lanes[stop].to(torch.int32), i[stop],
+                                   s0[stop], s1[stop]], 1))
+        op = (Q_RANK << 8) | c[stop]
+        queries.append(torch.stack([op, s0[stop], op, s1[stop]], 1))
+        go = torch.nonzero(here).squeeze(1)
+        n0 = rank(rec, C, c[go], s0[go], touched)
+        n1 = rank(rec, C, c[go], s1[go], touched)
+        ok = n0 < n1
+        step = go[ok]
+        s0[step], s1[step] = n0[ok], n1[ok]
+        i[step] -= 1
+        q[step] -= 1
+        ended = stop | (i == 0)
+        ended[go[~ok]] = True
+        out[:, lanes[ended]] = torch.stack([i, s0, s1])[:, ended]
+        keep = ~ended
+        lanes, i, s0, s1, q = lanes[keep], i[keep], s0[keep], s1[keep], q[keep]
+    z = torch.zeros((0, 4), dtype=torch.int32, device=flat.device)
+    return (torch.cat(parked) if parked else z,
+            (torch.cat(queries) if queries else z).view(-1, 2, 2))
+
+
+def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
+                           K, j0, bloom=None, out=None, parked=None,
+                           answers=None, touched=None):
+    """touched: as for mem_extend_plain."""
+    P = flat.shape[0]
+    dev = flat.device
+    if parked is None:
+        if P == 0:
+            out = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+            lanes = torch.zeros(0, dtype=torch.int64, device=dev)
+            i = s0 = s1 = base = lanes.to(torch.int32)
+        else:
+            i, s0, s1, lanes, base = _seed_lanes(seed_s0, seed_s1, seed_d,
+                                                 flat, frag_off, K, j0, bloom)
+            out = torch.stack([i, s0, s1])
+        i, s0, s1 = i[lanes], s0[lanes], s1[lanes]
+    else:
+        base = _lane_fragments(frag_off, P)[2]
+        lanes = parked[:, 0].long()
+        i, s0, s1 = (parked[:, t].clone() for t in (1, 2, 3))
+        n0, n1 = answers[:, 0], answers[:, 1]
+        ok = n0 < n1  # the step B would take, else the lane ends
+        s0[ok], s1[ok] = n0[ok], n1[ok]
+        i[ok] -= 1
+        ended = ~ok | (i == 0)
+        out[:, lanes[ended]] = torch.stack([i, s0, s1])[:, ended]
+        keep = ~ended
+        lanes, i, s0, s1 = lanes[keep], i[keep], s0[keep], s1[keep]
+    q = (base[lanes] + i - 1).long()
+    parked, queries = _park_rows(rec, C, flat, lanes, out, i, s0, s1, q,
+                                 touched)
+    return out, parked, queries
+
+
+def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
+                     j0, bloom=None, out=None, parked=None, answers=None):
+    """B over a group of processes on several hosts, with no hybrid (see
+    csrc/mem_extend.cu, kernel O): the start form (parked None) evaluates
+    every flat position as B does and returns (out int32 [3, P] = (i, s0,
+    s1), parked int32 [L, 4] = (p, i, s0, s1), queries int32 [L, 2, 2],
+    the rank pair of each parked lane's next step, (Q_RANK c, s0) and
+    (Q_RANK c, s1)); the resume form takes out, the parked lanes and
+    their answers int32 [L, 2] and returns the same three, out updated
+    in place.  A parked lane's out row holds its state when it parked.
+    Once no lane is parked, out equals B's (i, s0, s1).  Kernel O for
+    CUDA tensors, the plain version for CPU tensors."""
+    if K < 1 or j0 < K - 1:
+        raise ValueError(f"need K >= 1 and j0 >= K - 1 (K={K}, j0={j0})")
+    if bloom is not None and not 1 <= bloom[1] <= j0 + 1:
+        raise ValueError(f"need 1 <= m <= j0 + 1 (m={bloom[1]}, j0={j0})")
+    if (parked is None) != (answers is None) or (parked is None) != (
+            out is None):
+        raise ValueError("out, parked and answers come together (resume)")
+    if flat.device.type == "cpu":
+        return mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat,
+                                      frag_off, K, j0, bloom, out, parked,
+                                      answers)
+    dev = flat.device
+    args = shard_args(dev, rec, hosts=True)
+    kernels.check(C, "C", torch.int32, dev, 1)
+    kernels.check(seed_s0, "seed_s0", torch.int32, dev, 1)
+    kernels.check(seed_s1, "seed_s1", torch.int32, dev, 1)
+    kernels.check(seed_d, "seed_d", torch.int8, dev, 1)
+    kernels.check(flat, "flat", torch.uint8, dev, 1)
+    kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
+    if not seed_s0.shape == seed_s1.shape == seed_d.shape == (NLET**K,):
+        raise ValueError(f"seed tables must hold {NLET}^{K} rows")
+    P, F = flat.shape[0], frag_off.shape[0] - 1
+    if P and F < 1:
+        raise ValueError("flat codes without a fragment to own them")
+    words, m, lb = bloom if bloom is not None else (None, 0, 0)
+    if words is not None:
+        kernels.check(words, "bloom words", torch.int32, dev, 1)
+        if words.shape[0] != 1 << (lb - 5):
+            raise ValueError(f"bloom words: {words.shape[0]}, expected "
+                             f"2^{lb - 5}")
+    if parked is None:
+        out = torch.empty((3, P), dtype=torch.int32, device=dev)
+        n = P
+    else:
+        kernels.check(out, "out", torch.int32, dev, 2)
+        kernels.check(parked, "parked", torch.int32, dev, 2)
+        kernels.check(answers, "answers", torch.int32, dev, 2)
+        if out.shape != (3, P) or answers.shape != (parked.shape[0], 2):
+            raise ValueError("out [3, P], answers [L, 2] expected")
+        n = parked.shape[0]
+    park = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    q = torch.empty((n, 2, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("mem_extend_hosts", *args, C, seed_s0, seed_s1, seed_d,
+                       seed_d.shape[0], flat, P, frag_off, F, K, j0, words, m,
+                       lb, parked, answers, 0 if parked is None else n,
+                       out[0], out[1], out[2], park, q, count)
+    k = int(count)
+    return out, park[:k], q[:k]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Index shards held apart by the processes of one host (K16's
+"""Index shards held apart by the processes of a group (K16's
 cross-process form: ``kaiju --mesh-index S --dist-nprocs N``).
 
 The counterpart of kaiju_tpu's ``put_global``
@@ -24,19 +24,27 @@ once its upload has finished; a reader maps it on its own card, or over
 NVLink from another card of the host.  An open that fails raises with the
 CUDA error: no shard is copied in place of mapping it.  On the CPU
 (``device="cpu"``, the tests) the holder writes each shard it serves to a
-file in a run directory that process 0 makes in the temporary directory
-and names to the group, and the readers map the file read-only
-(np.memmap): the ownership and the teardown, rehearsed without a card.
+file in a run directory that the lowest process of its host makes in the
+temporary directory and names to that host's processes, and the readers
+map the file read-only (np.memmap): the ownership and the teardown,
+rehearsed without a card.
+
+Several hosts (``host_name``, gathered from every process): CUDA IPC
+reaches the processes of one host only.  For each shard o that process p
+does not hold: if its source o mod N is on p's host, p maps it from
+there; else, if another process of p's host holds o, p maps it from the
+lowest such process; else o is remote for p (``remote``), and its source,
+which always holds it, serves its rows and samples to p in rounds
+(``parallel.exchange``, kernel N).  A remote shard is never copied whole
+to the reader.  Such a group runs MEM only: Greedy exits naming the next
+item of ROADMAP.md (``refuse_greedy``).
 
 Teardown (``PeerShards.close``): the readers unmap, a barrier, then the
-holders free (on the CPU: unlink their files, a second barrier, process 0
-removes the run directory), so that no holder frees a shard that a peer
-still reads.  It runs when the caller closes the shards, and at the
-latest before the process leaves its group (``multihost.before_leave``).
-
-CUDA IPC reaches the processes of one host only: a group that spans
-hosts exits with a message (shards on several hosts are ROADMAP item 10e;
-kaiju_tpu reaches them over DCN).
+holders free (on the CPU: unlink their files, a second barrier, the
+lowest process of each host removes its run directory), so that no
+holder frees a shard that a peer still reads.  It runs when the caller
+closes the shards, and at the latest before the process leaves its group
+(``multihost.before_leave``).
 """
 
 from __future__ import annotations
@@ -68,15 +76,54 @@ def source(shard: int, nprocs: int) -> int:
     return shard % nprocs
 
 
-def one_host(hosts) -> None:
-    """Exit unless the host names of a group's processes are all one."""
+def host_name() -> str:
+    """The name of this process's host, which decides what a process maps
+    and what is served to it in rounds (a test or a rehearsal may replace
+    this function to give each process a host of its own)."""
+    return socket.gethostname()
+
+
+def routes(pid: int, hosts: list, n_shards: int) -> tuple[dict, dict]:
+    """For process pid of a group whose processes run on hosts (a name a
+    process): ({shard: process it is mapped from}, {shard: process that
+    serves it in rounds}) over the shards pid does not hold (module
+    docstring)."""
+    N = len(hosts)
+    mine = set(held(pid, N, n_shards))
+    opened, remote = {}, {}
+    for o in range(n_shards):
+        if o in mine:
+            continue
+        src = source(o, N)
+        near = [q for q in range(N) if hosts[q] == hosts[pid]
+                and o in held(q, N, n_shards)]
+        if hosts[src] == hosts[pid]:
+            opened[o] = src
+        elif near:
+            opened[o] = min(near)
+        else:
+            remote[o] = src
+    return opened, remote
+
+
+def refuse_greedy(hosts) -> None:
+    """Exit when a Greedy run's processes lie on several hosts."""
     names = sorted(set(hosts))
     if len(names) > 1:
         raise SystemExit(
-            "--mesh-index with --dist-* maps index shards between the "
-            "processes of one host (CUDA IPC); this group spans the hosts "
-            f"{', '.join(names)}: shards on several hosts are ROADMAP "
-            "item 10e")
+            "--mesh-index with --dist-* over several hosts runs -a mem "
+            f"only; this group spans the hosts {', '.join(names)}: Greedy "
+            "across hosts is ROADMAP item 10e, queue 1 item 1.2")
+
+
+def group_hosts(group) -> list:
+    """Every process's host_name(), in rank order (every process of the
+    group calls it)."""
+    import torch.distributed as dist
+
+    hosts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(hosts, host_name(), group=group)
+    return hosts
 
 
 def map_file(path: str, shape, dtype: np.dtype) -> torch.Tensor:
@@ -147,9 +194,12 @@ class _CudaArray:
 class PeerShards:
     """The shards of one index as process `rank` of `group` (a
     torch.distributed group of more than one process) reads them: those it
-    holds, uploaded to `device`, and the others mapped from their source
-    (module docstring).  ``held`` lists the held shards, ``opened`` maps
-    every other shard to the process it was mapped from."""
+    holds, uploaded to `device`, and the others mapped from a process of
+    its host (module docstring).  ``held`` lists the held shards,
+    ``opened`` maps every shard mapped to the process it was mapped from,
+    ``remote`` every shard no process of this host holds to the process
+    that serves it; ``hosts`` is every process's host, and
+    ``spans_hosts`` says whether they differ."""
 
     def __init__(self, device: torch.device, n_shards: int, group):
         import torch.distributed as dist
@@ -160,30 +210,42 @@ class PeerShards:
         self.pid = dist.get_rank(group)
         self.nprocs = dist.get_world_size(group)
         self.held = held(self.pid, self.nprocs, n_shards)
-        self.opened: dict[int, int] = {}
+        self.hosts = group_hosts(group)
+        self.spans_hosts = len(set(self.hosts)) > 1
+        self.opened, self.remote = routes(self.pid, self.hosts, n_shards)
         self.run_dir = None
         self._lib = _peer_lib() if device.type == "cuda" else None
         self._owned: list = []  # our allocations (card) or files (CPU)
         self._maps: list = []  # peers' allocations mapped here (card)
         self._closed = False
         multihost.before_leave(self.close)
-        if self._lib is None:  # process 0 names the run directory
-            name = [tempfile.mkdtemp(prefix="kaiju_tpu_shards_")
-                    if self.pid == 0 else None]
-            dist.broadcast_object_list(name, src=0, group=group)
-            self.run_dir = name[0]
+        if self._lib is None:  # the lowest process of each host makes
+            first = self.hosts.index(self.hosts[self.pid])  # the run dir
+            made = (tempfile.mkdtemp(prefix="kaiju_tpu_shards_")
+                    if self.pid == first else None)
+            names = [None] * self.nprocs
+            dist.all_gather_object(names, made, group=group)
+            self.run_dir = names[first]
+
+    def _serves(self) -> set:
+        """The held shards that a process maps from this one."""
+        return {o for p in range(self.nprocs)
+                for o, q in routes(p, self.hosts, self.S)[0].items()
+                if q == self.pid}
 
     def parts(self, arrays: dict) -> dict:
-        """{name: S host parts (numpy)} -> {name: S tensors}: the held
-        parts uploaded, every other part mapped from its source, all
-        handles exchanged in one all-gather."""
+        """{name: S host parts (numpy)} -> {name: S tensors, None for a
+        remote shard}: the held parts uploaded, every other part of this
+        host mapped from its holder, all handles exchanged in one
+        all-gather."""
         import torch.distributed as dist
 
         out = {name: [None] * self.S for name in arrays}
         mine = {}
+        serves = self._serves()
         for name, host in arrays.items():
             for o in self.held:
-                serve = source(o, self.nprocs) == self.pid
+                serve = o in serves
                 out[name][o], key = self._hold(
                     np.ascontiguousarray(host[o]), serve, f"{name}_{o}")
                 if serve:
@@ -191,15 +253,10 @@ class PeerShards:
         if self._lib is not None:  # uploads done before the handles go out
             torch.cuda.synchronize(self.device)
         everyone = [None] * self.nprocs
-        dist.all_gather_object(everyone, (socket.gethostname(), mine),
-                               group=self.group)
-        one_host(h for h, _m in everyone)
-        for o in range(self.S):
-            if o in self.held:
-                continue
-            p = self.opened[o] = source(o, self.nprocs)
+        dist.all_gather_object(everyone, mine, group=self.group)
+        for o, p in self.opened.items():
             for name in arrays:
-                key, shape, dtype = everyone[p][1][name, o]
+                key, shape, dtype = everyone[p][name, o]
                 out[name][o] = self._open(key, shape, np.dtype(dtype),
                                           f"{name} shard {o} of process {p}")
         return out
@@ -247,8 +304,8 @@ class PeerShards:
 
     def close(self) -> None:
         """Unmap the peers' shards, wait for every process to do so, then
-        free the held ones (on the CPU, unlink and remove the run
-        directory).  Every process of the group calls it; the tensors of
+        free the held ones (on the CPU, unlink, and the lowest process of
+        each host removes its run directory).  Every process of the group calls it; the tensors of
         ``parts`` are invalid after it."""
         import torch.distributed as dist
 
@@ -270,5 +327,5 @@ class PeerShards:
         self._owned.clear()
         if self._lib is None:
             dist.barrier(group=self.group)
-            if self.pid == 0:
+            if self.pid == self.hosts.index(self.hosts[self.pid]):
                 os.rmdir(self.run_dir)

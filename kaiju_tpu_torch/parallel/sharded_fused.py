@@ -36,7 +36,11 @@ classifies its share of every batch (``engine.pipeline.CardShare``).
 Several processes each run a pipeline on their share of every batch
 (``parallel.multihost``, ``engine.pipeline.ProcessShare``); given their
 group, each holds only its shards and maps the others from their holders
-(``parallel.peer_shards``).
+(``parallel.peer_shards``).  Over a group whose processes lie on several
+hosts, ``ShardedMemPipeline`` runs A → O → C → W → Q → W
+(``ops.classify.fused_mem_classify_hosts``), each step whose row lies on
+another host answered by its owner in rounds (``parallel.exchange``);
+Greedy exits there (``peer_shards.refuse_greedy``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from ..engine.greedy import GreedyPipeline
 from ..engine.mem import MemPipeline
 from ..index.core import KaijuIndex
 from ..io.taxonomy import Taxonomy
+from ..ops.classify import fused_mem_classify_hosts
+from ..ops.search import TIE_CAP
 from .sharded_index import ShardedIndex
 
 
@@ -98,7 +104,24 @@ class _OnShards:
 
 
 class ShardedMemPipeline(_OnShards, MemPipeline):
-    pass
+    """Over a group of processes on several hosts (the view's
+    ``exchange``) the batch runs ``fused_mem_classify_hosts``, without the
+    hybrid: G reads a lane's text on this host."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        if self.dev.exchange is not None:
+            self._hyb = None
+
+    def _device_rows(self, flat, frag_off, rf_rows):
+        if self.dev.exchange is None:
+            return super()._device_rows(flat, frag_off, rf_rows)
+        cfg = self.cfg
+        return fused_mem_classify_hosts(
+            self.dev, self.dev.exchange, self._seed, flat, frag_off, rf_rows,
+            self.dev.seq_tax, self._parent, self._depth, self.seed_K,
+            cfg.min_fragment_length - 1, cfg.min_fragment_length, TIE_CAP,
+            self.R_BUDGET, cfg.max_match_ids, bloom=self._bloom)
 
 
 class ShardedGreedyPipeline(_OnShards, GreedyPipeline):

@@ -31,7 +31,11 @@ and with D = 1 that view is the one-card layout.  Given a group of N > 1
 processes, each process uploads only the shards it holds and maps the
 others from the processes that hold them (``parallel.peer_shards``, CUDA
 IPC on the card), with the same layout: only the pointers in the tables
-change.
+change.  Over a group whose processes lie on several hosts, a shard that
+no process of this host holds is remote (``remote``: its part is None, its
+pointers 0): ``exchange`` (``parallel.exchange.Exchange``) runs the rounds
+in which its owner serves its rows and samples, and only the hosts kernels
+(N, O, Q, W) read such a view.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..index.core import BLOCK, KaijuIndex
 from ..ops.device_index import (Shards, build_fused_records, extend_all,
                                 extend_all_plain, sa_lookup, sa_lookup_plain)
 from . import multihost, peer_shards
+from .exchange import Exchange
 from .peer_shards import PeerShards
 
 
@@ -133,8 +138,12 @@ class ShardedIndex:
                       list(range(host.S)))
             return
         self._set(host, [dev], 0, share.parts(host.parts), share.held,
-                  opened=share.opened)
+                  opened=share.opened, remote=share.remote)
         self.share = share
+        self.host = share.hosts[share.pid]
+        if share.spans_hosts:  # the group's hosts differ: rounds
+            self.exchange = Exchange(self, group, [
+                self.remote.get(o, share.pid) for o in range(self.S)])
 
     @classmethod
     def on_cards(cls, index: KaijuIndex, n_shards: int,
@@ -169,7 +178,7 @@ class ShardedIndex:
         return views
 
     def _set(self, host: _Host, cards: list, slot: int, parts: dict,
-             held: list, opened=None, reads=None):
+             held: list, opened=None, reads=None, remote=None):
         dev = self.device = cards[slot]
         self.cards, self.slot = list(cards), slot
         self.S = host.S
@@ -182,7 +191,10 @@ class ShardedIndex:
         self.held = list(held)
         self.opened = dict(opened or {})
         self.reads = dict(reads or {})
+        self.remote = dict(remote or {})
         self.share = None
+        self.exchange = None
+        self.host = None
         self.shared: dict = {}
         peer = set(self.opened) | set(self.reads)
         sh = {k: Shards(parts[k], *host.size[k], dev, peer) for k in parts}
@@ -196,21 +208,29 @@ class ShardedIndex:
 
     def layout(self) -> dict:
         """The shards this card holds and reads: {"card": its device,
-        "held": [o, ...], "opened": {o: process}, "reads": {o: slot of the
-        holding card}, "bytes_held", "bytes_opened", "bytes_read": {array:
-        bytes}}."""
+        "host": its host in a group (else None), "held": [o, ...],
+        "opened": {o: process}, "reads": {o: slot of the holding card},
+        "remote": {o: process that serves it in rounds}, "bytes_held",
+        "bytes_opened", "bytes_read", "bytes_remote": {array: bytes}}."""
         arrays = {"rec": self.rec, "sa_seq": self.sa_seq,
                   "sa_off": self.sa_off, "text": self.text}
 
         def nbytes(shards):
-            return {k: sum(a.parts[o].nbytes for o in shards)
-                    for k, a in arrays.items() if a is not None}
+            out = {}
+            for k, a in arrays.items():
+                if a is None:
+                    continue
+                one = next(p for p in a.parts if p is not None).nbytes
+                out[k] = one * len(shards)  # every shard has one size
+            return out
 
-        return {"card": str(self.device), "held": list(self.held),
-                "opened": dict(self.opened), "reads": dict(self.reads),
+        return {"card": str(self.device), "host": self.host,
+                "held": list(self.held), "opened": dict(self.opened),
+                "reads": dict(self.reads), "remote": dict(self.remote),
                 "bytes_held": nbytes(self.held),
                 "bytes_opened": nbytes(self.opened),
-                "bytes_read": nbytes(self.reads)}
+                "bytes_read": nbytes(self.reads),
+                "bytes_remote": nbytes(self.remote)}
 
 
 # ---------------------------------------------------------------------------

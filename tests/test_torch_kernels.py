@@ -2082,3 +2082,209 @@ def test_mkdb_aot_libraries_load_in_a_fresh_process(cuda, tmp_path,
             here, warm = a.read(), b.read()
         assert here == warm and here.count("\n") == 500
         assert here.count("C\t") > 100
+
+
+# ---------------------------------------------------------------------------
+# kernels N, O, Q, W: a group of processes on several hosts
+# ---------------------------------------------------------------------------
+
+
+class _Server:
+    """Rounds within this process: the remote shards' queries answered by
+    kernel N (or its plain version) on a view that reads every shard."""
+
+    def __init__(self, whole):
+        self.whole = whole
+
+    def parked_anywhere(self, n, stage):
+        return n > 0
+
+    def serve(self, queries, width, stage):
+        w = self.whole
+        ans, bad = tdev.fm_serve(w.rec, w.C, w.sa_seq, w.sa_off, queries,
+                                 width)
+        assert int(bad) == 0
+        return ans
+
+    def rounds(self, stage, parked, queries, width, resume):
+        from kaiju_tpu_torch.parallel.exchange import Exchange
+
+        Exchange.rounds(self, stage, parked, queries, width, resume)
+
+
+def _hosts_view(sh, remote):
+    import copy
+
+    view = copy.copy(sh)
+    for name in ("rec", "sa_seq", "sa_off", "text"):
+        a = getattr(sh, name)
+        if a is not None:
+            setattr(view, name, tdev.Shards(
+                [None if o in remote else p for o, p in enumerate(a.parts)],
+                a.per, a.shape[0], a.device, like=a.parts[0]))
+    view.exchange = _Server(sh)
+    return view
+
+
+def _sorted_rows(t, key=0):
+    t = t.cpu()
+    return t[torch.argsort(t[:, key].long() if t.dim() == 2
+                           else t[:, 0, key].long(), stable=True)]
+
+
+@pytest.mark.parametrize("S", [2, 3])
+def test_fm_serve_kernel_matches_plain(env, cuda, S):
+    """N's RANK, ROW, LF and SAMPLE (k = 0, a block's start, k = N, the
+    padded last shard) equal its plain version; a query to a remote shard
+    counts in bad and leaves its answer 0."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx = env["idx"]
+    sh_c, sh_g = ShardedIndex(idx, S, "cpu"), ShardedIndex(idx, S, cuda)
+    rng = np.random.default_rng(S)
+    n = 6000
+    k = rng.integers(0, idx.length + 1, n).astype(np.int32)
+    k[:4] = [0, 128, idx.length, idx.length - 1]
+    kind = rng.integers(0, 4, n).astype(np.int32)
+    c = rng.integers(1, idx.alen, n).astype(np.int32)
+    # a walk's LF step reads a row below N; a sample, a slot
+    x = np.where(kind == tdev.Q_SAMPLE, k % sh_c.sa_seq.shape[0],
+                 np.where(kind == tdev.Q_LF, np.minimum(k, idx.length - 1),
+                          k))
+    op = kind << 8 | np.where(kind == tdev.Q_RANK, c, 0)
+    q = torch.from_numpy(np.stack([op, x], 1).astype(np.int32))
+    want, _b = tdev.fm_serve_plain(sh_c.rec, sh_c.C, sh_c.sa_seq, sh_c.sa_off,
+                                   q, 20)
+    got, bad = tdev.fm_serve(sh_g.rec, sh_g.C, sh_g.sa_seq, sh_g.sa_off,
+                             q.to(cuda), 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and int(bad) == 0
+    view = _hosts_view(sh_g, (S - 1,))
+    got, bad = tdev.fm_serve(view.rec, view.C, view.sa_seq, view.sa_off,
+                             q.to(cuda), 20)
+    far = ~view.rec.here.cpu()[tdev.query_shard(sh_c.rec, sh_c.sa_seq, q)]
+    assert int(bad) == int(far.sum()) > 0
+    assert torch.equal(got.cpu()[~far], want[~far])
+    assert not got.cpu()[far].any()
+
+
+@pytest.mark.parametrize("remote", [(1,), (0, 2), (0, 1, 2)],
+                         ids=["one", "two", "all"])
+def test_hosts_kernels_in_rounds_match_plain(env, cuda, remote):
+    """O, Q and W on the index in 3 shards with the shards `remote` on
+    another host: each launch on a round's own arguments equals its plain
+    version (parked lanes compared as sets), and the rounds end where B, H
+    and D end; fused_mem_classify_hosts gives fused_mem_classify's rows."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx = env["idx"]
+    views = {d: _hosts_view(ShardedIndex(idx, 3, d), remote)
+             for d in ("cpu", cuda)}
+    flat, frag_off, rf_rows = _batch(env, 16)
+    seed = env["seed"]
+
+    def ext(d, **kw):
+        v = views[d]
+        return search.mem_extend_hosts(
+            v.rec, v.C, *(a.to(d) for a in seed), flat.to(d),
+            frag_off.to(d), search.SEED_K, MIN_LEN - 1, **kw)
+
+    kernels.reset_counts()
+    out_c, pk_c, q_c = ext("cpu")
+    out_g, pk_g, q_g = ext(cuda)
+    assert torch.equal(out_g.cpu(), out_c) and pk_c.shape[0] > 0
+    assert torch.equal(_sorted_rows(pk_g), _sorted_rows(pk_c))
+    order_g = torch.argsort(pk_g[:, 0].cpu().long())
+    order_c = torch.argsort(pk_c[:, 0].long())
+    assert torch.equal(q_g.cpu()[order_g], q_c[order_c])
+    ans = views["cpu"].exchange.serve(q_c.reshape(-1, 2), 1, "extend")
+    res_c = ext("cpu", out=out_c, parked=pk_c, answers=ans.view(-1, 2))
+    ans_g = ans.view(-1, 2)[order_c][torch.argsort(order_g)].to(cuda)
+    res_g = ext(cuda, out=out_g, parked=pk_g, answers=ans_g.contiguous())
+    assert torch.equal(res_g[0].cpu(), res_c[0])
+    assert torch.equal(_sorted_rows(res_g[1]), _sorted_rows(res_c[1]))
+    want = classify.fused_mem_classify(
+        *_args(env, flat, frag_off, rf_rows, 32, "cpu"))
+    v = views[cuda]
+    got = classify.fused_mem_classify_hosts(
+        v, v.exchange, tuple(a.to(cuda) for a in seed), flat.to(cuda),
+        frag_off.to(cuda), rf_rows.to(cuda), v.seq_tax, env["par"].to(cuda),
+        env["dep"].to(cuda), search.SEED_K, MIN_LEN - 1, MIN_LEN, T, 32, CAP)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for name in ("mem_extend_hosts", "walk_hosts", "read_lca_hosts",
+                 "fm_serve"):
+        assert kernels.LAUNCHES[name] > 0, name
+    # Q alone: its start and one resume on the same arguments
+    rng = np.random.default_rng(len(remote))
+    rows = torch.from_numpy(rng.integers(idx.nseq, idx.length,
+                                         3000).astype(np.int32))
+    seq_c = torch.empty_like(rows)
+    seq_g = torch.empty_like(rows).to(cuda)
+    w = {d: views[d] for d in views}
+    pk_c, q_c = tdev.walk_hosts(w["cpu"].rec, w["cpu"].C, w["cpu"].sa_seq,
+                                idx.nseq, idx.chpt_exp, seq_c, rows=rows)
+    pk_g, q_g = tdev.walk_hosts(w[cuda].rec, w[cuda].C, w[cuda].sa_seq,
+                                idx.nseq, idx.chpt_exp, seq_g,
+                                rows=rows.to(cuda))
+    assert torch.equal(seq_g.cpu(), seq_c)
+    assert torch.equal(_sorted_rows(pk_g), _sorted_rows(pk_c))
+    order_g = torch.argsort(pk_g[:, 0].cpu().long())
+    order_c = torch.argsort(pk_c[:, 0].long())
+    assert torch.equal(q_g.cpu()[order_g], q_c[order_c])
+    views["cpu"].exchange.rounds("walk", pk_c, q_c, 1, lambda pk, a:
+                                 tdev.walk_hosts(
+                                     w["cpu"].rec, w["cpu"].C,
+                                     w["cpu"].sa_seq, idx.nseq, idx.chpt_exp,
+                                     seq_c, parked=pk, answers=a.reshape(-1)))
+    views[cuda].exchange.rounds("walk", pk_g, q_g, 1, lambda pk, a:
+                                tdev.walk_hosts(
+                                    w[cuda].rec, w[cuda].C, w[cuda].sa_seq,
+                                    idx.nseq, idx.chpt_exp, seq_g, parked=pk,
+                                    answers=a.reshape(-1).contiguous()))
+    dv = env["dv"]
+    want = tdev.sa_walk(dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq,
+                        dv.chpt_exp, rows)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(seq_c, want) and torch.equal(seq_g.cpu(), want)
+
+
+@pytest.mark.parametrize("G", [4, 128])
+def test_lca_interval_sums_near_2_31_match_plain(env, cuda, G):
+    """D, F and W's list form on ranges whose int32 sum wraps (each 2^30
+    to 2^31 long): equal to their plain versions, every read flagged
+    need_more (total > R) as an int64 sum says."""
+    dv = env["dv"]
+    rng = np.random.default_rng(G)
+    B, R = 8, 8
+    s0 = rng.integers(0, dv.rec.shape[0] * 128 - 200, (B, G))
+    s1 = np.minimum(s0 + rng.integers(1 << 30, (1 << 31) - (1 << 20),
+                                      (B, G)), (1 << 31) - 1)
+    g_s0 = torch.from_numpy(s0.astype(np.int32))
+    g_s1 = torch.from_numpy(s1.astype(np.int32))
+    tail = (dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.seq_tax, env["par"],
+            env["dep"], R, CAP, dv.nseq, dv.chpt_exp)
+
+    def to(a):
+        return a.to(cuda) if isinstance(a, torch.Tensor) else a
+
+    want = classify.ranges_lca(g_s0, g_s1, *tail)
+    got = classify.ranges_lca(to(g_s0), to(g_s1), *map(to, tail))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[2] == 1).all())
+    maxl = torch.full((B,), 20, dtype=torch.int32)
+    tie_cnt = torch.full((B,), G, dtype=torch.int32)
+    rf_rows = torch.arange(B, dtype=torch.int32)[:, None]
+    d_args = (maxl, tie_cnt, g_s0, g_s1, rf_rows)
+    want = classify.read_lca(*d_args, *tail)
+    got = classify.read_lca(*map(to, d_args), *map(to, tail))
+    assert torch.equal(got.cpu(), want)
+    assert bool(((want[:, 2] & classify.FLAG_NEED_MORE) != 0).all())
+    want = classify.read_lca_list(*d_args, R)
+    got = classify.read_lca_list(*map(to, d_args), R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[1][:, 1] > R).all())

@@ -10,7 +10,11 @@ the single-process TSV byte for byte, which is the ExactClassifier's.
 With --mesh-index each process must hold exactly the shards of the
 ownership rule (parallel.peer_shards) and map every other shard from
 process o mod N, and no file of the mapped shards may outlive the
-processes.  Each process is tests/torch_multihost_worker.py."""
+processes.  MEM with --mesh-index over processes labelled as several
+hosts (2 on hosts a, b at S = 2; 3 on a, a, b at S = 4; with and without
+a text copy) must merge to the same TSV, each process holding, mapping
+and having served in rounds the shards of the routing rule; Greedy there
+must exit.  Each process is tests/torch_multihost_worker.py."""
 
 import json
 import os
@@ -89,9 +93,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run(env, nprocs, by_env, argv, tag):
+def _run(env, nprocs, by_env, argv, tag, hosts=None, fail=False):
     """Start nprocs workers with argv and the process flags (or the
-    KAIJU_TPU_* variables); returns each process's output lines."""
+    KAIJU_TPU_* variables), process p on host hosts[p] if given; returns
+    each process's output lines (fail: each process's stderr, every
+    process having failed)."""
     coord = f"127.0.0.1:{_free_port()}"
     procs, outs = [], []
     for p in range(nprocs):
@@ -108,15 +114,22 @@ def _run(env, nprocs, by_env, argv, tag):
         else:
             dist = ["--dist-nprocs", str(nprocs), "--dist-coordinator",
                     coord, "--dist-pid", str(p)]
+        host = ["--host", hosts[p]] if hosts else []
+        if hosts and (p > 0 or len(set(hosts)) == nprocs):
+            # a seed-table cache of its own, empty: the group builds the
+            # tables by rounds, where process 0 of a, a, b finds them in
+            # the index's cache and still serves its peers' rounds
+            penv["KAIJU_TPU_CACHE"] = str(env["work"] / f"cache_{tag}_p{p}")
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, *argv, *dist, "-o", out], cwd=ROOT,
+            [sys.executable, WORKER, *host, *argv, *dist, "-o", out], cwd=ROOT,
             env=penv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
-    errors = []
+    errors, failed = [], []
     try:
         for p, proc in enumerate(procs):
             _o, err = proc.communicate(timeout=300)
             if proc.returncode != 0:
+                failed.append(err)
                 errors.append(f"process {p}: rc {proc.returncode}\n"
                               f"{err[-2000:]}")
     finally:
@@ -124,6 +137,9 @@ def _run(env, nprocs, by_env, argv, tag):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    if fail:
+        assert len(failed) == nprocs, "a process did not fail"
+        return failed
     assert not errors, "\n".join(errors)
     lines = []
     for out in outs:
@@ -132,17 +148,19 @@ def _run(env, nprocs, by_env, argv, tag):
     return lines
 
 
-def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx"):
-    """Run nprocs workers on env[ktx] and check their outputs and, with
-    --mesh-index, their shards."""
+def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx", hosts=None):
+    """Run nprocs workers on env[ktx] (process p on host hosts[p] if
+    given) and check their outputs and, with --mesh-index, their
+    shards."""
     single, exact = _single(env, mode, ktx)
     assert single == exact, _diff(single, exact)
     argv = ["-t", env["nodes_dmp"], "-f", env[ktx], "-i", env["fq"],
             *MODES[mode], "-b", str(BATCH)]
     if mesh:
         argv += ["--mesh-index", str(mesh)]
-    tag = f"{mode}_{mesh}_{nprocs}_{ktx}"
-    lines = _run(env, nprocs, by_env, argv, tag)
+    tag = f"{mode}_{mesh}_{nprocs}_{ktx}" + ("_" + "".join(hosts)
+                                             if hosts else "")
+    lines = _run(env, nprocs, by_env, argv, tag, hosts)
     # the reads each process owns, batch by batch
     names = [n for n, _s in env["reads"]]
     want_owner = {}
@@ -168,14 +186,39 @@ def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx"):
     assert merged == single, _diff(merged, single)
     assert merged.count("C\t") > 40
     if mesh:
-        _check_shards(env, tag, nprocs, mesh, ktx == "ktx_text")
+        _check_shards(env, tag, nprocs, mesh, ktx == "ktx_text",
+                      hosts or ["one"] * nprocs)
     return single
 
 
-def _check_shards(env, tag, nprocs, S, text):
+def _routes(p, hosts, S):
+    """The routing rule, restated: ({shard: process mapped from}, {shard:
+    process serving it in rounds}) for process p."""
+    N = len(hosts)
+
+    def holds(q):
+        return [q % S] if N >= S else [o for o in range(S) if o % N == q]
+
+    opened, remote = {}, {}
+    for o in range(S):
+        if o in holds(p):
+            continue
+        near = [q for q in range(N) if hosts[q] == hosts[p] and o in holds(q)]
+        if hosts[o % N] == hosts[p]:
+            opened[o] = o % N
+        elif near:
+            opened[o] = min(near)
+        else:
+            remote[o] = o % N
+    return opened, remote
+
+
+def _check_shards(env, tag, nprocs, S, text, hosts):
     """Each process held exactly its shards (process p: shard p mod S for
     N >= S, the shards o with o mod N = p for N < S), mapped every other
-    one from process o mod N, and left no file of them behind."""
+    one of its host from the process the routing rule names (over one
+    host: process o mod N), had the others served in rounds, and left no
+    file of them behind."""
     arrays = {"rec", "sa_seq", "sa_off"} | ({"text"} if text else set())
     holders = set()
     for p in range(nprocs):
@@ -183,12 +226,22 @@ def _check_shards(env, tag, nprocs, S, text):
             got = json.load(fh)
         want = ([p % S] if nprocs >= S
                 else [o for o in range(S) if o % nprocs == p])
+        opened, remote = _routes(p, hosts, S)
         assert got["held"] == want, (p, got)
-        assert got["opened"] == {str(o): o % nprocs for o in range(S)
-                                 if o not in want}, (p, got)
+        assert got["opened"] == {str(o): q for o, q in opened.items()}, (p, got)
+        assert got["remote"] == {str(o): q for o, q in remote.items()}, (p, got)
         assert set(got["bytes_held"]) == arrays
         assert all(got["bytes_held"][a] > 0 for a in arrays)
-        assert all(got["bytes_opened"][a] > 0 for a in arrays)
+        assert all((got["bytes_opened"][a] > 0) == bool(opened)
+                   for a in arrays)
+        if len(set(hosts)) > 1:  # every stage ran rounds
+            assert got["host"] == hosts[p]
+            assert {"seed", "extend", "walk"} <= set(got["rounds"])
+            assert all(got["rounds"][k]["rounds"] > 0 for k in
+                       ("extend", "walk")), got["rounds"]
+            assert got["rounds"]["seed"]["queries"] > 0
+        else:
+            assert not remote and not got["rounds"]
         holders.update(want)
         assert not os.path.exists(got["run_dir"]), got["run_dir"]
     assert holders == set(range(S))
@@ -209,3 +262,31 @@ def test_two_processes_hold_four_text_index_shards_apart(env):
     mapped a process, and the TSV equal to the one from db.ktx."""
     single = _check_run(env, "greedy", 4, 2, False, "ktx_text")
     assert single == _single(env, "greedy")[0]
+
+
+@pytest.mark.parametrize("ktx", ["ktx", "ktx_text"])
+@pytest.mark.parametrize("nprocs, mesh, hosts, by_env",
+                         [(2, 2, ["a", "b"], False),
+                          (3, 4, ["a", "a", "b"], True)],
+                         ids=["2-hosts-ab-mesh2", "3-hosts-aab-mesh4"])
+def test_mem_across_hosts_merges_to_the_single_process_tsv(env, nprocs, mesh,
+                                                           hosts, by_env,
+                                                           ktx):
+    """MEM with --mesh-index over processes labelled as several hosts: a
+    shard that no process of a host holds is served by its owner in rounds
+    (the seed tables, O's steps, Q's walks); the merged TSV is the
+    single-process TSV and the ExactClassifier's, with and without a text
+    copy (the hybrid off across hosts)."""
+    single = _check_run(env, "mem", mesh, nprocs, by_env, ktx, hosts)
+    if ktx == "ktx_text":
+        assert single == _single(env, "mem")[0]
+
+
+def test_greedy_across_hosts_exits(env):
+    """Greedy (the default mode) with --mesh-index over two hosts exits in
+    every process, naming -a mem and the ROADMAP item."""
+    argv = ["-t", env["nodes_dmp"], "-f", env["ktx"], "-i", env["fq"], "-b",
+            str(BATCH), "--mesh-index", "2"]
+    for err in _run(env, 2, False, argv, "greedy_hosts", ["a", "b"],
+                    fail=True):
+        assert "runs -a mem only" in err and "ROADMAP item 10e" in err, err

@@ -3,7 +3,8 @@ peer_shards), without processes: the ownership rule for N processes and S
 shards, ``Shards`` over read-only memory maps of shard files (as a
 process maps its peers' shards on the CPU) against the whole tensor and
 through the plain SA walk and extension, the plain versions' refusal of a
-shard on another device, and the exit of a group that spans two hosts.
+shard on another device, the routing rule over several hosts (mapped on
+the host, else served in rounds), and Greedy's exit there.
 The processes themselves run in tests/test_torch_multihost.py."""
 
 import random
@@ -97,6 +98,41 @@ def test_plain_versions_refuse_a_shard_on_another_device():
 
 
 def test_a_group_across_hosts_exits():
-    peer_shards.one_host(["node-a", "node-a"])
-    with pytest.raises(SystemExit, match="ROADMAP item 10e"):
-        peer_shards.one_host(["node-a", "node-b", "node-a"])
+    """Greedy over several hosts exits, naming -a mem and the ROADMAP item
+    (MEM runs there, served in rounds)."""
+    peer_shards.refuse_greedy(["node-a", "node-a"])
+    with pytest.raises(SystemExit, match="runs -a mem only.*ROADMAP item 10e"):
+        peer_shards.refuse_greedy(["node-a", "node-b", "node-a"])
+
+
+@pytest.mark.parametrize("hosts, S", [
+    ("ab", 2), ("aab", 4), ("aabb", 4), ("abab", 2), ("abc", 2), ("aab", 2),
+    ("aaa", 3)])
+def test_routes_map_on_the_host_and_serve_the_rest(hosts, S):
+    """For every shard a process does not hold: mapped from its source o
+    mod N when that is on the process's host, else from the lowest holder
+    on its host, else served in rounds by its source, which holds it; one
+    host maps everything from the sources, as before."""
+    N = len(hosts)
+    for p in range(N):
+        opened, remote = peer_shards.routes(p, list(hosts), S)
+        mine = peer_shards.held(p, N, S)
+        assert set(opened) | set(remote) | set(mine) == set(range(S))
+        assert not set(opened) & set(remote) and not set(mine) & set(opened)
+        for o, q in opened.items():
+            assert hosts[q] == hosts[p] and o in peer_shards.held(q, N, S)
+            if hosts[o % N] == hosts[p]:
+                assert q == o % N
+            else:
+                assert q == min(r for r in range(N) if hosts[r] == hosts[p]
+                                and o in peer_shards.held(r, N, S))
+        for o, q in remote.items():
+            assert q == o % N and o in peer_shards.held(q, N, S)
+            assert all(o not in peer_shards.held(r, N, S) for r in range(N)
+                       if hosts[r] == hosts[p])
+        if len(set(hosts)) == 1:
+            assert not remote
+    if hosts == "aab" and S == 4:  # the processes of the CPU tests
+        assert peer_shards.routes(0, list(hosts), 4) == ({1: 1}, {2: 2})
+        assert peer_shards.routes(2, list(hosts), 4) == ({}, {0: 0, 1: 1,
+                                                              3: 0})

@@ -5,7 +5,9 @@ block count, so the last shard is padded), sharded_extend_all and
 sharded_sa_lookup against make_sharded_extend_all / make_sharded_sa_lookup
 on the 8-device virtual CPU mesh (after tests/test_sharded.py),
 ShardedMemPipeline's rows against ShardedMemClassifier.classify on an index
-without and with a text copy (the hybrid's virtual rows), and the TSV of
+without and with a text copy (the hybrid's virtual rows), kernel N's plain
+version (the rounds' server across hosts: RANK and ROW against
+_sharded_fmindex, LF and SAMPLE walks against get_suffix), and the TSV of
 `kaiju -a mem --mesh-index S` through main(..., device="cpu") against the
 port's unsharded TSV and the host ExactClassifier.
 
@@ -271,6 +273,71 @@ def test_sharded_sa_lookup_matches_jax_and_get_suffix(env):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want[1]))
     for n, kk in enumerate(env["sa_k"]):
         assert (int(iseq[n]), int(pos[n])) == env["jidx"].get_suffix(kk)
+
+
+@pytest.mark.parametrize("S", RANK_SHARDS)
+def test_fm_serve_rank_and_row_match_sharded_fmindex(env, S):
+    """Kernel N's plain version answers RANK (c, k) and ROW k (the 20
+    letters at once) from the owner shard as kaiju_tpu's owner-computes +
+    psum rank does, for every letter and every k in [0, N]: k = N, the
+    terminators' rows, a shard's first row and the padded last shard's
+    end row among them."""
+    idx = env["index"]["text"]
+    sh = ShardedIndex(idx, S, "cpu")
+    c = torch.from_numpy(env["rank_c"].astype(np.int32))
+    k = torch.from_numpy(env["rank_k"].astype(np.int32))
+    want = np.asarray(env["jax"]()["fmindex"][str(S)])
+    q = torch.stack([(tdev.Q_RANK << 8) | c, k], 1)
+    got, bad = tdev.fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, q, 1)
+    np.testing.assert_array_equal(got[:, 0].numpy(), want)
+    ks = torch.arange(idx.length + 1, dtype=torch.int32)
+    q = torch.stack([torch.full_like(ks, tdev.Q_ROW << 8), ks], 1)
+    rows, bad = tdev.fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, q, 20)
+    by_c = want.reshape(21, idx.length + 1)  # rank_c repeats c over k
+    np.testing.assert_array_equal(rows.numpy().T, by_c[1:])
+    assert int(bad) == 0
+    if S != 3:  # the padded last shard's end row serves k = N
+        assert sh.rec.owner(torch.tensor([idx.length >> 7])) == S - 1
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_fm_serve_lf_and_sample_walk_to_get_suffix(env, S):
+    """Walks driven by kernel N's plain version alone, an LF query a step
+    and a SAMPLE query (seq, off) at a sampled row, reach get_suffix's
+    (sequence, offset), walks that end at a terminator included."""
+    idx = env["index"]["text"]
+    sh = ShardedIndex(idx, S, "cpu")
+    ks = list(env["sa_k"])
+    check = (1 << sh.chpt_exp) - 1
+    k = torch.tensor(ks, dtype=torch.int32)
+    steps = torch.zeros_like(k)
+    out = {}
+    todo = list(range(len(ks)))
+    while todo:
+        kk = k[todo]
+        at = (kk & check) == 0
+        slot = torch.clamp((kk >> sh.chpt_exp) - ((sh.nseq - 1)
+                                                  >> sh.chpt_exp) - 1,
+                           0, sh.sa_seq.shape[0] - 1)
+        op = torch.where(at, tdev.Q_SAMPLE << 8, tdev.Q_LF << 8)
+        q = torch.stack([op, torch.where(at, slot, kk)], 1).to(torch.int32)
+        ans, _bad = tdev.fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, q, 2)
+        nxt = []
+        for t, w in enumerate(todo):
+            a0, a1 = int(ans[t, 0]), int(ans[t, 1])
+            if bool(at[t]):
+                out[w] = (a0, a1 + int(steps[w]))
+            elif a0 < 0:  # a terminator: ~(the content rank)
+                out[w] = (~a0, int(steps[w]))
+            else:
+                k[w], steps[w] = a0, steps[w] + 1
+                nxt.append(w)
+        todo = nxt
+    ends = 0
+    for w, kk in enumerate(ks):
+        assert out[w] == env["jidx"].get_suffix(kk), kk
+        ends += int(out[w][1] == int(steps[w]) and (int(k[w]) & check) != 0)
+    assert ends > 0  # walks that end at a terminator
 
 
 def _cache(env, tag):
