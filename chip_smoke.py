@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only-processes    # phases 1, 2, 4 (text), 4f
     python3 chip_smoke.py --only-cards        # phases 1, 2, 4 (text), 4i
     python3 chip_smoke.py --only-warm         # phases 1, 2, 4h
-    python3 chip_smoke.py --only-hosts        # phases 1, 2, 4 (text, MEM), 4j
+    python3 chip_smoke.py --only-hosts        # phases 1, 2, 4 (text), 4j
 
 Phases, any failure exits non-zero:
   1. build the CUDA kernels from kaiju_tpu_torch/csrc with nvcc; print the
@@ -188,26 +188,32 @@ Phases, any failure exits non-zero:
      host's peak RSS;
   4j. processes on several hosts, rehearsed on one machine (each process
      given a host label through peer_shards.host_name; every host is this
-     machine and the transport gloo over loopback): tools.kaiju.main -a
-     mem --mesh-index 2 as 2 processes on hosts a, b and --mesh-index 4
-     as 3 processes on a, a, b (and 4 processes on a, a, b, b where there
-     are four cards), process p on cuda:{p % cards}, on the first 16,384
-     reads of db.ktx and of db_text.ktx, each process with an empty
+     machine and the transport gloo over loopback): tools.kaiju.main with
+     the default flags (Greedy) and with -a mem, --mesh-index 2 as 2
+     processes on hosts a, b and --mesh-index 4 as 3 processes on a, a, b
+     (and 4 processes on a, a, b, b where there are four cards), process
+     p on cuda:{p % cards}, on the first 8,192 reads of db.ktx and of
+     db_text.ktx (MEM: db_text.ktx only), each process with an empty
      seed-table cache, so that the group builds the tables by rounds of
-     N: each process must launch N, O, C, W and Q and no one-host kernel
-     that reads the index, hold, map and have served in rounds the shards
-     of the routing rule, each read must be written once by its owner and
-     the merged lines equal phase 4's MEM lines; process 0 holds N, O, Q
-     and W on the arguments of their first rounds against their plain
-     versions on copies (timed); each process's main(), set-up and stream
-     seconds, the rounds a batch of each stage with their queries, bytes
-     and seconds in copies, transport and N, and the stream's rate against
-     a one-host group of 2 processes at --mesh-index 2 on the same reads;
-     then Greedy --mesh-index 2 on hosts a, b must exit in both processes
-     naming -a mem and the ROADMAP item;
+     N: each process must launch every kernel of its mode's hosts path
+     (N, O, U, X, Q, V and W's resolved form for Greedy; N, O, C, W and
+     Q for MEM) and no
+     one-host kernel that reads the index (no E, F, B or D), hold, map and
+     have served in rounds the shards of the routing rule, with rounds in
+     every stage of the path, each read must be written once by its owner
+     and the merged lines equal phase 4's lines of the mode; process 0
+     holds each hosts kernel on the arguments of its first rounds (each
+     form of U, X, V, N, O, Q, W) against its plain version on copies
+     (timed in the runs at 4 shards on a, a, b of db_text.ktx); each
+     process's main(), set-up and stream seconds, the rounds a batch of
+     each stage with their queries, bytes and seconds in copies,
+     transport and N, and the stream's rate against a one-host group of
+     2 processes of the mode at --mesh-index 2 on the same reads, run
+     first;
   5. print the kernels' JSON line (the text index's measurements, the
-     sharded kernels' on 4 shards, L's and M's on the big index, N, O, Q
-     and W from 4j's run at 4 shards on hosts a, a, b; the
+     sharded kernels' on 4 shards, L's and M's on the big index, N, O, Q,
+     W, U, X and V from 4j's runs at 4 shards on hosts a, a, b, and each
+     kernel's latency floor where its note states one; the
      launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h, 4i, 4j and 4g,
      each counted from 0, and of P1 and P2's benchmark; each error the
      largest of all the kernel's comparisons), then the result line.
@@ -224,6 +230,7 @@ import hashlib
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -266,6 +273,9 @@ REPLACES = {
     "mem_extend_hosts": "kaiju_tpu/parallel/sharded_fused.py:52",
     "walk_hosts": "kaiju_tpu/parallel/sharded_fused.py:78",
     "read_lca_hosts": "kaiju_tpu/ops/fused_classify.py:298",
+    "greedy_levels": "kaiju_tpu/ops/fused_greedy.py:298",
+    "greedy_variants_hosts": "kaiju_tpu/ops/fused_greedy.py:103",
+    "ranges_lca_hosts": "kaiju_tpu/ops/fused_classify.py:153",
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
@@ -292,12 +302,27 @@ PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
              (4, "greedy"))
 # phase 4j, processes on several hosts rehearsed on one machine: each run's
 # --mesh-index and hosts (process p labelled hosts[p]), four processes on
-# two hosts where there are four cards, and the kernels of the hosts path
-# (A's tables by rounds of N, O, C, W, Q)
+# two hosts where there are four cards; each mode's indexes, the kernels of
+# its hosts path (A's tables by rounds of N; Greedy: O, U, X, Q, V and W's
+# resolved form; MEM: O, C, W, Q), the stages of its rounds and the forms
+# process 0 must check
 HOST_RUNS = ((2, "ab"), (4, "aab"))
 HOST_RUNS_4 = ((4, "aabb"),)
-HOST_PATH = ("fm_serve", "mem_extend_hosts", "mem_stats", "read_lca_hosts",
-             "walk_hosts")
+HOST_READS = 2 * BATCH  # reads of each 4j run, its one-host reference's too
+# the 4j run whose process 0 times its hosts kernels for the kernels line
+# (the other runs compare them with their plain versions untimed)
+HOST_TIMED = ("text", 4, "aab")
+HOST_INDEXES = {"greedy": ("text", "fmi"), "mem": ("text",)}
+HOST_PATHS = {
+    "greedy": ("fm_serve", "mem_extend_hosts", "greedy_levels",
+               "greedy_variants_hosts", "walk_hosts", "ranges_lca_hosts",
+               "read_lca_hosts"),
+    "mem": ("fm_serve", "mem_extend_hosts", "mem_stats", "read_lca_hosts",
+            "walk_hosts"),
+}
+HOST_STAGES = {"greedy": ("seed", "extend", "variants", "walk"),
+               "mem": ("seed", "extend", "walk")}
+HOST_FORMS = {"greedy": 13, "mem": 7}
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), A's letters form where the seed tables are built, and the
 # CLI flags that select the path
@@ -680,7 +705,14 @@ def floor_note(chain: int, lat_ns: float, what: str = "row reads") -> str:
     """The latency floor of a chain of `chain` dependent loads, each at
     least one L2 hit (lat_ns)."""
     return (f"longest chain {chain} dependent {what}: latency floor "
-            f"{chain * lat_ns / 1e6:.4f} ms at {lat_ns:.1f} ns")
+            f"{chain * lat_ns / 1e6:.6f} ms at {lat_ns:.1f} ns")
+
+
+def floor_ms(note: str):
+    """The largest latency floor (floor_note) that a kernel's note states,
+    else None: the kernels line's "floor_ms" beside "bound_ms"."""
+    found = re.findall(r"latency floor ([0-9.]+) ms", note)
+    return max(map(float, found)) if found else None
 
 
 def measure(got, want, fn, plain_fn, touched, other_bytes, note):
@@ -2064,13 +2096,13 @@ def kernels_of(mode: str, text: bool, sharded: bool) -> list:
     return [n + "_sharded" if sharded and n in SHARDED else n for n in names]
 
 
-def mesh_fastq(reads, ktx) -> str:
-    """The first MESH_READS reads as a FASTQ beside the index at ktx."""
+def mesh_fastq(reads, ktx, n: int = MESH_READS) -> str:
+    """The first n reads as a FASTQ beside the index at ktx."""
     from kaiju_tpu_torch.tools import readgen
 
-    fq = os.path.join(os.path.dirname(ktx), f"reads_{MESH_READS}.fastq")
+    fq = os.path.join(os.path.dirname(ktx), f"reads_{n}.fastq")
     if not os.path.exists(fq):
-        readgen.write_fastq([(n, q) for n, q, _ in reads[:MESH_READS]], fq)
+        readgen.write_fastq([(r, q) for r, q, _ in reads[:n]], fq)
     return fq
 
 
@@ -2353,7 +2385,7 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     pid = int(argv[argv.index("--dist-pid") + 1])
     first = {}
     if pid == 0 and host is not None:
-        first = spy_hosts_calls()
+        first = spy_hosts_calls("mem" if "mem" in argv else "greedy")
     elif mesh and pid == 0:
         first = spy_first_calls("mem" if "mem" in argv else "greedy")
     info = {}
@@ -2382,7 +2414,8 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         info["layout"] = runner.pipe.dev.layout()
     if host is not None:
         info["rounds"] = exchange.COUNTS
-        info["checks"] = check_hosts_calls(first)
+        info["checks"] = check_hosts_calls(
+            first, timed=os.environ.get("CHIP_SMOKE_TIMED") == "1")
     else:
         info["checks"] = check_first_calls(first, runner.pipe.device)
     with open(counts_path, "w") as fh:
@@ -3009,44 +3042,63 @@ def run_phase_4i(index, reads, ktx, nodes, tsvs, warm, smi):
 
 
 def _snapshot(x):
-    """A copy of a call's argument: tensors cloned, the rest (the index's
-    Shards, scalars) as they are."""
+    """A copy of a call's argument: tensors cloned, tuples (named or not)
+    copied element by element, the rest (the index's Shards, scalars) as
+    they are."""
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, tuple):
-        return tuple(_snapshot(v) for v in x)
+        items = [_snapshot(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
 
 
-def spy_hosts_calls() -> dict:
-    """Wrap the hosts kernels' wrappers where the hosts path looks them up
-    (N in parallel.exchange; O, Q and W's two forms in ops.classify), so
-    that each keeps a copy of the arguments of its first call with work,
-    by form: {form: (wrapper, plain version, args, kwargs)}, filled as the
-    run goes; unspy() puts the wrappers back."""
-    from kaiju_tpu_torch.ops import classify, device_index, search
+def spy_hosts_calls(mode: str) -> dict:
+    """Wrap the hosts kernels' wrappers where the hosts path of `mode`
+    looks them up (N in parallel.exchange; O, Q and W's two forms in
+    ops.classify for MEM; O, U's forms, X, Q, V and W's resolved form in
+    ops.greedy for Greedy), so that each keeps a copy of the arguments of
+    its first call with work, by form: {form: (wrapper, plain version,
+    args, kwargs)}, filled as the run goes; unspy() puts the wrappers
+    back."""
+    from kaiju_tpu_torch.ops import classify, device_index, greedy, search
     from kaiju_tpu_torch.parallel import exchange
 
     def form(name):
         def key(a, k):
             if name == "fm_serve":  # the seed tables' ROW, or a round's
                 return f"fm_serve w{a[5]}", a[4].shape[0]
-            if name in ("mem_extend_hosts", "walk_hosts"):
+            if name in ("mem_extend_hosts", "walk_hosts",
+                        "greedy_variants_hosts"):
                 start = k.get("parked") is None
-                work = (a[5].shape[0] if name == "mem_extend_hosts"
-                        else k["rows"].shape[0]) if start else \
-                    k["parked"].shape[0]
+                work = ({"mem_extend_hosts": lambda: a[5].shape[0],
+                         "walk_hosts": lambda: k["rows"].shape[0],
+                         "greedy_variants_hosts": lambda: a[3].shape[0]}[
+                             name]() if start else k["parked"].shape[0])
                 return f"{name} {'start' if start else 'resume'}", work
+            if name == "greedy_levels":  # form, and the fan-out's pass
+                sub = ("" if a[0] != 1 else
+                       " counts" if k.get("voff") is None else " list")
+                work = (int(k["voff"][-1]) if sub == " list"
+                        else a[4].shape[0])
+                return f"greedy_levels {a[0]}{sub}", work
             return name, a[0].shape[0]
         return key
 
-    specs = ((exchange, "fm_serve", device_index.fm_serve_plain),
-             (classify, "mem_extend_hosts", search.mem_extend_hosts_plain),
-             (classify, "walk_hosts", device_index.walk_hosts_plain),
-             (classify, "read_lca_list", classify.read_lca_list_plain),
-             (classify, "read_lca_resolved", classify.read_lca_resolved_plain))
+    where = classify if mode == "mem" else greedy
+    specs = [(exchange, "fm_serve", device_index.fm_serve_plain),
+             (where, "mem_extend_hosts", search.mem_extend_hosts_plain),
+             (where, "walk_hosts", device_index.walk_hosts_plain)]
+    if mode == "mem":
+        specs += [(classify, "read_lca_list", classify.read_lca_list_plain)]
+    else:
+        specs += [(greedy, "greedy_levels", greedy.greedy_levels_plain),
+                  (greedy, "greedy_variants_hosts",
+                   greedy.greedy_variants_hosts_plain),
+                  (greedy, "ranges_lca_list", classify.ranges_lca_list_plain)]
+    specs.append((where, "lca_resolved", classify.lca_resolved_plain))
     first = {}
     for mod, name, plain in specs:
         def wrap(*args, _fn=getattr(mod, name), _plain=plain,
@@ -3069,13 +3121,94 @@ def _by_lane(park, q):
     return park[o], q[o]
 
 
-def check_hosts_calls(first: dict) -> dict:
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _levels_bytes(a, k, got, before) -> int:
+    """U's bytes, each input read once and each output written once, as
+    each form touches them (before: the level state before the launch, a[7]
+    after it).  Every form reads the reads' fragment rows, their offsets
+    and the scoring tables.  Form 0 reads the lanes' i at the positions its
+    node scan visits (j >= Lmap - 1), every code, and s0 and s1 at its
+    nodes (at least one a kept tie or a source); it writes the prefix
+    sums, the state, the level-1 sources and the ties.  Form 1 reads the
+    state and each live source (not over vcap), with one code and one
+    prefix sum a source that has substitutions, and writes the counts, or
+    reads voff and writes the list.  Form 2 reads the state, voff, each
+    variant's last four ints, X's results, and two prefix sums a variant
+    whose interval holds; it writes the state, the ties and the next
+    level's sources, or at the last level the rows."""
+    import torch
+
+    form, level, flat, frag_off, rf_rows, tables, params, st = a[:8]
+    Lmap, mfl, _score, mismatches, T, vcap = params
+    B = rf_rows.shape[0]
+    over = before.state[:, 3] != 0
+    b = _nbytes(rf_rows, frag_off, *tables)
+
+    def ties_written(last):
+        """8 bytes a tie row this launch writes: the ties it adds (all of
+        the read's kept ties after a new best), and at the last level the
+        zeros after the kept ones, with best and flags."""
+        kept = st.state[:, 1].clamp(max=T)
+        new = torch.where(st.state[:, 0] == before.state[:, 0],
+                          kept - before.state[:, 1].clamp(max=T), kept)
+        new = torch.where(over, 0, new.clamp(min=0))
+        if not last:
+            return 8 * int(new.sum())
+        kept = torch.where(over, 0, kept)
+        return 8 * int((new + T - kept).sum()) + 8 * B
+
+    if form == 0:
+        flen = (frag_off[1:] - frag_off[:-1]).long()
+        scanned = int((flen - (Lmap - 1)).clamp(min=0).sum())
+        n_src = st.state[:, 2].clamp(max=vcap)  # written, over vcap too
+        nodes = int(torch.maximum(n_src, st.state[:, 1].clamp(max=T)).sum())
+        return (b + 4 * scanned + flat.numel() + 8 * nodes
+                + _nbytes(st.pincl, st.state) + 32 * int(n_src.sum())
+                + ties_written(mismatches == 0))
+    if form == 1:
+        n = torch.where(over, 0, st.state[:, 2])
+        live = torch.arange(vcap, device=n.device)[None, :] < n[:, None]
+        e = st.src[:, (level - 1) & 1]
+        subs = live & (e[..., 1] > 0) & (e[..., 2] >= mfl)
+        b += _nbytes(st.state) + 32 * int(live.sum()) + 5 * int(subs.sum())
+        if k.get("voff") is None:
+            return b + 4 * B
+        return b + _nbytes(k["voff"]) + (_nbytes(got) if got is not None
+                                         else 0)
+    var, vout = k["var"], k["vout"]
+    need, veff = var[:, 4], var[:, 7] >> 8
+    has_si = (vout[:, 0] < vout[:, 1]) & (veff - vout[:, 2] >= need)
+    last = level == mismatches
+    b += (2 * _nbytes(st.state) + _nbytes(k["voff"], vout) + 16 * var.shape[0]
+          + 8 * int(has_si.sum()) + ties_written(last))
+    if not last:  # the next level's sources, vcap at most a read
+        b += 32 * int(torch.where(over, 0, st.state[:, 2].clamp(max=vcap))
+                      .sum())
+    return b
+
+
+# the longest chain of dependent loads of each of U's forms: the fragment
+# rows, their offsets, then form 0 the lanes and codes (s0 and s1 may be
+# loaded beside them); form 1 a source's record, its code and prefix sum,
+# then the substitution tables; form 2 the variant and X's result, then
+# its prefix sums
+LEVELS_CHAIN = {"greedy_levels 0": 3, "greedy_levels 1 counts": 4,
+                "greedy_levels 1 list": 4, "greedy_levels 2": 3}
+
+
+def check_hosts_calls(first: dict, timed: bool = True) -> dict:
     """Each hosts kernel of `first` (spy_hosts_calls) launched again on a
     copy of its round's own arguments, against its plain version on
-    another copy (the parked lanes compared in lane order); both timed.
-    Returns {form: {"err", "ms", "plain_ms", "bytes" (the distinct record
-    rows the plain version read, with the other inputs and the outputs),
-    "work" (queries, lanes, walks or reads)}}."""
+    another copy (the parked lanes compared in lane order, U's state in
+    place); both timed where `timed` (else "ms" and "plain_ms" are nan).
+    Returns {form: {"err", "ms", "plain_ms", "bytes"
+    (the distinct record rows the plain version read, with the other
+    inputs and the outputs), "work" (queries, lanes, variants, walks or
+    reads), "chain" (the longest chain of dependent loads, where counted:
+    N, U, V, W and X; else None)}}."""
     import torch
 
     out = {}
@@ -3088,41 +3221,74 @@ def check_hosts_calls(first: dict) -> dict:
         got = fn(*a1, **k1)
         a2, k2 = fresh()
         touched = []
-        if key.startswith(("fm_serve", "mem_extend_hosts", "walk_hosts")):
+        if key.startswith(("fm_serve", "mem_extend_hosts", "walk_hosts",
+                           "greedy_variants_hosts")):
             k2["touched"] = touched
-        want = plain(*a2, **k2)
+        with dependent_reads() as dep:
+            want = plain(*a2, **k2)
         k2.pop("touched", None)
         name = key.split()[0]
+        chain = None
         if name == "fm_serve":
             err = max_abs_err(got[0], want[0]) + int(got[1])
             q = a1[4]
             work = q.shape[0]
             other = work * (8 + 4 * a1[5])
+            chain = 1  # a query, then its record row
         elif name == "mem_extend_hosts":
             err = max(max_abs_err(got[0], want[0]),
                       max_abs_err(_by_lane(*got[1:]), _by_lane(*want[1:])))
             work = (k1["parked"].shape[0] if "parked" in k1
                     else a1[5].shape[0])
             other = 13 * got[0].shape[1] + 32 * (got[1].shape[0] + work)
+        elif name == "greedy_variants_hosts":
+            err = max(max_abs_err(a1[4], a2[4]),
+                      max_abs_err(_by_lane(*got), _by_lane(*want)))
+            work = (k1["parked"].shape[0] if "parked" in k1
+                    else a1[3].shape[0])
+            # the variants and their results; the lanes parked (and, in
+            # the resume form, taken) with their queries and answers
+            other = 44 * a1[3].shape[0] + 32 * got[0].shape[0] + (
+                24 * work if "parked" in k1 else 0)
+            # the variant (or the parked lane), then one row a step: each
+            # step's two ranks read in parallel
+            chain = 1 + sum(t.numel() > 0 for t in touched) // 2
+        elif name == "greedy_levels":
+            err = max(max_abs_err(g, w) for g, w in zip(a1[7], a2[7]))
+            if got is not None:
+                err = max(err, max_abs_err(got, want))
+            work = (int(k1["voff"][-1]) if key.endswith("list")
+                    else a1[4].shape[0])
+            other = _levels_bytes(a1, k1, got, args[7])
+            chain = LEVELS_CHAIN[key]
         elif name == "walk_hosts":
             err = max(max_abs_err(a1[5], a2[5]),
                       max_abs_err(_by_lane(*got), _by_lane(*want)))
             work = (k1["parked"] if "parked" in k1 else k1["rows"]).shape[0]
             other = 8 * work + 16 * got[0].shape[0]
-        elif name == "read_lca_list":
+        elif name in ("read_lca_list", "ranges_lca_list"):
             err = max_abs_err(got, want)
-            work = a1[4].shape[0]
-            other = sum(t.numel() * 4 for t in (*a1[:5], *got))
-        else:  # read_lca_resolved
+            work = a1[0].shape[0] if name == "ranges_lca_list" else \
+                a1[4].shape[0]
+            ins = a1[:2] if name == "ranges_lca_list" else a1[:5]
+            other = _nbytes(*ins, *got)
+            # V: the ranges; W: the slots, their longest, then their ties
+            chain = 1 if name == "ranges_lca_list" else 3
+        else:  # lca_resolved
             err = max_abs_err(got, want)
             work = a1[0].shape[0]
-            other = sum(t.numel() * 4 for t in (a1[0], a1[1], got))
-        a3, k3 = fresh()
-        a4, k4 = fresh()
-        out[key] = {
-            "err": err, "ms": cuda_ms(lambda: fn(*a3, **k3)),
-            "plain_ms": cuda_ms(lambda: plain(*a4, **k4), reps=3, warm=1),
-            "bytes": row_bytes(touched)[0] + other, "work": work}
+            other = _nbytes(a1[0], a1[1], *got)
+            # info and seq, the taxon, its depth, then the lift and climb
+            chain = 3 + dep["parents"]
+        ms = plain_ms = float("nan")
+        if timed:
+            a3, k3 = fresh()
+            a4, k4 = fresh()
+            ms = cuda_ms(lambda: fn(*a3, **k3))
+            plain_ms = cuda_ms(lambda: plain(*a4, **k4), reps=3, warm=1)
+        out[key] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bytes": row_bytes(touched)[0] + other, "work": work,
+                    "chain": chain}
         torch.cuda.synchronize()
     return out
 
@@ -3147,11 +3313,13 @@ def hosts_routes(p: int, hosts: str, n_shards: int) -> tuple[dict, dict]:
     return opened, remote
 
 
-def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str):
+def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
+                  timed: bool):
     """NPROCS = len(hosts) processes of this script as --kaiju-worker,
     process p labelled host hosts[p] and on cuda:{p % cards}, each with an
-    empty seed-table cache of its own; returns (outputs, counts files,
-    logs, exit codes, wall seconds)."""
+    empty seed-table cache of its own, process 0 timing its checks where
+    `timed`; returns (outputs, counts files, logs, exit codes, wall
+    seconds)."""
     coord = f"127.0.0.1:{free_port()}"
     outs, counts, logs, procs = [], [], [], []
     t0 = time.perf_counter()
@@ -3162,7 +3330,8 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str):
             logs.append(open(os.path.join(work, f"log_hosts_{tag}_p{p}.txt"),
                              "w"))
             env = dict(os.environ, KAIJU_TPU_CACHE=fresh_cache(
-                ktx, os.path.join(work, f"cache_hosts_{tag}_p{p}")))
+                ktx, os.path.join(work, f"cache_hosts_{tag}_p{p}")),
+                CHIP_SMOKE_TIMED="1" if timed else "0")
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
                  counts[p], "--host", host, *argv, "-o", outs[p],
@@ -3180,29 +3349,33 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str):
     return outs, counts, logs, rcs, time.perf_counter() - t0
 
 
-def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
-    """tools.kaiju.main -a mem --mesh-index n_shards as len(hosts)
+def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
+              tag):
+    """tools.kaiju.main in `mode` with --mesh-index n_shards as len(hosts)
     processes, process p labelled host hosts[p] (peer_shards.host_name)
-    on cuda:{p % cards}, on the first MESH_READS reads: each process must
-    launch every kernel of the hosts path (N, O, C, W, Q) and no kernel
-    of the one-host paths that reads the index, hold, map and have served
-    in rounds the shards of the routing rule (hosts_routes), and the
-    lines merged by read must equal phase 4's (base_tsv).  Process 0
-    holds N, O, Q and W on their first rounds' arguments against their
-    plain versions (check_hosts_calls).  Returns (launch counts of all the
-    processes, each process's report, the wall seconds)."""
+    on cuda:{p % cards}, on the first HOST_READS reads: each process must
+    launch every kernel of the mode's hosts path (HOST_PATHS) and no
+    kernel of the one-host paths that reads the index, hold, map and have
+    served in rounds the shards of the routing rule (hosts_routes), with
+    rounds in every stage of the path, and the lines merged by read must
+    equal phase 4's of the mode (base_tsv).  Process 0 holds each hosts
+    kernel on its first rounds' arguments against its plain version
+    (check_hosts_calls).  Returns (launch counts of all the processes,
+    each process's report, the stream's rate)."""
     import torch
 
     from kaiju_tpu_torch.parallel.multihost import local_rows
 
     work = os.path.dirname(ktx)
-    name = f"mem --mesh-index {n_shards} on hosts {','.join(hosts)} ({tag})"
-    argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx),
-            *PATHS["mem"][1], "--mesh-index", str(n_shards), "-b", str(BATCH)]
+    name = (f"{mode} --mesh-index {n_shards} on hosts {','.join(hosts)} "
+            f"({tag})")
+    argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx, HOST_READS),
+            *PATHS[mode][1], "--mesh-index", str(n_shards), "-b", str(BATCH)]
     gc.collect()
     torch.cuda.empty_cache()
     outs, counts, logs, rcs, wall = start_workers(
-        argv, hosts, f"{tag}_{n_shards}_{hosts}", work, ktx)
+        argv, hosts, f"{mode}_{tag}_{n_shards}_{hosts}", work, ktx,
+        (tag, n_shards, hosts) == HOST_TIMED)
     if any(rcs):
         for p, fh in enumerate(logs):
             with open(fh.name) as f:
@@ -3210,8 +3383,9 @@ def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
         raise AssertionError(f"{name}: exit codes {rcs}")
     cards = torch.cuda.device_count()
     across = len(set(hosts)) > 1
-    path = (HOST_PATH if across
-            else kernels_of("mem", index.text is not None, True))
+    path = (HOST_PATHS[mode] if across
+            else kernels_of(mode, index.text is not None, True))
+    batches = -(-HOST_READS // BATCH)
     launches = {k: 0 for k in REPLACES}
     reports = []
     for p, cpath in enumerate(counts):
@@ -3235,7 +3409,7 @@ def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
             + json.dumps({k: v for k, v in got["launches"].items() if v}))
         for stage, c in sorted(got["rounds"].items()):
             r = max(c["rounds"], 1)
-            per = (f"{c['rounds'] / -(-MESH_READS // BATCH):.1f} a batch"
+            per = (f"{c['rounds'] / batches:.1f} a batch"
                    if stage != "seed" else "at set-up")
             log(f"4j rounds {name} process {p} {stage}: {c['rounds']} rounds "
                 f"({per}), {c['queries'] / r:,.1f} queries and "
@@ -3254,26 +3428,27 @@ def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
                                  f"gives {want}, "
                                  f"{hosts_routes(p, hosts, n_shards)}")
         if across and not all(got["rounds"].get(s, {}).get("rounds")
-                              for s in ("seed", "extend", "walk")):
+                              for s in HOST_STAGES[mode]):
             raise AssertionError(f"{name} process {p}: a stage ran no round")
         for k, c in got["checks"].items():
             log(f"4j kernel {k} [{name}, process 0]: max_abs_err {c['err']} "
                 f"against its plain version on the round's own arguments "
                 f"({c['work']:,} items); {c['ms']:.4f} ms (plain "
                 f"{c['plain_ms']:.3f} ms), {c['bytes']:,} bytes")
-        if across and p == 0 and (len(got["checks"]) < 7 or any(
-                c["err"] for c in got["checks"].values())):
+        if across and p == 0 and (len(got["checks"]) < HOST_FORMS[mode] or
+                                  any(c["err"]
+                                      for c in got["checks"].values())):
             raise AssertionError(f"{name}: hosts kernels unchecked or "
                                  "differing from their plain versions: "
                                  f"{sorted(got['checks'])}")
         for k in launches:
             launches[k] += got["launches"][k]
 
-    names = [n for n, _q, _r in reads[:MESH_READS]]
+    names = [n for n, _q, _r in reads[:HOST_READS]]
     owner = {}
-    for b0 in range(0, MESH_READS, BATCH):
+    for b0 in range(0, HOST_READS, BATCH):
         for p in range(len(hosts)):
-            lo, hi = local_rows(min(BATCH, MESH_READS - b0), len(hosts), p)
+            lo, hi = local_rows(min(BATCH, HOST_READS - b0), len(hosts), p)
             owner.update((names[r], p) for r in range(b0 + lo, b0 + hi))
     lines = {}
     for p, out in enumerate(outs):
@@ -3285,48 +3460,59 @@ def run_hosts(index, reads, ktx, nodes, n_shards, hosts, base_tsv, tag):
                                          f"process {p}'s output")
                 lines[n] = ln
     with open(base_tsv) as fh:
-        want = [next(fh) for _ in range(MESH_READS)]
+        want = [next(fh) for _ in range(HOST_READS)]
     same = sum(lines.get(n) == w for n, w in zip(names, want))
     stream = max(r["seconds"] - r["setup"] for r in reports)
     log(f"4j e2e {name}: {len(lines):,} reads written once each, {same:,} "
-        f"equal to phase 4's MEM lines; wall {wall:.2f} s; the stream after "
-        f"set-up {stream:.3f} s = {MESH_READS / stream:,.1f} reads/s (the "
-        f"slowest process); set-up {max(r['setup'] for r in reports):.2f} s")
-    if len(lines) != MESH_READS or same != MESH_READS:
+        f"equal to phase 4's {mode} lines; wall {wall:.2f} s; the stream "
+        f"after set-up {stream:.3f} s = {HOST_READS / stream:,.1f} reads/s "
+        f"(the slowest process); set-up "
+        f"{max(r['setup'] for r in reports):.2f} s")
+    if len(lines) != HOST_READS or same != HOST_READS:
         raise AssertionError(f"{name}: the merged lines differ from phase 4's")
-    return launches, reports, MESH_READS / stream
+    return launches, reports, HOST_READS / stream
 
 
-def refuse_greedy_hosts(reads, ktx, nodes) -> None:
-    """Greedy (the default flags) with --mesh-index 2 over hosts a, b: both
-    processes must exit non-zero with the message naming -a mem and the
-    ROADMAP item."""
-    work = os.path.dirname(ktx)
-    argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx),
-            "--mesh-index", "2", "-b", str(BATCH)]
-    _o, _c, logs, rcs, wall = start_workers(argv, "ab", "greedy", work, ktx)
-    said = []
-    for fh in logs:
-        with open(fh.name) as f:
-            said.append(f.read())
-    ok = all(rcs) and all("runs -a mem only" in s and "ROADMAP item 10e" in s
-                          for s in said)
-    log(f"4j Greedy --mesh-index 2 on hosts a, b: exit codes {rcs} in "
-        f"{wall:.2f} s; " + (said[0].strip().splitlines()[-1] if said[0]
-                             else "no message"))
-    if not ok:
-        raise AssertionError("Greedy across hosts did not exit with the "
-                             "ROADMAP message")
+# the kernels line's row of each hosts kernel: its forms on process 0's
+# first rounds (the text index, S = 4, hosts a, a, b; W's resolved form
+# from the MEM run, which comes after Greedy's) and its note
+HOST_ROWS = {
+    "fm_serve": (("fm_serve w1",), "a round's queries, one record row each"),
+    "mem_extend_hosts": (("mem_extend_hosts start",),
+                         "B's pass 1 and the steps on this host's rows"),
+    "walk_hosts": (("walk_hosts start",),
+                   "the walks' steps on this host's rows"),
+    "read_lca_hosts": (("read_lca_list", "lca_resolved"),
+                       "D without its walks, and the resolved form that V's "
+                       "reads take too: statistics rows, positions, ids "
+                       "and rows out"),
+    "greedy_levels": (("greedy_levels 0", "greedy_levels 1 counts",
+                       "greedy_levels 1 list", "greedy_levels 2"),
+                      "E's level 0, one level's fan-out (counts, list) and "
+                      "settle: lanes, codes, state, sources, variants, ties; "
+                      "no index row"),
+    "greedy_variants_hosts": (("greedy_variants_hosts start",),
+                              "one level's probes and resumed extensions "
+                              "on this host's rows"),
+    "ranges_lca_hosts": (("ranges_lca_list",),
+                         "F's positions without the walks (W's resolved "
+                         "form finishes the reads): ranges in, positions "
+                         "out"),
+}
 
 
-def run_phase_4j(indexes, reads, ktx, nodes, base_tsv, lat_ns: float,
+def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
                  smi: str) -> tuple[dict, dict]:
-    """Phase 4j: MEM with --mesh-index over processes labelled as several
-    hosts (HOST_RUNS, and HOST_RUNS_4 where there are four cards) on both
-    indexes, a one-host group of the same size as the reference rate, and
-    Greedy's refusal.  Returns (launch counts over all the runs, the
-    kernels line's rows of N, O, Q and W: (err, ms, plain_ms, bound_ms,
-    note), from the text index's run at S = 4, errors over every run)."""
+    """Phase 4j: Greedy and MEM with --mesh-index over processes labelled
+    as several hosts (HOST_RUNS, and HOST_RUNS_4 where there are four
+    cards) on each mode's indexes (HOST_INDEXES), with a one-host group of
+    the same mode, first, as the reference rate (2 processes,
+    --mesh-index 2, db_text.ktx, the same HOST_READS reads); base_tsvs:
+    phase 4's TSV of each mode on the text index.
+    Returns (launch counts over all the runs, the
+    kernels line's rows of the hosts kernels: (err, ms, plain_ms,
+    bound_ms, note), from the text index's runs at S = 4 on hosts a, a, b,
+    errors over every run)."""
     import torch
 
     cards = torch.cuda.device_count()
@@ -3336,65 +3522,60 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsv, lat_ns: float,
         "transport gloo over loopback: no run spans two real hosts "
         f"({smi})")
     launches = {k: 0 for k in REPLACES}
-    rows: dict = {}
+    checks: dict = {}
     errs: dict = {}
-    ref = {}
-    for n_shards, hosts in ((2, "aa"),) + runs:
-        for tag in ("text", "fmi"):
-            if len(set(hosts)) == 1 and tag == "fmi":
-                continue
-            counts, reports, rate = run_hosts(
-                indexes[tag], reads, ktx[tag], nodes, n_shards, hosts,
-                base_tsv, tag)
-            for k, c in counts.items():
-                launches[k] += c
-            if len(set(hosts)) == 1:
-                ref[n_shards] = rate
-                continue
-            log(f"4j rate {n_shards} shards on hosts {hosts} ({tag}): "
-                f"{rate:,.1f} reads/s against {ref[2]:,.1f} of the one-host "
-                f"group (2 processes, --mesh-index 2, db_text.ktx), the "
-                "stream after set-up")
-            for key, c in reports[0]["checks"].items():
-                name = {"read_lca_list": "read_lca_hosts",
-                        "read_lca_resolved": "read_lca_hosts"}.get(
-                            key, key.split()[0])
-                errs[name] = max(errs.get(name, 0), c["err"])
-            if (tag, n_shards, hosts) == ("text", 4, "aab"):
-                rows = hosts_rows(reports[0]["checks"], lat_ns)
-    refuse_greedy_hosts(reads, ktx["fmi"], nodes)
+    for mode in HOST_INDEXES:
+        ref = None
+        for n_shards, hosts in ((2, "aa"),) + runs:
+            for tag in HOST_INDEXES[mode]:
+                if len(set(hosts)) == 1 and tag == "fmi":
+                    continue
+                counts, reports, rate = run_hosts(
+                    indexes[tag], reads, ktx[tag], nodes, mode, n_shards,
+                    hosts, base_tsvs[mode], tag)
+                for k, c in counts.items():
+                    launches[k] += c
+                if len(set(hosts)) == 1:
+                    ref = rate
+                    continue
+                log(f"4j rate {mode} {n_shards} shards on hosts {hosts} "
+                    f"({tag}): {rate:,.1f} reads/s against {ref:,.1f} of the "
+                    f"one-host group (2 processes, --mesh-index 2, "
+                    f"db_text.ktx), the stream after set-up, both on the "
+                    f"first {HOST_READS:,} reads")
+                for key, c in reports[0]["checks"].items():
+                    name = next(k for k, (forms, _n) in HOST_ROWS.items()
+                                if key in forms or key.split()[0] == k)
+                    errs[name] = max(errs.get(name, 0), c["err"])
+                if (tag, n_shards, hosts) == HOST_TIMED:
+                    checks.update(reports[0]["checks"])
+    rows = hosts_rows(checks, lat_ns)
     for name, e in errs.items():
         rows[name] = (max(e, rows[name][0]), *rows[name][1:])
     return launches, rows
 
 
 def hosts_rows(checks: dict, lat_ns: float) -> dict:
-    """The kernels line's rows of N, O, Q and W from process 0's checks:
-    N on a round of the extension (RANK), O and Q on their start forms, W
-    as its two forms together; bound: the bytes at 3.35 TB/s, the note
-    with the latency floor (N: one row a query; Q: its walks' steps; O as
-    B; W reads no index row)."""
-    def row(forms, note):
+    """The kernels line's rows of the hosts kernels (HOST_ROWS) from
+    process 0's checks: N on a round of the extension (RANK, or the seed
+    tables' ROW where no RANK round ran), O, Q and X on their start forms,
+    U, V and W as their forms together; bound: the bytes at 3.35 TB/s,
+    the note with the latency floor of the forms' chains of dependent
+    loads, one after another, where counted (N, U, V, W, X)."""
+    rows = {}
+    for name, (forms, note) in HOST_ROWS.items():
+        if name == "fm_serve" and "fm_serve w1" not in checks:
+            forms = ("fm_serve w20",)
         cs = [checks[f] for f in forms]
         b = sum(c["bytes"] for c in cs)
         work = ", ".join(f"{f} {c['work']:,}" for f, c in zip(forms, cs))
-        return (max(c["err"] for c in cs), sum(c["ms"] for c in cs),
-                sum(c["plain_ms"] for c in cs), b / HBM_BYTES_PER_S * 1e3,
-                f"{note}; {work}")
-
-    n = "fm_serve w1" if "fm_serve w1" in checks else "fm_serve w20"
-    return {
-        "fm_serve": row([n], "a round's queries, one record row each: "
-                        + floor_note(1, lat_ns)),
-        "mem_extend_hosts": row(["mem_extend_hosts start"],
-                                "B's pass 1 and the steps on this host's "
-                                "rows"),
-        "walk_hosts": row(["walk_hosts start"],
-                          "the walks' steps on this host's rows"),
-        "read_lca_hosts": row(["read_lca_list", "read_lca_resolved"],
-                              "D without its walks: statistics rows, "
-                              "positions, ids and rows out"),
-    }
+        if all(c["chain"] is not None for c in cs):
+            note += ": " + floor_note(sum(c["chain"] for c in cs), lat_ns,
+                                      "loads")
+        rows[name] = (max(c["err"] for c in cs), sum(c["ms"] for c in cs),
+                      sum(c["plain_ms"] for c in cs),
+                      b / HBM_BYTES_PER_S * 1e3, f"{note}; {work}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3935,15 +4116,18 @@ def run(args) -> int:
         return 0
 
     if args.only_hosts:  # phase 4j and the lines it is held against
-        base = run_cli(indexes["text"], reads, ktx["text"], nodes, fq, "mem",
-                       "text")[1]
+        base = {mode: run_cli(indexes["text"], reads, ktx["text"], nodes, fq,
+                              mode, "text")[1] for mode in PATHS}
         counts, rows = run_phase_4j(indexes, reads, ktx, nodes, base, lat_ns,
                                     smi)
         log_checks(rows, "4j, text index, 4 shards on hosts a, a, b")
+        if any(v[0] for v in rows.values()):
+            raise AssertionError("a hosts kernel differs from its plain "
+                                 "version")
         log("4j launches: " + json.dumps(
             {k: c for k, c in counts.items() if c}))
-        log("--only-hosts: phases 1, 2, 4 on db_text.ktx (MEM) and 4j "
-            "passed; no kernels line")
+        log("--only-hosts: phases 1, 2, 4 on db_text.ktx and 4j passed; no "
+            "kernels line")
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4078,8 +4262,9 @@ def run(args) -> int:
                 launches[k] += c
 
     # ---- 4f. many processes, each counted from 0 --------------------------
-    for k, c in run_phase_4f(indexes["text"], reads, ktx["text"], nodes,
-                             tsvs).items():
+    proc_launches = run_phase_4f(indexes["text"], reads, ktx["text"], nodes,
+                                 tsvs)
+    for k, c in proc_launches.items():
         launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
@@ -4099,15 +4284,16 @@ def run(args) -> int:
             err, *rest = checks["text"][k]
             checks["text"][k] = (max(err, e), *rest)
 
-    # ---- 4j. processes on several hosts, each run counted from 0; N, O, Q
-    # and W join the line ------------------------------------------------
-    host_launches, host_rows = run_phase_4j(indexes, reads, ktx, nodes,
-                                            tsvs["mem"]["text"], lat_ns, smi)
+    # ---- 4j. processes on several hosts, each run counted from 0; N, O,
+    # Q, W, U, X and V join the line -------------------------------------
+    host_launches, host_rows = run_phase_4j(
+        indexes, reads, ktx, nodes, {m: t["text"] for m, t in tsvs.items()},
+        lat_ns, smi)
     for k, c in host_launches.items():
         launches[k] += c
     log_checks(host_rows, "4j, text index, 4 shards on hosts a, a, b")
     if any(v[0] for v in host_rows.values()):
-        raise AssertionError("N, O, Q or W differs from its plain version")
+        raise AssertionError("a hosts kernel differs from its plain version")
     checks["text"].update(host_rows)
 
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
@@ -4135,8 +4321,9 @@ def run(args) -> int:
          "source": f"kaiju_tpu_torch/csrc/{kernels.source(name)}.cu",
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
-        for name, (err, ms, plain_ms, bound_ms, _n, lib_ms) in rows.items()
+         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+         "floor_ms": floor_ms(note)}
+        for name, (err, ms, plain_ms, bound_ms, note, lib_ms) in rows.items()
         if name in REPLACES
     ]}))
     log(json.dumps({"ok": True, "device": {
@@ -4164,8 +4351,8 @@ def main(argv=None) -> int:
                     "kernels line")
     ap.add_argument("--only-hosts", action="store_true",
                     help="run phase 4j (processes on several hosts, "
-                    "labels on this machine) alone, with the phase 4 MEM "
-                    "lines it is held against; no kernels line")
+                    "labels on this machine, Greedy and MEM) alone, with "
+                    "the phase 4 lines it is held against; no kernels line")
     ap.add_argument("--only-warm", action="store_true",
                     help="run phase 4h (warm start) alone after phases 1 "
                     "and 2; no kernels line and no result line")

@@ -151,6 +151,21 @@ struct WalkTaxa {
     }
 };
 
+// The taxon of position r0 + lane from a resolved table (a read's row of
+// seq, the sequences that kernel Q's walks gave; kernels W and V), 0 past
+// the m positions.
+struct TableTaxa {
+    const int* seq;
+    const int* seq_tax;
+    int ntax;
+
+    __device__ __forceinline__ int operator()(int r0, int m, int lane) const {
+        if (lane >= m) return 0;
+        const int s = __ldg(seq + r0 + lane);
+        return __ldg(seq_tax + min(max(s, 0), ntax - 1));
+    }
+};
+
 // Steps 2-4, whole warp: the taxa of the n listed positions chunk by chunk
 // (taxa(r0, m, lane): the taxon of position r0 + lane of the m from r0,
 // every lane calling), the capped set and the LCA.  sh is

@@ -21,6 +21,20 @@
 // make_sharded_greedy_classify (:278-390), whose SA walks are
 // _make_walk's (:78-150).  A virtual row (kt::kVBase and up) takes its id
 // from sw_ids and never goes through the owner rule.
+//
+// Kernel V (kt_ranges_lca_hosts) is F split around its SA walks, for a
+// group of processes on several hosts, where a walk's rows may lie on
+// another host and kernel Q (walk_hosts.cu) walks them in rounds, as
+// kernel W splits D (read_lca.cu).  V runs step 1 (kt::list_positions):
+// the first R positions of the read's ranges, in range order, into pos
+// [B, R] (-1 past them) and info [B, 4] = (positions, total, non-empty
+// ranges, 0).  Steps 2-4 are W's resolved form (kt_read_lca_hosts form 1
+// with ranges), which writes F's four outputs from info and each
+// position's sequence, which Q resolved.  F stops walking once the capped
+// set is full; V lists all R positions, which changes work, never a
+// result.  No virtual row: the hybrid is off across hosts.  Bound: bytes,
+// the ranges in, pos and info out, and one dependent load; design: F's
+// warp a read, without the walks.
 #include "lca_common.cuh"
 
 namespace {
@@ -57,6 +71,31 @@ __global__ void ranges_lca_kernel(
     out_n_ids[b] = res.n_ids;
     out_need_more[b] = res.need_more;
     out_tie_order[b] = res.n_ranges > 1 && res.cut;
+}
+
+__global__ void ranges_lca_list_kernel(const int* __restrict__ g_s0,
+                                       const int* __restrict__ g_s1, int B,
+                                       int G, int R, int* __restrict__ pos,
+                                       int* __restrict__ info) {
+    extern __shared__ int smem[];
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarps + w;
+    if (b >= B) return;  // whole warps leave together
+    int* sh = smem + w * R;
+    int total, n_ranges;
+    kt::list_positions(ReadRanges{g_s0 + (size_t)b * G, g_s1 + (size_t)b * G},
+                       G, sh, R, &total, &n_ranges);
+    const int n = min(total, R);
+    int* o = pos + (size_t)b * R;
+    for (int r = lane; r < R; r += 32) o[r] = r < n ? sh[r] : -1;
+    if (lane == 0) {
+        int* f = info + (size_t)b * 4;
+        f[0] = n;
+        f[1] = total;
+        f[2] = n_ranges;
+        f[3] = 0;
+    }
 }
 
 template <class Ix>
@@ -101,4 +140,15 @@ KT_EXPORT int kt_ranges_lca_sharded(
     return launch(g_s0, g_s1, B, G, KT_SHARD_IX, C, seq_tax, ntax, parent,
                   depth, maxtax, R, cap, nseq, chpt_exp, sw_ids, nsw,
                   out_lca, out_n_ids, out_need_more, out_tie_order, stream);
+}
+
+// Kernel V: lists each read's positions (pos, info); W's resolved form
+// (kt_read_lca_hosts form 1, ranges) finishes the reads.
+KT_EXPORT int kt_ranges_lca_hosts(const int* g_s0, const int* g_s1, int B,
+                                  int G, int R, int* pos, int* info,
+                                  cudaStream_t stream) {
+    ranges_lca_list_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32,
+                             (size_t)kWarps * R * sizeof(int), stream>>>(
+        g_s0, g_s1, B, G, R, pos, info);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -33,11 +33,12 @@
 // order, into pos [B, R] (-1 past them) and info [B, 4] = (positions,
 // total, longest, tie_over).  Form 1 (resolved) runs D's steps 2-4
 // (kt::lca_of_positions) with each position's sequence from seq [B, R],
-// which Q resolved, and writes D's row.  D stops walking once the capped
-// set is full; W lists all R positions, which changes work, never a
-// result.  Bound: bytes, the statistics rows the reads touch, pos, seq
-// and the rows written, and the longest chain of parent loads (the LCA);
-// design: D's warp a read, without the walks.
+// which Q resolved, and writes (lca, n_ids, need_more, tie_order), from
+// which the host side makes D's row; V's reads take the same form.  D
+// stops walking once the capped set is full; W lists all R positions,
+// which changes work, never a result.  Bound: bytes, the statistics rows
+// the reads touch, pos, seq and the rows written, and the longest chain
+// of parent loads (the LCA); design: D's warp a read, without the walks.
 #include "lca_common.cuh"
 
 namespace {
@@ -115,20 +116,6 @@ __global__ void read_lca_kernel(
     o[3] = res.n_ids;
 }
 
-// The taxon of position r0 + lane from the resolved table (a read's row
-// of seq), 0 past the m positions.
-struct TableTaxa {
-    const int* seq;
-    const int* seq_tax;
-    int ntax;
-
-    __device__ __forceinline__ int operator()(int r0, int m, int lane) const {
-        if (lane >= m) return 0;
-        const int s = __ldg(seq + r0 + lane);
-        return __ldg(seq_tax + min(max(s, 0), ntax - 1));
-    }
-};
-
 __global__ void read_lca_list_kernel(
     const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
     const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
@@ -159,27 +146,32 @@ __global__ void read_lca_list_kernel(
     }
 }
 
-__global__ void read_lca_resolved_kernel(
+// The resolved form that W and V share (ranges_lca.cu lists V's
+// positions): steps 2-4 (kt::lca_of_positions) from info [B, 4] =
+// (positions, total, then the list form's own two) and each position's
+// sequence seq [B, R], which Q resolved, into out [4, B] = (lca, n_ids,
+// need_more, tie_order).  With ranges (V), info[2] counts the read's
+// non-empty ranges and tie_order is F's (more than one and the cut); W's
+// info[2] and info[3] (longest, tie_over) go into D's row on the host side.
+__global__ void lca_resolved_kernel(
     const int* __restrict__ info, const int* __restrict__ seq, int B,
     const int* __restrict__ seq_tax, int ntax,
     const int* __restrict__ parent, const int* __restrict__ depth,
-    int maxtax, int R, int cap, int* __restrict__ out) {
+    int maxtax, int R, int cap, int ranges, int* __restrict__ out) {
     extern __shared__ int smem[];
     const int w = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
     const int b = blockIdx.x * kWarps + w;
     if (b >= B) return;  // whole warps leave together
     const int* f = info + (size_t)b * 4;
-    const int n = __ldg(f), total = __ldg(f + 1), longest = __ldg(f + 2);
     const kt::LcaResult res = kt::lca_of_positions(
-        TableTaxa{seq + (size_t)b * R, seq_tax, ntax}, n, total, 0,
+        kt::TableTaxa{seq + (size_t)b * R, seq_tax, ntax}, __ldg(f),
+        __ldg(f + 1), ranges ? __ldg(f + 2) : 0,
         smem + w * kt::lca_warp_ints(R), parent, depth, maxtax, R, cap);
-    if (lane != 0) return;
-    int* o = out + (size_t)b * 4;
-    o[0] = longest > 0 ? res.lca : 0;
-    o[1] = longest;
-    o[2] = __ldg(f + 3) * 1 + res.need_more * 2;
-    o[3] = res.n_ids;
+    if ((threadIdx.x & 31) != 0) return;
+    out[b] = res.lca;
+    out[(size_t)B + b] = res.n_ids;
+    out[2 * (size_t)B + b] = res.need_more;
+    out[3 * (size_t)B + b] = res.n_ranges > 1 && res.cut;
 }
 
 template <class Ix>
@@ -227,13 +219,14 @@ KT_EXPORT int kt_read_lca_sharded(
 }
 
 // Kernel W: form 0 lists each read's positions (pos, info), form 1
-// finishes it from the resolved sequences seq [B, R] (out, D's row).
+// finishes W's or V's reads (ranges) from the resolved sequences seq
+// [B, R] (out [4, B]).
 KT_EXPORT int kt_read_lca_hosts(
     int form, const int* maxl, const int* tie_cnt, const int* tie_s0,
     const int* tie_s1, int T, const int* rf_rows, int B, int S,
     const int* seq, const int* seq_tax, int ntax, const int* parent,
-    const int* depth, int maxtax, int R, int cap, int* pos, int* info,
-    int* out, cudaStream_t stream) {
+    const int* depth, int maxtax, int R, int cap, int ranges, int* pos,
+    int* info, int* out, cudaStream_t stream) {
     const int blocks = (B + kWarps - 1) / kWarps;
     if (form == 0) {
         const size_t shmem = (size_t)kWarps * (R + S) * sizeof(int);
@@ -241,8 +234,9 @@ KT_EXPORT int kt_read_lca_hosts(
             maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, R, pos, info);
     } else {
         const size_t shmem = (size_t)kWarps * kt::lca_warp_ints(R) * sizeof(int);
-        read_lca_resolved_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
-            info, seq, B, seq_tax, ntax, parent, depth, maxtax, R, cap, out);
+        lca_resolved_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
+            info, seq, B, seq_tax, ntax, parent, depth, maxtax, R, cap,
+            ranges, out);
     }
     return static_cast<int>(cudaGetLastError());
 }

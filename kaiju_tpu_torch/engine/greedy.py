@@ -108,18 +108,24 @@ class GreedyPipeline(DevicePipeline):
         replay = (oflow != 0) | long_row[np.where(rf_rows >= 0, rf_rows,
                                                   n_frags)].any(1)
         t1 = time.perf_counter()
-        out = fused_greedy_classify(
-            self.dev.rec, self.dev.C, self._seed, self._put(flat[:chars]),
-            self._put(off), self._put(rf_rows), self.dev.sa_seq,
-            self.dev.sa_off, self.dev.seq_tax, self._parent, self._depth,
-            self._tables, self.seed_K, self.lmap, cfg.min_fragment_length,
-            cfg.min_score, cfg.mismatches, cfg.max_matches_SI, self.R_BUDGET,
-            cfg.max_match_ids, self.dev.nseq, self.dev.chpt_exp, self.VCAP,
-            bloom=self._bloom, hyb=self._hyb,
-        )
+        out = self._device_rows(self._put(flat[:chars]), self._put(off),
+                                self._put(rf_rows))
         tally(HOST_SECONDS, self.host_seconds, fragment=t1 - t0,
               submit=time.perf_counter() - t1)
         return reads, replay, out
+
+    def _device_rows(self, flat, frag_off, rf_rows):
+        """The device's rows (lca, best, flags, n_ids) of a batch's
+        fragments (``ops.greedy.fused_greedy_classify``)."""
+        cfg = self.cfg
+        return fused_greedy_classify(
+            self.dev.rec, self.dev.C, self._seed, flat, frag_off, rf_rows,
+            self.dev.sa_seq, self.dev.sa_off, self.dev.seq_tax, self._parent,
+            self._depth, self._tables, self.seed_K, self.lmap,
+            cfg.min_fragment_length, cfg.min_score, cfg.mismatches,
+            cfg.max_matches_SI, self.R_BUDGET, cfg.max_match_ids,
+            self.dev.nseq, self.dev.chpt_exp, self.VCAP, bloom=self._bloom,
+            hyb=self._hyb)
 
     def collect_batch(self, state) -> list[tuple[str, ClassifyResult]]:
         cfg = self.cfg

@@ -10,9 +10,11 @@ tables), ``gather.cu`` P1 and P2, ``big_mem.cu`` L and M (the int64 step
 over an index above 2^31 letters, K17, ``ops/big_mem.py``), and a
 ``<name>_sharded`` kernel is kernel ``<name>`` instantiated on an index
 split into shards (K16, ``parallel/sharded_index.py``), and ``fm_serve.cu``
-(N), ``walk_hosts.cu`` (Q), ``mem_extend_hosts`` (O) and ``read_lca_hosts``
-(W) run over the shards of a group of processes on several hosts
-(``parallel/exchange.py``); ``peer.cu`` holds
+(N), ``walk_hosts.cu`` (Q), ``mem_extend_hosts`` (O), ``read_lca_hosts``
+(W), ``greedy_variants.cu`` (X, ``greedy_variants_hosts``) and
+``ranges_lca_hosts`` (V, whose reads W's resolved form finishes) run over
+the shards of a group of processes on several hosts (``parallel/exchange.py``), with ``greedy_levels.cu`` (U),
+which reads no index, between X's levels; ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
 (``parallel/peer_shards.py``), and ``chase.cu`` a latency probe outside
 every path (``chase_ns``).  A library is
@@ -178,16 +180,30 @@ _SIGNATURES.update({
     "walk_hosts": ("kt_walk_hosts",
                    SHARD_SIG + "pii" "pi" "ppi" "pppp" "p"),
     # W: form | maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | seq | seq_tax
-    # ntax parent depth maxtax | R cap | pos info out
+    # ntax parent depth maxtax | R cap ranges | pos info out
     "read_lca_hosts": ("kt_read_lca_hosts",
-                       "i" "ppppi" "pii" "p" "pippi" "ii" "ppp" "p"),
+                       "i" "ppppi" "pii" "p" "pippi" "iii" "ppp" "p"),
+    # U: form level | li ls0 ls1 | flat frag_off rf_rows B S | diag submat
+    # subcode subdiag | Lmap mfl min_score mismatches T vcap | node pincl
+    # src state | voff counts var vout | best flags g_s0 g_s1
+    "greedy_levels": ("kt_greedy_levels",
+                      "ii" "ppp" "pppii" "pppp" "iiiiii" "pppp" "pppp"
+                      "pppp" "p"),
+    # X: SHARD | C | flat var V | park_in ans_in L | out | park_out q_out
+    # n_park
+    "greedy_variants_hosts": ("kt_greedy_variants_hosts",
+                              SHARD_SIG + "p" "ppi" "ppi" "p" "ppp" "p"),
+    # V: g_s0 g_s1 B G | R | pos info
+    "ranges_lca_hosts": ("kt_ranges_lca_hosts", "ppii" "i" "pp" "p"),
 })
 # the source file of each kernel (csrc/<source>.cu), where it is not the
 # kernel's own name
 _SOURCE = {"gather_rows": "gather", "gather_sum": "gather",
            "big_extend_all": "big_mem", "big_sa_walk": "big_mem",
            "update_si_letters": "update_si",
-           "mem_extend_hosts": "mem_extend", "read_lca_hosts": "read_lca"}
+           "mem_extend_hosts": "mem_extend", "read_lca_hosts": "read_lca",
+           "greedy_variants_hosts": "greedy_variants",
+           "ranges_lca_hosts": "ranges_lca"}
 _SOURCE.update({n: _SOURCE.get(n[:-len("_sharded")], n[:-len("_sharded")])
                 for n in _SIGNATURES if n.endswith("_sharded")})
 # sources that hold no kernel of a path, only entry points whose

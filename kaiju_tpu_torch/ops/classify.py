@@ -1,7 +1,10 @@
 """The classification tail: kernel F (``ranges_lca``, per-read SA ranges
 to the LCA), kernel D (``read_lca``, the MEM form over per-fragment tie
 statistics) and ``fused_mem_classify``, which runs B -> C -> D, or
-B -> G -> C -> D with the text-compare hybrid.  D and F share their tail:
+B -> G -> C -> D with the text-compare hybrid; and, for a group of
+processes on several hosts, kernels W and V (D and F split around kernel
+Q's SA walks, both finished by W's ``lca_resolved``) and
+``fused_mem_classify_hosts``.  D and F share their tail:
 one device function (``csrc/lca_common.cuh``) and one plain version
 (``ranges_lca_plain``).  Given ``sw_ids``, a position >= VBASE is a
 virtual row of the hybrid (``ops/hybrid.py``) and takes its sequence from
@@ -292,22 +295,32 @@ def read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
     return pos, info
 
 
-def read_lca_resolved_plain(info, seq, seq_tax, parent, depth, R, cap):
+def lca_resolved_plain(info, seq, seq_tax, parent, depth, R, cap,
+                       ranges=False):
     B = info.shape[0]
     dev = info.device
     i32 = torch.int32
     if B == 0:
-        return torch.zeros((0, 4), dtype=i32, device=dev)
-    n, total, longest, tie_over = info.unbind(1)
+        z = torch.zeros(0, dtype=i32, device=dev)
+        return z, z, z, z
+    n, total = info[:, 0], info[:, 1]
     valid = torch.arange(R, dtype=i32, device=dev)[None, :] < n[:, None]
     tax = torch.full((B, R), -1, dtype=i32, device=dev)
     tax[valid] = seq_tax[torch.clamp(seq[valid], 0,
                                      seq_tax.shape[0] - 1).long()]
-    lca, n_ids, need_more, _cut = _lca_of_taxa(tax, valid, total, parent,
-                                               depth, R, cap)
-    lca = torch.where(longest > 0, lca, 0)
+    lca, n_ids, need_more, cut = _lca_of_taxa(tax, valid, total, parent,
+                                              depth, R, cap)
+    tie_order = (info[:, 2] > 1) & cut if ranges else torch.zeros_like(cut)
+    return lca, n_ids, need_more, tie_order.to(i32)
+
+
+def read_lca_rows(info, lca, n_ids, need_more):
+    """D's rows (lca, score, flags, n_ids) int32 [B, 4] from W's list
+    form's info (longest, tie_over) and the resolved form's outputs."""
+    longest, tie_over = info[:, 2], info[:, 3]
     flags = tie_over * FLAG_TIE_OVER + need_more * FLAG_NEED_MORE
-    return torch.stack([lca, longest, flags, n_ids], 1).to(i32)
+    return torch.stack([torch.where(longest > 0, lca, 0), longest, flags,
+                        n_ids], 1).to(torch.int32)
 
 
 def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
@@ -335,21 +348,24 @@ def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
     if B:
         kernels.launch("read_lca_hosts", 0, maxl, tie_cnt, tie_s0, tie_s1, T,
                        rf_rows, B, S, None, None, 0, None, None, 0, R, 0,
-                       pos, info, None)
+                       0, pos, info, None)
     return pos, info
 
 
-def read_lca_resolved(info, seq, seq_tax, parent, depth, R, cap):
-    """W's resolved form (kt_read_lca_hosts form 1): D's capped id set and
-    LCA for each read from info (read_lca_list) and the sequence of each
-    listed position, seq int32 [B, R] (kernel Q's walks): (lca, score,
-    flags, n_ids) int32 [B, 4], D's rows.  Kernel W for CUDA tensors, the
-    plain version for CPU tensors."""
+def lca_resolved(info, seq, seq_tax, parent, depth, R, cap, ranges=False):
+    """The resolved form that W and V share (csrc/read_lca.cu,
+    kt_read_lca_hosts form 1): the capped id set and LCA of each read from
+    info int32 [B, 4] (read_lca_list's, or ranges_lca_list's where
+    `ranges`) and the sequence of each listed position, seq int32 [B, R]
+    (kernel Q's walks): (lca, n_ids, need_more, tie_order) int32 [B], F's
+    four outputs where `ranges`, else tie_order 0 (read_lca_rows makes D's
+    rows).  Kernel W for CUDA tensors, the plain version for CPU
+    tensors."""
     if not 0 < R <= MAX_R:
         raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
     if info.device.type == "cpu":
-        return read_lca_resolved_plain(info, seq, seq_tax, parent, depth, R,
-                                       cap)
+        return lca_resolved_plain(info, seq, seq_tax, parent, depth, R, cap,
+                                  ranges)
     dev = info.device
     B = info.shape[0]
     for t, what, nd in ((info, "info", 2), (seq, "seq", 2),
@@ -359,12 +375,50 @@ def read_lca_resolved(info, seq, seq_tax, parent, depth, R, cap):
     if info.shape[1] != 4 or seq.shape != (B, R):
         raise ValueError("info [B, 4] and seq [B, R] expected")
     _check_tail(parent, depth, R, None, dev)
-    out = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    out = torch.empty((4, B), dtype=torch.int32, device=dev)
     if B:
         kernels.launch("read_lca_hosts", 1, None, None, None, None, 0, None,
                        B, 0, seq, seq_tax, seq_tax.shape[0], parent, depth,
-                       parent.shape[0], R, cap, None, info, out)
-    return out
+                       parent.shape[0], R, cap, int(ranges), None, info, out)
+    return out[0], out[1], out[2], out[3]
+
+
+# ---------------------------------------------------------------------------
+# kernel V: F split around its walks, for a group on several hosts
+# ---------------------------------------------------------------------------
+
+
+def ranges_lca_list_plain(g_s0, g_s1, R):
+    pos, _valid, total, sizes = _first_positions(g_s0, g_s1, R)
+    info = torch.stack([torch.clamp(total, max=R), total,
+                        (sizes > 0).sum(1, dtype=torch.int32),
+                        torch.zeros_like(total)], 1).to(torch.int32)
+    return pos, info
+
+
+def ranges_lca_list(g_s0, g_s1, R):
+    """Kernel V (csrc/ranges_lca.cu, kt_ranges_lca_hosts): F's
+    range expansion without the walks, (pos int32 [B, R], the first R SA
+    positions of each read's ranges g_s0, g_s1 int32 [B, G] in range
+    order, -1 past them; info int32 [B, 4] = (positions, total, non-empty
+    ranges, 0)), each range counted up to R + 1; lca_resolved (ranges)
+    finishes the reads.  Kernel V for CUDA tensors, the plain version for
+    CPU tensors."""
+    if not 0 < R <= MAX_R:
+        raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
+    if g_s0.device.type == "cpu":
+        return ranges_lca_list_plain(g_s0, g_s1, R)
+    dev = g_s0.device
+    kernels.check(g_s0, "g_s0", torch.int32, dev, 2)
+    kernels.check(g_s1, "g_s1", torch.int32, dev, 2)
+    if g_s1.shape != g_s0.shape:
+        raise ValueError("g_s0 and g_s1 differ in shape")
+    B, G = g_s0.shape
+    pos = torch.empty((B, R), dtype=torch.int32, device=dev)
+    info = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch("ranges_lca_hosts", g_s0, g_s1, B, G, R, pos, info)
+    return pos, info
 
 
 def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
@@ -396,7 +450,8 @@ def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
                                ids, parked=pk, answers=ans.reshape(-1)))
     seq = torch.full_like(pos, -1)
     seq[listed] = ids
-    return read_lca_resolved(info, seq, seq_tax, parent, depth, R, cap)
+    return read_lca_rows(info, *lca_resolved(info, seq, seq_tax, parent,
+                                             depth, R, cap)[:3])
 
 
 def fused_mem_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off,

@@ -1,5 +1,8 @@
 """Greedy search: kernel E (``greedy_search``) and ``fused_greedy_classify``,
-which runs B -> E -> F.
+which runs B -> E -> F; and, for a group of processes on several hosts,
+E split at its level boundaries, kernels U (``greedy_levels``) and X
+(``greedy_variants_hosts``), with ``fused_greedy_classify_hosts``, which
+runs O -> U -> (X in rounds -> U) a level -> V -> Q -> V.
 
 ``fused_greedy_classify`` returns what rows 0..B-1, columns 0-3, of
 ``kaiju_tpu.ops.fused_greedy.fused_greedy_classify`` hold: (lca, best,
@@ -45,15 +48,18 @@ bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import kernels
 from ..constants import AA_TO_INT, BLOSUM62, BLOSUM62_DIAG, BLOSUM_SUBST
-from .classify import FLAG_NEED_MORE, FLAG_TIE_OVER, ranges_lca
-from .device_index import Shards, rank, shard_args
+from .classify import (FLAG_NEED_MORE, FLAG_TIE_OVER, lca_resolved,
+                       ranges_lca, ranges_lca_list)
+from .device_index import Q_RANK, Shards, rank, shard_args, walk_hosts
 from .hybrid import VBASE, switch_plain
-from .search import SW_WCAP, _lane_fragments, mem_extend
+from .search import SW_WCAP, _lane_fragments, mem_extend, mem_extend_hosts
 
 FLAG_SCRATCH = 4  # the read's sources outgrew VCAP (port only): replay
 # more than one tie and the id cap may have cut the read's taxa: the result
@@ -116,26 +122,18 @@ def _resume(rec, C, flat, base, pos, code, start, n0, n1, act, touched):
     return i, a0, a1
 
 
-def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
-                        Lmap, mfl, min_score, mismatches, T, vcap=VCAP,
-                        touched=None, hyb=None):
-    """touched: None, or a list that receives the record rows read."""
+def _level0(i, flat, frag_off, rf_rows, diag, Lmap, mfl, min_score):
+    """Level 0 of E from B's lanes: the read of each fragment row (B: no
+    read), the diagonal prefix sums (cum, flat layout, a leading 0), the
+    fragments' starts, and the nodes in event order (the strip nodes
+    first, each in fragment order then ascending j): their flat positions,
+    fragments, reads, qi, effL, lengths, scores, eval events and planned
+    flags."""
     dev = flat.device
     i32, i64 = torch.int32, torch.int64
-    diag, submat, subcode, subdiag = tables
     B, S = rf_rows.shape
     F = frag_off.shape[0] - 1
     P = flat.shape[0]
-    best = torch.zeros(B + 1, dtype=i32, device=dev)  # row B: no read
-    g_s0 = torch.zeros((B, T), dtype=i32, device=dev)
-    g_s1 = torch.zeros((B, T), dtype=i32, device=dev)
-    flags = torch.zeros(B, dtype=i32, device=dev)
-    sw_ids = (torch.zeros((B, T, SW_WCAP), dtype=i32, device=dev)
-              if hyb is not None else None)
-    if B == 0 or P == 0:
-        return best[:B], flags, g_s0, g_s1, _flat(sw_ids)
-
-    # read of each fragment row (B: no read), diag prefix sums
     frag_rid = torch.full((F,), B, dtype=i64, device=dev)
     sel = rf_rows >= 0
     frag_rid[rf_rows[sel].long()] = torch.arange(
@@ -147,7 +145,6 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
     def pref(f, x):
         return cum[start[f] + x.long()] - cum[start[f]]
 
-    # ---- level 0: candidates, inserted nodes, scores, planned nodes -----
     pos, f, base, flen = _lane_fragments(frag_off, P)
     f = f.long()
     j = pos - base
@@ -173,19 +170,44 @@ def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
     n_ql = n_effL - n_qi
     n_score = torch.clamp(pref(n_f, n_effL) - pref(n_f, n_qi), min=0)
     n_ev = (n_ql >= mfl) & (n_score >= min_score)
-    best.scatter_reduce_(0, n_rid, torch.where(n_ev, n_score, 0), "amax")
-    # events: (read, s0, s1, eval, score, ids of a switched interval, how
-    # many: 0 for an FM interval)
-    no_ids = torch.zeros((nodes.shape[0], SW_WCAP), dtype=i32, device=dev)
-    events = [(n_rid, s0[nodes], s1[nodes], n_ev, n_score, no_ids,
-               torch.zeros_like(n_rid))]
-
     gkey = n_f * QLCAP + torch.clamp(n_ql, max=QLCAP - 1)
     _u, inv, cnt = torch.unique(gkey, return_inverse=True, return_counts=True)
     multi = cnt[inv] >= 2
     ql_t = torch.full((F,), -1, dtype=i32, device=dev)
     ql_t.scatter_reduce_(0, n_f[multi], n_ql[multi], "amax")
     planned = n_ql >= ql_t[n_f]
+    return (frag_rid, cum, start, pref, nodes, n_f, n_rid, n_qi, n_effL,
+            n_ql, n_score, n_ev, planned)
+
+
+def greedy_search_plain(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables,
+                        Lmap, mfl, min_score, mismatches, T, vcap=VCAP,
+                        touched=None, hyb=None):
+    """touched: None, or a list that receives the record rows read."""
+    dev = flat.device
+    i32 = torch.int32
+    diag, submat, subcode, subdiag = tables
+    B, S = rf_rows.shape
+    P = flat.shape[0]
+    best = torch.zeros(B + 1, dtype=i32, device=dev)  # row B: no read
+    g_s0 = torch.zeros((B, T), dtype=i32, device=dev)
+    g_s1 = torch.zeros((B, T), dtype=i32, device=dev)
+    flags = torch.zeros(B, dtype=i32, device=dev)
+    sw_ids = (torch.zeros((B, T, SW_WCAP), dtype=i32, device=dev)
+              if hyb is not None else None)
+    if B == 0 or P == 0:
+        return best[:B], flags, g_s0, g_s1, _flat(sw_ids)
+
+    # ---- level 0: candidates, inserted nodes, scores, planned nodes -----
+    (_rid, _cum, start, pref, nodes, n_f, n_rid, n_qi, n_effL, n_ql, n_score,
+     n_ev, planned) = _level0(i, flat, frag_off, rf_rows, diag, Lmap, mfl,
+                              min_score)
+    best.scatter_reduce_(0, n_rid, torch.where(n_ev, n_score, 0), "amax")
+    # events: (read, s0, s1, eval, score, ids of a switched interval, how
+    # many: 0 for an FM interval)
+    no_ids = torch.zeros((nodes.shape[0], SW_WCAP), dtype=i32, device=dev)
+    events = [(n_rid, s0[nodes], s1[nodes], n_ev, n_score, no_ids,
+               torch.zeros_like(n_rid))]
 
     # ---- variant levels --------------------------------------------------
     over = torch.zeros(B + 1, dtype=torch.bool, device=dev)
@@ -313,15 +335,7 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
     kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
     kernels.check(rf_rows, "rf_rows", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
-    diag, submat, subcode, subdiag = tables
-    kernels.check(diag, "diag", torch.int32, dev, 1)
-    for t, what in ((submat, "submat"), (subcode, "subcode"),
-                    (subdiag, "subdiag")):
-        kernels.check(t, what, torch.int32, dev, 2)
-        if t.shape != (32, NSUB):
-            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected (32, 19)")
-    if diag.shape != (32,):
-        raise ValueError(f"diag: shape {tuple(diag.shape)}, expected (32,)")
+    _check_tables(tables, dev)
     B, S = rf_rows.shape
     if S > MAX_S:
         raise ValueError(f"rf_rows: {S} slots a read, at most {MAX_S}")
@@ -351,9 +365,8 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
         src = torch.empty((B, 2, vcap, SRC_INTS) if mismatches else (1,),
                           dtype=torch.int32, device=dev)
         common = (i, s0, s1, flat, frag_off, F, rf_rows, B, S, *idx_args, C,
-                  diag, submat, subcode, subdiag, Lmap, mfl, min_score,
-                  mismatches, T, vcap, node, pincl, src, best, flags, g[0],
-                  g[1])
+                  *tables, Lmap, mfl, min_score, mismatches, T, vcap, node,
+                  pincl, src, best, flags, g[0], g[1])
         if sharded:
             kernels.launch("greedy_search_sharded", *common, rank_start,
                            nseq, chpt_exp, sw_ids)
@@ -362,6 +375,469 @@ def greedy_search(i, s0, s1, flat, frag_off, rf_rows, rec, C, tables, Lmap,
                            sa_off, 0 if sa_seq is None else sa_seq.shape[0],
                            nseq, chpt_exp, sw_ids)
     return best, flags, g[0], g[1], sw_ids
+
+
+def _check_tables(tables, dev):
+    diag, submat, subcode, subdiag = tables
+    kernels.check(diag, "diag", torch.int32, dev, 1)
+    for t, what in ((submat, "submat"), (subcode, "subcode"),
+                    (subdiag, "subdiag")):
+        kernels.check(t, what, torch.int32, dev, 2)
+        if t.shape != (32, NSUB):
+            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected (32, 19)")
+    if diag.shape != (32,):
+        raise ValueError(f"diag: shape {tuple(diag.shape)}, expected (32,)")
+
+
+# ---------------------------------------------------------------------------
+# kernels U and X: E split at its level boundaries, for a group of
+# processes on several hosts
+# ---------------------------------------------------------------------------
+
+STATE_INTS = 4  # U's state a read: best, ties so far, sources, over
+# a variant of U's list (X's input): code | pos << 8, s0, s1, base, need,
+# delta, diffc, fid | effL << 8 (the source's interval, its fragment's
+# start in flat, the substituted letter's position pos = qi - 1, and the
+# fields of E's window slot: greedy_common.cuh, Variant)
+VAR_INTS = 8
+
+
+class LevelState(NamedTuple):
+    """What kernel U keeps of a batch between its launches, every tensor
+    updated in place: pincl int32 [P], each fragment's inclusive diagonal
+    prefix sums (in flat layout); src int32 [B, 2, vcap, 8], the sources of
+    a level and of the next (level k reads half (k - 1) & 1: fid qi effL
+    s0 s1 delta diffc ml, fid the fragment's place among the read's
+    fragment rows, ascending); state int32 [B, 4] = (best, ties so far,
+    sources of the next level, over vcap); and the outputs best, flags
+    int32 [B] and g_s0, g_s1 int32 [B, T] (the ties so far, the first T;
+    zeros past the kept ones once the last level is settled)."""
+    pincl: torch.Tensor
+    src: torch.Tensor
+    state: torch.Tensor
+    best: torch.Tensor
+    flags: torch.Tensor
+    g_s0: torch.Tensor
+    g_s1: torch.Tensor
+
+
+def level_state(B, P, T, vcap, mismatches, dev) -> LevelState:
+    """U's state of a batch of B reads and P flat positions, zeros."""
+    z = torch.zeros
+    i32 = torch.int32
+    return LevelState(
+        z(P, dtype=i32, device=dev),
+        z((B, 2, vcap, SRC_INTS) if mismatches else (1,), dtype=i32,
+          device=dev),
+        z((B, STATE_INTS), dtype=i32, device=dev), z(B, dtype=i32, device=dev),
+        z(B, dtype=i32, device=dev), z((B, T), dtype=i32, device=dev),
+        z((B, T), dtype=i32, device=dev))
+
+
+def _read_starts(frag_off, rf_rows):
+    """Each read's fragment rows in ascending order, as their starts in flat
+    (int64 [B, S], P past the read's rows), and each fragment row's place
+    among its read's rows (int64 [F])."""
+    F = frag_off.shape[0] - 1
+    B, S = rf_rows.shape
+    rows = torch.where(rf_rows >= 0, rf_rows.long(), F).sort(1).values
+    place = torch.zeros(F + 1, dtype=torch.int64, device=rf_rows.device)
+    place[rows] = torch.arange(S, device=rf_rows.device).expand(B, S)
+    return frag_off.long()[rows], place[:F]
+
+
+def _pref(pincl, base, x):
+    """The diagonal sum over the first x codes of the fragment at base."""
+    return torch.where(x > 0, pincl[(base + x - 1).clamp(min=0)], 0)
+
+
+def _in_order(rid, B):
+    """The order that groups events by read, keeping each read's events in
+    order, and each event's rank among its read's (by that order)."""
+    order = torch.sort(rid, stable=True).indices
+    r = rid[order]
+    cnt = torch.bincount(r, minlength=B)
+    rank = torch.arange(r.shape[0], device=rid.device) - (
+        torch.cumsum(cnt, 0) - cnt)[r]
+    return order, r, rank, cnt
+
+
+def _add_ties(st, rid, a0, a1, ev, score, T):
+    """E's Ties.add over events in order (rid int64, reads < B): the read's
+    running best, its ties so far, the first T rows."""
+    B = st.state.shape[0]
+    best = st.state[:, 0]
+    m = torch.zeros(B, dtype=torch.int32, device=rid.device)
+    m.scatter_reduce_(0, rid, torch.where(ev, score, 0), "amax")
+    nb = torch.maximum(best, m)
+    cnt = torch.where(nb > best, 0, st.state[:, 1])
+    tie = ev & (score == nb[rid]) & (score > 0)
+    order, t_rid, rank, n_t = _in_order(rid[tie], B)
+    at = cnt[t_rid] + rank
+    k = at < T
+    st.g_s0[t_rid[k], at[k]] = a0[tie][order][k]
+    st.g_s1[t_rid[k], at[k]] = a1[tie][order][k]
+    st.state[:, 0] = nb
+    st.state[:, 1] = cnt + n_t.to(torch.int32)
+
+
+def _push_sources(st, half, rid, fields, vcap):
+    """E's push_src over sources in order (rid int64, fields int32 [n, 8]):
+    the first vcap of each read into src[:, half]; returns each read's
+    count (int32 [B], which may pass vcap)."""
+    B = st.state.shape[0]
+    order, r, rank, cnt = _in_order(rid, B)
+    k = rank < vcap
+    st.src[r[k], half, rank[k]] = fields[order][k]
+    return cnt.to(torch.int32)
+
+
+def _finish(st, T):
+    """E's last section: the read's row from its ties, zero past the kept
+    ones; best 0, FLAG_SCRATCH and a zero row for a read over vcap."""
+    over = st.state[:, 3] != 0
+    cnt = st.state[:, 1]
+    kept = torch.where(over, 0, torch.clamp(cnt, max=T))
+    past = torch.arange(T, device=cnt.device)[None, :] >= kept[:, None]
+    st.g_s0[past] = 0
+    st.g_s1[past] = 0
+    st.best.copy_(torch.where(over, 0, st.state[:, 0]))
+    st.flags.copy_(torch.where(over, FLAG_SCRATCH,
+                               torch.where(cnt > T, FLAG_TIE_OVER, 0)))
+
+
+def greedy_levels_plain(form, level, flat, frag_off, rf_rows, tables, params,
+                        st, lanes=None, voff=None, var=None, vout=None):
+    """U's contract (greedy_levels) on CPU tensors."""
+    Lmap, mfl, min_score, mismatches, T, vcap = params
+    diag, submat, subcode, subdiag = tables
+    dev = flat.device
+    i32 = torch.int32
+    B = rf_rows.shape[0]
+    last = level == mismatches
+    if form == 0:
+        if B and flat.shape[0]:
+            i, s0, s1 = lanes
+            (frag_rid, cum, _start, _p, nodes, n_f, n_rid, n_qi, n_effL, n_ql,
+             n_score, n_ev, planned) = _level0(i, flat, frag_off, rf_rows,
+                                               diag, Lmap, mfl, min_score)
+            _pos, f, base, _flen = _lane_fragments(frag_off, flat.shape[0])
+            mine = frag_rid[f.long()] < B
+            st.pincl[mine] = (cum[1:] - cum[base.long()])[mine]
+            _add_ties(st, n_rid, s0[nodes], s1[nodes], n_ev, n_score, T)
+            if mismatches > 0:
+                src = planned & (n_qi > 0) & (n_effL >= mfl)
+                place = _read_starts(frag_off, rf_rows)[1]
+                zero = torch.zeros_like(n_qi)
+                fields = torch.stack([place[n_f].to(i32), n_qi, n_effL,
+                                      s0[nodes], s1[nodes], zero, zero, n_ql],
+                                     1)[src]
+                n = _push_sources(st, 0, n_rid[src], fields, vcap)
+                st.state[:, 2] = n
+                st.state[:, 3] = (n > vcap).to(i32)
+        if mismatches == 0:
+            _finish(st, T)
+        return None
+    starts = _read_starts(frag_off, rf_rows)[0]
+    if form == 1:  # fan-out: each live source's kept substitutions
+        half = (level - 1) & 1
+        live = st.state[:, 3] == 0
+        n = torch.where(live, st.state[:, 2], 0).clamp(max=vcap)
+        rid, r = torch.nonzero(torch.arange(st.src.shape[2], device=dev)[None]
+                               < n[:, None], as_tuple=True)
+        e = st.src[rid, half, r]
+        base = starts[rid, e[:, 0].long()]
+        qi, effL = e[:, 1], e[:, 2]
+        el = (qi > 0) & (effL >= mfl)
+        oc = torch.where(el, flat[(base + qi - 1).clamp(min=0)].long() & 31, 0)
+        basev = torch.clamp(_pref(st.pincl, base, effL) + e[:, 5] + e[:, 6],
+                            min=0) - diag[oc]
+        thr = torch.clamp(st.state[rid, 0], min=min_score)
+        keep = el[:, None] & (basev[:, None] + submat[oc] >= thr[:, None])
+        if voff is None:
+            counts = torch.zeros(B, dtype=i32, device=dev)
+            return counts.index_add_(0, rid, keep.sum(1, dtype=i32))
+        s, col = torch.nonzero(keep, as_tuple=True)  # source, then column
+        o = oc[s]
+        need = (torch.full_like(qi[s], mfl) if last else e[s, 7] + 1)
+        return torch.stack([
+            subcode[o, col] | (qi[s] - 1) << 8, e[s, 3], e[s, 4],
+            base[s].to(i32), need, e[s, 5] + subdiag[o, col] - diag[o],
+            e[s, 6] + submat[o, col] - subdiag[o, col],
+            e[s, 0] | effL[s] << 8], 1)
+    # form 2, settle: the variants' results in list order (E's settle)
+    rid = torch.repeat_interleave(torch.arange(B, device=dev),
+                                  (voff[1:] - voff[:-1]).long())
+    n0, n1, i = vout[:, 0], vout[:, 1], vout[:, 2]
+    fid, veff = var[:, 7] & 255, var[:, 7] >> 8
+    base = starts[rid, fid.long()]
+    mlen = veff - i
+    has_si = (n0 < n1) & (mlen >= var[:, 4])
+    score = torch.where(has_si, torch.clamp(
+        _pref(st.pincl, base, veff) - _pref(st.pincl, base, i) + var[:, 5]
+        + var[:, 6], min=0), 0)
+    ev = has_si & (mlen >= mfl) & (score >= min_score)
+    _add_ties(st, rid, n0, n1, ev, score, T)
+    if last:
+        _finish(st, T)
+        return None
+    fields = torch.stack([fid, i, veff, n0, n1, var[:, 5], var[:, 6], mlen],
+                         1)[has_si]
+    n = _push_sources(st, level & 1, rid[has_si], fields, vcap)
+    live = st.state[:, 3] == 0
+    st.state[:, 2] = torch.where(live, n, st.state[:, 2])
+    st.state[:, 3] = torch.where(live, (n > vcap).to(i32), st.state[:, 3])
+    return None
+
+
+def greedy_levels(form, level, flat, frag_off, rf_rows, tables, params, st,
+                  lanes=None, voff=None, var=None, vout=None):
+    """Kernel U (csrc/greedy_levels.cu): E's per-read work between its
+    FM steps, a warp a read, on the batch's LevelState st (level_state),
+    params = (Lmap, mfl, min_score, mismatches, T, vcap).
+
+    form 0: E's level 0 from B's lanes = (i, s0, s1) int32 [P] (the node
+    scan, the planned-node rule, node scores, level-0 events and ties, the
+    level-1 sources with FLAG_SCRATCH past vcap); with mismatches 0 it
+    writes the outputs.  Returns None.
+    form 1, the fan-out of level `level`: each live source's kept
+    substitutions, the 19 columns in the reference's descending order
+    kept while the bound is >= max(best, min_score).  Without voff it
+    returns each read's count (int32 [B]); with voff (int32 [B + 1], their
+    scan) the variant list int32 [V, 8] (VAR_INTS), by read, then source,
+    then column.
+    form 2, the settle of level `level`: the variants' results, vout int32
+    [V, 3] = (n0, n1, i) from X, read in list order: E's settle, ties,
+    best and the next level's sources (FLAG_SCRATCH past vcap); at the
+    last level the outputs.  Returns None.
+    Kernel U for CUDA tensors, the plain version for CPU tensors."""
+    Lmap, mfl, min_score, mismatches, T, vcap = params
+    if not 0 <= form <= 2 or (form and not 1 <= level <= mismatches):
+        raise ValueError(f"form {form} at level {level} of {mismatches}")
+    if Lmap < 1 or mismatches < 0 or T < 1 or vcap < 1:
+        raise ValueError("need Lmap >= 1, mismatches >= 0, T >= 1, vcap >= 1")
+    if (form == 0) != (lanes is not None) or (form == 2) != (
+            var is not None) or (form == 2 and voff is None):
+        raise ValueError("form 0 takes lanes, form 2 voff, var and vout")
+    if flat.device.type == "cpu":
+        return greedy_levels_plain(form, level, flat, frag_off, rf_rows,
+                                   tables, params, st, lanes, voff, var, vout)
+    dev = flat.device
+    B, S = rf_rows.shape
+    P = flat.shape[0]
+    kernels.check(flat, "flat", torch.uint8, dev, 1)
+    kernels.check(frag_off, "frag_off", torch.int32, dev, 1)
+    kernels.check(rf_rows, "rf_rows", torch.int32, dev, 2)
+    if S > MAX_S:
+        raise ValueError(f"rf_rows: {S} slots a read, at most {MAX_S}")
+    _check_tables(tables, dev)
+    for t, what in ((st.pincl, "pincl"), (st.src, "src"),
+                    (st.state, "state"), (st.best, "best"),
+                    (st.flags, "flags"), (st.g_s0, "g_s0"),
+                    (st.g_s1, "g_s1")):
+        kernels.check(t, what, torch.int32, dev)
+    if (st.pincl.shape != (P,) or st.state.shape != (B, STATE_INTS)
+            or st.g_s0.shape != (B, T) or (mismatches and st.src.shape != (
+                B, 2, vcap, SRC_INTS))):
+        raise ValueError("the level state does not fit the batch")
+    if voff is not None:
+        kernels.check(voff, "voff", torch.int32, dev, 1)
+        if voff.shape != (B + 1,):
+            raise ValueError(f"voff: {tuple(voff.shape)}, expected "
+                             f"({B + 1},)")
+    li = ls0 = ls1 = node = counts = out = None
+    if form == 0:
+        li, ls0, ls1 = lanes
+        for t, what in ((li, "i"), (ls0, "s0"), (ls1, "s1")):
+            kernels.check(t, what, torch.int32, dev, 1)
+            if t.shape[0] != P:
+                raise ValueError(f"{what}: {t.shape[0]} lanes, expected {P}")
+        node = torch.empty(P, dtype=torch.uint8, device=dev)
+    elif form == 1:
+        if voff is None:
+            out = counts = torch.empty(B, dtype=torch.int32, device=dev)
+        else:
+            out = var = torch.empty((int(voff[-1]), VAR_INTS),
+                                    dtype=torch.int32, device=dev)
+    else:
+        kernels.check(var, "var", torch.int32, dev, 2)
+        kernels.check(vout, "vout", torch.int32, dev, 2)
+        if vout.shape != (var.shape[0], 3) or var.shape[1] != VAR_INTS:
+            raise ValueError("var [V, 8] and vout [V, 3] expected")
+    if B and (form != 1 or voff is None or var.shape[0]):
+        kernels.launch("greedy_levels", form, level, li, ls0, ls1, flat,
+                       frag_off, rf_rows, B, S, *tables, *params, node,
+                       st.pincl, st.src, st.state, voff, counts, var, vout,
+                       st.best, st.flags, st.g_s0, st.g_s1)
+    return out
+
+
+def greedy_variants_hosts_plain(rec, C, flat, var, out, parked=None,
+                                answers=None, touched=None):
+    """touched: as for rank."""
+    dev = flat.device
+    i32 = torch.int32
+    if parked is None:
+        v = torch.arange(var.shape[0], dtype=torch.int64, device=dev)
+        i = (var[:, 0] >> 8) + 1  # the probe: the step that reads pos
+        a0, a1 = var[:, 1].clone(), var[:, 2].clone()
+        n0 = n1 = None
+    else:
+        v = parked[:, 0].long()
+        i, a0, a1 = (parked[:, t].clone() for t in (1, 2, 3))
+        n0, n1 = answers[:, 0], answers[:, 1]
+    code, pos, base = var[v, 0] & 255, var[v, 0] >> 8, var[v, 3].long()
+    c32 = flat.to(i32)
+    park, qry = [], []
+    while v.numel():
+        y = i - 1
+        c = torch.where(y == pos, code, c32[(base + y).clamp(min=0)])
+        if n0 is None:  # take the step on this host's rows, or park
+            here = (rec.here[rec.owner(a0 >> 7)]
+                    & rec.here[rec.owner(a1 >> 7)])
+            stop = ~here
+            park.append(torch.stack([v[stop].to(i32), i[stop], a0[stop],
+                                     a1[stop]], 1))
+            op = (Q_RANK << 8) | c[stop]
+            qry.append(torch.stack([op, a0[stop], op, a1[stop]], 1))
+            keep = here
+            v, i, a0, a1, c = v[keep], i[keep], a0[keep], a1[keep], c[keep]
+            y, code, pos, base = y[keep], code[keep], pos[keep], base[keep]
+            n0 = rank(rec, C, c, a0, touched)
+            n1 = rank(rec, C, c, a1, touched)
+        # the probe takes its interval, empty or not; a resumed step only
+        # a non-empty one (bwt.c:298-336)
+        ok = n0 < n1
+        take = ok | (y == pos)
+        a0 = torch.where(take, n0, a0)
+        a1 = torch.where(take, n1, a1)
+        i = i - take.to(i32)
+        done = ~ok | (i <= 0)
+        out[v[done]] = torch.stack([a0, a1, i], 1)[done]
+        keep = ~done
+        v, i, a0, a1 = v[keep], i[keep], a0[keep], a1[keep]
+        code, pos, base = code[keep], pos[keep], base[keep]
+        n0 = n1 = None
+    z = torch.zeros((0, 4), dtype=i32, device=dev)
+    return (torch.cat(park) if park else z,
+            (torch.cat(qry) if qry else z).view(-1, 2, 2))
+
+
+def greedy_variants_hosts(rec, C, flat, var, out, parked=None, answers=None):
+    """Kernel X (csrc/greedy_variants.cu): the FM steps of a level's
+    variants over the shards of a group on several hosts.  Each variant
+    of the list var int32 [V, 8] (greedy_levels form 1) takes E's probe
+    (the rank pair of its substituted letter at pos) and then E's resumed
+    extension on the flat codes, on this host's rows; a step whose rank
+    pair needs a remote row parks the variant.  The start form (parked
+    None) runs every variant; the resume form takes the parked (v, i, s0,
+    s1) int32 [L, 4] with their answers int32 [L, 2], applies each as the
+    step, and goes on.  Both write out int32 [V, 3] = (n0, n1, i) of each
+    variant that finishes (E's window slot before its settle) and return
+    the variants parked now (int32 [L', 4]) with their queries int32
+    [L', 2, 2], (Q_RANK c, s0) and (Q_RANK c, s1).  Kernel X for CUDA
+    tensors, the plain version for CPU tensors."""
+    if (parked is None) != (answers is None):
+        raise ValueError("parked and answers come together (resume)")
+    if flat.device.type == "cpu":
+        return greedy_variants_hosts_plain(rec, C, flat, var, out, parked,
+                                           answers)
+    dev = flat.device
+    args = shard_args(dev, rec, hosts=True)
+    kernels.check(C, "C", torch.int32, dev, 1)
+    kernels.check(flat, "flat", torch.uint8, dev, 1)
+    kernels.check(var, "var", torch.int32, dev, 2)
+    kernels.check(out, "out", torch.int32, dev, 2)
+    V = var.shape[0]
+    if var.shape[1] != VAR_INTS or out.shape != (V, 3):
+        raise ValueError("var [V, 8] and out [V, 3] expected")
+    if parked is None:
+        n = V
+    else:
+        kernels.check(parked, "parked", torch.int32, dev, 2)
+        kernels.check(answers, "answers", torch.int32, dev, 2)
+        n = parked.shape[0]
+        if parked.shape[1] != 4 or answers.shape != (n, 2):
+            raise ValueError("parked [L, 4] and answers [L, 2] expected")
+    park = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    q = torch.empty((n, 2, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        kernels.launch("greedy_variants_hosts", *args, C, flat, var, V,
+                       parked, answers, 0 if parked is None else n, out,
+                       park, q, count)
+    k = int(count)
+    return park[:k], q[:k]
+
+
+def greedy_search_hosts(sh, exchange, i, s0, s1, flat, frag_off, rf_rows,
+                        tables, Lmap, mfl, min_score, mismatches, T,
+                        vcap=VCAP):
+    """greedy_search over a ``ShardedIndex`` of a group of processes on
+    several hosts, with no hybrid: U's level 0, then for each level U's
+    fan-out, X in rounds of `exchange` (stage "variants", called once a
+    level by every process, whether or not it has a variant parked) and
+    U's settle.  Returns greedy_search's (best, flags, g_s0, g_s1)."""
+    params = (Lmap, mfl, min_score, mismatches, T, vcap)
+    dev = flat.device
+    st = level_state(rf_rows.shape[0], flat.shape[0], T, vcap, mismatches,
+                     dev)
+    common = (flat, frag_off, rf_rows, tables, params, st)
+    greedy_levels(0, 0, *common, lanes=(i, s0, s1))
+    for level in range(1, mismatches + 1):
+        counts = greedy_levels(1, level, *common)
+        voff = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                          torch.cumsum(counts, 0, dtype=torch.int32)])
+        var = greedy_levels(1, level, *common, voff=voff)
+        out = torch.empty((var.shape[0], 3), dtype=torch.int32, device=dev)
+        parked, queries = greedy_variants_hosts(sh.rec, sh.C, flat, var, out)
+        exchange.rounds("variants", parked, queries, 1, lambda pk, ans:
+                        greedy_variants_hosts(sh.rec, sh.C, flat, var, out,
+                                              parked=pk,
+                                              answers=ans.reshape(-1, 2)))
+        greedy_levels(2, level, *common, voff=voff, var=var, vout=out)
+    return st.best, st.flags, st.g_s0, st.g_s1
+
+
+def fused_greedy_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
+                                seq_tax, parent, depth, tables, K, Lmap, mfl,
+                                min_score, mismatches, T, R, cap, vcap=VCAP,
+                                bloom=None):
+    """fused_greedy_classify over a ``ShardedIndex`` of a group of
+    processes on several hosts (K16f across hosts), with no hybrid: O
+    extends at j0 = Lmap - 1 with the Lmap-mer screen (stage "extend"),
+    U and X run the levels (greedy_search_hosts), V lists each read's
+    positions, Q walks them (stage "walk") and W's resolved form
+    (lca_resolved) finishes the reads.  Every process of the group calls
+    it for every batch, with its share (none: empty tensors), since each
+    round is a collective.  Returns fused_greedy_classify's rows."""
+    out, parked, queries = mem_extend_hosts(sh.rec, sh.C, *seed, flat,
+                                            frag_off, K, Lmap - 1,
+                                            bloom=bloom)
+    exchange.rounds("extend", parked, queries, 1, lambda pk, ans:
+                    mem_extend_hosts(sh.rec, sh.C, *seed, flat, frag_off, K,
+                                     Lmap - 1, bloom=bloom, out=out,
+                                     parked=pk,
+                                     answers=ans.reshape(-1, 2))[1:])
+    best, flags, g_s0, g_s1 = greedy_search_hosts(
+        sh, exchange, out[0], out[1], out[2], flat, frag_off, rf_rows,
+        tables, Lmap, mfl, min_score, mismatches, T, vcap)
+    pos, info = ranges_lca_list(g_s0, g_s1, R)
+    listed = pos >= 0
+    rows = pos[listed]
+    ids = torch.empty_like(rows)
+    parked, queries = walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq,
+                                 sh.chpt_exp, ids, rows=rows)
+    exchange.rounds("walk", parked, queries, 1, lambda pk, ans:
+                    walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq, sh.chpt_exp,
+                               ids, parked=pk, answers=ans.reshape(-1)))
+    seq = torch.full_like(pos, -1)
+    seq[listed] = ids
+    lca, n_ids, need_more, tie_order = lca_resolved(
+        info, seq, seq_tax, parent, depth, R, cap, ranges=True)
+    lca = torch.where(best > 0, lca, 0)
+    flags = flags | need_more * FLAG_NEED_MORE | tie_order * FLAG_TIE_ORDER
+    return torch.stack([lca, best, flags, n_ids], 1)
 
 
 def fused_greedy_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq,

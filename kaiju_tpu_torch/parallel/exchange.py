@@ -1,5 +1,6 @@
-"""The rounds of a group of processes on several hosts (``kaiju -a mem
---mesh-index S --dist-*`` where the processes' hosts differ): the port's
+"""The rounds of a group of processes on several hosts (``kaiju
+--mesh-index S --dist-*`` where the processes' hosts differ, in MEM and in
+Greedy): the port's
 counterpart of kaiju_tpu's owner-computes steps, whose psum over the index
 axis assembles every rank and SA-walk step from its owner shard
 (kaiju_tpu/parallel/sharded_fused.py:35-36, ``_make_rank1`` :52-75,
@@ -9,8 +10,9 @@ axis assembles every rank and SA-walk step from its owner shard
 Over one host every shard is held or mapped (``parallel.peer_shards``)
 and the kernels read it in place.  A shard that no process of a host
 holds is remote there: its owner serves it.  A lane whose next step needs
-a row (or an SA sample) of a remote shard parks with its query (kernels O
-and Q, ``ops.search.mem_extend_hosts``, ``ops.device_index.walk_hosts``).
+a row (or an SA sample) of a remote shard parks with its query (kernels O,
+X and Q: ``ops.search.mem_extend_hosts``,
+``ops.greedy.greedy_variants_hosts``, ``ops.device_index.walk_hosts``).
 Then one round:
 
 - each process sorts its parked queries by the process that answers them
@@ -27,7 +29,9 @@ Lockstep: a stage's rounds end only when no process of the group has a
 parked lane (an all-reduce of the parked count before each round, the
 counterpart of ``_any_psum``), so a process with nothing left still
 serves its peers.  Every process runs the same stages in the same order
-(``ops.classify.fused_mem_classify_hosts`` for each batch, the seed
+(``ops.classify.fused_mem_classify_hosts`` or
+``ops.greedy.fused_greedy_classify_hosts`` for each batch, whose stage
+"variants" runs once a level, -e times, parked lanes or not; the seed
 tables' ROW rounds at set-up), so the collectives match.
 
 Transport: the group's gloo backend (``parallel.multihost``; NCCL refuses
@@ -38,8 +42,8 @@ copy back.  A failed exchange, or a query that reaches a process not
 reading its shard, raises.
 
 ``COUNTS[stage]`` sums, over the rounds of this process (a ``serve``
-call each; the seed tables' stage is "seed", O's "extend", Q's "walk"):
-rounds, queries
+call each), for each stage of ``STAGES`` that ran one (the seed tables'
+"seed", O's "extend", X's "variants", Q's "walk"): rounds, queries
 (all, own included), ``sent`` (the queries that crossed to a peer),
 ``bytes`` (queries and answers sent and received), and the seconds in
 the copies, the transport (all-to-alls and the lockstep all-reduce) and
@@ -54,6 +58,7 @@ import torch
 
 from ..ops.device_index import fm_serve, query_shard
 
+STAGES = ("seed", "extend", "variants", "walk")
 COUNTS: dict = {}
 _FIELDS = ("rounds", "queries", "sent", "bytes", "copy_s", "transport_s",
            "serve_s")
@@ -64,6 +69,8 @@ def reset_counts() -> None:
 
 
 def _tally(stage: str, **add) -> None:
+    if stage not in STAGES:
+        raise ValueError(f"unknown exchange stage {stage!r}")
     row = COUNTS.setdefault(stage, dict.fromkeys(_FIELDS, 0))
     for k, v in add.items():
         row[k] += v

@@ -36,8 +36,8 @@ there; else, if another process of p's host holds o, p maps it from the
 lowest such process; else o is remote for p (``remote``), and its source,
 which always holds it, serves its rows and samples to p in rounds
 (``parallel.exchange``, kernel N).  A remote shard is never copied whole
-to the reader.  Such a group runs MEM only: Greedy exits naming the next
-item of ROADMAP.md (``refuse_greedy``).
+to the reader.  Such a group runs MEM and Greedy, both without the
+text-compare hybrid.
 
 Teardown (``PeerShards.close``): the readers unmap, a barrier, then the
 holders free (on the CPU: unlink their files, a second barrier, the
@@ -104,16 +104,6 @@ def routes(pid: int, hosts: list, n_shards: int) -> tuple[dict, dict]:
         else:
             remote[o] = src
     return opened, remote
-
-
-def refuse_greedy(hosts) -> None:
-    """Exit when a Greedy run's processes lie on several hosts."""
-    names = sorted(set(hosts))
-    if len(names) > 1:
-        raise SystemExit(
-            "--mesh-index with --dist-* over several hosts runs -a mem "
-            f"only; this group spans the hosts {', '.join(names)}: Greedy "
-            "across hosts is ROADMAP item 10e, queue 1 item 1.2")
 
 
 def group_hosts(group) -> list:

@@ -38,9 +38,13 @@ Several processes each run a pipeline on their share of every batch
 group, each holds only its shards and maps the others from their holders
 (``parallel.peer_shards``).  Over a group whose processes lie on several
 hosts, ``ShardedMemPipeline`` runs A → O → C → W → Q → W
-(``ops.classify.fused_mem_classify_hosts``), each step whose row lies on
-another host answered by its owner in rounds (``parallel.exchange``);
-Greedy exits there (``peer_shards.refuse_greedy``).
+(``ops.classify.fused_mem_classify_hosts``) and ``ShardedGreedyPipeline``
+A → O → U → (X → U) a level → V → Q → V
+(``ops.greedy.fused_greedy_classify_hosts``), each step whose row lies on
+another host answered by its owner in rounds (``parallel.exchange``).
+Both run there without the text-compare hybrid, as kaiju_tpu runs
+sharded Greedy without it on an index with no text copy
+(sharded_fused.py:314); it changes no result.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..engine.mem import MemPipeline
 from ..index.core import KaijuIndex
 from ..io.taxonomy import Taxonomy
 from ..ops.classify import fused_mem_classify_hosts
+from ..ops.greedy import fused_greedy_classify_hosts
 from ..ops.search import TIE_CAP
 from .sharded_index import ShardedIndex
 
@@ -103,15 +108,20 @@ class _OnShards:
         return self.view.shared[key]
 
 
-class ShardedMemPipeline(_OnShards, MemPipeline):
+class _AcrossHosts(_OnShards):
     """Over a group of processes on several hosts (the view's
-    ``exchange``) the batch runs ``fused_mem_classify_hosts``, without the
-    hybrid: G reads a lane's text on this host."""
+    ``exchange``) the hybrid is off: its text compares read a lane's
+    text on this host."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         if self.dev.exchange is not None:
             self._hyb = None
+
+
+class ShardedMemPipeline(_AcrossHosts, MemPipeline):
+    """Over a group of processes on several hosts the batch runs
+    ``fused_mem_classify_hosts``."""
 
     def _device_rows(self, flat, frag_off, rf_rows):
         if self.dev.exchange is None:
@@ -124,5 +134,17 @@ class ShardedMemPipeline(_OnShards, MemPipeline):
             self.R_BUDGET, cfg.max_match_ids, bloom=self._bloom)
 
 
-class ShardedGreedyPipeline(_OnShards, GreedyPipeline):
-    pass
+class ShardedGreedyPipeline(_AcrossHosts, GreedyPipeline):
+    """Over a group of processes on several hosts the batch runs
+    ``fused_greedy_classify_hosts``."""
+
+    def _device_rows(self, flat, frag_off, rf_rows):
+        if self.dev.exchange is None:
+            return super()._device_rows(flat, frag_off, rf_rows)
+        cfg = self.cfg
+        return fused_greedy_classify_hosts(
+            self.dev, self.dev.exchange, self._seed, flat, frag_off, rf_rows,
+            self.dev.seq_tax, self._parent, self._depth, self._tables,
+            self.seed_K, self.lmap, cfg.min_fragment_length, cfg.min_score,
+            cfg.mismatches, cfg.max_matches_SI, self.R_BUDGET,
+            cfg.max_match_ids, self.VCAP, bloom=self._bloom)

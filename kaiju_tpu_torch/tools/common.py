@@ -62,9 +62,9 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     the other flags choose on its own card, on its share of every batch
     (engine.pipeline.ProcessShare), and with --mesh-index S holds only its
     shards of the index, mapping the others from the processes that hold
-    them (parallel.peer_shards); over processes on several hosts, MEM's
+    them (parallel.peer_shards); over processes on several hosts, the
     steps whose rows lie on another host are served by their owners in
-    rounds (parallel.exchange), and Greedy exits.  As in kaiju_tpu,
+    rounds (parallel.exchange), in MEM and in Greedy.  As in kaiju_tpu,
     --mesh-index and many processes run MEM and Greedy without -v, and a
     taxonomy-free tool or -v exits with its message; -d exits too, since
     the trace needs the one-process host engine (kaiju_tpu drops the
@@ -106,10 +106,6 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
         device = multihost.process_device(pid, device)
         multihost.init_distributed(coord, nprocs, pid)
         group = dist.group.WORLD
-        if n_index and cfg.mode == "greedy":
-            from ..parallel import peer_shards
-
-            peer_shards.refuse_greedy(peer_shards.group_hosts(group))
     if cfg.debug:
         from ..engine.core import ExactClassifier
 

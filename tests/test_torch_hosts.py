@@ -1,7 +1,7 @@
 """The port's rounds over shards on several hosts (kaiju_tpu_torch.
 parallel.exchange, kernels N, O, Q and W), without processes: the plain
 versions of O (mem_extend_hosts), Q (walk_hosts) and W (read_lca_list,
-read_lca_resolved) driven in rounds by an in-process server that answers
+lca_resolved) driven in rounds by an in-process server that answers
 with N's plain version (fm_serve) on the whole index, with every shard
 remote and with half of them remote, against the one-host plain versions
 (mem_extend_plain, sa_walk, read_lca_plain) exactly, flags included; the
@@ -32,6 +32,17 @@ from readgen import make_reads
 
 S = 4
 REMOTE = {"all": (0, 1, 2, 3), "half": (1, 3)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run many small tensor ops, for which torch's
+    intra-op threads add CPU time and no speed; one thread for this file
+    leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class LocalExchange(exchange.Exchange):
@@ -172,7 +183,8 @@ def test_w_and_rounds_equal_d(env, which):
 
 def test_w_list_and_resolved_split_d(env):
     """W's list form gives D's first R positions (slot order, then tie
-    order) and W's resolved form, on their sa_walk ids, D's rows."""
+    order) and W's resolved form, on their sa_walk ids, D's rows
+    (read_lca_rows)."""
     pipe, sh, b = env["pipe"], env["sh"], env["batch"]
     cfg = pipe.cfg
     i, s0, s1 = search.mem_extend_plain(
@@ -188,8 +200,9 @@ def test_w_list_and_resolved_split_d(env):
     seq = torch.full_like(pos, -1)
     seq[listed] = tdev.sa_walk(sh.rec, sh.C, sh.sa_seq, sh.sa_off, sh.nseq,
                                sh.chpt_exp, pos[listed])[0]
-    got = classify.read_lca_resolved(info, seq, sh.seq_tax, pipe._parent,
-                                     pipe._depth, R, cfg.max_match_ids)
+    got = classify.read_lca_rows(info, *classify.lca_resolved(
+        info, seq, sh.seq_tax, pipe._parent, pipe._depth, R,
+        cfg.max_match_ids)[:3])
     want = classify.read_lca_plain(
         *stats[:2], *stats[3:], b["rf_rows"], sh.rec, sh.C, sh.sa_seq,
         sh.sa_off, sh.seq_tax, pipe._parent, pipe._depth, R,

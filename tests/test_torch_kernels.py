@@ -2288,3 +2288,149 @@ def test_lca_interval_sums_near_2_31_match_plain(env, cuda, G):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert bool((want[1][:, 1] > R).all())
+    want = classify.ranges_lca_list(g_s0, g_s1, R)
+    got = classify.ranges_lca_list(to(g_s0), to(g_s1), R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[1][:, 1] > R).all())
+
+
+# ---------------------------------------------------------------------------
+# kernels U, X, V: Greedy over a group of processes on several hosts
+# ---------------------------------------------------------------------------
+
+GREEDY_PARAMS = (7, MIN_LEN, 65, 3, 20, greedy.VCAP)  # Lmap mfl -s -e T vcap
+
+
+def _same_state(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("remote", [(1,), (0, 2), (0, 1, 2)],
+                         ids=["one", "two", "all"])
+def test_greedy_hosts_kernels_match_plain(env, cuda, remote):
+    """U's three forms (level 0, each level's fan-out, counts and list, and
+    settle), X's start form and a resume form on the index in 3 shards with
+    the shards `remote` on another host, and V with W's resolved form
+    (ranges), each on the same arguments as its plain version (parked variants compared as
+    sets); the levels end at E's (best, flags, g_s0, g_s1)."""
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx, dv = env["idx"], env["dv"]
+    views = {d: _hosts_view(ShardedIndex(idx, 3, d), remote)
+             for d in ("cpu", cuda)}
+    flat, frag_off, rf_rows = _batch(env, 16, "greedy")
+    Lmap, mfl, min_score, e, T_, vcap = GREEDY_PARAMS
+    lanes = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat,
+                                    frag_off, search.SEED_K, Lmap - 1)
+    B, P = rf_rows.shape[0], flat.shape[0]
+    arg = {d: tuple(a.to(d) for a in (flat, frag_off, rf_rows))
+           + (tuple(t.to(d) for t in env["tables"]), GREEDY_PARAMS)
+           for d in views}
+    st = {d: greedy.level_state(B, P, T_, vcap, e, d) for d in views}
+    for d in views:
+        greedy.greedy_levels(0, 0, *arg[d], st[d],
+                             lanes=tuple(t.to(d) for t in lanes))
+    _same_state(st[cuda], st["cpu"])
+    parked_any = 0
+    for level in range(1, e + 1):
+        counts = {d: greedy.greedy_levels(1, level, *arg[d], st[d])
+                  for d in views}
+        assert torch.equal(counts[cuda].cpu(), counts["cpu"])
+        voff = torch.cat([torch.zeros(1, dtype=torch.int32),
+                          torch.cumsum(counts["cpu"], 0, dtype=torch.int32)])
+        var = {d: greedy.greedy_levels(1, level, *arg[d], st[d],
+                                       voff=voff.to(d)) for d in views}
+        assert torch.equal(var[cuda].cpu(), var["cpu"])
+        out = {d: torch.full((var[d].shape[0], 3), -1, dtype=torch.int32,
+                             device=d) for d in views}
+        vr = {d: (views[d].rec, views[d].C, arg[d][0], var[d], out[d])
+              for d in views}
+        pk = {d: greedy.greedy_variants_hosts(*vr[d]) for d in views}
+        assert torch.equal(out[cuda].cpu(), out["cpu"])
+        assert torch.equal(_sorted_rows(pk[cuda][0]), _sorted_rows(pk["cpu"][0]))
+        order = {d: torch.argsort(pk[d][0][:, 0].cpu().long()) for d in views}
+        assert torch.equal(pk[cuda][1].cpu()[order[cuda]],
+                           pk["cpu"][1][order["cpu"]])
+        parked_any += pk["cpu"][0].shape[0]
+        if pk["cpu"][0].shape[0]:  # one resume on the same answers
+            ans = views["cpu"].exchange.serve(pk["cpu"][1].reshape(-1, 2), 1,
+                                              "variants").view(-1, 2)
+            ans_g = ans[order["cpu"]][torch.argsort(order[cuda])]
+            pk["cpu"] = greedy.greedy_variants_hosts(
+                *vr["cpu"], parked=pk["cpu"][0], answers=ans)
+            pk[cuda] = greedy.greedy_variants_hosts(
+                *vr[cuda], parked=pk[cuda][0],
+                answers=ans_g.to(cuda).contiguous())
+            assert torch.equal(out[cuda].cpu(), out["cpu"])
+            assert torch.equal(_sorted_rows(pk[cuda][0]),
+                               _sorted_rows(pk["cpu"][0]))
+        for d in views:
+            views[d].exchange.rounds(
+                "variants", *pk[d], 1, lambda p, a, d=d:
+                greedy.greedy_variants_hosts(*vr[d], parked=p,
+                                             answers=a.reshape(-1, 2)))
+            greedy.greedy_levels(2, level, *arg[d], st[d], voff=voff.to(d),
+                                 var=var[d], vout=out[d])
+        assert torch.equal(out[cuda].cpu(), out["cpu"])
+        _same_state(st[cuda], st["cpu"])
+    assert parked_any > 0
+    want = greedy.greedy_search_plain(*lanes, flat, frag_off, rf_rows, dv.rec,
+                                      dv.C, env["tables"], Lmap, mfl,
+                                      min_score, e, T_)
+    for g, w in zip((st["cpu"].best, st["cpu"].flags, st["cpu"].g_s0,
+                     st["cpu"].g_s1), want):
+        assert torch.equal(g, w)
+    # V around the walks, on the ties' ranges
+    R = 32
+    lists = {d: classify.ranges_lca_list(st[d].g_s0, st[d].g_s1, R)
+             for d in views}
+    for g, w in zip(lists[cuda], lists["cpu"]):
+        assert torch.equal(g.cpu(), w)
+    pos, info = lists["cpu"]
+    seq = torch.full_like(pos, -1)
+    seq[pos >= 0] = tdev.sa_walk(dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq,
+                                 dv.chpt_exp, pos[pos >= 0])[0]
+    tail = (dv.seq_tax, env["par"], env["dep"], R, CAP)
+    got = classify.lca_resolved(info.to(cuda), seq.to(cuda),
+                                *(t.to(cuda) for t in tail[:3]), R, CAP,
+                                ranges=True)
+    want = classify.ranges_lca_plain(st["cpu"].g_s0, st["cpu"].g_s1, dv.rec,
+                                     dv.C, dv.sa_seq, dv.sa_off, *tail,
+                                     dv.nseq, dv.chpt_exp)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((info[:, 1] > R).any())
+
+
+@pytest.mark.parametrize("mismatches,vcap", [(0, greedy.VCAP),
+                                             (3, greedy.VCAP), (3, 1)])
+def test_greedy_hosts_batch_on_the_card_matches_b_e_f(env, cuda, mismatches,
+                                                      vcap):
+    """fused_greedy_classify_hosts on the card, every shard local (O, U, X,
+    Q and V, the rounds with nothing parked), gives the rows of B -> E -> F
+    with no hybrid on the card; vcap = 1 flags reads FLAG_SCRATCH."""
+    from kaiju_tpu_torch import kernels as tk
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    gpu = _greedy_args(env, env["reads"], mismatches, cuda, vcap)
+    (rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off, seq_tax, par,
+     dep, tables, K, lmap, mfl, min_score, e, T_, R, cap, _n, _c, vc) = gpu
+    want = greedy.fused_greedy_classify(*gpu)
+    view = _hosts_view(ShardedIndex(env["idx"], 3, cuda), ())
+    tk.reset_counts()
+    got = greedy.fused_greedy_classify_hosts(
+        view, view.exchange, seed, flat, frag_off, rf_rows, seq_tax, par,
+        dep, tables, K, lmap, mfl, min_score, e, T_, R, cap, vc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    for name in ("mem_extend_hosts", "greedy_levels", "ranges_lca_hosts",
+                 "walk_hosts", "read_lca_hosts"):
+        assert tk.LAUNCHES[name] > 0, name
+    assert (tk.LAUNCHES["greedy_variants_hosts"] > 0) == (mismatches > 0)
+    assert not tk.LAUNCHES["greedy_search"] + tk.LAUNCHES["ranges_lca"]
+    if vcap == 1:
+        assert bool((want[:, 2] & greedy.FLAG_SCRATCH).any())

@@ -10,11 +10,13 @@ the single-process TSV byte for byte, which is the ExactClassifier's.
 With --mesh-index each process must hold exactly the shards of the
 ownership rule (parallel.peer_shards) and map every other shard from
 process o mod N, and no file of the mapped shards may outlive the
-processes.  MEM with --mesh-index over processes labelled as several
-hosts (2 on hosts a, b at S = 2; 3 on a, a, b at S = 4; with and without
-a text copy) must merge to the same TSV, each process holding, mapping
-and having served in rounds the shards of the routing rule; Greedy there
-must exit.  Each process is tests/torch_multihost_worker.py."""
+processes.  MEM and Greedy (the default flags, and -e 0 on two of the
+runs) with --mesh-index over processes labelled as several hosts (2 on
+hosts a, b at S = 2; 3 on a, a, b at S = 4; with and without a text
+copy) must merge to the same TSV, each process holding,
+mapping and having served in rounds the shards of the routing rule, with
+rounds in every stage of the path.  Each process is
+tests/torch_multihost_worker.py."""
 
 import json
 import os
@@ -41,6 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_multihost_worker.py")
 N_READS, BATCH = 100, 32  # last batch 4 reads: 3 processes get 2, 2, 0
 MODES = {"mem": ["-a", "mem"], "greedy": []}
+# each run's flags: the modes, and Greedy with no variant level
+FLAGS = {**MODES, "greedy-e0": ["-e", "0"]}
 
 
 @pytest.fixture(scope="module")
@@ -72,12 +76,13 @@ def _single(env, mode, ktx="ktx"):
     if key not in env:
         out = str(env["work"] / f"single_{mode}_{ktx}.tsv")
         assert tkaiju.main(["-t", env["nodes_dmp"], "-f", env[ktx], "-i",
-                            env["fq"], *MODES[mode], "-b", str(BATCH), "-o",
+                            env["fq"], *FLAGS[mode], "-b", str(BATCH), "-o",
                             out], device="cpu") == 0
         with open(out) as fh:
             tsv = fh.read()
         cfg = (KaijuConfig(mode="mem", seg=True, use_Evalue=False)
-               if mode == "mem" else KaijuConfig())
+               if mode == "mem" else
+               KaijuConfig(mismatches=0 if mode == "greedy-e0" else 3))
         idx = jax_py_builder.build_index(env["records"])
         exact = "".join(format_output_line(n, r, False) for n, r in
                         ExactClassifier(idx, Taxonomy(env["nodes"]), cfg)
@@ -93,11 +98,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run(env, nprocs, by_env, argv, tag, hosts=None, fail=False):
+def _run(env, nprocs, by_env, argv, tag, hosts=None):
     """Start nprocs workers with argv and the process flags (or the
     KAIJU_TPU_* variables), process p on host hosts[p] if given; returns
-    each process's output lines (fail: each process's stderr, every
-    process having failed)."""
+    each process's output lines."""
     coord = f"127.0.0.1:{_free_port()}"
     procs, outs = [], []
     for p in range(nprocs):
@@ -124,12 +128,11 @@ def _run(env, nprocs, by_env, argv, tag, hosts=None, fail=False):
             [sys.executable, WORKER, *host, *argv, *dist, "-o", out], cwd=ROOT,
             env=penv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
-    errors, failed = [], []
+    errors = []
     try:
         for p, proc in enumerate(procs):
             _o, err = proc.communicate(timeout=300)
             if proc.returncode != 0:
-                failed.append(err)
                 errors.append(f"process {p}: rc {proc.returncode}\n"
                               f"{err[-2000:]}")
     finally:
@@ -137,9 +140,6 @@ def _run(env, nprocs, by_env, argv, tag, hosts=None, fail=False):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if fail:
-        assert len(failed) == nprocs, "a process did not fail"
-        return failed
     assert not errors, "\n".join(errors)
     lines = []
     for out in outs:
@@ -155,7 +155,7 @@ def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx", hosts=None):
     single, exact = _single(env, mode, ktx)
     assert single == exact, _diff(single, exact)
     argv = ["-t", env["nodes_dmp"], "-f", env[ktx], "-i", env["fq"],
-            *MODES[mode], "-b", str(BATCH)]
+            *FLAGS[mode], "-b", str(BATCH)]
     if mesh:
         argv += ["--mesh-index", str(mesh)]
     tag = f"{mode}_{mesh}_{nprocs}_{ktx}" + ("_" + "".join(hosts)
@@ -187,7 +187,7 @@ def _check_run(env, mode, mesh, nprocs, by_env, ktx="ktx", hosts=None):
     assert merged.count("C\t") > 40
     if mesh:
         _check_shards(env, tag, nprocs, mesh, ktx == "ktx_text",
-                      hosts or ["one"] * nprocs)
+                      hosts or ["one"] * nprocs, mode)
     return single
 
 
@@ -213,12 +213,14 @@ def _routes(p, hosts, S):
     return opened, remote
 
 
-def _check_shards(env, tag, nprocs, S, text, hosts):
+def _check_shards(env, tag, nprocs, S, text, hosts, mode):
     """Each process held exactly its shards (process p: shard p mod S for
     N >= S, the shards o with o mod N = p for N < S), mapped every other
     one of its host from the process the routing rule names (over one
-    host: process o mod N), had the others served in rounds, and left no
-    file of them behind."""
+    host: process o mod N), had the others served in rounds (in every
+    stage of the mode's path), and left no file of them behind."""
+    stages = ("extend", "variants", "walk") if mode == "greedy" else (
+        "extend", "walk")  # no variant level at -e 0
     arrays = {"rec", "sa_seq", "sa_off"} | ({"text"} if text else set())
     holders = set()
     for p in range(nprocs):
@@ -236,9 +238,9 @@ def _check_shards(env, tag, nprocs, S, text, hosts):
                    for a in arrays)
         if len(set(hosts)) > 1:  # every stage ran rounds
             assert got["host"] == hosts[p]
-            assert {"seed", "extend", "walk"} <= set(got["rounds"])
-            assert all(got["rounds"][k]["rounds"] > 0 for k in
-                       ("extend", "walk")), got["rounds"]
+            assert {"seed", *stages} == set(got["rounds"])
+            assert all(got["rounds"][k]["rounds"] > 0 for k in stages), (
+                got["rounds"])
             assert got["rounds"]["seed"]["queries"] > 0
         else:
             assert not remote and not got["rounds"]
@@ -264,11 +266,14 @@ def test_two_processes_hold_four_text_index_shards_apart(env):
     assert single == _single(env, "greedy")[0]
 
 
+HOST_RUNS = pytest.mark.parametrize(
+    "nprocs, mesh, hosts, by_env", [(2, 2, ["a", "b"], False),
+                                    (3, 4, ["a", "a", "b"], True)],
+    ids=["2-hosts-ab-mesh2", "3-hosts-aab-mesh4"])
+
+
 @pytest.mark.parametrize("ktx", ["ktx", "ktx_text"])
-@pytest.mark.parametrize("nprocs, mesh, hosts, by_env",
-                         [(2, 2, ["a", "b"], False),
-                          (3, 4, ["a", "a", "b"], True)],
-                         ids=["2-hosts-ab-mesh2", "3-hosts-aab-mesh4"])
+@HOST_RUNS
 def test_mem_across_hosts_merges_to_the_single_process_tsv(env, nprocs, mesh,
                                                            hosts, by_env,
                                                            ktx):
@@ -282,11 +287,28 @@ def test_mem_across_hosts_merges_to_the_single_process_tsv(env, nprocs, mesh,
         assert single == _single(env, "mem")[0]
 
 
-def test_greedy_across_hosts_exits(env):
-    """Greedy (the default mode) with --mesh-index over two hosts exits in
-    every process, naming -a mem and the ROADMAP item."""
-    argv = ["-t", env["nodes_dmp"], "-f", env["ktx"], "-i", env["fq"], "-b",
-            str(BATCH), "--mesh-index", "2"]
-    for err in _run(env, 2, False, argv, "greedy_hosts", ["a", "b"],
-                    fail=True):
-        assert "runs -a mem only" in err and "ROADMAP item 10e" in err, err
+@pytest.mark.parametrize("ktx", ["ktx", "ktx_text"])
+@HOST_RUNS
+def test_greedy_across_hosts_merges_to_the_single_process_tsv(
+        env, nprocs, mesh, hosts, by_env, ktx):
+    """Greedy (the default flags, -e 3) with --mesh-index over processes
+    labelled as several hosts: the seed tables, O's steps, X's variant
+    steps (each level's rounds) and Q's walks of a remote shard are served
+    by its owner in rounds; the merged TSV is the single-process TSV and
+    the ExactClassifier's, with and without a text copy (the hybrid off
+    across hosts)."""
+    single = _check_run(env, "greedy", mesh, nprocs, by_env, ktx, hosts)
+    if ktx == "ktx_text":
+        assert single == _single(env, "greedy")[0]
+
+
+@pytest.mark.parametrize("nprocs, mesh, hosts, by_env, ktx", [
+    (2, 2, ["a", "b"], False, "ktx"), (3, 4, ["a", "a", "b"], True,
+                                       "ktx_text")],
+    ids=["2-hosts-ab-mesh2-ktx", "3-hosts-aab-mesh4-ktx_text"])
+def test_greedy_e0_across_hosts_merges_to_the_single_process_tsv(
+        env, nprocs, mesh, hosts, by_env, ktx):
+    """Greedy with -e 0 (no variant level: U's level 0 writes the rows and
+    no "variants" round runs) over processes labelled as several hosts:
+    the merged TSV is the single-process TSV and the ExactClassifier's."""
+    _check_run(env, "greedy-e0", mesh, nprocs, by_env, ktx, hosts)

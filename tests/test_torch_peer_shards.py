@@ -3,9 +3,8 @@ peer_shards), without processes: the ownership rule for N processes and S
 shards, ``Shards`` over read-only memory maps of shard files (as a
 process maps its peers' shards on the CPU) against the whole tensor and
 through the plain SA walk and extension, the plain versions' refusal of a
-shard on another device, the routing rule over several hosts (mapped on
-the host, else served in rounds), and Greedy's exit there.
-The processes themselves run in tests/test_torch_multihost.py."""
+shard on another device, and the routing rule over several hosts (mapped
+on the host, else served in rounds).  The processes themselves run in tests/test_torch_multihost.py."""
 
 import random
 
@@ -95,14 +94,6 @@ def test_plain_versions_refuse_a_shard_on_another_device():
                          4, 8, "cpu", peer=[1])
     with pytest.raises(ValueError, match="shard 1 lies on meta"):
         shards[torch.arange(8)]
-
-
-def test_a_group_across_hosts_exits():
-    """Greedy over several hosts exits, naming -a mem and the ROADMAP item
-    (MEM runs there, served in rounds)."""
-    peer_shards.refuse_greedy(["node-a", "node-a"])
-    with pytest.raises(SystemExit, match="runs -a mem only.*ROADMAP item 10e"):
-        peer_shards.refuse_greedy(["node-a", "node-b", "node-a"])
 
 
 @pytest.mark.parametrize("hosts, S", [
