@@ -75,7 +75,7 @@ Phases, any failure exits non-zero:
      steady rate and the host seconds of each stage, and traced by
      torch.profiler for the device's idle share;
   4c. the verbose paths: tools.kaiju.main with -a mem -v and with -v on
-     the first 16,384 reads (four batches) of db_text.ktx and on one
+     the first 8,192 reads (two batches) of db_text.ktx and on one
      batch of db.ktx, counting launches (MEM -v must launch A's letters
      form, B, C, H, Greedy -v A in both forms, B, K, I, H; on the text
      index every B screened, G never), each line's first three columns
@@ -88,7 +88,7 @@ Phases, any failure exits non-zero:
      its plain version on the inputs of each of its calls there, and
      every line equal ExactClassifier's;
   4d. the taxonomy-free tools on db.ktx, through their main and
-     engine.batch.BatchRunner: kaijux -a mem on 16,384 reads, kaijux
+     engine.batch.BatchRunner: kaijux -a mem on 8,192 reads, kaijux
      (Greedy) on 4,096, kaijup (Greedy) on 4,096 protein reads of
      readgen's make_protein_reads, kaijux -v on 4,096; every kernel of the
      path must launch (J and H for MEM, J, I, A and H for Greedy) and no
@@ -110,24 +110,30 @@ Phases, any failure exits non-zero:
      a warm sharded pipeline beside phase 4b's unsharded rate; then the
      sharded primitives (J over the first MEM batch's fragments, H on
      their SA positions) against the unsharded kernels;
-  4f. many processes: tools.kaiju.main as 2 processes, process p on
-     cuda:{p % cards} (on one card both on cuda:0, and the script says
-     that the cross-card form was not run) (--dist-nprocs 2, a coordinator
-     on 127.0.0.1, --dist-pid p; this script started again with
-     --kaiju-worker, each process with its own -o and seed-table cache),
-     on the first 16,384 reads of db_text.ktx, with -a mem and with the
-     default flags, each with and without --mesh-index 2, and Greedy with
-     --mesh-index 4: each process must launch every kernel of its path,
+  4f. many processes: tools.kaiju.main as 2 processes, each on its share
+     of the cards (multihost.process_cards; on one card both on cuda:0,
+     and the script says that the cross-card form was not run)
+     (--dist-nprocs 2, a coordinator on 127.0.0.1, --dist-pid p; this
+     script started again with --kaiju-worker, each process with its own
+     -o and seed-table cache), on the first 16,384 reads of db_text.ktx:
+     -a mem with and without --mesh-index 2, the default flags without it
+     and with --mesh-index 4, and the default flags with --mesh-index 4 on
+     two cards a process (--cards: cards 2p and 2p + 1, or cuda:0 twice
+     on one card): each process must launch every kernel of its path,
      each read must be in exactly one output, the one its batch share
      names, and the lines merged by read must equal phase 4's; with
-     --mesh-index each process must hold exactly its shards (p mod S for
-     N >= S, o mod N = p for N < S) and map the others from their holders
-     over CUDA IPC, and process 0 holds each kernel of its path (A; B, G,
-     C, D; B, E, F) on the arguments of its first call, on the mapped
-     shards, against its plain version and against its launch on copies
-     in its own memory (both launches timed); the card memory used after
-     set-up, the index bytes held apart beside two whole copies, and the
-     processes' wall beside the one-process main() of the same reads;
+     --mesh-index each card must hold, read and map exactly the shards of
+     the slot rules (slot g = p D + c holds g mod S for G = N D >= S, o mod
+     G = g for G < S; the others from a card of its process, else over
+     CUDA IPC from a process that holds them), and process 0 holds each
+     kernel of its path (A; B, G, C, D; B, E, F) on the arguments of its
+     first call on its first card, on the shards read there, against its
+     plain version and against its launch on copies in its own memory
+     (both launches timed); the card memory used after set-up, the index
+     bytes held apart beside whole copies, and the processes' wall and
+     stream beside the one-process main() of the same reads; with four
+     cards, the default flags at --mesh-index 4 as 1 x 4, 2 x 2 and 4 x 1
+     (processes x cards), each twice, their streams side by side;
   4h. warm start: tools.mkdb --aot -t nodes.dmp --aot-batch 4096, a
      process of its own, on a FASTA of phase 2's first records up to 8 M
      letters into build/chip_smoke/aot.ktx (the seconds of each step: the
@@ -189,22 +195,27 @@ Phases, any failure exits non-zero:
   4j. processes on several hosts, rehearsed on one machine (each process
      given a host label through peer_shards.host_name; every host is this
      machine and the transport gloo over loopback): tools.kaiju.main with
-     the default flags (Greedy) and with -a mem, --mesh-index 2 as 2
-     processes on hosts a, b and --mesh-index 4 as 3 processes on a, a, b
-     (and 4 processes on a, a, b, b where there are four cards), process
-     p on cuda:{p % cards}, on the first 8,192 reads of db.ktx and of
-     db_text.ktx (MEM: db_text.ktx only), each process with an empty
+     the default flags (Greedy) with --mesh-index 2 as 2 processes on
+     hosts a, b, Greedy and -a mem with --mesh-index 4 as 3 processes on
+     a, a, b (and 4 processes on a, a, b, b where there are four cards),
+     each process on its share of the cards, and Greedy with --mesh-index
+     4 as 2 processes on hosts a, b of two cards each (--cards, as in 4f),
+     on the first 4,096 reads of db_text.ktx (and of db.ktx for Greedy
+     at --mesh-index 4), each process with an empty
      seed-table cache, so that the group builds the tables by rounds of
      N: each process must launch every kernel of its mode's hosts path
      (N, O, U, X, Q, V and W's resolved form for Greedy; N, O, C, W and
      Q for MEM) and no
-     one-host kernel that reads the index (no E, F, B or D), hold, map and
-     have served in rounds the shards of the routing rule, with rounds in
-     every stage of the path, each read must be written once by its owner
-     and the merged lines equal phase 4's lines of the mode; process 0
-     holds each hosts kernel on the arguments of its first rounds (each
-     form of U, X, V, N, O, Q, W) against its plain version on copies
-     (timed in the runs at 4 shards on a, a, b of db_text.ktx); each
+     one-host kernel that reads the index (no E, F, B or D), each card
+     must hold, read, map and have served in rounds the shards of the slot
+     rules, with rounds in every stage of the path on every card (the seed
+     tables' on card 0), each read must be written once by its owner and
+     the merged lines equal phase 4's lines of the mode; process 0 holds
+     each hosts kernel on the arguments of its first card's first rounds
+     (each form of U, X, V, N, O, Q, W) against its plain version on
+     copies (timed in the runs at 4 shards on a, a, b of db_text.ktx, on
+     the kernels' launches alone, launch_ms, and as the wrappers' whole
+     calls, with the count that U's list pass, O, Q and X read back); each
      process's main(), set-up and stream seconds, the rounds a batch of
      each stage with their queries, bytes and seconds in copies,
      transport and N, and the stream's rate against a one-host group of
@@ -290,29 +301,38 @@ SHARDED = ("update_si", "update_si_letters", "extend_all", "sa_lookup",
            "ranges_lca")
 MESH = (2, 4)  # index shards of phase 3's sharded checks and phase 4e
 MESH_READS = 4 * BATCH  # reads of each phase 4e and 4f run
-NPROCS = 2  # processes of each phase 4f run, process p on cuda:{p % cards}
+NPROCS = 2  # processes of each phase 4f run
 # phase 4i, the index over the cards of one process: the --mesh-index of its
 # runs, and its big index's letters and shards (tools.big_classify.run)
 CARD_SHARDS = (1, 2, 4)
 CARD_BIG_LETTERS = 64_000_000
 CARD_BIG_SHARDS = (2, 4)
-# phase 4f's runs (--mesh-index, path): one index a process; the shards
-# held apart with N = S; N < S (two shards held and two mapped a process)
-PROC_RUNS = ((0, "mem"), (0, "greedy"), (2, "mem"), (2, "greedy"),
-             (4, "greedy"))
+# phase 4f's runs (--mesh-index, path, cards a process): one index a
+# process; the shards held apart with N = S; N < S (two shards held and two
+# mapped a process); 2 processes of 2 cards, a slot a shard (each card
+# reading one shard from its process's other card and mapping two)
+PROC_RUNS = ((0, "mem", 1), (0, "greedy", 1), (2, "mem", 1),
+             (4, "greedy", 1), (4, "greedy", 2))
+# where there are four cards, the same Greedy reads at --mesh-index 4 on
+# the four in three layouts: (processes, cards a process)
+LAYOUTS = ((1, 4), (2, 2), (4, 1))
 # phase 4j, processes on several hosts rehearsed on one machine: each run's
 # --mesh-index and hosts (process p labelled hosts[p]), four processes on
 # two hosts where there are four cards; each mode's indexes, the kernels of
 # its hosts path (A's tables by rounds of N; Greedy: O, U, X, Q, V and W's
 # resolved form; MEM: O, C, W, Q), the stages of its rounds and the forms
 # process 0 must check
-HOST_RUNS = ((2, "ab"), (4, "aab"))
 HOST_RUNS_4 = ((4, "aabb"),)
-HOST_READS = 2 * BATCH  # reads of each 4j run, its one-host reference's too
+# the run of two cards a process: (mode, index, --mesh-index, hosts, cards)
+HOST_CARD_RUN = ("greedy", "text", 4, "ab", 2)
+HOST_READS = BATCH  # reads of each 4j run, its one-host reference's too
 # the 4j run whose process 0 times its hosts kernels for the kernels line
 # (the other runs compare them with their plain versions untimed)
-HOST_TIMED = ("text", 4, "aab")
+HOST_TIMED = ("text", 4, "aab", 1)
 HOST_INDEXES = {"greedy": ("text", "fmi"), "mem": ("text",)}
+# the runs of each mode (--mesh-index, hosts), and of Greedy on db.ktx
+HOST_MODE_RUNS = {"greedy": ((2, "ab"), (4, "aab")), "mem": ((4, "aab"),)}
+HOST_FMI_RUNS = ((4, "aab"), (4, "aabb"))
 HOST_PATHS = {
     "greedy": ("fm_serve", "mem_extend_hosts", "greedy_levels",
                "greedy_variants_hosts", "walk_hosts", "ranges_lca_hosts",
@@ -342,13 +362,13 @@ VERBOSE_PATHS = {
     "greedy": (("update_si_letters", "update_si", "mem_extend",
                 "greedy_map", "extend_from", "sa_lookup"), ["-v"]),
 }
-V_READS = 4 * BATCH  # reads of the verbose runs on the text index
+V_READS = 2 * BATCH  # reads of the verbose runs on the text index
 # phase 4d, on db.ktx: each run of a taxonomy-free tool (tool, flags, kind
 # of reads, read count) and the kernels it must launch; the kernel wrappers
 # BatchRunner calls (engine.batch; extend_rows launches extend_from)
 X_SERVE = ("extend_all", "extend_from", "update_si", "sa_lookup")
 X_RUNS = {
-    "kaijux mem": ("kaijux", ["-a", "mem"], "dna", 4 * BATCH,
+    "kaijux mem": ("kaijux", ["-a", "mem"], "dna", 2 * BATCH,
                    ("extend_all", "sa_lookup")),
     "kaijux greedy": ("kaijux", [], "dna", BATCH, X_SERVE),
     "kaijup greedy": ("kaijup", [], "protein", BATCH, X_SERVE),
@@ -409,6 +429,47 @@ def cuda_ms(fn, reps: int = 15, warm: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def launch_ms(fn, reps: int = 15, warm: int = 2) -> float:
+    """Median milliseconds that a call of fn() spends in its kernels on the
+    card: CUDA events around each kernels.launch inside fn, summed over
+    the call, each launch behind a sleep kernel that keeps the stream busy
+    while the host enqueues it.  What fn does between its launches (a
+    count read back from the card, host work) is left out, where cuda_ms
+    holds it."""
+    import torch
+
+    from kaiju_tpu_torch import kernels
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    inner = kernels.launch
+    pairs: list = []
+
+    def timed(name, *args):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        with torch.cuda.device(dev):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)  # about 1 ms at 1.98 GHz
+            start.record()
+            inner(name, *args)
+            end.record()
+        pairs.append((start, end))
+
+    times = []
+    kernels.launch = timed
+    try:
+        for _ in range(reps):
+            pairs.clear()
+            fn()
+            torch.cuda.synchronize()
+            times.append(sum(a.elapsed_time(b) for a, b in pairs))
+    finally:
+        kernels.launch = inner
     return statistics.median(times)
 
 
@@ -2356,38 +2417,51 @@ def check_first_calls(first: dict, dev) -> dict:
 
 def kaiju_worker(counts_path: str, argv: list) -> int:
     """One process of a phase 4f run: tools.kaiju.main(argv) on this
-    process's card (the --dist-* flags in argv; phase 4j puts `--host
+    process's cards (the --dist-* flags in argv; phase 4j puts `--host
     NAME` first, the process's host label, and then process 0 checks the
     hosts kernels instead, check_hosts_calls, and the exchange's counts
-    are reported).  Right after set-up (the runner made, its seconds
-    kept) every process waits for the others and reads the card's used
-    memory; with --mesh-index it reports the shards it holds and maps
+    are reported; `--cards c0,c1` next gives main() those cards, else the
+    process takes its share of the machine's, multihost.process_cards).
+    Right after set-up (the runner made, its seconds kept) every process
+    waits for the others and reads the card's used memory; with
+    --mesh-index it reports the shards each of its cards holds and maps
     (ShardedIndex.layout), and process 0 keeps the arguments of each
-    kernel's first call, which it checks after main() (check_first_calls),
-    while the mapped shards are still open: they are released when the
-    process leaves its group, at exit.  Writes its exit code, card, launch
-    counts (main()'s only), seconds, memory, layout and checks to
-    counts_path as JSON."""
+    kernel's first call on its first card, which it checks after main()
+    (check_first_calls), while the mapped shards are still open: they are
+    released when the process leaves its group, at exit.  Writes its exit
+    code, cards, launch counts (main()'s only), seconds, memory, layouts,
+    rounds and checks to counts_path as JSON."""
+    import threading
+
     import torch
     import torch.distributed as dist
 
     from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.engine.pipeline import CardShare
+    from kaiju_tpu_torch.parallel import exchange, peer_shards
     from kaiju_tpu_torch.tools import kaiju
 
-    from kaiju_tpu_torch.parallel import exchange, peer_shards
-
-    host = None
+    host = cards = None
     if argv[:1] == ["--host"]:  # phase 4j: this process's host label
         host = argv[1]
         argv = argv[2:]
         peer_shards.host_name = lambda: host
+    if argv[:1] == ["--cards"]:
+        cards = argv[1].split(",")
+        argv = argv[2:]
     mesh = "--mesh-index" in argv
     pid = int(argv[argv.index("--dist-pid") + 1])
+
+    def first_card():  # the set-up (main thread) and card 0's thread
+        return threading.current_thread().name in ("MainThread", "card0_0")
+
     first = {}
     if pid == 0 and host is not None:
-        first = spy_hosts_calls("mem" if "mem" in argv else "greedy")
+        first = spy_hosts_calls("mem" if "mem" in argv else "greedy",
+                                only=first_card)
     elif mesh and pid == 0:
-        first = spy_first_calls("mem" if "mem" in argv else "greedy")
+        first = spy_first_calls("mem" if "mem" in argv else "greedy",
+                                only=first_card)
     info = {}
     make_runner = kaiju.make_runner
 
@@ -2396,7 +2470,8 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         info["runner"] = runner = make_runner(*args, **kw)
         info["setup"] = time.perf_counter() - t0
         torch.cuda.synchronize()
-        dist.barrier()  # every process set up
+        if dist.is_initialized():
+            dist.barrier()  # every process set up
         free, total = torch.cuda.mem_get_info()
         info["card_used"] = total - free
         info["allocated"] = torch.cuda.memory_allocated()
@@ -2405,23 +2480,105 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     kaiju.make_runner = keep
     kernels.reset_counts()
     t0 = time.perf_counter()
-    rc = kaiju.main(argv)
-    torch.cuda.synchronize()
+    rc = kaiju.main(argv, device=cards)
+    runner = info.pop("runner")
+    share = getattr(runner, "pipe", runner)  # one process: no ProcessShare
+    pipes = share.pipes if isinstance(share, CardShare) else [share]
+    for dev in dict.fromkeys(p.device for p in pipes):
+        torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)  # before the checks' launches
-    runner = info.pop("runner")
+    info["cards"] = [str(p.device) for p in pipes]
     if mesh:
-        info["layout"] = runner.pipe.dev.layout()
+        info["layout"] = [p.dev.layout() for p in pipes]
     if host is not None:
         info["rounds"] = exchange.COUNTS
+        info["card_rounds"] = [p.dev.exchange.counts if p.dev.exchange
+                               else {} for p in pipes]
         info["checks"] = check_hosts_calls(
             first, timed=os.environ.get("CHIP_SMOKE_TIMED") == "1")
     else:
-        info["checks"] = check_first_calls(first, runner.pipe.device)
+        info["checks"] = check_first_calls(first, pipes[0].device)
     with open(counts_path, "w") as fh:
         json.dump({"rc": rc, "device": str(torch.cuda.current_device()),
                    "launches": launches, "seconds": seconds, **info}, fh)
     return rc
+
+
+def worker_cards(p: int, nprocs: int, per: int):
+    """The `--cards` of process p of nprocs on `per` > 1 cards each: on a
+    machine with nprocs per cards or more, cards per p to per p + per - 1;
+    else its card p mod cards, `per` times (two data rows on one card).
+    None for per = 1: the process takes its share of the machine's cards
+    (multihost.process_cards), dealt_cards."""
+    import torch
+
+    if per == 1:
+        return None
+    n = torch.cuda.device_count()
+    if n >= nprocs * per:
+        return [f"cuda:{per * p + i}" for i in range(per)]
+    return [f"cuda:{p % n}"] * per
+
+
+def dealt_cards(p: int, nprocs: int) -> list:
+    """The cards process p of nprocs on this machine takes when it is
+    given none, restated from multihost.deal_cards: cards // nprocs each,
+    or card p mod cards where the processes outnumber the cards."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if nprocs > n:
+        return [f"cuda:{p % n}"]
+    k = n // nprocs
+    return [f"cuda:{p * k + i}" for i in range(k)]
+
+
+def slot_rule(g: int, hosts: str, per: int, n_shards: int):
+    """The slot rules (parallel.peer_shards), restated from held_by_rule:
+    (held, {shard: card of its process it is read from}, {shard: slot of
+    another process of its host it is mapped from}, {shard: process that
+    serves it in rounds}) for slot g = p per + c of a group of processes
+    on hosts (one letter a process), each on `per` cards."""
+    G = len(hosts) * per
+    p = g // per
+    reads, opened, remote = {}, {}, {}
+    for o in range(n_shards):
+        if o in held_by_rule(g, G, n_shards):
+            continue
+        holders = [h for h in range(G) if o in held_by_rule(h, G, n_shards)]
+        own = [h for h in holders if h // per == p]
+        near = [h for h in holders if hosts[h // per] == hosts[p]]
+        if own:
+            reads[o] = (o % G if o % G in own else min(own)) - p * per
+        elif near:
+            opened[o] = o % G if o % G in near else min(near)
+        else:
+            remote[o] = (o % G) // per
+    return held_by_rule(g, G, n_shards), reads, opened, remote
+
+
+def check_slots(name: str, p: int, got: dict, hosts: str, per: int,
+                n_shards: int) -> None:
+    """Process p's report: its cards must be worker_cards' (or, for per =
+    1, dealt_cards'), and each must hold, read, map and have served the
+    shards of the slot rules."""
+    want = (worker_cards(p, len(hosts), per)
+            or dealt_cards(p, len(hosts)))
+    if got["cards"] != want:
+        raise AssertionError(f"{name} process {p}: cards {got['cards']}, "
+                             f"expected {want}")
+    per = len(want)
+    for c, lay in enumerate(got.get("layout", ())):
+        held, reads, opened, remote = slot_rule(p * per + c, hosts, per,
+                                                n_shards)
+        mine = (lay["held"], {int(o): h for o, h in lay["reads"].items()},
+                {int(o): h for o, h in lay["opened_slot"].items()},
+                {int(o): q for o, q in lay["remote"].items()})
+        if mine != (held, reads, opened, remote):
+            raise AssertionError(
+                f"{name} process {p} card {c}: holds, reads, maps, served "
+                f"{mine}; the slot rules give {held, reads, opened, remote}")
 
 
 def fresh_cache(ktx: str, path: str) -> str:
@@ -2453,20 +2610,24 @@ def held_by_rule(p: int, nprocs: int, n_shards: int) -> list:
     return [o for o in range(n_shards) if o % nprocs == p]
 
 
-def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
+def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv,
+                  per=1, nprocs=NPROCS, one_process=True):
     """tools.kaiju.main on the path `mode` (with --mesh-index n_shards if
-    given) as NPROCS processes (--dist-nprocs, a coordinator on 127.0.0.1,
-    --dist-pid p, each with its own -o and seed-table cache), process p on
-    cuda:{p % cards}, on the first MESH_READS reads: each process must
-    launch every kernel of its path on its card, each read must be in
-    exactly one output, the one its batch share names, and the lines
-    merged by read must equal phase 4's lines (base_tsv).  With
-    --mesh-index each process must hold exactly the shards of
-    held_by_rule and map every other one from process o mod N, and each
-    kernel of the path must equal its plain version on process 0's first
-    call, on the mapped shards (check_first_calls).  Then the one-process
-    main() of the same reads, timed beside the processes' wall.  Returns
-    the launch counts of all the processes and each process's report."""
+    given) as nprocs processes (--dist-nprocs, a coordinator on 127.0.0.1,
+    --dist-pid p, each with its own -o and seed-table cache), each on
+    `per` cards (worker_cards; with one card a process, its share of the
+    machine's cards, dealt_cards), on the first MESH_READS reads: each
+    process must launch every kernel of its path on its cards, each read
+    must be in exactly one output, the one its batch share names, and the
+    lines merged by read must equal phase 4's lines (base_tsv).  With
+    --mesh-index each card must hold, read and map exactly the shards of
+    the slot rules (check_slots), and each kernel of the path must equal
+    its plain version on process 0's first call on its first card, on the
+    shards read and mapped there (check_first_calls).  Then, where
+    one_process, the one-process main() of the same reads, timed beside
+    the processes' wall.  Returns the launch counts of all the processes,
+    each process's report and the stream's rate after set-up (the slowest
+    process)."""
     import torch
 
     from kaiju_tpu_torch.parallel.multihost import local_rows
@@ -2474,28 +2635,31 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
 
     work = os.path.dirname(ktx)
     mesh = ["--mesh-index", str(n_shards)] if n_shards else []
-    name = f"{mode}{' --mesh-index %d' % n_shards if n_shards else ''}"
+    name = (f"{mode}{' --mesh-index %d' % n_shards if n_shards else ''}"
+            f"{', %d cards a process' % per if per > 1 else ''}")
     fq = mesh_fastq(reads, ktx)
     argv = ["-t", nodes, "-f", ktx, "-i", fq, *PATHS[mode][1], *mesh,
             "-b", str(BATCH)]
     coord = f"127.0.0.1:{free_port()}"
     outs, counts, logs, procs = [], [], [], []
-    tag = f"{mode}_mesh{n_shards}"
+    tag = f"{mode}_mesh{n_shards}_{nprocs}x{per}"
     gc.collect()  # this process's cached card memory, out of the readings
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        for p in range(NPROCS):
+        for p in range(nprocs):
             outs.append(os.path.join(work, f"out_procs_{tag}_p{p}.tsv"))
             counts.append(os.path.join(work, f"counts_{tag}_p{p}.json"))
             logs.append(open(os.path.join(work, f"log_{tag}_p{p}.txt"), "w"))
             env = dict(os.environ, KAIJU_TPU_CACHE=fresh_cache(
                 ktx, os.path.join(work, f"cache_{tag}_p{p}")))
+            cards = worker_cards(p, nprocs, per)
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
-                 counts[p], *argv, "-o", outs[p], "--dist-nprocs",
-                 str(NPROCS), "--dist-coordinator", coord, "--dist-pid",
-                 str(p)], env=env, stdout=logs[p], stderr=subprocess.STDOUT))
+                 counts[p], *(["--cards", ",".join(cards)] if cards else []),
+                 *argv, "-o", outs[p], "--dist-nprocs", str(nprocs),
+                 "--dist-coordinator", coord, "--dist-pid", str(p)],
+                env=env, stdout=logs[p], stderr=subprocess.STDOUT))
         rcs = [proc.wait(timeout=300) for proc in procs]
     finally:
         for proc in procs:
@@ -2509,9 +2673,8 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
         for p, fh in enumerate(logs):
             with open(fh.name) as f:
                 log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
-        raise AssertionError(f"{name} x{NPROCS}: exit codes {rcs}")
+        raise AssertionError(f"{name} x{nprocs}: exit codes {rcs}")
     path = kernels_of(mode, index.text is not None, bool(n_shards))
-    cards = torch.cuda.device_count()
     launches = {k: 0 for k in REPLACES}
     reports = []
     for p, cpath in enumerate(counts):
@@ -2520,39 +2683,34 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
         reports.append(got)
         idle = [k for k in path if got["launches"][k] <= 0]
         stray = [k for k in REPLACES if k not in path and got["launches"][k]]
-        log(f"e2e {name} process {p} of {NPROCS}: cuda:{got['device']}, "
-            f"{got['seconds']:.2f} s in main(); card memory used after "
-            f"set-up {got['card_used']:,} bytes (this process's caching "
-            f"allocator {got['allocated']:,}); launches "
-            f"{json.dumps(got['launches'])}")
-        if idle or stray or got["device"] != str(p % cards):
+        log(f"e2e {name} process {p} of {nprocs}: {','.join(got['cards'])}, "
+            f"{got['seconds']:.2f} s in main() (set-up {got['setup']:.2f} s);"
+            f" card memory used after set-up {got['card_used']:,} bytes "
+            f"(this process's caching allocator {got['allocated']:,}); "
+            f"launches {json.dumps(got['launches'])}")
+        if idle or stray:
             raise AssertionError(f"{name} process {p}: kernels that did not "
-                                 f"launch {idle}, others {stray}, card "
-                                 f"{got['device']}")
+                                 f"launch {idle}, others {stray}")
+        check_slots(name, p, got, "a" * nprocs, per, n_shards)
         for k in launches:
             launches[k] += got["launches"][k]
         if not n_shards:
             continue
-        lay = got["layout"]
-        log(f"memory {name} process {p}: caching allocator "
-            f"{got['allocated']:,} bytes + held shards "
-            f"{sum(lay['bytes_held'].values()):,} bytes outside it")
-        want = held_by_rule(p, NPROCS, n_shards)
-        opened = {int(o): q for o, q in lay["opened"].items()}
-        log(f"shards {name} process {p}: holds {lay['held']} "
-            f"({json.dumps(lay['bytes_held'])} bytes), maps "
-            + ", ".join(f"{o} from process {q}" for o, q in opened.items())
-            + f" ({json.dumps(lay['bytes_opened'])} bytes)")
-        if lay["held"] != want or opened != {
-                o: o % NPROCS for o in range(n_shards) if o not in want}:
-            raise AssertionError(f"{name} process {p}: holds {lay['held']} "
-                                 f"and maps {opened}, the rule gives {want}")
+        for c, lay in enumerate(got["layout"]):
+            log(f"shards {name} process {p} card {c} ({lay['card']}): holds "
+                f"{lay['held']} ({json.dumps(lay['bytes_held'])} bytes, "
+                f"outside the caching allocator), reads " + ", ".join(
+                    f"{o} from card {h}" for o, h in lay["reads"].items())
+                + " (" + json.dumps(lay["bytes_read"]) + " bytes), maps "
+                + ", ".join(f"{o} from process {q}"
+                            for o, q in lay["opened"].items())
+                + f" ({json.dumps(lay['bytes_opened'])} bytes)")
         for k, c in got["checks"].items():
             log(f"kernel {k} [{name}, process {p}, {c['opened']} of "
-                f"{n_shards} shards mapped from the peer]: max_abs_err "
-                f"{c['err']} against its plain version and its launch on "
-                f"copies in this process; {c['ms']:.4f} ms on the mapped "
-                f"shards, {c['ms_local']:.4f} ms on the copies "
+                f"{n_shards} shards read or mapped from another card or "
+                f"process]: max_abs_err {c['err']} against its plain version "
+                f"and its launch on copies in this process; {c['ms']:.4f} ms "
+                f"on those shards, {c['ms_local']:.4f} ms on the copies "
                 f"({c['ms'] / c['ms_local'] - 1:+.1%})")
         unchecked = [k for k in path if p == 0 and k not in got["checks"]]
         if unchecked or any(c["err"] for c in got["checks"].values()):
@@ -2560,20 +2718,21 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
                                  f"{unchecked} or differing from their plain "
                                  "versions on the mapped shards")
     if n_shards:
-        held = sum(sum(r["layout"]["bytes_held"].values()) for r in reports)
-        lay = reports[0]["layout"]
-        whole = sum(lay["bytes_held"].values()) + sum(
-            lay["bytes_opened"].values())
-        log(f"shards {name} x{NPROCS}: the index shards (rec, SA samples, "
+        lays = [lay for r in reports for lay in r["layout"]]
+        held = sum(sum(lay["bytes_held"].values()) for lay in lays)
+        whole = sum(lays[0]["bytes_held"].values()) + sum(
+            lays[0]["bytes_read"].values()) + sum(
+            lays[0]["bytes_opened"].values())
+        log(f"shards {name} x{nprocs}: the index shards (rec, SA samples, "
             f"text) take {held:,} bytes of card memory held apart, against "
-            f"{NPROCS * whole:,} as {NPROCS} whole copies (every process "
+            f"{len(lays) * whole:,} as {len(lays)} whole copies (every card "
             "holding all the shards)")
 
     names = [n for n, _q, _r in reads[:MESH_READS]]
     owner = {}
     for b0 in range(0, MESH_READS, BATCH):
-        for p in range(NPROCS):
-            lo, hi = local_rows(min(BATCH, MESH_READS - b0), NPROCS, p)
+        for p in range(nprocs):
+            lo, hi = local_rows(min(BATCH, MESH_READS - b0), nprocs, p)
             owner.update((names[r], p) for r in range(b0 + lo, b0 + hi))
     lines = {}
     for p, out in enumerate(outs):
@@ -2587,53 +2746,78 @@ def run_processes(index, reads, ktx, nodes, mode, n_shards, base_tsv):
     with open(base_tsv) as fh:
         want = [next(fh) for _ in range(MESH_READS)]
     same = sum(lines.get(n) == w for n, w in zip(names, want))
-
-    fq_cache = fresh_cache(ktx, os.path.join(work, f"cache_{tag}_one"))
-    os.environ["KAIJU_TPU_CACHE"] = fq_cache
-    try:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        rc = kaiju.main(argv + ["-o", os.path.join(work, f"out_one_{tag}.tsv")])
-        torch.cuda.synchronize()
-        one = time.perf_counter() - t1
-    finally:
-        del os.environ["KAIJU_TPU_CACHE"]
-    log(f"e2e {name} x{NPROCS} on cuda:" + ",".join(
-        sorted({r["device"] for r in reports})) + f": {MESH_READS:,} reads, "
-        f"{len(lines):,} written once each, {same:,} equal to phase 4's "
-        f"lines; wall {wall:.2f} s for the processes (start-up, index load, "
-        f"seed tables and classification) against {one:.2f} s for the "
+    stream = max(r["seconds"] - r["setup"] for r in reports)
+    one, rc = float("nan"), 0
+    if one_process:
+        fq_cache = fresh_cache(ktx, os.path.join(work, f"cache_{tag}_one"))
+        os.environ["KAIJU_TPU_CACHE"] = fq_cache
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rc = kaiju.main(argv + ["-o", os.path.join(
+                work, f"out_one_{tag}.tsv")])
+            torch.cuda.synchronize()
+            one = time.perf_counter() - t1
+        finally:
+            del os.environ["KAIJU_TPU_CACHE"]
+    log(f"e2e {name} x{nprocs} on " + ",".join(
+        sorted({c for r in reports for c in r["cards"]})) + f": "
+        f"{MESH_READS:,} reads, {len(lines):,} written once each, {same:,} "
+        f"equal to phase 4's lines; wall {wall:.2f} s for the processes "
+        f"(start-up, index load, seed tables and classification), the "
+        f"stream after set-up {stream:.3f} s = {MESH_READS / stream:,.1f} "
+        f"reads/s (the slowest process), against {one:.2f} s for the "
         "one-process main() in this process")
     if rc != 0 or len(lines) != MESH_READS or same != MESH_READS:
-        raise AssertionError(f"{name} x{NPROCS}: the merged lines differ "
+        raise AssertionError(f"{name} x{nprocs}: the merged lines differ "
                              "from phase 4's")
-    return launches, reports
+    return launches, reports, MESH_READS / stream
 
 
-def run_phase_4f(index, reads, ktx, nodes, tsvs) -> dict:
+def run_phase_4f(index, reads, ktx, nodes, tsvs, smi: str) -> dict:
     """Phase 4f: run_processes for each of PROC_RUNS on the text index
     (ktx), held against phase 4's lines tsvs[mode]["text"]; prints the
-    cards used and the card memory after set-up.  Returns the launch
-    counts of all the runs."""
+    cards used and the card memory after set-up.  Where there are four
+    cards, the same Greedy reads at --mesh-index 4 over the four cards in
+    each of LAYOUTS, the stream's rate of each (no gain is claimed: every
+    single-host cell is host-bound).  Returns the launch counts of all the
+    runs."""
     import torch
 
     cards = torch.cuda.device_count()
-    log(f"4f: process p on cuda:{{p % {cards}}}: " + (
-        "each process maps its peer's shards over NVLink from another card"
-        if cards > 1 else "one card, so the processes map each other's "
-        "shards on cuda:0; the cross-card form (over NVLink) was not run"))
+    log(f"4f: {cards} card(s); with no --cards a process takes its share "
+        "of them (process_cards): " + (
+            "processes map their peers' shards over NVLink from other cards"
+            if cards > 1 else "one card, so the processes map each other's "
+            "shards on cuda:0 and a process's two cards are two data rows "
+            "there; the cross-card form (over NVLink) was not run"))
     launches = {k: 0 for k in REPLACES}
     used = {}
-    for n_shards, mode in PROC_RUNS:
-        counts, reports = run_processes(index, reads, ktx, nodes, mode,
-                                        n_shards, tsvs[mode]["text"])
+    for n_shards, mode, per in PROC_RUNS:
+        counts, reports, _rate = run_processes(
+            index, reads, ktx, nodes, mode, n_shards, tsvs[mode]["text"], per)
         for k, c in counts.items():
             launches[k] += c
-        used[mode, n_shards] = max(r["card_used"] for r in reports)
+        used[mode, n_shards, per] = max(r["card_used"] for r in reports)
     log("4f: card memory used after set-up, the larger of the processes' "
         "readings: " + "; ".join(
-            f"{mode} {'--mesh-index %d' % n if n else 'one index'} "
-            f"{b:,} bytes" for (mode, n), b in used.items()))
+            f"{mode} {'--mesh-index %d' % n if n else 'one index'}"
+            f"{' (%d cards a process)' % per if per > 1 else ''} {b:,} bytes"
+            for (mode, n, per), b in used.items()))
+    if cards >= 4:
+        rates = {}
+        for nprocs, per in LAYOUTS + LAYOUTS[::-1]:
+            counts, _r, rate = run_processes(
+                index, reads, ktx, nodes, "greedy", 4, tsvs["greedy"]["text"],
+                per, nprocs, one_process=False)
+            for k, c in counts.items():
+                launches[k] += c
+            rates.setdefault((nprocs, per), []).append(rate)
+        log("4f layouts on 4 cards, Greedy --mesh-index 4, the stream after "
+            f"set-up on the same {MESH_READS:,} reads (turns: each layout, "
+            "then again in reverse order): " + "; ".join(
+                f"{n} x {per}: " + ", ".join(f"{r:,.1f}" for r in v)
+                + " reads/s" for (n, per), v in rates.items()) + f" [{smi}]")
     return launches
 
 
@@ -3055,14 +3239,36 @@ def _snapshot(x):
     return x
 
 
-def spy_hosts_calls(mode: str) -> dict:
+def on_its_card(x, found: dict):
+    """x with every index Shards that holds a part on another card (a
+    shard another card of the process holds, or one mapped from a peer
+    there) replaced by copies on the Shards' own card, remote parts kept
+    None: the plain versions read one card's tensors.  found keeps each
+    Shards' copy, so that arguments sharing one share its copy."""
+    from kaiju_tpu_torch.ops.device_index import Shards
+
+    if isinstance(x, Shards) and any(p is not None and p.device != x.device
+                                     for p in x.parts):
+        if id(x) not in found:
+            found[id(x)] = Shards(
+                [None if p is None else p.to(x.device, copy=True)
+                 for p in x.parts], x.per, x.shape[0], x.device,
+                like=next(p for p in x.parts if p is not None))
+        return found[id(x)]
+    if isinstance(x, tuple):
+        items = [on_its_card(v, found) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def spy_hosts_calls(mode: str, only=None) -> dict:
     """Wrap the hosts kernels' wrappers where the hosts path of `mode`
     looks them up (N in parallel.exchange; O, Q and W's two forms in
     ops.classify for MEM; O, U's forms, X, Q, V and W's resolved form in
     ops.greedy for Greedy), so that each keeps a copy of the arguments of
-    its first call with work, by form: {form: (wrapper, plain version,
-    args, kwargs)}, filled as the run goes; unspy() puts the wrappers
-    back."""
+    its first call with work (of the first for which only() is true, if
+    given), by form: {form: (wrapper, plain version, args, kwargs)},
+    filled as the run goes; unspy() puts the wrappers back."""
     from kaiju_tpu_torch.ops import classify, device_index, greedy, search
     from kaiju_tpu_torch.parallel import exchange
 
@@ -3104,7 +3310,7 @@ def spy_hosts_calls(mode: str) -> dict:
         def wrap(*args, _fn=getattr(mod, name), _plain=plain,
                  _key=form(name), **kw):
             key, work = _key(args, kw)
-            if work and key not in first:
+            if work and key not in first and (only is None or only()):
                 first[key] = (_fn, _plain, _snapshot(args),
                               {k: _snapshot(v) for k, v in kw.items()})
             return _fn(*args, **kw)
@@ -3202,8 +3408,12 @@ LEVELS_CHAIN = {"greedy_levels 0": 3, "greedy_levels 1 counts": 4,
 def check_hosts_calls(first: dict, timed: bool = True) -> dict:
     """Each hosts kernel of `first` (spy_hosts_calls) launched again on a
     copy of its round's own arguments, against its plain version on
-    another copy (the parked lanes compared in lane order, U's state in
-    place); both timed where `timed` (else "ms" and "plain_ms" are nan).
+    another copy, whose shards on another card are copied to the kernel's
+    card (on_its_card; the parked lanes compared in lane order, U's state
+    in place); both timed where `timed` (else "ms", "wrapper_ms" and
+    "plain_ms" are nan): "ms" the kernels' launches alone (launch_ms),
+    "wrapper_ms" the whole call, with the count its wrapper reads back
+    from the card to size its outputs (U's list pass, O, Q, X).
     Returns {form: {"err", "ms", "plain_ms", "bytes"
     (the distinct record rows the plain version read, with the other
     inputs and the outputs), "work" (queries, lanes, variants, walks or
@@ -3220,6 +3430,9 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
         a1, k1 = fresh()
         got = fn(*a1, **k1)
         a2, k2 = fresh()
+        copies: dict = {}  # the plain version reads this card's tensors
+        a2 = [on_its_card(a, copies) for a in a2]
+        k2 = {k: on_its_card(v, copies) for k, v in k2.items()}
         touched = []
         if key.startswith(("fm_serve", "mem_extend_hosts", "walk_hosts",
                            "greedy_variants_hosts")):
@@ -3280,46 +3493,32 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
             other = _nbytes(a1[0], a1[1], *got)
             # info and seq, the taxon, its depth, then the lift and climb
             chain = 3 + dep["parents"]
-        ms = plain_ms = float("nan")
+        ms = plain_ms = wrapper_ms = float("nan")
         if timed:
             a3, k3 = fresh()
             a4, k4 = fresh()
-            ms = cuda_ms(lambda: fn(*a3, **k3))
+            a4 = [on_its_card(a, copies) for a in a4]
+            k4 = {k: on_its_card(v, copies) for k, v in k4.items()}
+            a5, k5 = fresh()
+            ms = launch_ms(lambda: fn(*a3, **k3))
+            wrapper_ms = cuda_ms(lambda: fn(*a5, **k5))
             plain_ms = cuda_ms(lambda: plain(*a4, **k4), reps=3, warm=1)
         out[key] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                    "wrapper_ms": wrapper_ms,
                     "bytes": row_bytes(touched)[0] + other, "work": work,
                     "chain": chain}
+        del copies
         torch.cuda.synchronize()
     return out
 
 
-def hosts_routes(p: int, hosts: str, n_shards: int) -> tuple[dict, dict]:
-    """The routing rule over hosts (one letter a process), restated from
-    held_by_rule: ({shard: process it is mapped from}, {shard: process
-    that serves it in rounds}) for process p."""
-    N = len(hosts)
-    opened, remote = {}, {}
-    for o in range(n_shards):
-        if o in held_by_rule(p, N, n_shards):
-            continue
-        near = [q for q in range(N) if hosts[q] == hosts[p]
-                and o in held_by_rule(q, N, n_shards)]
-        if hosts[o % N] == hosts[p]:
-            opened[o] = o % N
-        elif near:
-            opened[o] = min(near)
-        else:
-            remote[o] = o % N
-    return opened, remote
-
-
 def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
-                  timed: bool):
-    """NPROCS = len(hosts) processes of this script as --kaiju-worker,
-    process p labelled host hosts[p] and on cuda:{p % cards}, each with an
-    empty seed-table cache of its own, process 0 timing its checks where
-    `timed`; returns (outputs, counts files, logs, exit codes, wall
-    seconds)."""
+                  timed: bool, per: int = 1):
+    """len(hosts) processes of this script as --kaiju-worker, process p
+    labelled host hosts[p] and on `per` cards (worker_cards; with one, its
+    share of the machine's, dealt_cards), each with an empty seed-table
+    cache of its own, process 0 timing its checks where `timed`; returns
+    (outputs, counts files, logs, exit codes, wall seconds)."""
     coord = f"127.0.0.1:{free_port()}"
     outs, counts, logs, procs = [], [], [], []
     t0 = time.perf_counter()
@@ -3332,9 +3531,12 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
             env = dict(os.environ, KAIJU_TPU_CACHE=fresh_cache(
                 ktx, os.path.join(work, f"cache_hosts_{tag}_p{p}")),
                 CHIP_SMOKE_TIMED="1" if timed else "0")
+            cards = worker_cards(p, len(hosts), per)
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
-                 counts[p], "--host", host, *argv, "-o", outs[p],
+                 counts[p], "--host", host,
+                 *(["--cards", ",".join(cards)] if cards else []), *argv,
+                 "-o", outs[p],
                  "--dist-nprocs", str(len(hosts)), "--dist-coordinator",
                  coord, "--dist-pid", str(p)], env=env, stdout=logs[p],
                 stderr=subprocess.STDOUT))
@@ -3350,39 +3552,45 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
 
 
 def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
-              tag):
+              tag, per=1):
     """tools.kaiju.main in `mode` with --mesh-index n_shards as len(hosts)
     processes, process p labelled host hosts[p] (peer_shards.host_name)
-    on cuda:{p % cards}, on the first HOST_READS reads: each process must
-    launch every kernel of the mode's hosts path (HOST_PATHS) and no
-    kernel of the one-host paths that reads the index, hold, map and have
-    served in rounds the shards of the routing rule (hosts_routes), with
-    rounds in every stage of the path, and the lines merged by read must
-    equal phase 4's of the mode (base_tsv).  Process 0 holds each hosts
-    kernel on its first rounds' arguments against its plain version
-    (check_hosts_calls).  Returns (launch counts of all the processes,
-    each process's report, the stream's rate)."""
+    on `per` cards (worker_cards, dealt_cards), on the first HOST_READS
+    reads: each process must launch every kernel of the mode's hosts path
+    (HOST_PATHS) and no kernel of the one-host paths that reads the index,
+    each card must hold, read, map and have served in rounds the shards of
+    the slot rules (check_slots), with rounds in every stage of the path
+    on every card (the seed tables' on the first), and the lines merged by
+    read must equal phase 4's of the mode (base_tsv).  Process 0 holds
+    each hosts kernel on its first card's first rounds' arguments against
+    its plain version (check_hosts_calls).  Returns (launch counts of all
+    the processes, each process's report, the stream's rate)."""
     import torch
 
     from kaiju_tpu_torch.parallel.multihost import local_rows
 
     work = os.path.dirname(ktx)
     name = (f"{mode} --mesh-index {n_shards} on hosts {','.join(hosts)} "
-            f"({tag})")
+            f"({tag}{', %d cards a process' % per if per > 1 else ''})")
     argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx, HOST_READS),
             *PATHS[mode][1], "--mesh-index", str(n_shards), "-b", str(BATCH)]
     gc.collect()
     torch.cuda.empty_cache()
     outs, counts, logs, rcs, wall = start_workers(
-        argv, hosts, f"{mode}_{tag}_{n_shards}_{hosts}", work, ktx,
-        (tag, n_shards, hosts) == HOST_TIMED)
+        argv, hosts, f"{mode}_{tag}_{n_shards}_{hosts}_{per}", work, ktx,
+        (tag, n_shards, hosts, per) == HOST_TIMED, per)
     if any(rcs):
         for p, fh in enumerate(logs):
             with open(fh.name) as f:
                 log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
         raise AssertionError(f"{name}: exit codes {rcs}")
-    cards = torch.cuda.device_count()
     across = len(set(hosts)) > 1
+
+    def served(c: int, per: int) -> bool:
+        """Whether a slot of card index c has a shard served in rounds."""
+        return any(slot_rule(q * per + c, hosts, per, n_shards)[3]
+                   for q in range(len(hosts)))
+
     path = (HOST_PATHS[mode] if across
             else kernels_of(mode, index.text is not None, True))
     batches = -(-HOST_READS // BATCH)
@@ -3394,49 +3602,59 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
         reports.append(got)
         idle = [k for k in path if got["launches"][k] <= 0]
         stray = [k for k in REPLACES if k not in path and got["launches"][k]]
-        lay = got["layout"]
-        opened = {int(o): q for o, q in lay["opened"].items()}
-        remote = {int(o): q for o, q in lay["remote"].items()}
-        want = held_by_rule(p, len(hosts), n_shards)
-        log(f"4j {name} process {p} on host {hosts[p]}, cuda:"
-            f"{got['device']}: main() {got['seconds']:.2f} s, set-up "
-            f"{got['setup']:.2f} s, the stream {got['seconds'] - got['setup']:.2f}"
-            f" s; holds {lay['held']}, maps " + ", ".join(
-                f"{o} from {q}" for o, q in opened.items()) + ", served "
-            + ", ".join(f"{o} by {q}" for o, q in remote.items()) +
-            f" ({json.dumps(lay['bytes_held'])} held, "
-            f"{json.dumps(lay['bytes_remote'])} served, bytes); launches "
+        log(f"4j {name} process {p} on host {hosts[p]}, "
+            f"{','.join(got['cards'])}: main() {got['seconds']:.2f} s, "
+            f"set-up {got['setup']:.2f} s, the stream "
+            f"{got['seconds'] - got['setup']:.2f} s; launches "
             + json.dumps({k: v for k, v in got["launches"].items() if v}))
-        for stage, c in sorted(got["rounds"].items()):
-            r = max(c["rounds"], 1)
-            per = (f"{c['rounds'] / batches:.1f} a batch"
-                   if stage != "seed" else "at set-up")
-            log(f"4j rounds {name} process {p} {stage}: {c['rounds']} rounds "
-                f"({per}), {c['queries'] / r:,.1f} queries and "
-                f"{c['sent'] / r:,.1f} sent to a peer a round, "
-                f"{c['bytes'] / r:,.0f} bytes a round over gloo; seconds: "
-                f"copies {c['copy_s']:.4f}, transport {c['transport_s']:.4f}"
-                f", N {c['serve_s']:.4f}")
-        if idle or stray or got["device"] != str(p % cards):
+        for c, lay in enumerate(got["layout"]):
+            log(f"4j {name} process {p} card {c} ({lay['card']}): holds "
+                f"{lay['held']}, reads " + ", ".join(
+                    f"{o} from card {h}" for o, h in lay["reads"].items())
+                + ", maps " + ", ".join(f"{o} from process {q}" for o, q in
+                                        lay["opened"].items())
+                + ", served " + ", ".join(f"{o} by {q}" for o, q in
+                                          lay["remote"].items())
+                + f" ({json.dumps(lay['bytes_held'])} held, "
+                f"{json.dumps(lay['bytes_remote'])} served, bytes)")
+        for c, rounds in enumerate(got["card_rounds"]):
+            for stage, k in sorted(rounds.items()):
+                r = max(k["rounds"], 1)
+                each = (f"{k['rounds'] / batches:.1f} a batch"
+                        if stage != "seed" else "at set-up")
+                log(f"4j rounds {name} process {p} card {c} {stage}: "
+                    f"{k['rounds']} rounds ({each}), {k['queries'] / r:,.1f} "
+                    f"queries and {k['sent'] / r:,.1f} sent to a peer a "
+                    f"round, {k['bytes'] / r:,.0f} bytes a round over gloo; "
+                    f"seconds: copies {k['copy_s']:.4f}, transport "
+                    f"{k['transport_s']:.4f}, N {k['serve_s']:.4f}")
+            # card c's group runs rounds where a slot of card index c has
+            # a remote shard (with one whole index a process, none does);
+            # the seed tables' rounds run on card 0 alone
+            ran = [bool(rounds.get(st, {}).get("rounds"))
+                   for st in HOST_STAGES[mode] if st != "seed"]
+            seeded = bool(rounds.get("seed", {}).get("rounds"))
+            want = served(c, len(got["cards"]))
+            if across and (ran != [want] * len(ran) or seeded != (c == 0)):
+                raise AssertionError(f"{name} process {p} card {c}: rounds "
+                                     f"in the stages {ran}, seed {seeded}; "
+                                     f"a slot of its card index is served a "
+                                     f"shard: {want}")
+        if idle or stray:
             raise AssertionError(f"{name} process {p}: kernels that did not "
-                                 f"launch {idle}, others {stray}, card "
-                                 f"{got['device']}")
-        if lay["held"] != want or (opened, remote) != hosts_routes(
-                p, hosts, n_shards):
-            raise AssertionError(f"{name} process {p}: holds {lay['held']}, "
-                                 f"maps {opened}, served {remote}; the rule "
-                                 f"gives {want}, "
-                                 f"{hosts_routes(p, hosts, n_shards)}")
-        if across and not all(got["rounds"].get(s, {}).get("rounds")
-                              for s in HOST_STAGES[mode]):
-            raise AssertionError(f"{name} process {p}: a stage ran no round")
+                                 f"launch {idle}, others {stray}")
+        check_slots(name, p, got, hosts, per, n_shards)
         for k, c in got["checks"].items():
             log(f"4j kernel {k} [{name}, process 0]: max_abs_err {c['err']} "
                 f"against its plain version on the round's own arguments "
-                f"({c['work']:,} items); {c['ms']:.4f} ms (plain "
+                f"({c['work']:,} items); {c['ms']:.4f} ms in its launches, "
+                f"{c['wrapper_ms']:.4f} ms the wrapper's whole call (plain "
                 f"{c['plain_ms']:.3f} ms), {c['bytes']:,} bytes")
-        if across and p == 0 and (len(got["checks"]) < HOST_FORMS[mode] or
-                                  any(c["err"]
+        every = any(served(c, len(got["cards"]))
+                    for c in range(len(got["cards"])))
+        if across and p == 0 and (every and len(got["checks"]) <
+                                  HOST_FORMS[mode] or any(
+                                      c["err"]
                                       for c in got["checks"].values())):
             raise AssertionError(f"{name}: hosts kernels unchecked or "
                                  "differing from their plain versions: "
@@ -3504,11 +3722,13 @@ HOST_ROWS = {
 def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
                  smi: str) -> tuple[dict, dict]:
     """Phase 4j: Greedy and MEM with --mesh-index over processes labelled
-    as several hosts (HOST_RUNS, and HOST_RUNS_4 where there are four
-    cards) on each mode's indexes (HOST_INDEXES), with a one-host group of
-    the same mode, first, as the reference rate (2 processes,
-    --mesh-index 2, db_text.ktx, the same HOST_READS reads); base_tsvs:
-    phase 4's TSV of each mode on the text index.
+    as several hosts (HOST_MODE_RUNS, and HOST_RUNS_4 where there are four
+    cards) on each mode's indexes (HOST_INDEXES; db.ktx at HOST_FMI_RUNS
+    only), and HOST_CARD_RUN, two
+    cards a process, with a one-host group of the same mode, first, as
+    the reference rate (2 processes, --mesh-index 2, db_text.ktx, the same
+    HOST_READS reads); base_tsvs: phase 4's TSV of each mode on the text
+    index.
     Returns (launch counts over all the runs, the
     kernels line's rows of the hosts kernels: (err, ms, plain_ms,
     bound_ms, note), from the text index's runs at S = 4 on hosts a, a, b,
@@ -3516,9 +3736,9 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
     import torch
 
     cards = torch.cuda.device_count()
-    runs = HOST_RUNS + (HOST_RUNS_4 if cards >= 4 else ())
-    log(f"4j: processes on hosts labelled by peer_shards.host_name, process "
-        f"p on cuda:{{p % {cards}}}; every host is this machine and the "
+    log(f"4j: processes on hosts labelled by peer_shards.host_name, each on "
+        f"its share of the {cards} card(s) or on the cards given (the run "
+        "of two cards a process); every host is this machine and the "
         "transport gloo over loopback: no run spans two real hosts "
         f"({smi})")
     launches = {k: 0 for k in REPLACES}
@@ -3526,20 +3746,27 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
     errs: dict = {}
     for mode in HOST_INDEXES:
         ref = None
-        for n_shards, hosts in ((2, "aa"),) + runs:
-            for tag in HOST_INDEXES[mode]:
-                if len(set(hosts)) == 1 and tag == "fmi":
+        runs = HOST_MODE_RUNS[mode] + (HOST_RUNS_4 if cards >= 4 else ())
+        mode_runs = [(n, h, 1, HOST_INDEXES[mode]) for n, h in
+                     ((2, "aa"),) + runs]
+        if HOST_CARD_RUN[0] == mode:
+            mode_runs.append((*HOST_CARD_RUN[2:], HOST_CARD_RUN[1:2]))
+        for n_shards, hosts, per, tags in mode_runs:
+            for tag in tags:
+                if tag == "fmi" and (n_shards, hosts) not in HOST_FMI_RUNS:
                     continue
                 counts, reports, rate = run_hosts(
                     indexes[tag], reads, ktx[tag], nodes, mode, n_shards,
-                    hosts, base_tsvs[mode], tag)
+                    hosts, base_tsvs[mode], tag, per)
                 for k, c in counts.items():
                     launches[k] += c
                 if len(set(hosts)) == 1:
                     ref = rate
                     continue
                 log(f"4j rate {mode} {n_shards} shards on hosts {hosts} "
-                    f"({tag}): {rate:,.1f} reads/s against {ref:,.1f} of the "
+                    f"({tag}, {len(reports[0]['cards'])} card(s) a "
+                    f"process): {rate:,.1f} reads/s "
+                    f"against {ref:,.1f} of the "
                     f"one-host group (2 processes, --mesh-index 2, "
                     f"db_text.ktx), the stream after set-up, both on the "
                     f"first {HOST_READS:,} reads")
@@ -3547,7 +3774,7 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
                     name = next(k for k, (forms, _n) in HOST_ROWS.items()
                                 if key in forms or key.split()[0] == k)
                     errs[name] = max(errs.get(name, 0), c["err"])
-                if (tag, n_shards, hosts) == HOST_TIMED:
+                if (tag, n_shards, hosts, per) == HOST_TIMED:
                     checks.update(reports[0]["checks"])
     rows = hosts_rows(checks, lat_ns)
     for name, e in errs.items():
@@ -3559,9 +3786,11 @@ def hosts_rows(checks: dict, lat_ns: float) -> dict:
     """The kernels line's rows of the hosts kernels (HOST_ROWS) from
     process 0's checks: N on a round of the extension (RANK, or the seed
     tables' ROW where no RANK round ran), O, Q and X on their start forms,
-    U, V and W as their forms together; bound: the bytes at 3.35 TB/s,
-    the note with the latency floor of the forms' chains of dependent
-    loads, one after another, where counted (N, U, V, W, X)."""
+    U, V and W as their forms together; ms: their launches alone, the
+    wrappers' whole calls (with the count read back) in the note; bound:
+    the bytes at 3.35 TB/s, the note with the latency floor of the forms'
+    chains of dependent loads, one after another, where counted (N, U, V,
+    W, X)."""
     rows = {}
     for name, (forms, note) in HOST_ROWS.items():
         if name == "fm_serve" and "fm_serve w1" not in checks:
@@ -3572,9 +3801,12 @@ def hosts_rows(checks: dict, lat_ns: float) -> dict:
         if all(c["chain"] is not None for c in cs):
             note += ": " + floor_note(sum(c["chain"] for c in cs), lat_ns,
                                       "loads")
+        whole = sum(c["wrapper_ms"] for c in cs)
         rows[name] = (max(c["err"] for c in cs), sum(c["ms"] for c in cs),
                       sum(c["plain_ms"] for c in cs),
-                      b / HBM_BYTES_PER_S * 1e3, f"{note}; {work}")
+                      b / HBM_BYTES_PER_S * 1e3,
+                      f"{note}; {work}; the wrapper's whole call {whole:.4f} "
+                      "ms")
     return rows
 
 
@@ -4060,6 +4292,9 @@ def latency(smi: str) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
+T0 = time.perf_counter()  # the script's start, for the phases' times
+
+
 def run(args) -> int:
     import torch
 
@@ -4084,6 +4319,7 @@ def run(args) -> int:
         f"{torch.cuda.get_device_name(0)}")
     lat_ns, dram_ns = latency(smi)
 
+    log(f"time: phase 2 starts at {time.perf_counter() - T0:.1f} s")
     # ---- 2. database and reads ----------------------------------------
     t0 = time.perf_counter()
     records, nodes, ktx = make_db(args.seed, args.db_letters)
@@ -4115,33 +4351,34 @@ def run(args) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    if args.only_hosts:  # phase 4j and the lines it is held against
-        base = {mode: run_cli(indexes["text"], reads, ktx["text"], nodes, fq,
-                              mode, "text")[1] for mode in PATHS}
-        counts, rows = run_phase_4j(indexes, reads, ktx, nodes, base, lat_ns,
-                                    smi)
-        log_checks(rows, "4j, text index, 4 shards on hosts a, a, b")
-        if any(v[0] for v in rows.values()):
-            raise AssertionError("a hosts kernel differs from its plain "
-                                 "version")
-        log("4j launches: " + json.dumps(
-            {k: c for k, c in counts.items() if c}))
-        log("--only-hosts: phases 1, 2, 4 on db_text.ktx and 4j passed; no "
-            "kernels line")
-        log(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
-
-    if args.only_processes:  # phase 4f and the lines it is held against
+    if args.only_hosts or args.only_processes:  # 4f, 4j and their lines
         tsvs = {mode: {"text": run_cli(indexes["text"], reads, ktx["text"],
                                        nodes, fq, mode, "text")[1]}
                 for mode in PATHS}
-        run_phase_4f(indexes["text"], reads, ktx["text"], nodes, tsvs)
-        log("--only-processes: phases 1, 2, 4 on db_text.ktx and 4f passed; "
-            "no kernels line")
+        if args.only_processes:
+            run_phase_4f(indexes["text"], reads, ktx["text"], nodes, tsvs,
+                         smi)
+            log(f"time: 4f ended at {time.perf_counter() - T0:.1f} s")
+        if args.only_hosts:
+            counts, rows = run_phase_4j(
+                indexes, reads, ktx, nodes,
+                {m: t["text"] for m, t in tsvs.items()}, lat_ns, smi)
+            log_checks(rows, "4j, text index, 4 shards on hosts a, a, b")
+            if any(v[0] for v in rows.values()):
+                raise AssertionError("a hosts kernel differs from its plain "
+                                     "version")
+            log("4j launches: " + json.dumps(
+                {k: c for k, c in counts.items() if c}))
+            log(f"time: 4j ended at {time.perf_counter() - T0:.1f} s")
+        log("--only-processes / --only-hosts: phases 1, 2, 4 on db_text.ktx "
+            "and the phases asked for passed; no kernels line")
+        if args.only_hosts:
+            log(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
         return 0
 
+    log(f"time: phase 3 starts at {time.perf_counter() - T0:.1f} s")
     # ---- 3. kernels against their plain versions -----------------------
     checks = {}
     tree = deep_tree(args.seed)
@@ -4187,6 +4424,7 @@ def run(args) -> int:
     if any(v[0] for v in gathers.values()):
         raise AssertionError("P1 or P2 differs from its plain version")
 
+    log(f"time: phase 4 starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4. end to end through the CLI, each run counted from 0 --------
     launches = {name: 0 for name in REPLACES}
     tsvs = {}
@@ -4204,6 +4442,7 @@ def run(args) -> int:
         if not same:
             raise AssertionError(f"{mode}: the text index changed the TSV")
 
+    log(f"time: phase 4b starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4b. where the time goes ----------------------------------------
     warm = make_reads(args.seed + 1, records, BATCH)
     rates = {}
@@ -4216,6 +4455,7 @@ def run(args) -> int:
     # stages it slows; the steady rates above ran alone
     big_build = start_big_build(BIG_LETTERS)
 
+    log(f"time: phase 4c starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4c. the verbose paths, each run counted from 0 ----------------
     for mode in VERBOSE_PATHS:
         for tag, n_reads in (("text", V_READS), ("fmi", BATCH)):
@@ -4231,6 +4471,7 @@ def run(args) -> int:
     err, *rest = checks["text"]["extend_all"]
     checks["text"]["extend_all"] = (max(err, tie_err), *rest)
 
+    log(f"time: phase 4d starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4d. the taxonomy-free tools and kaiju-multi, on db.ktx, each
     # run counted from 0 ----------------------------------------------------
     work = os.path.dirname(ktx["fmi"])
@@ -4249,6 +4490,7 @@ def run(args) -> int:
                           tsvs["greedy"]["fmi"]).items():
         launches[k] += c
 
+    log(f"time: phase 4e starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4e. the index-sharded paths, each run counted from 0 ------------
     for tag in ("text", "fmi"):
         for n_shards in MESH:
@@ -4261,17 +4503,20 @@ def run(args) -> int:
                                                n_shards).items():
                 launches[k] += c
 
+    log(f"time: phase 4f starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4f. many processes, each counted from 0 --------------------------
     proc_launches = run_phase_4f(indexes["text"], reads, ktx["text"], nodes,
-                                 tsvs)
+                                 tsvs, smi)
     for k, c in proc_launches.items():
         launches[k] += c
     launches.update(g_launches)  # P1, P2: their benchmark's run
 
+    log(f"time: phase 4h starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4h. warm start: mkdb --aot, fresh processes, each counted from 0
     for k, c in run_phase_4h(records, reads, nodes, secs).items():
         launches[k] += c
 
+    log(f"time: phase 4i starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4i. the index over the cards of one process, each run counted
     # from 0; its errors join the sharded kernels' and L's and M's -----------
     card_launches, card_errs = run_phase_4i(indexes["text"], reads,
@@ -4284,6 +4529,7 @@ def run(args) -> int:
             err, *rest = checks["text"][k]
             checks["text"][k] = (max(err, e), *rest)
 
+    log(f"time: phase 4j starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4j. processes on several hosts, each run counted from 0; N, O,
     # Q, W, U, X and V join the line -------------------------------------
     host_launches, host_rows = run_phase_4j(
@@ -4296,6 +4542,7 @@ def run(args) -> int:
         raise AssertionError("a hosts kernel differs from its plain version")
     checks["text"].update(host_rows)
 
+    log(f"time: phase 4g starts at {time.perf_counter() - T0:.1f} s")
     # ---- 4g. the index above 2^31 letters, each run counted from 0 ------
     big_rows, big_launches = run_phase_4g(big_build, smi, dram_ns)
     for name, v in big_rows.items():
@@ -4309,6 +4556,7 @@ def run(args) -> int:
         big_rows[name] = (max(err, card_errs.get(name, 0)), *rest)
         launches[name] += big_launches[name]
 
+    log(f"time: phase 5 starts at {time.perf_counter() - T0:.1f} s")
     # ---- 5. result lines ----------------------------------------------
     rows = {name: (*v, None) for name, v in checks["text"].items()}
     rows.update(gathers)

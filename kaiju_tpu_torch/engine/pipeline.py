@@ -10,7 +10,7 @@ stream with its lookahead.  Each pipeline keeps its own counters
 ``submit_batch`` and ``collect_batch``.  ``ProcessShare`` runs any of
 them as one process of several (``parallel.multihost``) on its share of
 each batch; ``CardShare`` runs one on each card of a process, each on its
-share of each batch."""
+share of each batch (of the process's share, under a ``ProcessShare``)."""
 
 from __future__ import annotations
 
@@ -144,20 +144,27 @@ class DevicePipeline(DeviceSetup):
             yield self.collect_batch(q.popleft())
 
 
+def in_rounds(pipe) -> bool:
+    """Whether `pipe` (a device pipeline) runs rounds of a group on
+    several hosts: its index has an ``exchange``."""
+    return getattr(getattr(pipe, "dev", None), "exchange", None) is not None
+
+
 class ProcessShare:
-    """Process pid of nprocs running `pipe` (a device pipeline) on its
-    share of each batch, ``multihost.local_rows``: only those reads are
-    fragmented, uploaded and classified, and the results hold None for
-    every read a peer owns (kaiju_tpu's collect_batch,
-    parallel/sharded_fused.py:636-638).  A process whose share of a batch
-    is empty launches nothing for it, except over a group on several hosts
-    (the pipeline's index has an ``exchange``): there every process runs
-    every batch, an empty share included, since each of its rounds is a
-    collective of the whole group.  The rounds run in submit_batch, and
+    """Process pid of nprocs running `pipe` (a device pipeline, or a
+    ``CardShare`` of one a card) on its share of each batch,
+    ``multihost.local_rows``: only those reads are fragmented, uploaded
+    and classified, and the results hold None for every read a peer owns
+    (kaiju_tpu's collect_batch, parallel/sharded_fused.py:636-638).  A
+    process whose share of a batch is empty launches nothing for it,
+    except over a group on several hosts (the pipeline's index has an
+    ``exchange``, ``in_rounds``): there every process runs every batch, an
+    empty share included, since each of its rounds is a collective of the
+    whole group.  The rounds run in submit_batch, and
     every process submits the batches in stream order (collect_batch holds
     no collective), so the lookahead cannot reorder them: every process
     runs the same collectives in the same order.  The stream ends at a
-    barrier of all the processes."""
+    barrier of all the processes; ``close`` closes a ``CardShare``."""
 
     LOOKAHEAD = DevicePipeline.LOOKAHEAD
 
@@ -165,8 +172,8 @@ class ProcessShare:
         self.pipe = pipe
         self.nprocs = nprocs
         self.pid = pid
-        dev = getattr(pipe, "dev", None)
-        self.lockstep = getattr(dev, "exchange", None) is not None
+        self.lockstep = (pipe.lockstep if isinstance(pipe, CardShare)
+                         else in_rounds(pipe))
 
     def submit_batch(self, reads):
         from ..parallel.multihost import local_rows
@@ -191,6 +198,10 @@ class ProcessShare:
 
         yield from DevicePipeline.classify_stream(self, batches)
         barrier()
+
+    def close(self) -> None:
+        if isinstance(self.pipe, CardShare):
+            self.pipe.close()
 
 
 def _card_thread(card: torch.device, launches: dict) -> None:
@@ -219,7 +230,13 @@ class CardShare:
     while they launch), and the results come back in read order with
     LOOKAHEAD batches queued ahead, as ``DevicePipeline.classify_stream``
     queues them.  A card whose share of a batch is empty does nothing for
-    it.  ``launches`` holds each card's kernel launches (its set-up's and
+    it, except in ``lockstep`` (the pipelines run rounds of a group on
+    several hosts, ``in_rounds``): there every card submits every batch,
+    an empty share included, since card c's rounds are collectives of card
+    c of every process; every card's batches go to its thread in stream
+    order, so each card's rounds keep one order in every process.  A
+    failure in a card's thread is raised where its batch is collected.
+    ``launches`` holds each card's kernel launches (its set-up's and
     its batches'; ``kernels.count_into``), ``setup_seconds`` each card's
     set-up, ``pipes[c].host_seconds`` its host seconds by stage.  The
     threads start with the first batch; ``close`` stops them (a later
@@ -242,6 +259,7 @@ class CardShare:
             finally:
                 kernels.count_into(None)
             self.setup_seconds.append(time.perf_counter() - t0)
+        self.lockstep = in_rounds(self.pipes[0])
         self._workers = None
 
     def _worker(self, c: int) -> ThreadPoolExecutor:
@@ -259,7 +277,7 @@ class CardShare:
         jobs = []
         for c, pipe in enumerate(self.pipes):
             lo, hi = local_rows(len(reads), D, c)
-            if hi > lo:
+            if hi > lo or self.lockstep:
                 jobs.append((c, self._worker(c).submit(pipe.submit_batch,
                                                        reads[lo:hi])))
         return jobs
@@ -278,5 +296,5 @@ class CardShare:
 
     def close(self) -> None:
         for w in self._workers or ():
-            w.shutdown()
+            w.shutdown(cancel_futures=True)
         self._workers = None

@@ -36,13 +36,18 @@ tables' ROW rounds at set-up), so the collectives match.
 
 Transport: the group's gloo backend (``parallel.multihost``; NCCL refuses
 two ranks on one card, which is how a one-card machine runs several
-processes).  On the card each round stages through pinned host buffers
+processes).  A process on D cards has an exchange a card, card c over a
+gloo group of its own, of card c of every process
+(``ShardedIndex.in_group``): the D cards' threads run their rounds at
+once, and one group takes no collectives from two threads.  Card c's
+queries go to card c of the serving process, whose view reads the shard
+wherever that process holds it.  On the card each round stages through pinned host buffers
 that are kept and reused: one copy to the host, the gloo exchange, one
 copy back.  A failed exchange, or a query that reaches a process not
 reading its shard, raises.
 
 ``COUNTS[stage]`` sums, over the rounds of this process (a ``serve``
-call each), for each stage of ``STAGES`` that ran one (the seed tables'
+call each; ``Exchange.counts`` over those of one card), for each stage of ``STAGES`` that ran one (the seed tables'
 "seed", O's "extend", X's "variants", Q's "walk"): rounds, queries
 (all, own included), ``sent`` (the queries that crossed to a peer),
 ``bytes`` (queries and answers sent and received), and the seconds in
@@ -52,6 +57,7 @@ kernel N.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -64,22 +70,30 @@ _FIELDS = ("rounds", "queries", "sent", "bytes", "copy_s", "transport_s",
            "serve_s")
 
 
+_TALLY = threading.Lock()  # COUNTS, from the threads of many cards
+
+
 def reset_counts() -> None:
-    COUNTS.clear()
+    with _TALLY:
+        COUNTS.clear()
 
 
-def _tally(stage: str, **add) -> None:
+def _tally(mine: dict, stage: str, **add) -> None:
+    """Add `add` to COUNTS[stage] and to mine[stage] (an exchange's)."""
     if stage not in STAGES:
         raise ValueError(f"unknown exchange stage {stage!r}")
-    row = COUNTS.setdefault(stage, dict.fromkeys(_FIELDS, 0))
-    for k, v in add.items():
-        row[k] += v
+    with _TALLY:
+        for counts in (COUNTS, mine):
+            row = counts.setdefault(stage, dict.fromkeys(_FIELDS, 0))
+            for k, v in add.items():
+                row[k] += v
 
 
 class Exchange:
     """The rounds of one process of `group` over the index `sh` (a hosts
     view of ``ShardedIndex``): route[o] is the process that answers a query
-    to shard o, this process where it reads o."""
+    to shard o, this process where it reads o.  ``counts`` holds this
+    exchange's rounds by stage, as ``COUNTS``."""
 
     def __init__(self, sh, group, route: list):
         import torch.distributed as dist
@@ -92,6 +106,7 @@ class Exchange:
         self.route = torch.tensor(route, dtype=torch.int64,
                                   device=self.device)
         self._pinned: dict = {}
+        self.counts: dict = {}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -179,8 +194,8 @@ class Exchange:
         self._sync()
         t8 = time.perf_counter()
         sent, got = int(send_n.sum()), int(recv_n.sum())
-        _tally(stage, rounds=1, queries=queries.shape[0], sent=sent,
-               bytes=(sent + got) * 4 * (2 + width),
+        _tally(self.counts, stage, rounds=1, queries=queries.shape[0],
+               sent=sent, bytes=(sent + got) * 4 * (2 + width),
                copy_s=(t2 - t1) + (t4 - t3) + (t6 - t5) + (t8 - t7),
                transport_s=(t1 - t0) + (t3 - t2) + (t7 - t6),
                serve_s=t5 - t4)
@@ -194,7 +209,7 @@ class Exchange:
         t = torch.tensor([n], dtype=torch.int64)
         t0 = time.perf_counter()
         dist.all_reduce(t, group=self.group)
-        _tally(stage, transport_s=time.perf_counter() - t0)
+        _tally(self.counts, stage, transport_s=time.perf_counter() - t0)
         return int(t.item()) > 0
 
     def rounds(self, stage: str, parked, queries, width: int, resume):

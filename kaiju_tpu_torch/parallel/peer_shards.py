@@ -11,33 +11,40 @@ it; the sharded kernels then read rows, SA samples and text bytes through
 their pointer tables (``kt::ShardIx``, csrc/fm_common.cuh) wherever the
 shard lives, with no collective in the loop.
 
-Who holds what: process p of N holds shard o of S when o = p mod S, for N
->= S (kaiju_tpu's (data x index) mesh of one card a process, index axis
-innermost, multihost.py:41-53; processes p >= S hold replicas), and when
-o mod N = p, for N < S (ceil or floor S / N shards each, as a JAX process
-with S / N devices).  A shard that a process does not hold is read from
-process o mod N, which holds it either way (``held``, ``source``).
+Who holds what, over the slots of a group: slot g = p D + c is card c
+of process p, of G = N D slots (D, each process's cards, equal in every
+process; ``multihost.process_cards``).  Slot g holds shard o when o = g mod
+S, for G >= S (kaiju_tpu's (data x index) mesh over every device of every
+process, index axis innermost, multihost.py:41-53; slots g >= S hold
+replicas), and when o mod G = g, for G < S (ceil or floor S / G shards
+each, as a JAX device with S / G shards) (``held``).  Slot source(o, G) =
+o mod G holds o either way (``source``).
 
-On the card (process p on ``cuda:{p % cards}``) each held shard is an
-allocation of its own (csrc/peer.cu), published by its CUDA IPC handle
-once its upload has finished; a reader maps it on its own card, or over
-NVLink from another card of the host.  An open that fails raises with the
-CUDA error: no shard is copied in place of mapping it.  On the CPU
-(``device="cpu"``, the tests) the holder writes each shard it serves to a
-file in a run directory that the lowest process of its host makes in the
-temporary directory and names to that host's processes, and the readers
-map the file read-only (np.memmap): the ownership and the teardown,
-rehearsed without a card.
+Where a slot reads a shard it does not hold (``slot_routes``): from a card
+of its own process that holds it (slot ``source(o, G)`` if it is one,
+else the lowest), in place, over NVLink where the cards differ (``reads``,
+peer access, ``enable_peer``); else from a slot of another process of its
+host (``host_name``, gathered from every process) that holds it (the
+source slot if it is on the host, else the lowest), mapped over CUDA IPC
+on the reading card (``opened``); else o is remote (``remote``): the
+process of the source slot, which always holds it, serves its rows and
+samples to the slot's card in rounds (``parallel.exchange``, kernel N).  A
+remote shard is never copied whole to the reader.  With D = 1 a slot is a
+process and these are the process rules (``routes``); with N = 1 they are
+the card rules of ``ShardedIndex.on_cards``.  A group across hosts runs
+MEM and Greedy, both without the text-compare hybrid.
 
-Several hosts (``host_name``, gathered from every process): CUDA IPC
-reaches the processes of one host only.  For each shard o that process p
-does not hold: if its source o mod N is on p's host, p maps it from
-there; else, if another process of p's host holds o, p maps it from the
-lowest such process; else o is remote for p (``remote``), and its source,
-which always holds it, serves its rows and samples to p in rounds
-(``parallel.exchange``, kernel N).  A remote shard is never copied whole
-to the reader.  Such a group runs MEM and Greedy, both without the
-text-compare hybrid.
+On the card each held shard is an allocation of its own (csrc/peer.cu),
+published by its CUDA IPC handle once its upload has finished, when a
+slot of another process maps it; the reader opens it on its own card,
+over NVLink when the holder's card is another.  An open that fails
+raises, naming both cards and the CUDA error: no shard is copied in place
+of mapping it.  On the CPU (``device="cpu"`` or ``["cpu"] * k``, the
+tests) the holder writes each shard it serves to a file in a run
+directory that the lowest process of its host makes in the temporary
+directory and names to that host's processes, and the readers map the
+file read-only (np.memmap): the ownership and the teardown, rehearsed
+without a card.
 
 Teardown (``PeerShards.close``): the readers unmap, a barrier, then the
 holders free (on the CPU: unlink their files, a second barrier, the
@@ -64,16 +71,17 @@ from . import multihost
 HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 
 
-def held(pid: int, nprocs: int, n_shards: int) -> list[int]:
-    """The shards that process pid of nprocs holds."""
-    if nprocs >= n_shards:
-        return [pid % n_shards]
-    return list(range(pid, n_shards, nprocs))
+def held(slot: int, slots: int, n_shards: int) -> list[int]:
+    """The shards that slot (or process) `slot` of `slots` holds."""
+    if slots >= n_shards:
+        return [slot % n_shards]
+    return list(range(slot, n_shards, slots))
 
 
-def source(shard: int, nprocs: int) -> int:
-    """The process that a process not holding `shard` reads it from."""
-    return shard % nprocs
+def source(shard: int, slots: int) -> int:
+    """The slot (or process) that holds `shard` for every reader that
+    takes it from its source."""
+    return shard % slots
 
 
 def host_name() -> str:
@@ -83,26 +91,39 @@ def host_name() -> str:
     return socket.gethostname()
 
 
-def routes(pid: int, hosts: list, n_shards: int) -> tuple[dict, dict]:
-    """For process pid of a group whose processes run on hosts (a name a
-    process): ({shard: process it is mapped from}, {shard: process that
-    serves it in rounds}) over the shards pid does not hold (module
+def slot_routes(slot: int, hosts: list, cards: int,
+                n_shards: int) -> tuple[list, dict, dict, dict]:
+    """The shards of slot `slot` (card slot mod cards of process slot //
+    cards) of a group whose processes run on hosts (a name a process),
+    each on `cards` cards: (held, {shard: card of this process it is read
+    from}, {shard: slot of another process of this host it is mapped
+    from}, {shard: process that serves it in rounds}) (module
     docstring)."""
-    N = len(hosts)
-    mine = set(held(pid, N, n_shards))
-    opened, remote = {}, {}
+    G = len(hosts) * cards
+    p = slot // cards
+    mine = held(slot, G, n_shards)
+    reads, opened, remote = {}, {}, {}
     for o in range(n_shards):
         if o in mine:
             continue
-        src = source(o, N)
-        near = [q for q in range(N) if hosts[q] == hosts[pid]
-                and o in held(q, N, n_shards)]
-        if hosts[src] == hosts[pid]:
-            opened[o] = src
+        src = source(o, G)
+        holders = [h for h in range(G) if o in held(h, G, n_shards)]
+        own = [h for h in holders if h // cards == p]
+        near = [h for h in holders if hosts[h // cards] == hosts[p]]
+        if own:
+            reads[o] = (src if src in own else min(own)) - p * cards
         elif near:
-            opened[o] = min(near)
+            opened[o] = src if src in near else min(near)
         else:
-            remote[o] = src
+            remote[o] = src // cards
+    return mine, reads, opened, remote
+
+
+def routes(pid: int, hosts: list, n_shards: int) -> tuple[dict, dict]:
+    """For process pid of a group of one card a process on hosts:
+    ({shard: process it is mapped from}, {shard: process that serves it in
+    rounds}), ``slot_routes`` with one card."""
+    _mine, _reads, opened, remote = slot_routes(pid, hosts, 1, n_shards)
     return opened, remote
 
 
@@ -182,29 +203,35 @@ class _CudaArray:
 
 
 class PeerShards:
-    """The shards of one index as process `rank` of `group` (a
-    torch.distributed group of more than one process) reads them: those it
-    holds, uploaded to `device`, and the others mapped from a process of
-    its host (module docstring).  ``held`` lists the held shards,
-    ``opened`` maps every shard mapped to the process it was mapped from,
-    ``remote`` every shard no process of this host holds to the process
-    that serves it; ``hosts`` is every process's host, and
-    ``spans_hosts`` says whether they differ."""
+    """The shards of one index as the cards of process `rank` of `group`
+    (a torch.distributed group of more than one process) read them, card
+    c of D = len(cards) being slot rank D + c (module docstring): for
+    each card, ``held[c]`` the shards it holds, uploaded to it,
+    ``reads[c]`` {shard: card of this process it is read from in place},
+    ``opened[c]`` {shard: slot of another process of this host it is
+    mapped from} and ``remote[c]`` {shard: process that serves it};
+    ``hosts`` is every process's host, and ``spans_hosts`` says whether
+    they differ."""
 
-    def __init__(self, device: torch.device, n_shards: int, group):
+    def __init__(self, cards: list, n_shards: int, group):
         import torch.distributed as dist
 
-        self.device = device
+        self.cards = [torch.device(c) for c in cards]
+        if len({c.type for c in self.cards}) != 1:
+            raise ValueError(f"cards of one kind expected, got {self.cards}")
+        self.D = len(self.cards)
         self.S = n_shards
         self.group = group
         self.pid = dist.get_rank(group)
         self.nprocs = dist.get_world_size(group)
-        self.held = held(self.pid, self.nprocs, n_shards)
         self.hosts = group_hosts(group)
         self.spans_hosts = len(set(self.hosts)) > 1
-        self.opened, self.remote = routes(self.pid, self.hosts, n_shards)
+        routes_ = [slot_routes(self.pid * self.D + c, self.hosts, self.D,
+                               n_shards) for c in range(self.D)]
+        self.held, self.reads, self.opened, self.remote = (
+            [r[k] for r in routes_] for k in range(4))
         self.run_dir = None
-        self._lib = _peer_lib() if device.type == "cuda" else None
+        self._lib = _peer_lib() if self.cards[0].type == "cuda" else None
         self._owned: list = []  # our allocations (card) or files (CPU)
         self._maps: list = []  # peers' allocations mapped here (card)
         self._closed = False
@@ -218,53 +245,75 @@ class PeerShards:
             self.run_dir = names[first]
 
     def _serves(self) -> set:
-        """The held shards that a process maps from this one."""
-        return {o for p in range(self.nprocs)
-                for o, q in routes(p, self.hosts, self.S)[0].items()
-                if q == self.pid}
+        """The (card, shard) pairs of this process that a slot of another
+        process maps."""
+        D, base = self.D, self.pid * self.D
+        return {(h - base, o) for g in range(self.nprocs * D)
+                for o, h in slot_routes(g, self.hosts, D, self.S)[2].items()
+                if base <= h < base + D}
 
-    def parts(self, arrays: dict) -> dict:
-        """{name: S host parts (numpy)} -> {name: S tensors, None for a
-        remote shard}: the held parts uploaded, every other part of this
-        host mapped from its holder, all handles exchanged in one
-        all-gather."""
+    def parts(self, arrays: dict) -> list[dict]:
+        """{name: S host parts (numpy)} -> for each card, {name: S
+        tensors, None for a remote shard}: the held parts uploaded to
+        their cards, every part another card of this process holds read
+        from there, every other part of this host mapped from its holder,
+        once a card, all handles exchanged in one all-gather."""
         import torch.distributed as dist
 
-        out = {name: [None] * self.S for name in arrays}
+        D, base = self.D, self.pid * self.D
+        out = [{name: [None] * self.S for name in arrays} for _ in range(D)]
         mine = {}
         serves = self._serves()
         for name, host in arrays.items():
-            for o in self.held:
-                serve = o in serves
-                out[name][o], key = self._hold(
-                    np.ascontiguousarray(host[o]), serve, f"{name}_{o}")
-                if serve:
-                    mine[name, o] = (key, host[o].shape, host[o].dtype.str)
+            for c in range(D):
+                for o in self.held[c]:
+                    serve = (c, o) in serves
+                    out[c][name][o], key = self._hold(
+                        c, np.ascontiguousarray(host[o]), serve,
+                        f"{name}_{o}")
+                    if serve:
+                        mine[name, base + c, o] = (
+                            key, host[o].shape, host[o].dtype.str,
+                            str(self.cards[c]))
         if self._lib is not None:  # uploads done before the handles go out
-            torch.cuda.synchronize(self.device)
+            for card in dict.fromkeys(self.cards):
+                torch.cuda.synchronize(card)
         everyone = [None] * self.nprocs
         dist.all_gather_object(everyone, mine, group=self.group)
-        for o, p in self.opened.items():
-            for name in arrays:
-                key, shape, dtype = everyone[p][name, o]
-                out[name][o] = self._open(key, shape, np.dtype(dtype),
-                                          f"{name} shard {o} of process {p}")
+        maps = {}  # (card, handle or file): the tensor mapped there
+        for c in range(D):
+            for o, h in self.opened[c].items():
+                for name in arrays:
+                    key, shape, dtype, at = everyone[h // D][name, h, o]
+                    got = (str(self.cards[c]), key)
+                    if got not in maps:
+                        maps[got] = self._open(
+                            c, key, shape, np.dtype(dtype), f"{name} shard "
+                            f"{o} of process {h // D} (its {at})")
+                    out[c][name][o] = maps[got]
+            for o, h in self.reads[c].items():
+                for name in arrays:
+                    out[c][name][o] = out[h][name][o]
+        if self._lib is not None:  # kt_peer_* made other cards current
+            torch.cuda.set_device(self.cards[0])
         return out
 
-    def _hold(self, a: np.ndarray, serve: bool, tag: str):
-        """a on this process's device, and what a peer opens it by (the
-        IPC handle, or the file) if this process serves it."""
+    def _hold(self, c: int, a: np.ndarray, serve: bool, tag: str):
+        """a on card c, and what a peer opens it by (the IPC handle, or
+        the file) if a slot of another process maps it."""
         if self._lib is None:
             t = torch.from_numpy(a.copy())
             if not serve:
                 return t, None
-            path = os.path.join(self.run_dir, f"{tag}.p{self.pid}")
+            path = os.path.join(self.run_dir,
+                                f"{tag}.s{self.pid * self.D + c}")
             a.tofile(path)
             self._owned.append(path)
             return t, path
+        card = self.cards[c]
         ptr = ctypes.c_void_p()
-        self._call("kt_peer_alloc", f"cudaMalloc of {tag}", self.device.index,
-                   a.nbytes, ctypes.byref(ptr))
+        self._call("kt_peer_alloc", f"cudaMalloc of {tag} on {card}",
+                   card.index, a.nbytes, ctypes.byref(ptr))
         self._owned.append(ptr.value)
         t = torch.as_tensor(_CudaArray(ptr.value, a.shape, a.dtype))
         t.copy_(torch.from_numpy(a))
@@ -275,13 +324,15 @@ class PeerShards:
                    handle)
         return t, handle.raw
 
-    def _open(self, key, shape, dtype: np.dtype, what: str) -> torch.Tensor:
+    def _open(self, c: int, key, shape, dtype: np.dtype,
+              what: str) -> torch.Tensor:
         if self._lib is None:
             return map_file(key, shape, dtype)
+        card = self.cards[c]
         ptr = ctypes.c_void_p()
         self._call("kt_peer_open", f"cudaIpcOpenMemHandle of {what} on "
-                   f"{self.device} (across cards it needs peer access)",
-                   self.device.index, ctypes.create_string_buffer(key),
+                   f"{card} (across cards it needs peer access)",
+                   card.index, ctypes.create_string_buffer(key),
                    ctypes.byref(ptr))
         self._maps.append(ptr.value)
         return torch.as_tensor(_CudaArray(ptr.value, shape, dtype))
@@ -295,15 +346,16 @@ class PeerShards:
     def close(self) -> None:
         """Unmap the peers' shards, wait for every process to do so, then
         free the held ones (on the CPU, unlink, and the lowest process of
-        each host removes its run directory).  Every process of the group calls it; the tensors of
-        ``parts`` are invalid after it."""
+        each host removes its run directory).  Every process of the group
+        calls it; the tensors of ``parts`` are invalid after it."""
         import torch.distributed as dist
 
         if self._closed:
             return
         self._closed = True
         if self._lib is not None:
-            torch.cuda.synchronize(self.device)
+            for card in dict.fromkeys(self.cards):
+                torch.cuda.synchronize(card)
             for ptr in self._maps:
                 self._call("kt_peer_close", "cudaIpcCloseMemHandle",
                            ctypes.c_void_p(ptr))

@@ -33,11 +33,13 @@ one process, D pipelines share one placement of the shards
 (``ShardedIndex.on_cards``): each runs on its card, reads its card's view
 (the shards it holds, the others in place on their holders' cards) and
 classifies its share of every batch (``engine.pipeline.CardShare``).
-Several processes each run a pipeline on their share of every batch
-(``parallel.multihost``, ``engine.pipeline.ProcessShare``); given their
-group, each holds only its shards and maps the others from their holders
-(``parallel.peer_shards``).  Over a group whose processes lie on several
-hosts, ``ShardedMemPipeline`` runs A → O → C → W → Q → W
+Several processes each run pipelines on their share of every batch
+(``parallel.multihost``, ``engine.pipeline.ProcessShare``), one a card
+of the process (``CardShare``) on a view of ``ShardedIndex.in_group``:
+each card holds only its shards, reads those of its process's other
+cards in place and maps the others from the processes of its host that
+hold them (``parallel.peer_shards``).  Over a group whose processes lie
+on several hosts, ``ShardedMemPipeline`` runs A → O → C → W → Q → W
 (``ops.classify.fused_mem_classify_hosts``) and ``ShardedGreedyPipeline``
 A → O → U → (X → U) a level → V → Q → V
 (``ops.greedy.fused_greedy_classify_hosts``), each step whose row lies on
@@ -64,10 +66,10 @@ from .sharded_index import ShardedIndex
 
 class _OnShards:
     """A device pipeline whose index is a ``ShardedIndex`` of n_index
-    shards on its device; with a group of several processes, the shards
-    held apart by them (``ShardedIndex``'s group); given `view`, one
-    card's view of a placement over the cards of this process
-    (``ShardedIndex.on_cards``), on whose card the pipeline runs."""
+    shards on its device; given `view`, one card's view of a placement
+    over the cards of this process (``ShardedIndex.on_cards``) or over
+    the slots of a group (``ShardedIndex.in_group``), on whose card the
+    pipeline runs."""
 
     def __init__(
         self,
@@ -77,15 +79,14 @@ class _OnShards:
         n_index: int,
         device=None,
         kmer_cache_dir: Optional[str] = None,
-        group=None,
         view: Optional[ShardedIndex] = None,
     ):
         if n_index < 1:
             raise ValueError(f"--mesh-index must be >= 1, got {n_index}")
-        if view is not None and (view.S != n_index or group is not None):
-            raise ValueError("a card's view of n_index shards, no group")
+        if view is not None and view.S != n_index:
+            raise ValueError(f"a card's view of {view.S} shards, expected "
+                             f"{n_index}")
         self.n_index = n_index
-        self.group = group
         self.view = view
         super().__init__(index, taxonomy, config,
                          device if view is None else view.device,
@@ -94,7 +95,7 @@ class _OnShards:
     def _device_index(self, index: KaijuIndex) -> ShardedIndex:
         if self.view is not None:
             return self.view
-        return ShardedIndex(index, self.n_index, self.device, self.group)
+        return ShardedIndex(index, self.n_index, self.device)
 
     def _seed_tables(self, index: KaijuIndex, kmer_cache_dir, seed_K: int):
         """As DeviceSetup's; the cards of one placement compute the host

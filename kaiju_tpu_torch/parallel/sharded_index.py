@@ -27,15 +27,17 @@ index axis innermost), each allocated once on each card that holds it,
 and reads every other shard in place from card ``peer_shards.source(o,
 D)`` over NVLink (peer access, ``peer_shards.enable_peer``); each card has
 a view of its own (pointer tables, ``C``, ``seq_tax``, ``rank_start``),
-and with D = 1 that view is the one-card layout.  Given a group of N > 1
-processes, each process uploads only the shards it holds and maps the
-others from the processes that hold them (``parallel.peer_shards``, CUDA
-IPC on the card), with the same layout: only the pointers in the tables
+and with D = 1 that view is the one-card layout.  Over a group of N > 1
+processes of D cards each (``in_group``), slot p D + c, card c of process
+p, holds ``peer_shards.held`` over the N D slots, uploads only those, and
+reads every other shard from a card of its process that holds it, or maps
+it from a process of its host that holds it (``parallel.peer_shards``,
+CUDA IPC on the card): the same layout, only the pointers in the tables
 change.  Over a group whose processes lie on several hosts, a shard that
-no process of this host holds is remote (``remote``: its part is None, its
-pointers 0): ``exchange`` (``parallel.exchange.Exchange``) runs the rounds
-in which its owner serves its rows and samples, and only the hosts kernels
-(N, O, Q, W) read such a view.
+no slot of this host holds is remote (``remote``: its part is None, its
+pointers 0): each card's ``exchange`` (``parallel.exchange.Exchange``)
+runs the rounds in which its owner serves its rows and samples, and only
+the hosts kernels (N, O, Q, W, U, X, V) read such a view.
 """
 
 from __future__ import annotations
@@ -110,40 +112,68 @@ class ShardedIndex:
     are the blocks, sample slots and text rows of a shard.  One object is
     the view of one card (``device``), which the kernels read there.
 
-    group: None, or a torch.distributed group; with more than one process
-    in it, this process holds only its shards and maps the others from
-    their holders (``parallel.peer_shards``; every process of the group
-    makes its ShardedIndex together, and ``share.close`` releases them,
-    at the latest when the process leaves its group).
-    ``held`` lists the shards this card holds, ``opened`` maps each shard
-    mapped from another process to that process, and ``reads`` each shard
-    held by another card of this process (``on_cards``) to that card's
-    slot; ``cards`` lists the process's cards and ``slot`` is this one's
-    place among them, and ``shared`` is a dict that the views of one
-    placement share (the host seed tables, sharded_fused)."""
+    ``held`` lists the shards this card holds, ``reads`` maps each shard
+    held by another card of this process (``on_cards``, ``in_group``) to
+    that card's place among ``cards``, ``opened`` each shard mapped from
+    another process to that process (``opened_slot``: to its slot), and
+    ``remote`` each shard served in rounds to the process that serves it;
+    ``cards`` lists the process's cards and ``slot`` is this one's place
+    among them, and ``shared`` is a dict that the views of one placement
+    share (the host seed tables, sharded_fused)."""
 
-    def __init__(self, index: KaijuIndex, n_shards: int, device=None,
-                 group=None):
+    def __init__(self, index: KaijuIndex, n_shards: int, device=None):
         host = _Host(index, int(n_shards))
         dev = multihost.numbered(device)
-        share = None
-        if group is not None:
-            import torch.distributed as dist
+        self._set(host, [dev], 0, {k: [_put(p, dev) for p in v]
+                                   for k, v in host.parts.items()},
+                  list(range(host.S)))
 
-            if dist.get_world_size(group) > 1:
-                share = PeerShards(dev, host.S, group)
-        if share is None:
-            self._set(host, [dev], 0, {k: [_put(p, dev) for p in v]
-                                       for k, v in host.parts.items()},
-                      list(range(host.S)))
-            return
-        self._set(host, [dev], 0, share.parts(host.parts), share.held,
-                  opened=share.opened, remote=share.remote)
-        self.share = share
-        self.host = share.hosts[share.pid]
-        if share.spans_hosts:  # the group's hosts differ: rounds
-            self.exchange = Exchange(self, group, [
-                self.remote.get(o, share.pid) for o in range(self.S)])
+    @classmethod
+    def in_group(cls, index: KaijuIndex, n_shards: int, cards: list,
+                 group) -> list["ShardedIndex"]:
+        """The index in n_shards shards over the slots of a group of
+        processes (`group`, of more than one process; every process calls
+        it together, each with its D cards, ``multihost.process_cards``):
+        one view a card, in order, card c being slot rank D + c.  Each card
+        holds its shards (``peer_shards.slot_routes``), reads the shards
+        of another card of this process in place, with peer access enabled
+        where the two cards differ (raises where they have none), and maps
+        the shards of another process of its host; ``share`` (the group's
+        ``PeerShards``, shared by the views) releases them.  Over several
+        hosts each card has an ``exchange`` of its own, over a gloo group
+        of the card index (D groups made in the same order in every
+        process: the D cards run their rounds at once).  The host records
+        are built once."""
+        import torch.distributed as dist
+
+        host = _Host(index, int(n_shards))
+        cards = [multihost.numbered(c) for c in cards]
+        share = PeerShards(cards, host.S, group)
+        parts = share.parts(host.parts)
+        D = len(cards)
+        groups = [group] * D
+        if share.spans_hosts and D > 1:  # a group of its own a card index
+            N = dist.get_world_size(group)
+            groups = [dist.new_group(list(range(N)), backend="gloo")
+                      for _c in range(D)]
+        shared: dict = {}
+        views = []
+        for c in range(D):
+            for h in share.reads[c].values():
+                peer_shards.enable_peer(cards[c], cards[h])
+            view = cls.__new__(cls)
+            view._set(host, cards, c, parts[c], share.held[c],
+                      opened={o: g // D for o, g in share.opened[c].items()},
+                      reads=share.reads[c], remote=share.remote[c])
+            view.opened_slot = dict(share.opened[c])
+            view.share = share
+            view.host = share.hosts[share.pid]
+            view.shared = shared
+            if share.spans_hosts:  # the group's hosts differ: rounds
+                view.exchange = Exchange(view, groups[c], [
+                    view.remote.get(o, share.pid) for o in range(view.S)])
+            views.append(view)
+        return views
 
     @classmethod
     def on_cards(cls, index: KaijuIndex, n_shards: int,
@@ -192,6 +222,7 @@ class ShardedIndex:
         self.opened = dict(opened or {})
         self.reads = dict(reads or {})
         self.remote = dict(remote or {})
+        self.opened_slot = dict(self.opened)
         self.share = None
         self.exchange = None
         self.host = None
@@ -208,8 +239,10 @@ class ShardedIndex:
 
     def layout(self) -> dict:
         """The shards this card holds and reads: {"card": its device,
-        "host": its host in a group (else None), "held": [o, ...],
-        "opened": {o: process}, "reads": {o: slot of the holding card},
+        "host": its host in a group (else None), "slot": its slot in the
+        group (else its place among the cards), "held": [o, ...],
+        "opened": {o: process}, "opened_slot": {o: slot},
+        "reads": {o: place of the holding card among the cards},
         "remote": {o: process that serves it in rounds}, "bytes_held",
         "bytes_opened", "bytes_read", "bytes_remote": {array: bytes}}."""
         arrays = {"rec": self.rec, "sa_seq": self.sa_seq,
@@ -224,8 +257,12 @@ class ShardedIndex:
                 out[k] = one * len(shards)  # every shard has one size
             return out
 
-        return {"card": str(self.device), "host": self.host,
+        slot = self.slot
+        if self.share is not None:
+            slot += self.share.pid * self.share.D
+        return {"card": str(self.device), "host": self.host, "slot": slot,
                 "held": list(self.held), "opened": dict(self.opened),
+                "opened_slot": dict(self.opened_slot),
                 "reads": dict(self.reads), "remote": dict(self.remote),
                 "bytes_held": nbytes(self.held),
                 "bytes_opened": nbytes(self.opened),

@@ -46,29 +46,34 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
     (parallel.sharded_fused).
 
     device: None for the card (with --mesh-index in one process, every
-    visible card), "cpu" for the plain versions, or a list of devices, the
-    cards of a --mesh-index run in one process in order, where a device
-    may repeat (["cpu"] * 4: four slots on the CPU; ["cuda:0", "cuda:0"]:
-    two data rows on one card); a run without --mesh-index, or with
-    --dist-*, takes a list's first device.  With --mesh-index S in one
-    process the shards lie over those cards (ShardedIndex.on_cards) and
-    each card runs a pipeline on its share of every batch
-    (engine.pipeline.CardShare), as kaiju_tpu's mesh spans the process's
-    devices; on one card, the pipeline itself.
+    visible card; in a group of processes, the process's share of its
+    machine's cards), "cpu" for the plain versions, or a list of devices,
+    the cards of the process in order, where a device may repeat (["cpu"]
+    * 4: four slots on the CPU; ["cuda:0", "cuda:0"]: two data rows on one
+    card); a run in one process without --mesh-index takes a list's first
+    device.  With --mesh-index S in one process the shards lie over those
+    cards (ShardedIndex.on_cards) and each card runs a pipeline on its
+    share of every batch (engine.pipeline.CardShare), as kaiju_tpu's mesh
+    spans the process's devices; on one card, the pipeline itself.
 
     Many processes (--dist-nprocs N > 1 with --dist-coordinator and
     --dist-pid, or KAIJU_TPU_NPROCS, _COORDINATOR and _PID, which kaiju_tpu
-    reads too) join a group (parallel.multihost); each runs the pipeline
-    the other flags choose on its own card, on its share of every batch
-    (engine.pipeline.ProcessShare), and with --mesh-index S holds only its
-    shards of the index, mapping the others from the processes that hold
-    them (parallel.peer_shards); over processes on several hosts, the
-    steps whose rows lie on another host are served by their owners in
-    rounds (parallel.exchange), in MEM and in Greedy.  As in kaiju_tpu,
-    --mesh-index and many processes run MEM and Greedy without -v, and a
-    taxonomy-free tool or -v exits with its message; -d exits too, since
-    the trace needs the one-process host engine (kaiju_tpu drops the
-    trace there)."""
+    reads too) join a group (parallel.multihost), and then each takes its
+    cards (multihost.process_cards: the caller's, else its share of its
+    machine's; every process as many) and runs the pipeline the other
+    flags choose on each of them, each card on its share of the process's
+    share of every batch (engine.pipeline.ProcessShare over a CardShare;
+    on one card, over the pipeline).  Without --mesh-index every card
+    holds the whole index; with --mesh-index S each card holds only its
+    shards, reading the others from the process's other cards or mapping
+    them from the processes of its host that hold them
+    (ShardedIndex.in_group, parallel.peer_shards); over processes on
+    several hosts, the steps whose rows lie on another host are served by
+    their owners in rounds (parallel.exchange), in MEM and in Greedy.  As
+    in kaiju_tpu, --mesh-index and many processes run MEM and Greedy
+    without -v, and a taxonomy-free tool or -v exits with its message; -d
+    exits too, since the trace needs the one-process host engine
+    (kaiju_tpu drops the trace there)."""
     n_index = int(getattr(args, "mesh_index", 0) or 0)
     nprocs = int(getattr(args, "dist_nprocs", 0)
                  or os.environ.get("KAIJU_TPU_NPROCS", 0) or 0)
@@ -89,32 +94,33 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
             raise SystemExit("-d traces reads through the host engine in "
                              "one process: it does not run with --mesh-index"
                              " / --dist-*")
-    cards = None  # the cards of a --mesh-index run in one process
-    if n_index and nprocs <= 1:
-        from ..parallel import multihost
-
-        cards = multihost.local_cards(device)
-        device = cards[0]
-    elif isinstance(device, (list, tuple)):
-        device = device[0]
     group = None
     if nprocs > 1:
         import torch.distributed as dist
 
         from ..parallel import multihost
 
-        device = multihost.process_device(pid, device)
         multihost.init_distributed(coord, nprocs, pid)
         group = dist.group.WORLD
+        cards = multihost.process_cards(group, device)
+    elif n_index:
+        from ..parallel import multihost
+
+        cards = multihost.local_cards(device)
+    else:
+        cards = [device[0] if isinstance(device, (list, tuple)) else device]
     if cfg.debug:
         from ..engine.core import ExactClassifier
 
         return ExactClassifier(index, taxonomy, cfg)
     kmer_dir = _kmer_dir(index)
-    if resolve_device(device).type == "cuda":
-        # the kernel libraries that mkdb --aot prebuilt beside the index
-        # or in KAIJU_TPU_CACHE, where their key matches (utils/aot.py)
-        kernels.use_prebuilt(kmer_dir, device)
+    for card in dict.fromkeys(cards):
+        if resolve_device(card).type == "cuda":
+            # the kernel libraries that mkdb --aot prebuilt beside the
+            # index or in KAIJU_TPU_CACHE, where their key matches
+            # (utils/aot.py)
+            kernels.use_prebuilt(kmer_dir, card)
+    device = cards[0]
     if cfg.taxonomy_free:
         from ..engine.batch import BatchRunner
 
@@ -128,27 +134,33 @@ def make_runner(index, taxonomy, cfg: KaijuConfig, args=None, device=None):
                         kmer_cache_dir=kmer_dir)
     if n_index:
         from ..parallel import sharded_fused
+        from ..parallel.sharded_index import ShardedIndex
 
         Pipeline = (sharded_fused.ShardedGreedyPipeline
                     if cfg.mode == "greedy"
                     else sharded_fused.ShardedMemPipeline)
-        if cards is not None and len(cards) > 1:
-            from ..engine.pipeline import CardShare
-            from ..parallel.sharded_index import ShardedIndex
+        views = (ShardedIndex.in_group(index, n_index, cards, group)
+                 if group is not None else
+                 ShardedIndex.on_cards(index, n_index, cards))
 
-            views = ShardedIndex.on_cards(index, n_index, cards)
-            return CardShare(lambda c: Pipeline(
-                index, taxonomy, cfg, n_index, kmer_cache_dir=kmer_dir,
-                view=views[c]), cards)
-        pipe = Pipeline(index, taxonomy, cfg, n_index, device=device,
-                        kmer_cache_dir=kmer_dir, group=group)
+        def make(c):
+            return Pipeline(index, taxonomy, cfg, n_index,
+                            kmer_cache_dir=kmer_dir, view=views[c])
     else:
         if cfg.mode == "greedy":
             from ..engine.greedy import GreedyPipeline as Pipeline
         else:
             from ..engine.mem import MemPipeline as Pipeline
-        pipe = Pipeline(index, taxonomy, cfg, device=device,
-                        kmer_cache_dir=kmer_dir)
+
+        def make(c):
+            return Pipeline(index, taxonomy, cfg, device=cards[c],
+                            kmer_cache_dir=kmer_dir)
+    if len(cards) > 1:
+        from ..engine.pipeline import CardShare
+
+        pipe = CardShare(make, cards)
+    else:
+        pipe = make(0)
     if nprocs > 1:
         from ..engine.pipeline import ProcessShare
 
@@ -241,9 +253,9 @@ def add_engine_args(ap, protein_tool=False):
                     help="split the index into N shards (MEM and Greedy "
                          "without -v; 0 = one index) over every card of "
                          "the process, each card classifying its share of "
-                         "every batch; with --dist-* each process on one "
-                         "card, each shard held by one process and mapped "
-                         "by the others")
+                         "every batch; with --dist-* over every card of "
+                         "every process, each card holding its shards and "
+                         "reading or mapping the others")
     ap.add_argument("--dist-coordinator", dest="dist_coordinator",
                     help="host:port of process 0 of a multi-process run "
                          "(or KAIJU_TPU_COORDINATOR)")

@@ -42,9 +42,10 @@ def build_parser():
 
 def main(argv=None, device=None):
     """Run the CLI; device: None for the GPU (with many processes, the
-    process's card; with --mesh-index in one process, every visible card),
-    "cpu" for the plain versions on the CPU, or a list of devices, the
-    cards of a --mesh-index run in one process (tools.common.make_runner)."""
+    process's share of its machine's cards; with --mesh-index in one
+    process, every visible card), "cpu" for the plain versions on the CPU,
+    or a list of devices, the process's cards with --mesh-index or many
+    processes (tools.common.make_runner)."""
     args = build_parser().parse_args(argv)
     if args.protein and args.input2:
         print("Error: Protein input only supports one input file.", file=sys.stderr)

@@ -31,9 +31,10 @@ from .common import (
 
 def main(argv=None, device=None):
     """Run the CLI; device: None for the GPU (with many processes, the
-    process's card; with --mesh-index in one process, every visible card),
-    "cpu" for the plain versions on the CPU, or a list of devices, the
-    cards of a --mesh-index run in one process (tools.common.make_runner)."""
+    process's share of its machine's cards; with --mesh-index in one
+    process, every visible card), "cpu" for the plain versions on the CPU,
+    or a list of devices, the process's cards with --mesh-index or many
+    processes (tools.common.make_runner)."""
     ap = argparse.ArgumentParser(prog="kaiju-multi-tpu-torch",
                                  description=__doc__)
     ap.add_argument("-t", dest="nodes", required=True, help="nodes.dmp file")

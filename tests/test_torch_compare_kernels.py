@@ -49,6 +49,18 @@ import compare_kernels as ck  # noqa: E402
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run many small tensor ops (L's and M's int64
+    ones above all), for which torch's intra-op threads add CPU time and
+    no speed; one thread for this file leaves the cores to the other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
     rng = random.Random(5)

@@ -390,10 +390,11 @@ def test_make_runner_refuses_unported_modes(env, monkeypatch, what, args,
 def test_make_runner_refuses_kaiju_tpu_nprocs(env, monkeypatch, mesh_index):
     """KAIJU_TPU_NPROCS > 1 starts a multi-process run, as in kaiju_tpu:
     without KAIJU_TPU_COORDINATOR it exits with kaiju_tpu's message before
-    it joins anything; with it, process KAIJU_TPU_PID joins the group
-    (stubbed here; tests/test_torch_multihost.py runs real processes) and
-    gets its ProcessShare of the pipeline the other flags choose; 1 is a
-    single-process run."""
+    it joins anything; with it, process KAIJU_TPU_PID joins the group and
+    then takes its cards over it (both stubbed here, the cards the
+    caller's; tests/test_torch_multihost.py and test_torch_dist_cards.py
+    run real processes) and gets its ProcessShare of the pipeline the
+    other flags choose; 1 is a single-process run."""
     from kaiju_tpu_torch.engine.pipeline import ProcessShare
     from kaiju_tpu_torch.parallel import multihost
 
@@ -405,6 +406,8 @@ def test_make_runner_refuses_kaiju_tpu_nprocs(env, monkeypatch, mesh_index):
     joined = []
     monkeypatch.setattr(multihost, "init_distributed",
                         lambda *a: joined.append(a))
+    monkeypatch.setattr(multihost, "process_cards", lambda group, device: (
+        joined.append(("cards", device)), multihost.local_cards(device))[1])
     monkeypatch.setenv("KAIJU_TPU_NPROCS", "2")
     with pytest.raises(SystemExit, match=NO_COORD):
         common.make_runner(env["index"]["fmi"], tax, cfg, args=args,
@@ -414,7 +417,7 @@ def test_make_runner_refuses_kaiju_tpu_nprocs(env, monkeypatch, mesh_index):
     monkeypatch.setenv("KAIJU_TPU_PID", "1")
     runner = common.make_runner(env["index"]["fmi"], tax, cfg, args=args,
                                 device="cpu")
-    assert joined == [("127.0.0.1:29400", 2, 1)]
+    assert joined == [("127.0.0.1:29400", 2, 1), ("cards", "cpu")]
     assert isinstance(runner, ProcessShare)
     assert (runner.nprocs, runner.pid) == (2, 1)
     assert type(runner.pipe).__name__ == want

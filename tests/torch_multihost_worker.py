@@ -1,17 +1,22 @@
 """One process of a multi-process run of the port's `kaiju` on the CPU:
 kaiju_tpu_torch.tools.kaiju.main(argv, device="cpu") with this command
-line's arguments (tests/test_torch_multihost.py starts it N times, with
---dist-* flags or the KAIJU_TPU_* variables).  A first argument `--host
+line's arguments (tests/test_torch_multihost.py and
+tests/test_torch_dist_cards.py start it N times, with --dist-* flags or
+the KAIJU_TPU_* variables).  Leading options, in this order: `--host
 NAME` gives the process that host name (peer_shards.host_name), so that
-processes on one machine rehearse a group on several hosts.  With
---mesh-index it also writes, beside its -o file as <out>.shards.json, the
-layout of its ShardedIndex (the shards it holds, maps and has served in
-rounds) and the run directory of the mapped shards, before the process
-leaves its group and the shards are released."""
+processes on one machine rehearse a group on several hosts; `--slots K`
+runs the process on K CPU slots, device=["cpu"] * K, as a process on K
+cards.  With --mesh-index it also writes, beside its -o file as
+<out>.shards.json, the layout of its ShardedIndex (the shards it holds,
+maps and has served in rounds, with the rounds of the whole process) and
+the run directory of the mapped shards, before the process leaves its
+group and the shards are released; with slots, a list of those layouts,
+one a slot, each with its own rounds."""
 
 import json
 import sys
 
+from kaiju_tpu_torch.engine.pipeline import CardShare
 from kaiju_tpu_torch.parallel import exchange, peer_shards
 from kaiju_tpu_torch.tools import kaiju
 
@@ -21,6 +26,10 @@ def main(argv) -> int:
         name = argv[1]
         peer_shards.host_name = lambda: name
         argv = argv[2:]
+    device = "cpu"
+    if argv[:1] == ["--slots"]:
+        device = ["cpu"] * int(argv[1])
+        argv = argv[2:]
     runners = []
     make_runner = kaiju.make_runner
 
@@ -29,14 +38,21 @@ def main(argv) -> int:
         return runners[-1]
 
     kaiju.make_runner = keep
-    rc = kaiju.main(argv, device="cpu")
+    rc = kaiju.main(argv, device=device)
     if "--mesh-index" in argv:
-        sharded = runners[0].pipe.dev
-        report = sharded.layout()
-        report["run_dir"] = sharded.share.run_dir
-        report["rounds"] = exchange.COUNTS
+        pipe = runners[0].pipe
+        pipes = pipe.pipes if isinstance(pipe, CardShare) else [pipe]
+        reports = []
+        for p in pipes:
+            report = p.dev.layout()
+            report["run_dir"] = p.dev.share.run_dir
+            report["rounds"] = exchange.COUNTS
+            if p.dev.exchange is not None:
+                report["card_rounds"] = p.dev.exchange.counts
+            reports.append(report)
         with open(argv[argv.index("-o") + 1] + ".shards.json", "w") as fh:
-            json.dump(report, fh)
+            json.dump(reports if isinstance(pipe, CardShare) else reports[0],
+                      fh)
     return rc
 
 
