@@ -205,14 +205,17 @@ Phases, any failure exits non-zero:
      seed-table cache, so that the group builds the tables by rounds of
      N: each process must launch every kernel of its mode's hosts path
      (N, O, U, X, Q, V and W's resolved form for Greedy; N, O, C, W and
-     Q for MEM) and no
-     one-host kernel that reads the index (no E, F, B or D), each card
+     Q for MEM; on db_text.ktx kernel Y too, the text-compare hybrid, and
+     its stages "switch" and "text") and no
+     one-host kernel that reads the index (no E, F, B, D or G), each card
      must hold, read, map and have served in rounds the shards of the slot
      rules, with rounds in every stage of the path on every card (the seed
      tables' on card 0), each read must be written once by its owner and
-     the merged lines equal phase 4's lines of the mode; process 0 holds
+     the merged lines equal phase 4's lines of the mode; on db_text.ktx a
+     line counts the intervals switched to Y and the positions Q walked
+     of those listed; process 0 holds
      each hosts kernel on the arguments of its first card's first rounds
-     (each form of U, X, V, N, O, Q, W) against its plain version on
+     (each form of U, X, V, N, O, Q, W, Y) against its plain version on
      copies (timed in the runs at 4 shards on a, a, b of db_text.ktx, on
      the kernels' launches alone, launch_ms, and as the wrappers' whole
      calls, with the count that U's list pass, O, Q and X read back); each
@@ -223,7 +226,7 @@ Phases, any failure exits non-zero:
      first;
   5. print the kernels' JSON line (the text index's measurements, the
      sharded kernels' on 4 shards, L's and M's on the big index, N, O, Q,
-     W, U, X and V from 4j's runs at 4 shards on hosts a, a, b, and each
+     W, U, X, V and Y from 4j's runs at 4 shards on hosts a, a, b, and each
      kernel's latency floor where its note states one; the
      launches of every run of phases 4, 4c, 4d, 4e, 4f, 4h, 4i, 4j and 4g,
      each counted from 0, and of P1 and P2's benchmark; each error the
@@ -287,6 +290,7 @@ REPLACES = {
     "greedy_levels": "kaiju_tpu/ops/fused_greedy.py:298",
     "greedy_variants_hosts": "kaiju_tpu/ops/fused_greedy.py:103",
     "ranges_lca_hosts": "kaiju_tpu/ops/fused_classify.py:153",
+    "switch_hosts": "kaiju_tpu/parallel/sharded_fused.py:153",
 }
 # P1, P2: the one PyTorch call computing the same function, if any
 LIBRARY = {"gather_rows": "torch.index_select(tab, 0, idx)"}
@@ -336,13 +340,21 @@ HOST_FMI_RUNS = ((4, "aab"), (4, "aabb"))
 HOST_PATHS = {
     "greedy": ("fm_serve", "mem_extend_hosts", "greedy_levels",
                "greedy_variants_hosts", "walk_hosts", "ranges_lca_hosts",
-               "read_lca_hosts"),
+               "read_lca_hosts", "switch_hosts"),
     "mem": ("fm_serve", "mem_extend_hosts", "mem_stats", "read_lca_hosts",
-            "walk_hosts"),
+            "walk_hosts", "switch_hosts"),
 }
-HOST_STAGES = {"greedy": ("seed", "extend", "variants", "walk"),
-               "mem": ("seed", "extend", "walk")}
+HOST_STAGES = {"greedy": ("seed", "extend", "variants", "switch", "text",
+                          "walk"),
+               "mem": ("seed", "extend", "switch", "text", "walk")}
 HOST_FORMS = {"greedy": 13, "mem": 7}
+# what only an index with a text copy runs across hosts, the hybrid: kernel
+# Y, its stages, and the forms process 0 must check besides HOST_FORMS (N's
+# walk and text rows, Y's start and finish)
+HOST_HYBRID = ("switch_hosts",)
+HOST_HYBRID_STAGES = ("switch", "text")
+HOST_HYBRID_FORMS = ("fm_serve w2", "fm_serve w32", "switch_hosts start",
+                     "switch_hosts finish")
 # the kernels each path launches on an index without text (the text index
 # adds G to MEM), A's letters form where the seed tables are built, and the
 # CLI flags that select the path
@@ -760,6 +772,28 @@ def dependent_reads():
     if state == "after":
         levels.append(1 + max(res // 2, walks))
     out["levels"] = levels
+
+
+@contextlib.contextmanager
+def walk_rounds():
+    """Counts the lockstep walk rounds of kernel Y's plain version run
+    inside the block (each is one LF step of the longest walks, one link
+    of the chain of dependent row reads): yields {"rounds"}, filled as it
+    goes."""
+    from kaiju_tpu_torch.ops import hybrid
+
+    out = {"rounds": 0}
+    rank = hybrid.rank
+
+    def counted(*a, **k):
+        out["rounds"] += 1
+        return rank(*a, **k)
+
+    hybrid.rank = counted
+    try:
+        yield out
+    finally:
+        hybrid.rank = rank
 
 
 def floor_note(chain: int, lat_ns: float, what: str = "row reads") -> str:
@@ -2456,6 +2490,8 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         return threading.current_thread().name in ("MainThread", "card0_0")
 
     first = {}
+    if host is not None:  # every process: the hybrid's tallies
+        info_work = tally_hosts_work()
     if pid == 0 and host is not None:
         first = spy_hosts_calls("mem" if "mem" in argv else "greedy",
                                 only=first_card)
@@ -2492,6 +2528,7 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     if mesh:
         info["layout"] = [p.dev.layout() for p in pipes]
     if host is not None:
+        info["work"] = dict(info_work)  # before the checks' launches
         info["rounds"] = exchange.COUNTS
         info["card_rounds"] = [p.dev.exchange.counts if p.dev.exchange
                                else {} for p in pipes]
@@ -3269,7 +3306,8 @@ def spy_hosts_calls(mode: str, only=None) -> dict:
     its first call with work (of the first for which only() is true, if
     given), by form: {form: (wrapper, plain version, args, kwargs)},
     filled as the run goes; unspy() puts the wrappers back."""
-    from kaiju_tpu_torch.ops import classify, device_index, greedy, search
+    from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
+                                     search)
     from kaiju_tpu_torch.parallel import exchange
 
     def form(name):
@@ -3283,20 +3321,31 @@ def spy_hosts_calls(mode: str, only=None) -> dict:
                          "walk_hosts": lambda: k["rows"].shape[0],
                          "greedy_variants_hosts": lambda: a[3].shape[0]}[
                              name]() if start else k["parked"].shape[0])
-                return f"{name} {'start' if start else 'resume'}", work
+                sw = " sw" if k.get("sw") else ""  # X's last-level stop
+                return f"{name} {'start' if start else 'resume'}{sw}", work
             if name == "greedy_levels":  # form, and the fan-out's pass
                 sub = ("" if a[0] != 1 else
                        " counts" if k.get("voff") is None else " list")
+                if k.get("vnid") is not None:  # the settle's virtual rows
+                    sub = " sw"
                 work = (int(k["voff"][-1]) if sub == " list"
                         else a[4].shape[0])
                 return f"greedy_levels {a[0]}{sub}", work
+            if name == "switch_hosts":  # Y: start, resume (width), finish
+                if a[0] == 0:
+                    return "switch_hosts start", k["s0"].shape[0]
+                if a[0] == 1:
+                    return (f"switch_hosts resume w{k['answers'].shape[1]}",
+                            k["parked"].shape[0])
+                return "switch_hosts finish", a[10].qg.shape[0]
             return name, a[0].shape[0]
         return key
 
     where = classify if mode == "mem" else greedy
     specs = [(exchange, "fm_serve", device_index.fm_serve_plain),
              (where, "mem_extend_hosts", search.mem_extend_hosts_plain),
-             (where, "walk_hosts", device_index.walk_hosts_plain)]
+             (classify, "walk_hosts", device_index.walk_hosts_plain),
+             (hybrid, "switch_hosts", hybrid.switch_hosts_plain)]
     if mode == "mem":
         specs += [(classify, "read_lca_list", classify.read_lca_list_plain)]
     else:
@@ -3318,6 +3367,36 @@ def spy_hosts_calls(mode: str, only=None) -> dict:
         _SPIED.append((mod, name, getattr(mod, name)))
         setattr(mod, name, wrap)
     return first
+
+
+def tally_hosts_work() -> dict:
+    """Wrap kernel Y's wrapper and classify.walk_listed where the hosts
+    paths look them up, so that the process tallies over its run the
+    intervals the hybrid switched (Y's start forms: MEM's lanes, Greedy's
+    last-level variants), the positions W or V listed and those kernel Q
+    walked (the rest are virtual rows, whose ids the list forms give):
+    {"switched", "listed", "walked"}, filled as the run goes."""
+    from kaiju_tpu_torch.ops import classify, greedy, hybrid
+
+    work = {"switched": 0, "listed": 0, "walked": 0}
+    y = hybrid.switch_hosts
+
+    def switch(form, *a, **k):
+        if form == 0:
+            work["switched"] += int(k["s0"].shape[0])
+        return y(form, *a, **k)
+
+    walk = classify.walk_listed
+
+    def listed(sh, ex, pos, seq=None):
+        n = pos >= 0
+        work["listed"] += int(n.sum())
+        work["walked"] += int((n if seq is None else n & (seq < 0)).sum())
+        return walk(sh, ex, pos, seq)
+
+    hybrid.switch_hosts = switch
+    classify.walk_listed = greedy.walk_listed = listed
+    return work
 
 
 def _by_lane(park, q):
@@ -3385,6 +3464,8 @@ def _levels_bytes(a, k, got, before) -> int:
         return b + _nbytes(k["voff"]) + (_nbytes(got) if got is not None
                                          else 0)
     var, vout = k["var"], k["vout"]
+    if k.get("vnid") is not None:  # Y's ids in, the virtual rows' out
+        b += _nbytes(k["vnid"], k["vids"], k["sw_ids"])
     need, veff = var[:, 4], var[:, 7] >> 8
     has_si = (vout[:, 0] < vout[:, 1]) & (veff - vout[:, 2] >= need)
     last = level == mismatches
@@ -3402,7 +3483,8 @@ def _levels_bytes(a, k, got, before) -> int:
 # then the substitution tables; form 2 the variant and X's result, then
 # its prefix sums
 LEVELS_CHAIN = {"greedy_levels 0": 3, "greedy_levels 1 counts": 4,
-                "greedy_levels 1 list": 4, "greedy_levels 2": 3}
+                "greedy_levels 1 list": 4, "greedy_levels 2": 3,
+                "greedy_levels 2 sw": 3}
 
 
 def check_hosts_calls(first: dict, timed: bool = True) -> dict:
@@ -3435,9 +3517,9 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
         k2 = {k: on_its_card(v, copies) for k, v in k2.items()}
         touched = []
         if key.startswith(("fm_serve", "mem_extend_hosts", "walk_hosts",
-                           "greedy_variants_hosts")):
+                           "greedy_variants_hosts", "switch_hosts")):
             k2["touched"] = touched
-        with dependent_reads() as dep:
+        with dependent_reads() as dep, walk_rounds() as wr:
             want = plain(*a2, **k2)
         k2.pop("touched", None)
         name = key.split()[0]
@@ -3474,6 +3556,31 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
                     else a1[4].shape[0])
             other = _levels_bytes(a1, k1, got, args[7])
             chain = LEVELS_CHAIN[key]
+        elif name == "switch_hosts":
+            st1, st2 = a1[10], a2[10]  # the state, updated in place
+            n = st1.qg.shape[0]
+            if a1[0] == 2:
+                err = max_abs_err(got, want)
+                work, other, chain = n, 104 * n, 1
+            else:
+                err = max(max_abs_err(st1, st2),
+                          max_abs_err(_by_lane(*got), _by_lane(*want)))
+                ext = st2.ext.view(-1)
+                if a1[0] == 0:
+                    work = n
+                    mine = ext
+                    other = 16 * n + 64 * n
+                else:
+                    work = k1["parked"].shape[0]
+                    mine = ext[k1["parked"][:, 0].long()]
+                    other = (16 + 4 * k1["answers"].shape[1] + 8) * work
+                # the letters compared (text and query), the lanes parked
+                reach = mine[mine >= 0]
+                other += 2 * int((reach + 1).sum()) + 24 * got[0].shape[0]
+                # the interval (or the parked lane), each walk round, the
+                # sample, then 64 letters a compare round
+                top = int(reach.max()) if reach.numel() else 0
+                chain = 2 + wr["rounds"] + -(-top // 64)
         elif name == "walk_hosts":
             err = max(max_abs_err(a1[5], a2[5]),
                       max_abs_err(_by_lane(*got), _by_lane(*want)))
@@ -3591,8 +3698,11 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
         return any(slot_rule(q * per + c, hosts, per, n_shards)[3]
                    for q in range(len(hosts)))
 
-    path = (HOST_PATHS[mode] if across
-            else kernels_of(mode, index.text is not None, True))
+    text = index.text is not None  # the hybrid runs across hosts
+    path = ([k for k in HOST_PATHS[mode] if text or k not in HOST_HYBRID]
+            if across else kernels_of(mode, text, True))
+    stages = [st for st in HOST_STAGES[mode]
+              if text or st not in HOST_HYBRID_STAGES]
     batches = -(-HOST_READS // BATCH)
     launches = {k: 0 for k in REPLACES}
     reports = []
@@ -3632,7 +3742,7 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
             # a remote shard (with one whole index a process, none does);
             # the seed tables' rounds run on card 0 alone
             ran = [bool(rounds.get(st, {}).get("rounds"))
-                   for st in HOST_STAGES[mode] if st != "seed"]
+                   for st in stages if st != "seed"]
             seeded = bool(rounds.get("seed", {}).get("rounds"))
             want = served(c, len(got["cards"]))
             if across and (ran != [want] * len(ran) or seeded != (c == 0)):
@@ -3652,16 +3762,31 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
                 f"{c['plain_ms']:.3f} ms), {c['bytes']:,} bytes")
         every = any(served(c, len(got["cards"]))
                     for c in range(len(got["cards"])))
-        if across and p == 0 and (every and len(got["checks"]) <
-                                  HOST_FORMS[mode] or any(
-                                      c["err"]
-                                      for c in got["checks"].values())):
+        missing = [f for f in HOST_HYBRID_FORMS
+                   if text and f not in got["checks"]]
+        if across and p == 0 and (every and (len(got["checks"]) <
+                                             HOST_FORMS[mode] or missing)
+                                  or any(c["err"] for c in
+                                         got["checks"].values())):
             raise AssertionError(f"{name}: hosts kernels unchecked or "
                                  "differing from their plain versions: "
-                                 f"{sorted(got['checks'])}")
+                                 f"{sorted(got['checks'])}, missing "
+                                 f"{missing}")
         for k in launches:
             launches[k] += got["launches"][k]
 
+    if across and text:
+        work = {k: sum(r["work"][k] for r in reports)
+                for k in ("switched", "listed", "walked")}
+        what = "lanes" if mode == "mem" else "last-level variants"
+        log(f"4j hybrid {name}: {work['switched']:,} {what} switched to "
+            f"kernel Y over the processes ({work['switched'] / batches:,.1f}"
+            f" a batch); kernel Q walked {work['walked']:,} of the "
+            f"{work['listed']:,} positions W or V listed, the rest virtual "
+            "rows (without the hybrid Q walks every listed position, and "
+            "the hybrid leaves each read's listed positions as they are)")
+        if not work["switched"]:
+            raise AssertionError(f"{name}: the hybrid switched nothing")
     names = [n for n, _q, _r in reads[:HOST_READS]]
     owner = {}
     for b0 in range(0, HOST_READS, BATCH):
@@ -3716,6 +3841,11 @@ HOST_ROWS = {
                          "F's positions without the walks (W's resolved "
                          "form finishes the reads): ranges in, positions "
                          "out"),
+    "switch_hosts": (("switch_hosts start", "switch_hosts finish"),
+                     "the hybrid's switch of a batch's narrow intervals "
+                     "(start: walks and compares on this host's rows and "
+                     "text; finish: reaches to ids): rows walked, letters "
+                     "compared, state and parked lanes"),
 }
 
 

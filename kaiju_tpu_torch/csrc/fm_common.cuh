@@ -89,9 +89,11 @@ struct ShardIx {
 
 // ShardIx over a group of processes on several hosts: a shard that no
 // process of this host holds has null pointers in the tables (kernel N of
-// its owner serves its rows and samples in rounds, fm_serve.cu and
-// parallel/exchange.py), and the hosts kernels (N, O, Q, W) test the
-// shard of a row or slot before they read it.
+// its owner serves its rows, samples and text rows in rounds, fm_serve.cu
+// and parallel/exchange.py), and the hosts kernels (N, O, Q, W, X, Y)
+// test the shard of a row, slot or 128-byte text row before they read
+// it.  A text row bt lies in shard min(bt / (nt_s / 128), S - 1), the row
+// ranges that match the BWT shards.
 struct HostIx : ShardIx {
     __device__ __forceinline__ int row_shard(int b) const {
         return min(b / nb_s, S - 1);
@@ -102,14 +104,22 @@ struct HostIx : ShardIx {
     __device__ __forceinline__ bool slot_here(int idx) const {
         return sa_seq[min(idx / ns_s, S - 1)] != nullptr;
     }
+    __device__ __forceinline__ int text_shard(int bt) const {
+        return min(bt / (nt_s >> 7), S - 1);
+    }
+    __device__ __forceinline__ bool text_here(int bt) const {
+        return text[text_shard(bt)] != nullptr;
+    }
 };
 
 // The kinds of an exchange query (kernel N): a query is int32 (op, x),
 // op = kind << 8 | letter.  RANK (c, k): FMindex(c, k).  ROW k: the 20
 // letters' FMindex(c, k), c = 1..20.  LF k: the walk's next row
 // FMindex(c, k) for the letter c at k, or ~that (< 0) at a terminator
-// (c == 0).  SAMPLE slot: sa_seq[slot] (and sa_off[slot]).
-constexpr int kQRank = 0, kQRow = 1, kQLf = 2, kQSample = 3;
+// (c == 0).  SAMPLE slot: sa_seq[slot] (and sa_off[slot]).  TEXT bt: the
+// 128 text bytes [128 bt, 128 bt + 128) as 32 words, little endian (the
+// hybrid's text row, kaiju_tpu's _make_hyb.text_row).
+constexpr int kQRank = 0, kQRow = 1, kQLf = 2, kQSample = 3, kQText = 4;
 
 // The BWT byte at offset off (0..127) of a record row.
 __device__ __forceinline__ int bwt_byte(const int* row, int off) {

@@ -18,16 +18,22 @@
 //   LF k: kn = FMindex(c, k) for the BWT letter c at k, or ~kn at a
 //     terminator (c == 0), where kn is the sequence's content rank
 //     (kt::sa_walk's step);
-//   SAMPLE slot: sa_seq[slot], and sa_off[slot] in ans[1] (W >= 2).
-// A query whose row or slot lies in a shard that this process does not
-// read, an unknown kind or a ROW with W < 20 counts in *bad (the exchange
-// raises) and leaves its answer 0.
+//   SAMPLE slot: sa_seq[slot], and sa_off[slot] in ans[1] (W >= 2);
+//   TEXT bt: the text bytes [128 bt, 128 bt + 128) as 32 words in
+//     ans[0..31] (W >= 32), the hybrid's text row (kernel Y,
+//     switch_hosts.cu), the counterpart of kaiju_tpu's _make_hyb.text_row
+//     (kaiju_tpu/parallel/sharded_fused.py:153-175), owner-computed and
+//     psum'd there like a rank.
+// A query whose row, slot or text row lies in a shard that this process
+// does not read, an unknown kind, a ROW with W < 20 or a TEXT with W < 32
+// counts in *bad (the exchange raises) and leaves its answer 0.
 //
-// Bound: one 256-byte record row (or one sample) a query, random rows of
-// an index larger than the L2: the bytes of one row a query at 3.35 TB/s,
-// and one dependent load (the row's words come in one round of loads).
-// Design: a thread a query, its row's 16-byte groups loaded together; ROW
-// loads the row's bytes once and counts them for all 20 letters.
+// Bound: one 256-byte record row (or one sample, or one 128-byte text row)
+// a query, random rows of an index larger than the L2: the bytes of one
+// row a query at 3.35 TB/s, and one dependent load (the row's words come
+// in one round of loads).  Design: a thread a query, its row's 16-byte
+// groups loaded together; ROW loads the row's bytes once and counts them
+// for all 20 letters.
 #include "fm_common.cuh"
 
 namespace {
@@ -52,6 +58,28 @@ __global__ void __launch_bounds__(kThreads) fm_serve_kernel(
         }
         a[0] = ix.seq(x);
         if (W > 1) a[1] = ix.off(x);
+        return;
+    }
+    if (kind == kt::kQText) {
+        const int ntb = ix.nt_s >> 7;  // text rows a shard
+        if (x < 0 || ix.text == nullptr || ntb < 1 || W < 32 ||
+            x >= ix.S * ntb || !ix.text_here(x)) {
+            atomicAdd(bad, 1);
+            return;
+        }
+        const int o = ix.text_shard(x);
+        const uint4* row = reinterpret_cast<const uint4*>(
+            ix.text[o] + (size_t)(x - o * ntb) * 128);
+        uint4 v[8];
+#pragma unroll
+        for (int h = 0; h < 8; ++h) v[h] = __ldg(row + h);
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+            a[4 * h] = (int)v[h].x;
+            a[4 * h + 1] = (int)v[h].y;
+            a[4 * h + 2] = (int)v[h].z;
+            a[4 * h + 3] = (int)v[h].w;
+        }
         return;
     }
     if (x < 0 || !ix.row_here(x >> 7) ||

@@ -10,7 +10,8 @@
 // :278-390), which is level-synchronous over the batch (fused_greedy.py:
 // 428).  E's own pruning threshold is fixed at the start of a level
 // (max(best, min_score)), so cut at each level boundary a level's variants
-// are independent, and a read's outputs equal E's with no hybrid.
+// are independent, and a read's outputs equal E's; with the hybrid, once
+// kernel Y (switch_hosts.cu) has finished the last level's narrow variants.
 //
 // Contract (ops/greedy.py greedy_levels, U's state LevelState): a warp a
 // read, its fragment rows sorted and its per-position arrays in global
@@ -28,6 +29,11 @@
 //           voff[b + 1]) with X's (n0, n1, i) in vout, in list order: E's
 //           settle, ties, best and the next level's sources into half
 //           k & 1 (over vcap: flagged, as E); at the last level the row.
+//           With the hybrid (the last level, sw_ids not null) vnid[v] > 0
+//           marks a variant that kernel Y finished, its vnid ids in SA
+//           order at vids[8 v]: its tie r of read b becomes E's virtual
+//           row (kVBase + (b T + r) 8, + vnid) with the ids at sw_ids
+//           [(b T + r) 8], and finish_read zeroes the other id slots.
 // A read over vcap takes no further level; its row is E's (a zero row,
 // kFlagScratch).
 //
@@ -54,6 +60,9 @@ struct Level : Params {
     int* counts;       // [B]: the fan-out's counts (form 1, voff null)
     int* var;          // [V, kVarInts]
     const int* vout;   // [V, 3]: X's n0, n1, i
+    const int* vnid;   // [V]: the ids of Y's switched variants, or null
+    const int* vids;   // [V, kSwWcap]: their ids in SA order
+    int* sw_ids;       // [B, T, kSwWcap]: the virtual tie rows' ids
 };
 
 // A warp's shared memory: E's Head, and a source group's code and
@@ -155,24 +164,29 @@ __global__ void __launch_bounds__(kWarps * 32) greedy_levels_kernel(Level a) {
     }
 
     // form 2: the settle, in list order (E's ordered part)
-    Ties ties{best, cnt, a.T, g0, g1, nullptr, 0};
+    const int slot0 = b * a.T * kt::kSwWcap;
+    Ties ties{best, cnt, a.T, g0, g1,
+              a.sw_ids != nullptr ? a.sw_ids + slot0 : nullptr, slot0};
     int* Xn = src + (size_t)(a.level & 1) * a.vcap * kSrcInts;
     int nnext = 0;
     const int v1 = a.voff[b + 1];
     for (int w0 = a.voff[b]; w0 < v1; w0 += 32) {
         const int v = w0 + lane;
         int r[kWinInts] = {0, 0, 0, 0, 0, 0, 0, 0};
+        int nid = 0;
         if (v < v1) {
             const int* e = a.var + (size_t)v * kVarInts;
             const int* o = a.vout + (size_t)v * 3;
             r[5] = e[5];
             r[6] = e[6];
             r[7] = e[7];
+            if (a.vnid != nullptr) nid = a.vnid[v];
             settle(a, a.pincl + sm.base[r[7] & 255], r, o[0], o[1], o[2], e[4],
-                   0);
+                   nid);
         }
         const bool has_si = r[4] & 1, ev = (r[4] >> 1) & 1;
-        ties.add(ev, r[0], r[1], r[2], lane);
+        ties.add(ev, r[0], r[1], r[2], lane,
+                 nid > 0 ? a.vids + (size_t)v * kt::kSwWcap : nullptr, nid);
         if (!last)
             nnext = push_src(Xn, nnext, a.vcap, has_si, lane, r[7] & 255, r[3],
                              r[7] >> 8, r[1], r[2], r[5], r[6],
@@ -200,12 +214,14 @@ KT_EXPORT int kt_greedy_levels(
     int S, const int* diag, const int* submat, const int* subcode,
     const int* subdiag, int Lmap, int mfl, int min_score, int mismatches,
     int T, int vcap, uint8_t* node, int* pincl, int* src, int* state,
-    const int* voff, int* counts, int* var, const int* vout, int* best,
-    int* flags, int* g_s0, int* g_s1, cudaStream_t stream) {
+    const int* voff, int* counts, int* var, const int* vout,
+    const int* vnid, const int* vids, int* sw_ids, int* best, int* flags,
+    int* g_s0, int* g_s1, cudaStream_t stream) {
     const Level a{{li, ls0, ls1, flat, frag_off, rf_rows, B, S, diag, submat,
                    subcode, subdiag, Lmap, mfl, min_score, mismatches, T,
                    vcap, node, pincl, src, best, flags, g_s0, g_s1},
-                  form, level, state, voff, counts, var, vout};
+                  form, level, state, voff, counts, var, vout, vnid, vids,
+                  sw_ids};
     const int blocks = (B + kWarps - 1) / kWarps;
     greedy_levels_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());

@@ -23,7 +23,12 @@
 // parks the variant: (v, i, s0, s1) to park_out [*n_park, 4] and its
 // queries (kQRank c, s0), (kQRank c, s1) to q_out.  The resume form
 // (park_in [L, 4] with ans_in [L, 2]) applies each answer as the step and
-// goes on.  Parked variants come out in no fixed order.
+// goes on.  Parked variants come out in no fixed order.  With sw (the
+// last level with the text-compare hybrid, across hosts) a variant whose
+// probe leaves 1 to kSwWcap occurrences with i = pos > 0 letters before
+// it stops there, as E's last level switches it (fused_greedy.py:488-505,
+// ops/greedy.py greedy_search_plain): its out row (n0, n1, pos) goes to
+// kernel Y (switch_hosts.cu), whose reach finishes it.
 //
 // Bound: a chain of dependent row reads a variant (its probe and its
 // extension), one 256-byte row a step.  Design: a group of 4 lanes a
@@ -40,7 +45,7 @@ __global__ void __launch_bounds__(kThreads) greedy_variants_kernel(
     const kt::HostIx ix, const int* __restrict__ C,
     const uint8_t* __restrict__ flat, const int* __restrict__ var, int V,
     const int* __restrict__ park_in, const int* __restrict__ ans_in, int L,
-    int* __restrict__ out, int* __restrict__ park_out,
+    int sw, int* __restrict__ out, int* __restrict__ park_out,
     int* __restrict__ q_out, int* __restrict__ n_park) {
     const int g = (blockIdx.x * kThreads + threadIdx.x) / kG;
     if (g >= (park_in == nullptr ? V : L)) return;  // whole groups leave
@@ -88,6 +93,7 @@ __global__ void __launch_bounds__(kThreads) greedy_variants_kernel(
             --i;
         }
         if (!ok || i <= 0) break;
+        if (sw && y == pos && a1 - a0 <= kt::kSwWcap) break;  // kernel Y's
     }
     if (gl == 0) {
         out[3 * (size_t)v] = a0;
@@ -101,15 +107,15 @@ __global__ void __launch_bounds__(kThreads) greedy_variants_kernel(
 // Kernel X: the start form (park_in null) runs every variant of var; the
 // resume form the parked variants park_in [L, 4] with their answers
 // ans_in [L, 2].  Both append to park_out [*n_park, 4] and q_out
-// [*n_park, 2, 2].
+// [*n_park, 2, 2].  sw: 1 where the hybrid's narrow probes stop.
 KT_EXPORT int kt_greedy_variants_hosts(
     KT_SHARD_PARAMS, const int* C, const uint8_t* flat, const int* var,
-    int V, const int* park_in, const int* ans_in, int L, int* out,
+    int V, const int* park_in, const int* ans_in, int L, int sw, int* out,
     int* park_out, int* q_out, int* n_park, cudaStream_t stream) {
     const long long threads = (long long)(park_in == nullptr ? V : L) * kG;
     greedy_variants_kernel<<<(int)((threads + kThreads - 1) / kThreads),
                              kThreads, 0, stream>>>(
-        KT_HOST_IX, C, flat, var, V, park_in, ans_in, L, out, park_out, q_out,
-        n_park);
+        KT_HOST_IX, C, flat, var, V, park_in, ans_in, L, sw, out, park_out,
+        q_out, n_park);
     return static_cast<int>(cudaGetLastError());
 }

@@ -64,6 +64,24 @@ struct LcaResult {
 // unique taxa (at most min(R, cap + 2)).
 __host__ __device__ constexpr int lca_warp_ints(int R) { return 2 * R; }
 
+// Whether position k is a virtual row of the hybrid (sw_ids given, k >=
+// kVBase), and its sequence id, sw_ids[k - kVBase], which stands in for
+// its SA walk.  Kernels D and F read it in walk_taxon, kernels W and V in
+// their list forms, which send only the other positions to kernel Q.
+__device__ __forceinline__ bool is_virtual(int k, const int* sw_ids) {
+    return sw_ids != nullptr && k >= kVBase;
+}
+__device__ __forceinline__ int virtual_id(int k, const int* sw_ids,
+                                          int nsw) {
+    return __ldg(sw_ids + min(k - kVBase, nsw - 1));
+}
+
+// A listed position's sequence where the list form knows it: its virtual
+// row's id, else -1 (kernel Q walks it).
+__device__ __forceinline__ int listed_id(int k, const int* sw_ids, int nsw) {
+    return is_virtual(k, sw_ids) ? virtual_id(k, sw_ids, nsw) : -1;
+}
+
 // The taxon of position pos[lane / G] (m positions, m * G <= 32) in every
 // lane of its group of G; 0 in lanes past the m groups.
 template <int G, class Ix>
@@ -75,8 +93,8 @@ __device__ __forceinline__ int walk_taxon(
     if (r >= m) return 0;  // whole groups
     const int k = pos[r];
     const int iseq =
-        sw_ids != nullptr && k >= kVBase
-            ? __ldg(sw_ids + min(k - kVBase, nsw - 1))
+        is_virtual(k, sw_ids)
+            ? virtual_id(k, sw_ids, nsw)
             : sa_walk<G>(ix, C, nseq, chpt_exp, k, lane & (G - 1),
                          group_mask<G>(lane));
     return __ldg(seq_tax + min(max(iseq, 0), ntax - 1));

@@ -53,15 +53,19 @@
 // (:178-275), on the owner-computes rank of _make_rank1 (:52-75).
 //
 // Kernel O (kt_mem_extend_hosts) is B for a group of processes on several
-// hosts (kt::HostIx, without the hybrid's stop): the same pass 1
-// (seed_and_list), then each listed lane steps while both rows of its
-// step lie on this host; at a row that no process of the host holds it
-// parks with its rank-pair queries, which the owners answer (kernel N,
-// fm_serve.cu) in rounds (parallel/exchange.py), and the resume form
-// applies the answers and steps on.  Its lanes' final (i, s0, s1) are
-// B's.  Bound: B's, plus one row a parked step at its owner; design: B's
-// block list in the start form, a group of kG threads a parked lane in the
-// resume form, one global atomic a parked lane.
+// hosts (kt::HostIx): the same pass 1 (seed_and_list), then each listed
+// lane steps while both rows of its step lie on this host; at a row that
+// no process of the host holds it parks with its rank-pair queries, which
+// the owners answer (kernel N, fm_serve.cu) in rounds
+// (parallel/exchange.py), and the resume form applies the answers and
+// steps on.  With sw_steps > 0 (the hybrid across hosts) a lane stops as
+// B stops it, after exactly sw_steps steps with at most kSwWcap
+// occurrences and i > 0, and kernel Y (switch_hosts.cu) finishes it; its
+// step count needs no room in the parked record: a lane at flat position
+// p whose next code is at q has taken p - K - q steps.  Its lanes' final
+// (i, s0, s1) are B's.  Bound: B's, plus one row a parked step at its
+// owner; design: B's block list in the start form, a group of kG threads
+// a parked lane in the resume form, one global atomic a parked lane.
 #include "text_common.cuh"
 
 namespace {
@@ -238,17 +242,21 @@ __global__ void __launch_bounds__(kThreads) mem_extend_kernel(
 
 // A's lane p at (i, a0, a1), q = the flat index of the code before i,
 // stepped by a group of kG threads through kt::rank2 while both rows lie
-// on this host (i > 0 on entry); then its result is written, or, at a
-// row of a remote shard, the lane parks: (p, i, a0, a1) to park [*n_park]
-// with its rank-pair queries (kQRank c, a0), (kQRank c, a1) to qry, its
-// state written as its result for now.
+// on this host (i > 0 on entry), and, with sw_steps > 0, until B's
+// hybrid stop after sw_steps steps (p - K - q of them taken); then its
+// result is written, or, at a row of a remote shard, the lane parks: (p,
+// i, a0, a1) to park [*n_park] with its rank-pair queries (kQRank c, a0),
+// (kQRank c, a1) to qry, its state written as its result for now.
 __device__ __forceinline__ void run_lane(
     const kt::HostIx& ix, const int* __restrict__ C,
-    const uint8_t* __restrict__ flat, int p, int i, int a0, int a1, int q,
-    int gl, unsigned gmask, int* __restrict__ out_i,
+    const uint8_t* __restrict__ flat, int K, int sw_steps, int p, int i,
+    int a0, int a1, int q, int gl, unsigned gmask, int* __restrict__ out_i,
     int* __restrict__ out_s0, int* __restrict__ out_s1,
     int* __restrict__ park, int* __restrict__ qry, int* __restrict__ n_park) {
     while (i > 0) {
+        if (sw_steps > 0 && p - K - q == sw_steps &&
+            a1 - a0 <= kt::kSwWcap)
+            break;  // the hybrid's stop: kernel Y finishes the lane
         const int c = __ldg(flat + q);
         if (!ix.row_here(a0 >> 7) || !ix.row_here(a1 >> 7)) {
             if (gl == 0) {
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(kThreads) mem_extend_hosts_kernel(
     const int8_t* __restrict__ seed_d, int nseed,
     const uint8_t* __restrict__ flat, int P,
     const int* __restrict__ frag_off, int F, int K, int j0,
-    const unsigned* __restrict__ words, int m, int lb,
+    const unsigned* __restrict__ words, int m, int lb, int sw_steps,
     int* __restrict__ out_i, int* __restrict__ out_s0,
     int* __restrict__ out_s1, int* __restrict__ park,
     int* __restrict__ qry, int* __restrict__ n_park) {
@@ -298,8 +306,8 @@ __global__ void __launch_bounds__(kThreads) mem_extend_hosts_kernel(
         idx = __shfl_sync(gmask, idx, 0, kG);
         if (idx >= n) return;
         const int4 it = s_item[idx];
-        run_lane(ix, C, flat, it.x, it.y, it.z, it.w, it.x - K, gl, gmask,
-                 out_i, out_s0, out_s1, park, qry, n_park);
+        run_lane(ix, C, flat, K, sw_steps, it.x, it.y, it.z, it.w, it.x - K,
+                 gl, gmask, out_i, out_s0, out_s1, park, qry, n_park);
     }
 }
 
@@ -308,7 +316,8 @@ __global__ void __launch_bounds__(kThreads) mem_extend_hosts_kernel(
 __global__ void __launch_bounds__(kThreads) mem_extend_resume_kernel(
     const kt::HostIx ix, const int* __restrict__ C,
     const uint8_t* __restrict__ flat, const int* __restrict__ frag_off,
-    int F, const int* __restrict__ park_in, const int* __restrict__ ans_in,
+    int F, int K, int sw_steps, const int* __restrict__ park_in,
+    const int* __restrict__ ans_in,
     int L, int* __restrict__ out_i, int* __restrict__ out_s0,
     int* __restrict__ out_s1, int* __restrict__ park,
     int* __restrict__ qry, int* __restrict__ n_park) {
@@ -329,8 +338,8 @@ __global__ void __launch_bounds__(kThreads) mem_extend_resume_kernel(
     if (stepped && i > 0) {
         // the code before i: its fragment's start + i - 1
         const int q = __ldg(frag_off + owner(frag_off, 0, F - 1, it.x)) + i - 1;
-        run_lane(ix, C, flat, it.x, i, a0, a1, q, gl, gmask, out_i, out_s0,
-                 out_s1, park, qry, n_park);
+        run_lane(ix, C, flat, K, sw_steps, it.x, i, a0, a1, q, gl, gmask,
+                 out_i, out_s0, out_s1, park, qry, n_park);
     } else if (gl == 0) {
         out_i[it.x] = i;
         out_s0[it.x] = a0;
@@ -379,25 +388,27 @@ KT_EXPORT int kt_mem_extend_sharded(
 // on kt::HostIx, parking the lanes that need a remote row; the resume form
 // takes the parked lanes park_in [L, 4] and their answers ans_in [L, 2].
 // Both append to park_out [*n_park, 4] and q_out [*n_park, 2, 2].
+// sw_steps: 0, or the steps after which the hybrid's narrow lanes stop.
 KT_EXPORT int kt_mem_extend_hosts(
     KT_SHARD_PARAMS, const int* C, const int* seed_s0, const int* seed_s1,
     const int8_t* seed_d, int nseed, const uint8_t* flat, int P,
     const int* frag_off, int F, int K, int j0, const unsigned* words, int m,
-    int lb, const int* park_in, const int* ans_in, int L, int* out_i,
+    int lb, int sw_steps, const int* park_in, const int* ans_in, int L,
+    int* out_i,
     int* out_s0, int* out_s1, int* park_out, int* q_out, int* n_park,
     cudaStream_t stream) {
     if (park_in == nullptr) {
         mem_extend_hosts_kernel<<<(P + kPos - 1) / kPos, kThreads, 0,
                                   stream>>>(
             KT_HOST_IX, C, seed_s0, seed_s1, seed_d, nseed, flat, P,
-            frag_off, F, K, j0, words, m, lb, out_i, out_s0, out_s1,
-            park_out, q_out, n_park);
+            frag_off, F, K, j0, words, m, lb, sw_steps, out_i, out_s0,
+            out_s1, park_out, q_out, n_park);
     } else {
         const long long threads = (long long)L * kG;
         mem_extend_resume_kernel<<<(int)((threads + kThreads - 1) / kThreads),
                                    kThreads, 0, stream>>>(
-            KT_HOST_IX, C, flat, frag_off, F, park_in, ans_in, L, out_i,
-            out_s0, out_s1, park_out, q_out, n_park);
+            KT_HOST_IX, C, flat, frag_off, F, K, sw_steps, park_in, ans_in,
+            L, out_i, out_s0, out_s1, park_out, q_out, n_park);
     }
     return static_cast<int>(cudaGetLastError());
 }

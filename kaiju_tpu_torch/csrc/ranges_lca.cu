@@ -32,8 +32,11 @@
 // with ranges), which writes F's four outputs from info and each
 // position's sequence, which Q resolved.  F stops walking once the capped
 // set is full; V lists all R positions, which changes work, never a
-// result.  No virtual row: the hybrid is off across hosts.  Bound: bytes,
-// the ranges in, pos and info out, and one dependent load; design: F's
+// result.  With sw_ids (the hybrid across hosts: kernel U's virtual tie
+// rows, kernel Y's ids) V also writes each listed position's sequence
+// where it is a virtual row (kt::listed_id, F's own rule) into seq [B, R],
+// -1 elsewhere, and only the other positions go to Q.  Bound: bytes, the
+// ranges in, pos, info (and seq) out, and one dependent load; design: F's
 // warp a read, without the walks.
 #include "lca_common.cuh"
 
@@ -75,8 +78,11 @@ __global__ void ranges_lca_kernel(
 
 __global__ void ranges_lca_list_kernel(const int* __restrict__ g_s0,
                                        const int* __restrict__ g_s1, int B,
-                                       int G, int R, int* __restrict__ pos,
-                                       int* __restrict__ info) {
+                                       int G, int R,
+                                       const int* __restrict__ sw_ids,
+                                       int nsw, int* __restrict__ pos,
+                                       int* __restrict__ info,
+                                       int* __restrict__ seq) {
     extern __shared__ int smem[];
     const int w = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -89,6 +95,9 @@ __global__ void ranges_lca_list_kernel(const int* __restrict__ g_s0,
     const int n = min(total, R);
     int* o = pos + (size_t)b * R;
     for (int r = lane; r < R; r += 32) o[r] = r < n ? sh[r] : -1;
+    for (int r = lane; sw_ids != nullptr && r < R; r += 32)
+        seq[(size_t)b * R + r] = r < n ? kt::listed_id(sh[r], sw_ids, nsw)
+                                       : -1;
     if (lane == 0) {
         int* f = info + (size_t)b * 4;
         f[0] = n;
@@ -142,13 +151,15 @@ KT_EXPORT int kt_ranges_lca_sharded(
                   out_lca, out_n_ids, out_need_more, out_tie_order, stream);
 }
 
-// Kernel V: lists each read's positions (pos, info); W's resolved form
-// (kt_read_lca_hosts form 1, ranges) finishes the reads.
+// Kernel V: lists each read's positions (pos, info; with sw_ids the
+// virtual rows' ids into seq); W's resolved form (kt_read_lca_hosts form
+// 1, ranges) finishes the reads.
 KT_EXPORT int kt_ranges_lca_hosts(const int* g_s0, const int* g_s1, int B,
-                                  int G, int R, int* pos, int* info,
+                                  int G, int R, const int* sw_ids, int nsw,
+                                  int* pos, int* info, int* seq,
                                   cudaStream_t stream) {
     ranges_lca_list_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32,
                              (size_t)kWarps * R * sizeof(int), stream>>>(
-        g_s0, g_s1, B, G, R, pos, info);
+        g_s0, g_s1, B, G, R, sw_ids, nsw, pos, info, seq);
     return static_cast<int>(cudaGetLastError());
 }

@@ -34,9 +34,13 @@
 // total, longest, tie_over).  Form 1 (resolved) runs D's steps 2-4
 // (kt::lca_of_positions) with each position's sequence from seq [B, R],
 // which Q resolved, and writes (lca, n_ids, need_more, tie_order), from
-// which the host side makes D's row; V's reads take the same form.  D
-// stops walking once the capped set is full; W lists all R positions,
-// which changes work, never a result.  Bound: bytes, the statistics rows
+// which the host side makes D's row; V's reads take the same form.  With
+// sw_ids (the hybrid across hosts: kernel Y's virtual rows in G's layout)
+// form 0 also writes each listed position's sequence where it is a
+// virtual row (kt::listed_id, D's own rule) into seq [B, R], -1 elsewhere,
+// and only the other positions go to Q.  D stops walking once the capped
+// set is full; W lists all R positions, which changes work, never a
+// result.  Bound: bytes, the statistics rows
 // the reads touch, pos, seq and the rows written, and the longest chain
 // of parent loads (the LCA); design: D's warp a read, without the walks.
 #include "lca_common.cuh"
@@ -120,7 +124,8 @@ __global__ void read_lca_list_kernel(
     const int* __restrict__ maxl, const int* __restrict__ tie_cnt,
     const int* __restrict__ tie_s0, const int* __restrict__ tie_s1, int T,
     const int* __restrict__ rf_rows, int B, int S, int R,
-    int* __restrict__ pos, int* __restrict__ info) {
+    const int* __restrict__ sw_ids, int nsw, int* __restrict__ pos,
+    int* __restrict__ info, int* __restrict__ seq) {
     extern __shared__ int smem[];
     const int w = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -137,6 +142,9 @@ __global__ void read_lca_list_kernel(
     const int n = min(total, R);
     int* o = pos + (size_t)b * R;
     for (int r = lane; r < R; r += 32) o[r] = r < n ? sh[r] : -1;
+    for (int r = lane; seq != nullptr && r < R; r += 32)
+        seq[(size_t)b * R + r] = r < n ? kt::listed_id(sh[r], sw_ids, nsw)
+                                       : -1;
     if (lane == 0) {
         int* f = info + (size_t)b * 4;
         f[0] = n;
@@ -218,20 +226,21 @@ KT_EXPORT int kt_read_lca_sharded(
                   cap, nseq, chpt_exp, sw_ids, nsw, out, stream);
 }
 
-// Kernel W: form 0 lists each read's positions (pos, info), form 1
-// finishes W's or V's reads (ranges) from the resolved sequences seq
-// [B, R] (out [4, B]).
+// Kernel W: form 0 lists each read's positions (pos, info; with sw_ids
+// the virtual rows' ids into seq), form 1 finishes W's or V's reads
+// (ranges) from the resolved sequences seq [B, R] (out [4, B]).
 KT_EXPORT int kt_read_lca_hosts(
     int form, const int* maxl, const int* tie_cnt, const int* tie_s0,
-    const int* tie_s1, int T, const int* rf_rows, int B, int S,
-    const int* seq, const int* seq_tax, int ntax, const int* parent,
-    const int* depth, int maxtax, int R, int cap, int ranges, int* pos,
-    int* info, int* out, cudaStream_t stream) {
+    const int* tie_s1, int T, const int* rf_rows, int B, int S, int* seq,
+    const int* seq_tax, int ntax, const int* parent, const int* depth,
+    int maxtax, int R, int cap, int ranges, const int* sw_ids, int nsw,
+    int* pos, int* info, int* out, cudaStream_t stream) {
     const int blocks = (B + kWarps - 1) / kWarps;
     if (form == 0) {
         const size_t shmem = (size_t)kWarps * (R + S) * sizeof(int);
         read_lca_list_kernel<<<blocks, kWarps * 32, shmem, stream>>>(
-            maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, R, pos, info);
+            maxl, tie_cnt, tie_s0, tie_s1, T, rf_rows, B, S, R, sw_ids, nsw,
+            pos, info, sw_ids != nullptr ? seq : nullptr);
     } else {
         const size_t shmem = (size_t)kWarps * kt::lca_warp_ints(R) * sizeof(int);
         lca_resolved_kernel<<<blocks, kWarps * 32, shmem, stream>>>(

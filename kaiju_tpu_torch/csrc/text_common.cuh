@@ -58,25 +58,25 @@ __device__ __forceinline__ WalkPos walk_group(const Ix& ix,
     return {ix.seq(idx), ix.off(idx) + steps};
 }
 
-// K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274) by a group of G
-// lanes (1, 2, 4 or 8): the longest u with text[p-1-t] == flat[qg-1-t] for
-// every t < u, stopping at t = avail, at t = p (the text's start) and at
-// a text code of 0 (a separator).  Lane gl compares letters gl * 8 .. + 8
-// of each round of 8 G, their 16 loads issued together, so that a round
-// costs one memory latency; the first stop is the group's least.
-template <int G, class Ix>
-__device__ __forceinline__ int text_extend_group(
-    const Ix& ix, const uint8_t* __restrict__ flat, int p, int qg, int avail,
-    int gl, unsigned gmask) {
+// The compare of K8's _text_extend (kaiju_tpu/ops/fused_mem2.py:228-274)
+// from u0 on, by a group of G lanes (1, 2, 4 or 8): the least t in [u0,
+// lim) with letter(p-1-t) == 0 or != flat[qg-1-t], else lim.  letter(x)
+// reads text byte x.  Lane gl compares letters gl * 8 .. + 8 of each round
+// of 8 G, their 16 loads issued together, so that a round costs one memory
+// latency; the first stop is the group's least.
+template <int G, class Letter>
+__device__ __forceinline__ int match_back(const Letter& letter,
+                                          const uint8_t* __restrict__ flat,
+                                          int p, int qg, int u0, int lim,
+                                          int gl, unsigned gmask) {
     constexpr int kC = 8;
-    const int lim = min(avail, p);
-    for (int u = 0; u < lim; u += kC * G) {
+    for (int u = u0; u < lim; u += kC * G) {
         const int base = u + gl * kC;
         int t[kC], q[kC];
 #pragma unroll
         for (int k = 0; k < kC; ++k) {
             const bool in = base + k < lim;
-            t[k] = in ? ix.letter(p - 1 - base - k) : 0;
+            t[k] = in ? letter(p - 1 - base - k) : 0;
             q[k] = in ? __ldg(flat + qg - 1 - base - k) : 0;
         }
         int stop = 0x7fffffff;
@@ -89,6 +89,27 @@ __device__ __forceinline__ int text_extend_group(
         if (stop != 0x7fffffff) return min(stop, lim);
     }
     return lim;
+}
+
+// The text byte x of an index (kt::FlatIx, kt::ShardIx, kt::HostIx).
+template <class Ix>
+struct IxLetter {
+    const Ix& ix;
+    __device__ __forceinline__ int operator()(int x) const {
+        return ix.letter(x);
+    }
+};
+
+// K8's _text_extend by a group of G lanes (match_back from 0): the
+// longest u with text[p-1-t] == flat[qg-1-t] for every t < u, stopping at
+// t = avail, at t = p (the text's start) and at a text code of 0 (a
+// separator).
+template <int G, class Ix>
+__device__ __forceinline__ int text_extend_group(
+    const Ix& ix, const uint8_t* __restrict__ flat, int p, int qg, int avail,
+    int gl, unsigned gmask) {
+    return match_back<G>(IxLetter<Ix>{ix}, flat, p, qg, 0, min(avail, p), gl,
+                         gmask);
 }
 
 }  // namespace kt

@@ -12,7 +12,8 @@ over an index above 2^31 letters, K17, ``ops/big_mem.py``), and a
 split into shards (K16, ``parallel/sharded_index.py``), and ``fm_serve.cu``
 (N), ``walk_hosts.cu`` (Q), ``mem_extend_hosts`` (O), ``read_lca_hosts``
 (W), ``greedy_variants.cu`` (X, ``greedy_variants_hosts``) and
-``ranges_lca_hosts`` (V, whose reads W's resolved form finishes) run over
+``ranges_lca_hosts`` (V, whose reads W's resolved form finishes) and
+``switch_hosts.cu`` (Y, the text-compare hybrid's switch) run over
 the shards of a group of processes on several hosts (``parallel/exchange.py``), with ``greedy_levels.cu`` (U),
 which reads no index, between X's levels; ``peer.cu`` holds
 no kernel, only the CUDA IPC calls that share shards between processes
@@ -171,30 +172,38 @@ _SIGNATURES.update({
     # N: SHARD | C | q Q W | ans bad
     "fm_serve": ("kt_fm_serve", SHARD_SIG + "p" "pii" "pp" "p"),
     # O: SHARD | C | seed_s0 seed_s1 seed_d nseed | flat P frag_off F K j0
-    # | words m lb | park_in ans_in L | i s0 s1 | park_out q_out n_park
+    # | words m lb sw_steps | park_in ans_in L | i s0 s1 | park_out q_out
+    # n_park
     "mem_extend_hosts": ("kt_mem_extend_hosts",
-                         SHARD_SIG + "p" "pppi" "pipiii" "pii" "ppi" "ppp"
+                         SHARD_SIG + "p" "pppi" "pipiii" "piii" "ppi" "ppp"
                          "ppp" "p"),
     # Q: SHARD | C nseq chpt_exp | rows W | park_in ans_in L | seq park_out
     # q_out n_park
     "walk_hosts": ("kt_walk_hosts",
                    SHARD_SIG + "pii" "pi" "ppi" "pppp" "p"),
     # W: form | maxl tie_cnt tie_s0 tie_s1 T | rf_rows B S | seq | seq_tax
-    # ntax parent depth maxtax | R cap ranges | pos info out
+    # ntax parent depth maxtax | R cap ranges | sw_ids nsw | pos info out
     "read_lca_hosts": ("kt_read_lca_hosts",
-                       "i" "ppppi" "pii" "p" "pippi" "iii" "ppp" "p"),
+                       "i" "ppppi" "pii" "p" "pippi" "iii" "pi" "ppp" "p"),
     # U: form level | li ls0 ls1 | flat frag_off rf_rows B S | diag submat
     # subcode subdiag | Lmap mfl min_score mismatches T vcap | node pincl
-    # src state | voff counts var vout | best flags g_s0 g_s1
+    # src state | voff counts var vout | vnid vids sw_ids | best flags g_s0
+    # g_s1
     "greedy_levels": ("kt_greedy_levels",
-                      "ii" "ppp" "pppii" "pppp" "iiiiii" "pppp" "pppp"
+                      "ii" "ppp" "pppii" "pppp" "iiiiii" "pppp" "pppp" "ppp"
                       "pppp" "p"),
-    # X: SHARD | C | flat var V | park_in ans_in L | out | park_out q_out
-    # n_park
+    # X: SHARD | C | flat var V | park_in ans_in L | sw | out | park_out
+    # q_out n_park
     "greedy_variants_hosts": ("kt_greedy_variants_hosts",
-                              SHARD_SIG + "p" "ppi" "ppi" "p" "ppp" "p"),
-    # V: g_s0 g_s1 B G | R | pos info
-    "ranges_lca_hosts": ("kt_ranges_lca_hosts", "ppii" "i" "pp" "p"),
+                              SHARD_SIG + "p" "ppi" "ppi" "i" "p" "ppp" "p"),
+    # V: g_s0 g_s1 B G | R | sw_ids nsw | pos info seq
+    "ranges_lca_hosts": ("kt_ranges_lca_hosts", "ppii" "i" "pi" "ppp" "p"),
+    # Y: form | SHARD | C nseq chpt_exp | rank_start flat qg avail n | s0 s1
+    # | park_in ans_in L W | ext ids | park_out q_out n_park | maxext n_ach
+    # ids
+    "switch_hosts": ("kt_switch_hosts",
+                     "i" + SHARD_SIG + "pii" "ppppi" "pp" "ppii" "pp" "ppp"
+                     "ppp" "p"),
 })
 # the source file of each kernel (csrc/<source>.cu), where it is not the
 # kernel's own name

@@ -4,7 +4,8 @@ statistics) and ``fused_mem_classify``, which runs B -> C -> D, or
 B -> G -> C -> D with the text-compare hybrid; and, for a group of
 processes on several hosts, kernels W and V (D and F split around kernel
 Q's SA walks, both finished by W's ``lca_resolved``) and
-``fused_mem_classify_hosts``.  D and F share their tail:
+``fused_mem_classify_hosts``, with kernel Y (``hybrid.switch_hosts``) in
+G's place on a text index.  D and F share their tail:
 one device function (``csrc/lca_common.cuh``) and one plain version
 (``ranges_lca_plain``).  Given ``sw_ids``, a position >= VBASE is a
 virtual row of the hybrid (``ops/hybrid.py``) and takes its sequence from
@@ -27,8 +28,10 @@ import torch
 
 from .. import kernels
 from .device_index import Shards, sa_walk, shard_args, walk_hosts
-from .hybrid import S1_STEPS, VBASE, text_extend
-from .search import mem_extend, mem_extend_hosts, mem_stats
+from .hybrid import (S1_STEPS, VBASE, switch_in_rounds, switched,
+                     text_extend)
+from .search import (SW_WCAP, _lane_fragments, mem_extend, mem_extend_hosts,
+                     mem_stats)
 
 FLAG_TIE_OVER = 1  # a contributing fragment had more ties than T
 FLAG_NEED_MORE = 2  # position budget R exhausted before the id cap
@@ -281,18 +284,33 @@ def read_lca(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, rec, C, sa_seq, sa_off,
 # ---------------------------------------------------------------------------
 
 
-def read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
+def _listed_ids(pos, sw_ids):
+    """The list forms' seq with sw_ids: each listed position's sequence
+    where it is a virtual row (sw_ids[k - VBASE], the rule of
+    ranges_lca_plain), -1 elsewhere (kernel Q walks it)."""
+    virt = pos >= VBASE
+    seq = torch.full_like(pos, -1)
+    seq[virt] = sw_ids[torch.clamp(pos[virt] - VBASE, max=max(
+        sw_ids.shape[0] - 1, 0)).long()]
+    return seq
+
+
+def read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R,
+                        sw_ids=None):
     B = rf_rows.shape[0]
     dev = maxl.device
     if B == 0:
-        return (torch.zeros((0, R), dtype=torch.int32, device=dev),
-                torch.zeros((0, 4), dtype=torch.int32, device=dev))
-    longest, tie_over, t_s0, t_s1 = _contributing(maxl, tie_cnt, tie_s0,
-                                                  tie_s1, rf_rows)
-    pos, _valid, total, _sizes = _first_positions(t_s0, t_s1, R)
-    info = torch.stack([torch.clamp(total, max=R), total, longest, tie_over],
-                       1).to(torch.int32)
-    return pos, info
+        pos = torch.zeros((0, R), dtype=torch.int32, device=dev)
+        info = torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    else:
+        longest, tie_over, t_s0, t_s1 = _contributing(maxl, tie_cnt, tie_s0,
+                                                      tie_s1, rf_rows)
+        pos, _valid, total, _sizes = _first_positions(t_s0, t_s1, R)
+        info = torch.stack([torch.clamp(total, max=R), total, longest,
+                            tie_over], 1).to(torch.int32)
+    if sw_ids is None:
+        return pos, info
+    return pos, info, _listed_ids(pos, sw_ids)
 
 
 def lca_resolved_plain(info, seq, seq_tax, parent, depth, R, cap,
@@ -323,17 +341,21 @@ def read_lca_rows(info, lca, n_ids, need_more):
                         n_ids], 1).to(torch.int32)
 
 
-def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
+def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R, sw_ids=None):
     """W's list form (csrc/read_lca.cu, kt_read_lca_hosts form 0): D's
     slots and range expansion without the walks, (pos int32 [B, R], the
     first R SA positions of each read's contributing ties, -1 past them;
     info int32 [B, 4] = (positions, total, longest, tie_over)), total
-    counting each range up to R + 1.  Kernel W for CUDA tensors, the plain
+    counting each range up to R + 1.  With sw_ids (the hybrid's virtual
+    rows, in G's layout) a third output, seq int32 [B, R]: each listed
+    virtual row's sequence from sw_ids, as D takes it, -1 elsewhere (the
+    positions kernel Q walks).  Kernel W for CUDA tensors, the plain
     version for CPU tensors."""
     if not 0 < R <= MAX_R:
         raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
     if maxl.device.type == "cpu":
-        return read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R)
+        return read_lca_list_plain(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R,
+                                   sw_ids)
     dev = maxl.device
     F, T = tie_s0.shape
     for t, what, nd in ((maxl, "maxl", 1), (tie_cnt, "tie_cnt", 1),
@@ -342,14 +364,18 @@ def read_lca_list(maxl, tie_cnt, tie_s0, tie_s1, rf_rows, R):
         kernels.check(t, what, torch.int32, dev, nd)
     if maxl.shape[0] != F or tie_cnt.shape[0] != F or tie_s1.shape != (F, T):
         raise ValueError("maxl, tie_cnt, tie_s0 and tie_s1 disagree on F or T")
+    if sw_ids is not None:
+        kernels.check(sw_ids, "sw_ids", torch.int32, dev, 1)
     B, S = rf_rows.shape
     pos = torch.empty((B, R), dtype=torch.int32, device=dev)
     info = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    seq = (None if sw_ids is None else
+           torch.empty((B, R), dtype=torch.int32, device=dev))
     if B:
         kernels.launch("read_lca_hosts", 0, maxl, tie_cnt, tie_s0, tie_s1, T,
-                       rf_rows, B, S, None, None, 0, None, None, 0, R, 0,
-                       0, pos, info, None)
-    return pos, info
+                       rf_rows, B, S, seq, None, 0, None, None, 0, R, 0,
+                       0, sw_ids, _nsw(sw_ids), pos, info, None)
+    return (pos, info) if sw_ids is None else (pos, info, seq)
 
 
 def lca_resolved(info, seq, seq_tax, parent, depth, R, cap, ranges=False):
@@ -379,7 +405,8 @@ def lca_resolved(info, seq, seq_tax, parent, depth, R, cap, ranges=False):
     if B:
         kernels.launch("read_lca_hosts", 1, None, None, None, None, 0, None,
                        B, 0, seq, seq_tax, seq_tax.shape[0], parent, depth,
-                       parent.shape[0], R, cap, int(ranges), None, info, out)
+                       parent.shape[0], R, cap, int(ranges), None, 0, None,
+                       info, out)
     return out[0], out[1], out[2], out[3]
 
 
@@ -388,59 +415,55 @@ def lca_resolved(info, seq, seq_tax, parent, depth, R, cap, ranges=False):
 # ---------------------------------------------------------------------------
 
 
-def ranges_lca_list_plain(g_s0, g_s1, R):
+def ranges_lca_list_plain(g_s0, g_s1, R, sw_ids=None):
     pos, _valid, total, sizes = _first_positions(g_s0, g_s1, R)
     info = torch.stack([torch.clamp(total, max=R), total,
                         (sizes > 0).sum(1, dtype=torch.int32),
                         torch.zeros_like(total)], 1).to(torch.int32)
-    return pos, info
+    if sw_ids is None:
+        return pos, info
+    return pos, info, _listed_ids(pos, sw_ids)
 
 
-def ranges_lca_list(g_s0, g_s1, R):
+def ranges_lca_list(g_s0, g_s1, R, sw_ids=None):
     """Kernel V (csrc/ranges_lca.cu, kt_ranges_lca_hosts): F's
     range expansion without the walks, (pos int32 [B, R], the first R SA
     positions of each read's ranges g_s0, g_s1 int32 [B, G] in range
     order, -1 past them; info int32 [B, 4] = (positions, total, non-empty
     ranges, 0)), each range counted up to R + 1; lca_resolved (ranges)
-    finishes the reads.  Kernel V for CUDA tensors, the plain version for
-    CPU tensors."""
+    finishes the reads.  With sw_ids (the virtual tie rows' ids) a third
+    output, seq int32 [B, R], as read_lca_list's.  Kernel V for CUDA
+    tensors, the plain version for CPU tensors."""
     if not 0 < R <= MAX_R:
         raise ValueError(f"R must lie in 1..{MAX_R}, got {R}")
     if g_s0.device.type == "cpu":
-        return ranges_lca_list_plain(g_s0, g_s1, R)
+        return ranges_lca_list_plain(g_s0, g_s1, R, sw_ids)
     dev = g_s0.device
     kernels.check(g_s0, "g_s0", torch.int32, dev, 2)
     kernels.check(g_s1, "g_s1", torch.int32, dev, 2)
     if g_s1.shape != g_s0.shape:
         raise ValueError("g_s0 and g_s1 differ in shape")
+    if sw_ids is not None:
+        kernels.check(sw_ids, "sw_ids", torch.int32, dev, 1)
     B, G = g_s0.shape
     pos = torch.empty((B, R), dtype=torch.int32, device=dev)
     info = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    seq = (None if sw_ids is None else
+           torch.empty((B, R), dtype=torch.int32, device=dev))
     if B:
-        kernels.launch("ranges_lca_hosts", g_s0, g_s1, B, G, R, pos, info)
-    return pos, info
+        kernels.launch("ranges_lca_hosts", g_s0, g_s1, B, G, R, sw_ids,
+                       _nsw(sw_ids), pos, info, seq)
+    return (pos, info) if sw_ids is None else (pos, info, seq)
 
 
-def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
-                             seq_tax, parent, depth, K, j0, min_len, T, R,
-                             cap, bloom=None):
-    """fused_mem_classify over a ``ShardedIndex`` of a group of processes
-    on several hosts (K16e across hosts), with no hybrid: A's tables come
-    in seed; O extends (its parked steps answered by their owners in rounds
-    of ``exchange``, parallel/exchange.py), C takes the statistics, W
-    lists each read's positions, Q walks them (rounds again) and W
-    resolves the reads.  Every process of the group calls it for every
-    batch, with its share (none: empty tensors), since each round is a
-    collective.  Returns fused_mem_classify's rows."""
-    out, parked, queries = mem_extend_hosts(sh.rec, sh.C, *seed, flat,
-                                            frag_off, K, j0, bloom=bloom)
-    exchange.rounds("extend", parked, queries, 1, lambda pk, ans:
-                    mem_extend_hosts(sh.rec, sh.C, *seed, flat, frag_off, K,
-                                     j0, bloom=bloom, out=out, parked=pk,
-                                     answers=ans.reshape(-1, 2))[1:])
-    stats = mem_stats(out[0], out[1], out[2], frag_off, min_len, T)
-    pos, info = read_lca_list(*stats[:2], *stats[3:], rf_rows, R)
-    listed = pos >= 0
+def walk_listed(sh, exchange, pos, seq=None):
+    """The sequence of each position that W's or V's list form listed (pos
+    int32 [B, R], -1 past them): seq, where given, holds the list form's
+    ids of the virtual rows and -1 elsewhere; kernel Q walks the listed
+    positions whose seq is -1 (every one without seq) in the rounds of
+    stage "walk".  Returns seq int32 [B, R], -1 past the listed
+    positions."""
+    listed = pos >= 0 if seq is None else (pos >= 0) & (seq < 0)
     rows = pos[listed]
     ids = torch.empty_like(rows)
     parked, queries = walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq,
@@ -448,10 +471,68 @@ def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
     exchange.rounds("walk", parked, queries, 1, lambda pk, ans:
                     walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq, sh.chpt_exp,
                                ids, parked=pk, answers=ans.reshape(-1)))
-    seq = torch.full_like(pos, -1)
+    seq = torch.full_like(pos, -1) if seq is None else seq
     seq[listed] = ids
+    return seq
+
+
+def fused_mem_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
+                             seq_tax, parent, depth, K, j0, min_len, T, R,
+                             cap, bloom=None, hyb=None):
+    """fused_mem_classify over a ``ShardedIndex`` of a group of processes
+    on several hosts (K16e across hosts): A's tables come in seed; O
+    extends (its parked steps answered by their owners in rounds of
+    ``exchange``, parallel/exchange.py); with hyb (the hybrid's (text,
+    rank_start)), O stops the narrow lanes after S1_STEPS steps and kernel
+    Y finishes them in the rounds of stages "switch" and "text"
+    (hybrid.switch_in_rounds), its results written as G writes them; C
+    takes the statistics, W lists each read's positions (with the virtual
+    rows' ids), Q walks the others (rounds again) and W resolves the
+    reads.  Every process of the group calls it for every batch, with its
+    share (none: empty tensors), since each round is a collective.
+    Returns fused_mem_classify's rows."""
+    sw_steps = S1_STEPS if hyb is not None else 0
+    out, parked, queries = mem_extend_hosts(sh.rec, sh.C, *seed, flat,
+                                            frag_off, K, j0, bloom=bloom,
+                                            sw_steps=sw_steps)
+    exchange.rounds("extend", parked, queries, 1, lambda pk, ans:
+                    mem_extend_hosts(sh.rec, sh.C, *seed, flat, frag_off, K,
+                                     j0, bloom=bloom, out=out, parked=pk,
+                                     answers=ans.reshape(-1, 2),
+                                     sw_steps=sw_steps)[1:])
+    sw_ids = None
+    if hyb is not None:
+        sw_ids = _switch_lanes(sh, exchange, out, flat, frag_off,
+                               K + S1_STEPS, hyb[1])
+    stats = mem_stats(out[0], out[1], out[2], frag_off, min_len, T)
+    pos, info, *virt = read_lca_list(*stats[:2], *stats[3:], rf_rows, R,
+                                     sw_ids)
+    seq = walk_listed(sh, exchange, pos, *virt)
     return read_lca_rows(info, *lca_resolved(info, seq, seq_tax, parent,
                                              depth, R, cap)[:3])
+
+
+def _switch_lanes(sh, exchange, out, flat, frag_off, sw_len, rank_start):
+    """O's lanes that the hybrid switches (hybrid.switched) finished by
+    kernel Y in rounds, written into out (int32 [3, P]) in G's layout: (i
+    - maxext, VBASE + 8 p, VBASE + 8 p + n_ach); returns sw_ids int32
+    [8 P], lane p's ids at [8 p, 8 p + n_ach)."""
+    P = flat.shape[0]
+    if SW_WCAP * P >= VBASE:
+        raise ValueError(f"{P} lanes: virtual rows would pass 2^31")
+    i, s0, s1 = out
+    lanes = torch.nonzero(switched(i, s0, s1, frag_off, sw_len)).squeeze(1)
+    base = _lane_fragments(frag_off, P)[2]
+    li = i[lanes]
+    maxext, n_ach, ids = switch_in_rounds(sh, exchange, s0[lanes], s1[lanes],
+                                          base[lanes] + li, li, flat,
+                                          rank_start)
+    slot = (SW_WCAP * lanes).to(torch.int32)
+    out[:, lanes] = torch.stack([li - maxext, VBASE + slot,
+                                 VBASE + slot + n_ach])
+    sw_ids = torch.zeros((P, SW_WCAP), dtype=torch.int32, device=flat.device)
+    sw_ids[lanes] = ids
+    return sw_ids.view(-1)
 
 
 def fused_mem_classify(rec, C, seed, flat, frag_off, rf_rows, sa_seq, sa_off,

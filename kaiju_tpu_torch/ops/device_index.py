@@ -20,7 +20,8 @@ owner arithmetic of ``Shards.__getitem__``, and a wrapper launches the
 kernel's sharded instantiation (``<name>_sharded``, csrc/fm_common.cuh
 ``kt::ShardIx``).  Over a group of processes on several hosts some
 shards are remote (``Shards.remote``): kernel N (``fm_serve``) answers the
-queries of a round for the shards a process reads, and kernel Q
+queries of a round for the shards a process reads (rank rows, SA samples
+and, for the text-compare hybrid, text rows), and kernel Q
 (``walk_hosts``) walks the SA, parking the steps whose rows lie on another
 host (``parallel.exchange`` runs the rounds).
 """
@@ -488,15 +489,20 @@ def sa_lookup(rec, C, sa_seq, sa_off, nseq, chpt_exp, k):
 
 # the kinds of an exchange query (op, x), op = kind << 8 | letter
 # (csrc/fm_common.cuh kQRank ...; kernel N's contract in csrc/fm_serve.cu)
-Q_RANK, Q_ROW, Q_LF, Q_SAMPLE = 0, 1, 2, 3
+Q_RANK, Q_ROW, Q_LF, Q_SAMPLE, Q_TEXT = 0, 1, 2, 3, 4
 
 
-def query_shard(rec, sa_seq, queries) -> torch.Tensor:
+def query_shard(rec, sa_seq, queries, text=None) -> torch.Tensor:
     """The shard (int64 [Q]) that answers each query (op, x) of int32
-    [Q, 2]: a sample's slot owner, else the owner of row x >> 7."""
+    [Q, 2]: a sample's slot owner, a text row's owner (the 128-byte rows
+    of ``text``, by its rows a shard, not by the BWT blocks), else the
+    owner of row x >> 7."""
     x = queries[:, 1]
-    return torch.where((queries[:, 0] >> 8) == Q_SAMPLE, sa_seq.owner(x),
-                       rec.owner(x >> 7))
+    kind = queries[:, 0] >> 8
+    out = torch.where(kind == Q_SAMPLE, sa_seq.owner(x), rec.owner(x >> 7))
+    if text is not None:
+        out = torch.where(kind == Q_TEXT, text.owner(x.long() * BLOCK), out)
+    return out
 
 
 def _letter_at(rec, k):
@@ -505,15 +511,25 @@ def _letter_at(rec, k):
     return _block_bytes(rows).gather(1, (k & (BLOCK - 1)).long()[:, None])[:, 0]
 
 
-def fm_serve_plain(rec, C, sa_seq, sa_off, queries, width, touched=None):
+def fm_serve_plain(rec, C, sa_seq, sa_off, queries, width, text=None,
+                   touched=None):
     """touched: as for rank."""
     dev = queries.device
     ans = torch.zeros((queries.shape[0], width), dtype=torch.int32,
                       device=dev)
     op, x = queries[:, 0], queries[:, 1]
     kind, c = op >> 8, op & 255
-    if not bool(((kind >= Q_RANK) & (kind <= Q_SAMPLE)).all()):
+    if not bool(((kind >= Q_RANK) & (kind <= Q_TEXT)).all()):
         raise ValueError("a query of an unknown kind")
+    m = kind == Q_TEXT
+    if bool(m.any()):
+        if text is None or width < BLOCK // 4:
+            raise ValueError(f"Q_TEXT answers take the text and width >= "
+                             f"{BLOCK // 4}")
+        at = x[m].long()[:, None] * BLOCK + torch.arange(BLOCK, device=dev)
+        b = text[at.reshape(-1)].to(torch.int32).view(-1, BLOCK // 4, 4)
+        ans[m, :BLOCK // 4] = (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16
+                               | b[..., 3] << 24)
     m = kind == Q_RANK
     if bool(m.any()):
         ans[m, 0] = rank(rec, C, c[m], x[m], touched)
@@ -540,25 +556,26 @@ def fm_serve_plain(rec, C, sa_seq, sa_off, queries, width, touched=None):
     return ans, torch.zeros(1, dtype=torch.int32, device=dev)
 
 
-def fm_serve(rec, C, sa_seq, sa_off, queries, width):
+def fm_serve(rec, C, sa_seq, sa_off, queries, width, text=None):
     """A round's queries to the shards this process reads (int32 [Q, 2],
-    (op, x); Q_RANK (c, k), Q_ROW k, Q_LF k, Q_SAMPLE slot, csrc/fm_serve.cu)
-    answered: (ans int32 [Q, width], bad int32 [1], the queries whose
-    shard is not read here or whose kind or width is wrong; the plain
-    version raises on one instead).  The kernel's launch waits for nothing
-    on the host.
+    (op, x); Q_RANK (c, k), Q_ROW k, Q_LF k, Q_SAMPLE slot, Q_TEXT row of
+    ``text``, csrc/fm_serve.cu) answered: (ans int32 [Q, width], bad int32
+    [1], the queries whose shard is not read here or whose kind or width
+    is wrong; the plain version raises on one instead).  The kernel's
+    launch waits for nothing on the host.
     Kernel N (csrc/fm_serve.cu) for CUDA tensors, the plain version for CPU
     tensors."""
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     if queries.device.type == "cpu":
-        return fm_serve_plain(rec, C, sa_seq, sa_off, queries, width)
+        return fm_serve_plain(rec, C, sa_seq, sa_off, queries, width,
+                              text=text)
     dev = queries.device
     kernels.check(queries, "queries", torch.int32, dev, 2)
     kernels.check(C, "C", torch.int32, dev, 1)
     if queries.shape[1] != 2:
         raise ValueError("queries: rows (op, x) expected")
-    args = shard_args(dev, rec, sa_seq, sa_off, hosts=True)
+    args = shard_args(dev, rec, sa_seq, sa_off, text, hosts=True)
     n = queries.shape[0]
     ans = torch.empty((n, width), dtype=torch.int32, device=dev)
     bad = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -2,7 +2,9 @@
 which runs B -> E -> F; and, for a group of processes on several hosts,
 E split at its level boundaries, kernels U (``greedy_levels``) and X
 (``greedy_variants_hosts``), with ``fused_greedy_classify_hosts``, which
-runs O -> U -> (X in rounds -> U) a level -> V -> Q -> V.
+runs O -> U -> (X in rounds -> U) a level -> V -> Q -> V, and with the
+text-compare hybrid kernel Y (``hybrid.switch_hosts``) in rounds between
+the last level's X and U.
 
 ``fused_greedy_classify`` returns what rows 0..B-1, columns 0-3, of
 ``kaiju_tpu.ops.fused_greedy.fused_greedy_classify`` hold: (lca, best,
@@ -56,9 +58,9 @@ import torch
 from .. import kernels
 from ..constants import AA_TO_INT, BLOSUM62, BLOSUM62_DIAG, BLOSUM_SUBST
 from .classify import (FLAG_NEED_MORE, FLAG_TIE_OVER, lca_resolved,
-                       ranges_lca, ranges_lca_list)
-from .device_index import Q_RANK, Shards, rank, shard_args, walk_hosts
-from .hybrid import VBASE, switch_plain
+                       ranges_lca, ranges_lca_list, walk_listed)
+from .device_index import Q_RANK, Shards, rank, shard_args
+from .hybrid import VBASE, switch_in_rounds, switch_plain
 from .search import SW_WCAP, _lane_fragments, mem_extend, mem_extend_hosts
 
 FLAG_SCRATCH = 4  # the read's sources outgrew VCAP (port only): replay
@@ -462,9 +464,13 @@ def _in_order(rid, B):
     return order, r, rank, cnt
 
 
-def _add_ties(st, rid, a0, a1, ev, score, T):
+def _add_ties(st, rid, a0, a1, ev, score, T, nid=None, ids=None,
+              sw_ids=None):
     """E's Ties.add over events in order (rid int64, reads < B): the read's
-    running best, its ties so far, the first T rows."""
+    running best, its ties so far, the first T rows; an event with nid > 0
+    ids (ids int32 [n, SW_WCAP]) is a switched interval, whose tie r of
+    read b becomes the virtual row (VBASE + (b T + r) 8, + nid) with its
+    ids at sw_ids [B, T, SW_WCAP][b, r]."""
     B = st.state.shape[0]
     best = st.state[:, 0]
     m = torch.zeros(B, dtype=torch.int32, device=rid.device)
@@ -475,8 +481,17 @@ def _add_ties(st, rid, a0, a1, ev, score, T):
     order, t_rid, rank, n_t = _in_order(rid[tie], B)
     at = cnt[t_rid] + rank
     k = at < T
-    st.g_s0[t_rid[k], at[k]] = a0[tie][order][k]
-    st.g_s1[t_rid[k], at[k]] = a1[tie][order][k]
+    r0, r1 = a0[tie][order], a1[tie][order]
+    if nid is not None:
+        tn = nid[tie][order]
+        virt = tn > 0
+        vrow = (VBASE + (t_rid * T + at) * SW_WCAP).to(torch.int32)
+        r0 = torch.where(virt, vrow, r0)
+        r1 = torch.where(virt, vrow + tn, r1)
+        m = k & virt
+        sw_ids[t_rid[m], at[m]] = ids[tie][order][m]
+    st.g_s0[t_rid[k], at[k]] = r0[k]
+    st.g_s1[t_rid[k], at[k]] = r1[k]
     st.state[:, 0] = nb
     st.state[:, 1] = cnt + n_t.to(torch.int32)
 
@@ -492,10 +507,13 @@ def _push_sources(st, half, rid, fields, vcap):
     return cnt.to(torch.int32)
 
 
-def _finish(st, T):
+def _finish(st, T, sw_ids=None):
     """E's last section: the read's row from its ties, zero past the kept
-    ones; best 0, FLAG_SCRATCH and a zero row for a read over vcap."""
+    ones; best 0, FLAG_SCRATCH and a zero row (no ids) for a read over
+    vcap."""
     over = st.state[:, 3] != 0
+    if sw_ids is not None:
+        sw_ids[over] = 0
     cnt = st.state[:, 1]
     kept = torch.where(over, 0, torch.clamp(cnt, max=T))
     past = torch.arange(T, device=cnt.device)[None, :] >= kept[:, None]
@@ -507,7 +525,8 @@ def _finish(st, T):
 
 
 def greedy_levels_plain(form, level, flat, frag_off, rf_rows, tables, params,
-                        st, lanes=None, voff=None, var=None, vout=None):
+                        st, lanes=None, voff=None, var=None, vout=None,
+                        vnid=None, vids=None, sw_ids=None):
     """U's contract (greedy_levels) on CPU tensors."""
     Lmap, mfl, min_score, mismatches, T, vcap = params
     diag, submat, subcode, subdiag = tables
@@ -577,9 +596,10 @@ def greedy_levels_plain(form, level, flat, frag_off, rf_rows, tables, params,
         _pref(st.pincl, base, veff) - _pref(st.pincl, base, i) + var[:, 5]
         + var[:, 6], min=0), 0)
     ev = has_si & (mlen >= mfl) & (score >= min_score)
-    _add_ties(st, rid, n0, n1, ev, score, T)
+    sw = None if sw_ids is None else sw_ids.view(B, T, SW_WCAP)
+    _add_ties(st, rid, n0, n1, ev, score, T, vnid, vids, sw)
     if last:
-        _finish(st, T)
+        _finish(st, T, sw)
         return None
     fields = torch.stack([fid, i, veff, n0, n1, var[:, 5], var[:, 6], mlen],
                          1)[has_si]
@@ -591,7 +611,8 @@ def greedy_levels_plain(form, level, flat, frag_off, rf_rows, tables, params,
 
 
 def greedy_levels(form, level, flat, frag_off, rf_rows, tables, params, st,
-                  lanes=None, voff=None, var=None, vout=None):
+                  lanes=None, voff=None, var=None, vout=None, vnid=None,
+                  vids=None, sw_ids=None):
     """Kernel U (csrc/greedy_levels.cu): E's per-read work between its
     FM steps, a warp a read, on the batch's LevelState st (level_state),
     params = (Lmap, mfl, min_score, mismatches, T, vcap).
@@ -609,7 +630,11 @@ def greedy_levels(form, level, flat, frag_off, rf_rows, tables, params, st,
     form 2, the settle of level `level`: the variants' results, vout int32
     [V, 3] = (n0, n1, i) from X, read in list order: E's settle, ties,
     best and the next level's sources (FLAG_SCRATCH past vcap); at the
-    last level the outputs.  Returns None.
+    last level the outputs.  With the hybrid (the last level only), vnid
+    int32 [V] > 0 marks a variant that kernel Y finished, its ids in SA
+    order at vids int32 [V, SW_WCAP]: its tie becomes a virtual row with
+    the ids in sw_ids int32 [B T SW_WCAP] (zeros elsewhere), as in E.
+    Returns None.
     Kernel U for CUDA tensors, the plain version for CPU tensors."""
     Lmap, mfl, min_score, mismatches, T, vcap = params
     if not 0 <= form <= 2 or (form and not 1 <= level <= mismatches):
@@ -619,9 +644,15 @@ def greedy_levels(form, level, flat, frag_off, rf_rows, tables, params, st,
     if (form == 0) != (lanes is not None) or (form == 2) != (
             var is not None) or (form == 2 and voff is None):
         raise ValueError("form 0 takes lanes, form 2 voff, var and vout")
+    if (sw_ids is not None) != (vnid is not None) or (vnid is not None) != (
+            vids is not None) or (sw_ids is not None and (
+                form != 2 or level != mismatches)):
+        raise ValueError("vnid, vids and sw_ids come together, at the last "
+                         "level's settle")
     if flat.device.type == "cpu":
         return greedy_levels_plain(form, level, flat, frag_off, rf_rows,
-                                   tables, params, st, lanes, voff, var, vout)
+                                   tables, params, st, lanes, voff, var, vout,
+                                   vnid, vids, sw_ids)
     dev = flat.device
     B, S = rf_rows.shape
     P = flat.shape[0]
@@ -664,16 +695,26 @@ def greedy_levels(form, level, flat, frag_off, rf_rows, tables, params, st,
         kernels.check(vout, "vout", torch.int32, dev, 2)
         if vout.shape != (var.shape[0], 3) or var.shape[1] != VAR_INTS:
             raise ValueError("var [V, 8] and vout [V, 3] expected")
+        if sw_ids is not None:
+            kernels.check(vnid, "vnid", torch.int32, dev, 1)
+            kernels.check(vids, "vids", torch.int32, dev, 2)
+            kernels.check(sw_ids, "sw_ids", torch.int32, dev, 1)
+            if (vnid.shape != (var.shape[0],) or vids.shape != (
+                    var.shape[0], SW_WCAP) or sw_ids.shape != (
+                        B * T * SW_WCAP,)):
+                raise ValueError("vnid [V], vids [V, 8], sw_ids [B T 8] "
+                                 "expected")
     if B and (form != 1 or voff is None or var.shape[0]):
         kernels.launch("greedy_levels", form, level, li, ls0, ls1, flat,
                        frag_off, rf_rows, B, S, *tables, *params, node,
                        st.pincl, st.src, st.state, voff, counts, var, vout,
-                       st.best, st.flags, st.g_s0, st.g_s1)
+                       vnid, vids, sw_ids, st.best, st.flags, st.g_s0,
+                       st.g_s1)
     return out
 
 
 def greedy_variants_hosts_plain(rec, C, flat, var, out, parked=None,
-                                answers=None, touched=None):
+                                answers=None, touched=None, sw=False):
     """touched: as for rank."""
     dev = flat.device
     i32 = torch.int32
@@ -713,6 +754,8 @@ def greedy_variants_hosts_plain(rec, C, flat, var, out, parked=None,
         a1 = torch.where(take, n1, a1)
         i = i - take.to(i32)
         done = ~ok | (i <= 0)
+        if sw:  # the hybrid's narrow probes stop: kernel Y finishes them
+            done |= (y == pos) & (a1 - a0 <= SW_WCAP)
         out[v[done]] = torch.stack([a0, a1, i], 1)[done]
         keep = ~done
         v, i, a0, a1 = v[keep], i[keep], a0[keep], a1[keep]
@@ -723,7 +766,8 @@ def greedy_variants_hosts_plain(rec, C, flat, var, out, parked=None,
             (torch.cat(qry) if qry else z).view(-1, 2, 2))
 
 
-def greedy_variants_hosts(rec, C, flat, var, out, parked=None, answers=None):
+def greedy_variants_hosts(rec, C, flat, var, out, parked=None, answers=None,
+                          sw=False):
     """Kernel X (csrc/greedy_variants.cu): the FM steps of a level's
     variants over the shards of a group on several hosts.  Each variant
     of the list var int32 [V, 8] (greedy_levels form 1) takes E's probe
@@ -735,13 +779,17 @@ def greedy_variants_hosts(rec, C, flat, var, out, parked=None, answers=None):
     step, and goes on.  Both write out int32 [V, 3] = (n0, n1, i) of each
     variant that finishes (E's window slot before its settle) and return
     the variants parked now (int32 [L', 4]) with their queries int32
-    [L', 2, 2], (Q_RANK c, s0) and (Q_RANK c, s1).  Kernel X for CUDA
-    tensors, the plain version for CPU tensors."""
+    [L', 2, 2], (Q_RANK c, s0) and (Q_RANK c, s1).  sw (the last level
+    with the hybrid): a variant whose probe leaves 1 to SW_WCAP
+    occurrences with pos > 0 letters before it stops after the probe, as
+    E's last level switches it; its out row (n0, n1, pos) goes to kernel
+    Y (``switched_variants``).  Kernel X for CUDA tensors, the plain
+    version for CPU tensors."""
     if (parked is None) != (answers is None):
         raise ValueError("parked and answers come together (resume)")
     if flat.device.type == "cpu":
         return greedy_variants_hosts_plain(rec, C, flat, var, out, parked,
-                                           answers)
+                                           answers, sw=sw)
     dev = flat.device
     args = shard_args(dev, rec, hosts=True)
     kernels.check(C, "C", torch.int32, dev, 1)
@@ -764,53 +812,102 @@ def greedy_variants_hosts(rec, C, flat, var, out, parked=None, answers=None):
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     if n:
         kernels.launch("greedy_variants_hosts", *args, C, flat, var, V,
-                       parked, answers, 0 if parked is None else n, out,
-                       park, q, count)
+                       parked, answers, 0 if parked is None else n, int(sw),
+                       out, park, q, count)
     k = int(count)
     return park[:k], q[:k]
 
 
+def switched_variants(var, out):
+    """The variants that X stopped with sw (int64 indices into var): the
+    probe's interval holds 1 to SW_WCAP occurrences and the variant ended
+    on it at i = pos > 0.  No variant ends there otherwise: with sw, a
+    probe that leaves such an interval always stops, and one that leaves
+    a wider interval ends below pos or on that wider interval."""
+    pos = var[:, 0] >> 8
+    n0, n1, i = out.unbind(1)
+    return torch.nonzero((n0 < n1) & (n1 - n0 <= SW_WCAP) & (i == pos)
+                         & (pos > 0)).squeeze(1)
+
+
+def _switch_variants(sh, exchange, flat, var, out, rank_start):
+    """The last level's switched variants finished by kernel Y in rounds
+    (stages "switch" and "text"), as E's last level finishes them: each
+    one's i = pos - maxext written into out, and (vnid int32 [V], vids
+    int32 [V, SW_WCAP]) for U's settle."""
+    v = switched_variants(var, out)
+    pos = var[v, 0] >> 8
+    maxext, n_ach, ids = switch_in_rounds(sh, exchange, out[v, 0], out[v, 1],
+                                          var[v, 3] + pos, pos, flat,
+                                          rank_start)
+    out[v, 2] = pos - maxext
+    V = var.shape[0]
+    vnid = torch.zeros(V, dtype=torch.int32, device=flat.device)
+    vids = torch.zeros((V, SW_WCAP), dtype=torch.int32, device=flat.device)
+    vnid[v] = n_ach
+    vids[v] = ids
+    return vnid, vids
+
+
 def greedy_search_hosts(sh, exchange, i, s0, s1, flat, frag_off, rf_rows,
                         tables, Lmap, mfl, min_score, mismatches, T,
-                        vcap=VCAP):
+                        vcap=VCAP, hyb=None):
     """greedy_search over a ``ShardedIndex`` of a group of processes on
-    several hosts, with no hybrid: U's level 0, then for each level U's
-    fan-out, X in rounds of `exchange` (stage "variants", called once a
-    level by every process, whether or not it has a variant parked) and
-    U's settle.  Returns greedy_search's (best, flags, g_s0, g_s1)."""
+    several hosts: U's level 0, then for each level U's fan-out, X in
+    rounds of `exchange` (stage "variants", called once a level by every
+    process, whether or not it has a variant parked) and U's settle.  With
+    hyb (the hybrid's (text, rank_start)), X stops the last level's narrow
+    probes and kernel Y finishes them in the rounds of stages "switch" and
+    "text" before the settle, as E's last level does; the level-0 funnel
+    never switches (kaiju_tpu/parallel/sharded_fused.py:347-349).  Returns
+    greedy_search's (best, flags, g_s0, g_s1, sw_ids)."""
     params = (Lmap, mfl, min_score, mismatches, T, vcap)
     dev = flat.device
-    st = level_state(rf_rows.shape[0], flat.shape[0], T, vcap, mismatches,
-                     dev)
+    B = rf_rows.shape[0]
+    if hyb is not None and VBASE + B * T * SW_WCAP >= 1 << 31:
+        raise ValueError(f"{B} reads of {T} ties: virtual rows pass 2^31")
+    st = level_state(B, flat.shape[0], T, vcap, mismatches, dev)
+    sw_ids = (torch.zeros(B * T * SW_WCAP, dtype=torch.int32, device=dev)
+              if hyb is not None else None)
     common = (flat, frag_off, rf_rows, tables, params, st)
     greedy_levels(0, 0, *common, lanes=(i, s0, s1))
     for level in range(1, mismatches + 1):
+        sw = hyb is not None and level == mismatches
         counts = greedy_levels(1, level, *common)
         voff = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                           torch.cumsum(counts, 0, dtype=torch.int32)])
         var = greedy_levels(1, level, *common, voff=voff)
         out = torch.empty((var.shape[0], 3), dtype=torch.int32, device=dev)
-        parked, queries = greedy_variants_hosts(sh.rec, sh.C, flat, var, out)
+        parked, queries = greedy_variants_hosts(sh.rec, sh.C, flat, var, out,
+                                                sw=sw)
         exchange.rounds("variants", parked, queries, 1, lambda pk, ans:
                         greedy_variants_hosts(sh.rec, sh.C, flat, var, out,
                                               parked=pk,
-                                              answers=ans.reshape(-1, 2)))
-        greedy_levels(2, level, *common, voff=voff, var=var, vout=out)
-    return st.best, st.flags, st.g_s0, st.g_s1
+                                              answers=ans.reshape(-1, 2),
+                                              sw=sw))
+        vnid = vids = None
+        if sw:
+            vnid, vids = _switch_variants(sh, exchange, flat, var, out,
+                                          hyb[1])
+        greedy_levels(2, level, *common, voff=voff, var=var, vout=out,
+                      vnid=vnid, vids=vids, sw_ids=sw_ids if sw else None)
+    return st.best, st.flags, st.g_s0, st.g_s1, sw_ids
 
 
 def fused_greedy_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
                                 seq_tax, parent, depth, tables, K, Lmap, mfl,
                                 min_score, mismatches, T, R, cap, vcap=VCAP,
-                                bloom=None):
+                                bloom=None, hyb=None):
     """fused_greedy_classify over a ``ShardedIndex`` of a group of
-    processes on several hosts (K16f across hosts), with no hybrid: O
-    extends at j0 = Lmap - 1 with the Lmap-mer screen (stage "extend"),
-    U and X run the levels (greedy_search_hosts), V lists each read's
-    positions, Q walks them (stage "walk") and W's resolved form
-    (lca_resolved) finishes the reads.  Every process of the group calls
-    it for every batch, with its share (none: empty tensors), since each
-    round is a collective.  Returns fused_greedy_classify's rows."""
+    processes on several hosts (K16f across hosts): O extends at j0 =
+    Lmap - 1 with the Lmap-mer screen (stage "extend"), U and X run the
+    levels (greedy_search_hosts; with hyb, the hybrid's (text,
+    rank_start), Y finishes the last level's narrow variants), V lists
+    each read's positions (with the virtual rows' ids), Q walks the others
+    (stage "walk") and W's resolved form (lca_resolved) finishes the
+    reads.  Every process of the group calls it for every batch, with its
+    share (none: empty tensors), since each round is a collective.
+    Returns fused_greedy_classify's rows."""
     out, parked, queries = mem_extend_hosts(sh.rec, sh.C, *seed, flat,
                                             frag_off, K, Lmap - 1,
                                             bloom=bloom)
@@ -819,20 +916,11 @@ def fused_greedy_classify_hosts(sh, exchange, seed, flat, frag_off, rf_rows,
                                      Lmap - 1, bloom=bloom, out=out,
                                      parked=pk,
                                      answers=ans.reshape(-1, 2))[1:])
-    best, flags, g_s0, g_s1 = greedy_search_hosts(
+    best, flags, g_s0, g_s1, sw_ids = greedy_search_hosts(
         sh, exchange, out[0], out[1], out[2], flat, frag_off, rf_rows,
-        tables, Lmap, mfl, min_score, mismatches, T, vcap)
-    pos, info = ranges_lca_list(g_s0, g_s1, R)
-    listed = pos >= 0
-    rows = pos[listed]
-    ids = torch.empty_like(rows)
-    parked, queries = walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq,
-                                 sh.chpt_exp, ids, rows=rows)
-    exchange.rounds("walk", parked, queries, 1, lambda pk, ans:
-                    walk_hosts(sh.rec, sh.C, sh.sa_seq, sh.nseq, sh.chpt_exp,
-                               ids, parked=pk, answers=ans.reshape(-1)))
-    seq = torch.full_like(pos, -1)
-    seq[listed] = ids
+        tables, Lmap, mfl, min_score, mismatches, T, vcap, hyb)
+    pos, info, *virt = ranges_lca_list(g_s0, g_s1, R, sw_ids)
+    seq = walk_listed(sh, exchange, pos, *virt)
     lca, n_ids, need_more, tie_order = lca_resolved(
         info, seq, seq_tax, parent, depth, R, cap, ranges=True)
     lca = torch.where(best > 0, lca, 0)

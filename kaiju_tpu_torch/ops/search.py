@@ -164,16 +164,27 @@ def mem_extend(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K, j0,
 # ---------------------------------------------------------------------------
 
 
-def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched):
+def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched, K=0,
+               sw_steps=0):
     """Step the lanes (int64 flat positions) from (i, s0, s1), q (int64)
     the flat index of the code before i, while both rows of a step lie on
-    this host (``Shards.here``); a lane whose rows do not parks.  Writes
-    out (int32 [3, P]) for every lane that ends or parks and returns the
-    parked (p, i, s0, s1) int32 [L, 4] and their rank-pair queries int32
-    [L, 2, 2]."""
+    this host (``Shards.here``); a lane whose rows do not parks.  With
+    sw_steps, a lane stops where B stops it for the hybrid: after
+    sw_steps steps (p - K - q of them taken) with at most SW_WCAP
+    occurrences.  Writes out (int32 [3, P]) for every lane that ends or
+    parks and returns the parked (p, i, s0, s1) int32 [L, 4] and their
+    rank-pair queries int32 [L, 2, 2]."""
     c32 = flat.to(torch.int32)
     parked, queries = [], []
     while lanes.numel():
+        if sw_steps:
+            sw = (lanes - K - q == sw_steps) & (s1 - s0 <= SW_WCAP)
+            out[:, lanes[sw]] = torch.stack([i, s0, s1])[:, sw]
+            keep = ~sw
+            lanes, i, s0, s1, q = (lanes[keep], i[keep], s0[keep], s1[keep],
+                                   q[keep])
+            if not lanes.numel():
+                break
         c = c32[q]
         here = rec.here[rec.owner(s0 >> 7)] & rec.here[rec.owner(s1 >> 7)]
         stop = ~here
@@ -201,7 +212,7 @@ def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched):
 
 def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
                            K, j0, bloom=None, out=None, parked=None,
-                           answers=None, touched=None):
+                           answers=None, touched=None, sw_steps=0):
     """touched: as for mem_extend_plain."""
     P = flat.shape[0]
     dev = flat.device
@@ -229,24 +240,30 @@ def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
         lanes, i, s0, s1 = lanes[keep], i[keep], s0[keep], s1[keep]
     q = (base[lanes] + i - 1).long()
     parked, queries = _park_rows(rec, C, flat, lanes, out, i, s0, s1, q,
-                                 touched)
+                                 touched, K, sw_steps)
     return out, parked, queries
 
 
 def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
-                     j0, bloom=None, out=None, parked=None, answers=None):
-    """B over a group of processes on several hosts, with no hybrid (see
-    csrc/mem_extend.cu, kernel O): the start form (parked None) evaluates
+                     j0, bloom=None, out=None, parked=None, answers=None,
+                     sw_steps=0):
+    """B over a group of processes on several hosts (see
+    csrc/mem_extend.cu, kernel O); sw_steps: 0, or B's hybrid stop after
+    that many steps (kernel Y finishes the lanes it stops, as G does on
+    one host).  The start form (parked None) evaluates
     every flat position as B does and returns (out int32 [3, P] = (i, s0,
     s1), parked int32 [L, 4] = (p, i, s0, s1), queries int32 [L, 2, 2],
     the rank pair of each parked lane's next step, (Q_RANK c, s0) and
     (Q_RANK c, s1)); the resume form takes out, the parked lanes and
     their answers int32 [L, 2] and returns the same three, out updated
     in place.  A parked lane's out row holds its state when it parked.
-    Once no lane is parked, out equals B's (i, s0, s1).  Kernel O for
-    CUDA tensors, the plain version for CPU tensors."""
+    Once no lane is parked, out equals B's (i, s0, s1) with the same
+    sw_steps.  Kernel O for CUDA tensors, the plain version for CPU
+    tensors."""
     if K < 1 or j0 < K - 1:
         raise ValueError(f"need K >= 1 and j0 >= K - 1 (K={K}, j0={j0})")
+    if sw_steps < 0:
+        raise ValueError(f"sw_steps must be >= 0, got {sw_steps}")
     if bloom is not None and not 1 <= bloom[1] <= j0 + 1:
         raise ValueError(f"need 1 <= m <= j0 + 1 (m={bloom[1]}, j0={j0})")
     if (parked is None) != (answers is None) or (parked is None) != (
@@ -255,7 +272,7 @@ def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
     if flat.device.type == "cpu":
         return mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat,
                                       frag_off, K, j0, bloom, out, parked,
-                                      answers)
+                                      answers, sw_steps=sw_steps)
     dev = flat.device
     args = shard_args(dev, rec, hosts=True)
     kernels.check(C, "C", torch.int32, dev, 1)
@@ -291,7 +308,8 @@ def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
     if n:
         kernels.launch("mem_extend_hosts", *args, C, seed_s0, seed_s1, seed_d,
                        seed_d.shape[0], flat, P, frag_off, F, K, j0, words, m,
-                       lb, parked, answers, 0 if parked is None else n,
+                       lb, sw_steps, parked, answers,
+                       0 if parked is None else n,
                        out[0], out[1], out[2], park, q, count)
     k = int(count)
     return out, park[:k], q[:k]

@@ -10,10 +10,10 @@ axis assembles every rank and SA-walk step from its owner shard
 Over one host every shard is held or mapped (``parallel.peer_shards``)
 and the kernels read it in place.  A shard that no process of a host
 holds is remote there: its owner serves it.  A lane whose next step needs
-a row (or an SA sample) of a remote shard parks with its query (kernels O,
-X and Q: ``ops.search.mem_extend_hosts``,
-``ops.greedy.greedy_variants_hosts``, ``ops.device_index.walk_hosts``).
-Then one round:
+a row (or an SA sample, or a 128-byte text row) of a remote shard parks
+with its query (kernels O, X, Q and Y: ``ops.search.mem_extend_hosts``,
+``ops.greedy.greedy_variants_hosts``, ``ops.device_index.walk_hosts``,
+``ops.hybrid.switch_hosts``).  Then one round:
 
 - each process sorts its parked queries by the process that answers them
   (``route``: this process for a shard it reads, else the shard's server);
@@ -31,7 +31,10 @@ counterpart of ``_any_psum``), so a process with nothing left still
 serves its peers.  Every process runs the same stages in the same order
 (``ops.classify.fused_mem_classify_hosts`` or
 ``ops.greedy.fused_greedy_classify_hosts`` for each batch, whose stage
-"variants" runs once a level, -e times, parked lanes or not; the seed
+"variants" runs once a level, -e times, parked lanes or not; with the
+text-compare hybrid the stages "switch" and "text" of kernel Y,
+``ops.hybrid.switch_in_rounds``, once a batch in MEM, after "extend", and
+once at the last level in Greedy, after its "variants"; the seed
 tables' ROW rounds at set-up), so the collectives match.
 
 Transport: the group's gloo backend (``parallel.multihost``; NCCL refuses
@@ -48,7 +51,9 @@ reading its shard, raises.
 
 ``COUNTS[stage]`` sums, over the rounds of this process (a ``serve``
 call each; ``Exchange.counts`` over those of one card), for each stage of ``STAGES`` that ran one (the seed tables'
-"seed", O's "extend", X's "variants", Q's "walk"): rounds, queries
+"seed", O's "extend", X's "variants", Y's walks "switch" (LF steps and
+samples with their offsets, answers of 2 words) and its text rows "text"
+(answers of 32 words), Q's "walk"): rounds, queries
 (all, own included), ``sent`` (the queries that crossed to a peer),
 ``bytes`` (queries and answers sent and received), and the seconds in
 the copies, the transport (all-to-alls and the lockstep all-reduce) and
@@ -64,7 +69,7 @@ import torch
 
 from ..ops.device_index import fm_serve, query_shard
 
-STAGES = ("seed", "extend", "variants", "walk")
+STAGES = ("seed", "extend", "variants", "switch", "text", "walk")
 COUNTS: dict = {}
 _FIELDS = ("rounds", "queries", "sent", "bytes", "copy_s", "transport_s",
            "serve_s")
@@ -149,7 +154,7 @@ class Exchange:
         import torch.distributed as dist
 
         sh, dev, N, me = self.sh, self.device, self.nprocs, self.pid
-        dest = self.route[query_shard(sh.rec, sh.sa_seq, queries)]
+        dest = self.route[query_shard(sh.rec, sh.sa_seq, queries, sh.text)]
         order = torch.argsort(dest, stable=True)
         qs = queries[order]
         counts = torch.bincount(dest, minlength=N).cpu()
@@ -172,9 +177,9 @@ class Exchange:
         self._sync()
         t4 = time.perf_counter()
         theirs, bad_t = fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, recv,
-                                 width)
+                                 width, sh.text)
         own, bad_o = fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, qs[lo:hi],
-                              width)
+                              width, sh.text)
         bad = int(bad_t) + int(bad_o)  # synchronises
         t5 = time.perf_counter()
         if bad:

@@ -27,12 +27,13 @@ peer access, ``enable_peer``); else from a slot of another process of its
 host (``host_name``, gathered from every process) that holds it (the
 source slot if it is on the host, else the lowest), mapped over CUDA IPC
 on the reading card (``opened``); else o is remote (``remote``): the
-process of the source slot, which always holds it, serves its rows and
-samples to the slot's card in rounds (``parallel.exchange``, kernel N).  A
-remote shard is never copied whole to the reader.  With D = 1 a slot is a
-process and these are the process rules (``routes``); with N = 1 they are
-the card rules of ``ShardedIndex.on_cards``.  A group across hosts runs
-MEM and Greedy, both without the text-compare hybrid.
+process of the source slot, which always holds it, serves its rows,
+samples and text rows to the slot's card in rounds (``parallel.exchange``,
+kernel N).  A remote shard is never copied whole to the reader.  With D =
+1 a slot is a process and these are the process rules (``routes``); with
+N = 1 they are the card rules of ``ShardedIndex.on_cards``.  A group
+across hosts runs MEM and Greedy, both with the text-compare hybrid on an
+index with a text copy (kernel Y, ``ops.hybrid.switch_hosts``).
 
 On the card each held shard is an allocation of its own (csrc/peer.cu),
 published by its CUDA IPC handle once its upload has finished, when a

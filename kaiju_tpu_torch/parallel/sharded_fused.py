@@ -44,9 +44,14 @@ on several hosts, ``ShardedMemPipeline`` runs A → O → C → W → Q → W
 A → O → U → (X → U) a level → V → Q → V
 (``ops.greedy.fused_greedy_classify_hosts``), each step whose row lies on
 another host answered by its owner in rounds (``parallel.exchange``).
-Both run there without the text-compare hybrid, as kaiju_tpu runs
-sharded Greedy without it on an index with no text copy
-(sharded_fused.py:314); it changes no result.
+Both run the text-compare hybrid there exactly when kaiju_tpu turns it on
+(a text copy and fewer than 2^30 positions, sharded_fused.py:205 and
+:312): O stops MEM's narrow lanes and X the last Greedy level's narrow
+variants, and kernel Y (``ops.hybrid.switch_hosts``) finishes them, its
+walks, SA samples and text rows on another host answered by their owners
+in the rounds of stages "switch" and "text", as kaiju_tpu's
+``_make_walk(..., want_pos=True)`` and ``_make_hyb.text_row`` (:78-175)
+assemble them from their owner shards.
 """
 
 from __future__ import annotations
@@ -109,18 +114,7 @@ class _OnShards:
         return self.view.shared[key]
 
 
-class _AcrossHosts(_OnShards):
-    """Over a group of processes on several hosts (the view's
-    ``exchange``) the hybrid is off: its text compares read a lane's
-    text on this host."""
-
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
-        if self.dev.exchange is not None:
-            self._hyb = None
-
-
-class ShardedMemPipeline(_AcrossHosts, MemPipeline):
+class ShardedMemPipeline(_OnShards, MemPipeline):
     """Over a group of processes on several hosts the batch runs
     ``fused_mem_classify_hosts``."""
 
@@ -132,10 +126,11 @@ class ShardedMemPipeline(_AcrossHosts, MemPipeline):
             self.dev, self.dev.exchange, self._seed, flat, frag_off, rf_rows,
             self.dev.seq_tax, self._parent, self._depth, self.seed_K,
             cfg.min_fragment_length - 1, cfg.min_fragment_length, TIE_CAP,
-            self.R_BUDGET, cfg.max_match_ids, bloom=self._bloom)
+            self.R_BUDGET, cfg.max_match_ids, bloom=self._bloom,
+            hyb=self._hyb)
 
 
-class ShardedGreedyPipeline(_AcrossHosts, GreedyPipeline):
+class ShardedGreedyPipeline(_OnShards, GreedyPipeline):
     """Over a group of processes on several hosts the batch runs
     ``fused_greedy_classify_hosts``."""
 
@@ -148,4 +143,4 @@ class ShardedGreedyPipeline(_AcrossHosts, GreedyPipeline):
             self.dev.seq_tax, self._parent, self._depth, self._tables,
             self.seed_K, self.lmap, cfg.min_fragment_length, cfg.min_score,
             cfg.mismatches, cfg.max_matches_SI, self.R_BUDGET,
-            cfg.max_match_ids, self.VCAP, bloom=self._bloom)
+            cfg.max_match_ids, self.VCAP, bloom=self._bloom, hyb=self._hyb)

@@ -360,10 +360,12 @@ def runs(env):
 def _check_slots(env, tag, S, text, hosts, mode):
     """Each slot held, read, mapped and had served in rounds exactly what
     the slot rules say (rounds in every stage of the mode's path on every
-    card, the seed tables' on card 0), and no file of the mapped shards
-    is left."""
+    card, the seed tables' on card 0; on the text index the hybrid's
+    stages "switch" and "text" ran on every card, "switch" with rounds on
+    a card of each process), and no file of the mapped shards is left."""
     stages = ("extend", "variants", "walk") if mode == "greedy" else (
         "extend", "walk")
+    hybrid = ("switch", "text") if text else ()
     arrays = {"rec", "sa_seq", "sa_off"} | ({"text"} if text else set())
     across = len(set(hosts)) > 1
     holders = set()
@@ -391,7 +393,7 @@ def _check_slots(env, tag, S, text, hosts, mode):
             if across:
                 assert lay["host"] == hosts[p] and remote
                 rounds = lay["card_rounds"]
-                assert set(rounds) == set(stages) | (
+                assert set(rounds) == set(stages) | set(hybrid) | (
                     {"seed"} if c == 0 else set()), rounds
                 assert all(rounds[k]["rounds"] > 0 for k in stages), rounds
                 if c == 0:
@@ -401,6 +403,9 @@ def _check_slots(env, tag, S, text, hosts, mode):
                 assert "card_rounds" not in lay
             holders.update(mine)
             assert not os.path.exists(lay["run_dir"]), lay["run_dir"]
+        if across and hybrid:
+            assert sum(lay["card_rounds"]["switch"]["rounds"]
+                       for lay in got) > 0
     assert holders == set(range(S))
 
 

@@ -2102,7 +2102,7 @@ class _Server:
     def serve(self, queries, width, stage):
         w = self.whole
         ans, bad = tdev.fm_serve(w.rec, w.C, w.sa_seq, w.sa_off, queries,
-                                 width)
+                                 width, w.text)
         assert int(bad) == 0
         return ans
 
@@ -2434,3 +2434,211 @@ def test_greedy_hosts_batch_on_the_card_matches_b_e_f(env, cuda, mismatches,
     assert not tk.LAUNCHES["greedy_search"] + tk.LAUNCHES["ranges_lca"]
     if vcap == 1:
         assert bool((want[:, 2] & greedy.FLAG_SCRATCH).any())
+
+
+# ---------------------------------------------------------------------------
+# kernel Y and the hybrid's forms of N, O, X, U, V, W across hosts
+# ---------------------------------------------------------------------------
+
+
+def _by_first(t):
+    """Rows in the order of their first column (a kernel parks in no fixed
+    order), on the CPU."""
+    t = t.cpu()
+    return t[torch.argsort(t[:, 0].long(), stable=True)]
+
+
+@pytest.mark.parametrize("remote", [(1,), (0, 2)], ids=["one", "two"])
+def test_hybrid_hosts_kernels_match_plain(env, cuda, remote):
+    """On the text index in 3 shards with the shards `remote` on another
+    host: N's TEXT rows, O with the hybrid's stop (start and resume), Y's
+    three forms (start, a resume of each stage, finish) and its rounds, W's
+    and V's list forms with the virtual rows' ids, each equal to its plain
+    version on the same arguments; Y in rounds gives switch_plain's, and
+    the MEM hosts batch with the hybrid gives fused_mem_classify's rows
+    with G on the card."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.ops import hybrid
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx, dv = env["idx"], env["dv"]
+    assert idx.text is not None
+    views = {d: _hosts_view(ShardedIndex(idx, 3, d), remote)
+             for d in ("cpu", cuda)}
+    vc, vg = views["cpu"], views[cuda]
+    kernels.reset_counts()
+    # N: text rows, every row and past the end
+    ntb = vc.ntb_s
+    rows = torch.arange(3 * ntb + 2, dtype=torch.int32)
+    q = torch.stack([torch.full_like(rows, tdev.Q_TEXT << 8), rows], 1)
+    whole = ShardedIndex(idx, 3, cuda)
+    got, bad = tdev.fm_serve(whole.rec, whole.C, whole.sa_seq, whole.sa_off,
+                             q.to(cuda), 32, whole.text)
+    want, _b = tdev.fm_serve_plain(
+        *(getattr(ShardedIndex(idx, 3, "cpu"), a) for a in
+          ("rec", "C", "sa_seq", "sa_off")), q[:-2], 32,
+        text=ShardedIndex(idx, 3, "cpu").text)
+    torch.cuda.synchronize()
+    assert int(bad) == 2 and torch.equal(got.cpu()[:-2], want)
+    got, bad = tdev.fm_serve(vg.rec, vg.C, vg.sa_seq, vg.sa_off,
+                             q[:-2].to(cuda), 32, vg.text)
+    far = ~vc.text.here[vc.text.owner(rows[:-2].long() * 128)]
+    assert int(bad) == int(far.sum()) > 0
+    assert torch.equal(got.cpu()[~far], want[~far])
+    # O with sw_steps: start, one resume, then the rounds
+    flat, frag_off, rf_rows = _batch(env, 16)
+    seed = env["seed"]
+
+    def ext(d, **kw):
+        v = views[d]
+        return search.mem_extend_hosts(
+            v.rec, v.C, *(a.to(d) for a in seed), flat.to(d),
+            frag_off.to(d), search.SEED_K, MIN_LEN - 1,
+            sw_steps=hybrid.S1_STEPS, **kw)
+
+    res = {d: ext(d) for d in views}
+    assert torch.equal(res[cuda][0].cpu(), res["cpu"][0])
+    assert torch.equal(_by_first(res[cuda][1]), _by_first(res["cpu"][1]))
+    for d in views:
+        out, pk, qs = res[d]
+        views[d].exchange.rounds("extend", pk, qs, 1, lambda p, a, d=d,
+                                 out=out: ext(d, out=out, parked=p,
+                                              answers=a.reshape(-1, 2))[1:])
+    want = search.mem_extend_plain(dv.rec, dv.C, *seed, flat, frag_off,
+                                   search.SEED_K, MIN_LEN - 1,
+                                   sw_steps=hybrid.S1_STEPS)
+    for g, c, w in zip(res[cuda][0], res["cpu"][0], want):
+        assert torch.equal(g.cpu(), w) and torch.equal(c, w)
+    i, s0, s1 = want
+    lanes = hybrid.switched(i, s0, s1, frag_off,
+                            search.SEED_K + hybrid.S1_STEPS)
+    base = search._lane_fragments(frag_off, flat.shape[0])[2]
+    sw = (s0[lanes], s1[lanes], base[lanes] + i[lanes], i[lanes])
+    assert sw[0].shape[0] > 10
+    # Y: start form, a resume of each stage on the same answers, finish
+    st = {d: hybrid.switch_state(sw[2].to(d), sw[3].to(d)) for d in views}
+
+    def y(d, form, **kw):
+        v = views[d]
+        return hybrid.switch_hosts(form, v.rec, v.C, v.sa_seq, v.sa_off,
+                                   v.text, v.rank_start, v.nseq, v.chpt_exp,
+                                   flat.to(d), st[d], **kw)
+
+    pk = {d: y(d, 0, s0=sw[0].to(d), s1=sw[1].to(d)) for d in views}
+    for a, b in zip(st[cuda], st["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(_by_first(pk[cuda][0]), _by_first(pk["cpu"][0]))
+    for kind, width in ((hybrid.WALK, 2), (hybrid.TEXT, 32)):
+        sel = {d: pk[d][0][:, 1] == kind for d in views}
+        ps = {d: _by_first(pk[d][0][sel[d]]) for d in views}
+        order = torch.argsort(pk["cpu"][0][sel["cpu"]][:, 0].long())
+        qs = pk["cpu"][1][sel["cpu"]][order]
+        if not qs.shape[0]:
+            continue
+        ans = vc.exchange.serve(qs.reshape(-1, 2), width, "switch")
+        again = {d: y(d, 1, parked=ps[d].to(d),
+                      answers=ans.to(d).contiguous()) for d in views}
+        for a, b in zip(st[cuda], st["cpu"]):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(_by_first(again[cuda][0]),
+                           _by_first(again["cpu"][0]))
+    fin = {d: y(d, 2) for d in views}
+    for a, b in zip(fin[cuda], fin["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    want = hybrid.switch_plain(*sw, flat, dv.text, dv.rank_start, dv.rec,
+                               dv.C, dv.sa_seq, dv.sa_off, dv.nseq,
+                               dv.chpt_exp)
+    got = hybrid.switch_in_rounds(vg, vg.exchange, *(t.to(cuda) for t in sw),
+                                  flat.to(cuda), vg.rank_start)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # W's and V's list forms with the virtual rows' ids (G's layout)
+    tail = (dv.rec, dv.C, *seed, flat, frag_off, search.SEED_K, MIN_LEN - 1)
+    lanes_g = hybrid.text_extend_plain(
+        *search.mem_extend_plain(*tail, sw_steps=hybrid.S1_STEPS), flat,
+        frag_off, search.SEED_K + hybrid.S1_STEPS, dv.text, dv.rank_start,
+        dv.rec, dv.C, dv.sa_seq, dv.sa_off, dv.nseq, dv.chpt_exp)
+    stats = search.mem_stats_plain(*lanes_g[:3], frag_off, MIN_LEN, T)
+    d_args = (*stats[:2], *stats[3:], rf_rows)
+    sw_ids = lanes_g[3]
+    R = 32
+    want = classify.read_lca_list(*d_args, R, sw_ids)
+    got = classify.read_lca_list(*(a.to(cuda) for a in d_args), R,
+                                 sw_ids.to(cuda))
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[2] >= 0).any())  # virtual rows listed
+    g_s0, g_s1 = stats[3], stats[4]  # each fragment's ties as ranges
+    want = classify.ranges_lca_list(g_s0, g_s1, R, sw_ids)
+    got = classify.ranges_lca_list(g_s0.to(cuda), g_s1.to(cuda), R,
+                                   sw_ids.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # the MEM hosts batch with the hybrid against B -> G -> C -> D
+    gpu = _args(env, flat, frag_off, rf_rows, 32, cuda)
+    want = classify.fused_mem_classify(*gpu, hyb=(dv.text.to(cuda),
+                                                  dv.rank_start.to(cuda)))
+    got = classify.fused_mem_classify_hosts(
+        vg, vg.exchange, gpu[2], gpu[3], gpu[4], gpu[5], vg.seq_tax,
+        gpu[9], gpu[10], search.SEED_K, MIN_LEN - 1, MIN_LEN, T, 32, CAP,
+        hyb=(vg.text, vg.rank_start))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    for name in ("fm_serve", "mem_extend_hosts", "switch_hosts",
+                 "read_lca_hosts", "walk_hosts"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("e", [1, 3])
+def test_greedy_hybrid_hosts_kernels_match_plain(env, cuda, e):
+    """X with the last level's stop, Y, U's settle with virtual tie rows
+    and V's list form with their ids, on the text index in 3 shards with
+    shard 1 on another host: greedy_search_hosts with the hybrid on the
+    card equals its plain version and the one-host greedy_search_plain
+    with the hybrid (best, flags, g_s0, g_s1, sw_ids), and the batch's
+    rows equal B -> E -> F with the hybrid on the card."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx, dv = env["idx"], env["dv"]
+    views = {d: _hosts_view(ShardedIndex(idx, 3, d), (1,))
+             for d in ("cpu", cuda)}
+    flat, frag_off, rf_rows = _batch(env, 16, "greedy")
+    Lmap, mfl, min_score, _e, T_, vcap = GREEDY_PARAMS
+    lanes = search.mem_extend_plain(dv.rec, dv.C, *env["seed"], flat,
+                                    frag_off, search.SEED_K, Lmap - 1)
+    kernels.reset_counts()
+    got = {}
+    for d in views:
+        v = views[d]
+        got[d] = greedy.greedy_search_hosts(
+            v, v.exchange, *(t.to(d) for t in lanes), flat.to(d),
+            frag_off.to(d), rf_rows.to(d),
+            tuple(t.to(d) for t in env["tables"]), Lmap, mfl, min_score, e,
+            T_, vcap, hyb=(v.text, v.rank_start))
+    want = greedy.greedy_search_plain(
+        *lanes, flat, frag_off, rf_rows, dv.rec, dv.C, env["tables"], Lmap,
+        mfl, min_score, e, T_,
+        hyb=(dv.text, dv.rank_start, dv.sa_seq, dv.sa_off, dv.nseq,
+             dv.chpt_exp))
+    torch.cuda.synchronize()
+    for g, c, w in zip(got[cuda], got["cpu"], want):
+        assert torch.equal(g.cpu(), w) and torch.equal(c, w)
+    for name in ("greedy_variants_hosts", "switch_hosts", "greedy_levels"):
+        assert kernels.LAUNCHES[name] > 0, name
+    gpu = _greedy_args(env, env["reads"], e, cuda, vcap)
+    (rec, C, seed, gflat, gfrag, grf, sa_seq, sa_off, seq_tax, par, dep,
+     tables, K, lmap, mfl_, ms, e_, T2, R, cap, _n, _c, vc) = gpu
+    want = greedy.fused_greedy_classify(
+        *gpu, hyb=(dv.text.to(cuda), dv.rank_start.to(cuda)))
+    v = views[cuda]
+    got = greedy.fused_greedy_classify_hosts(
+        v, v.exchange, seed, gflat, gfrag, grf, seq_tax, par, dep, tables,
+        K, lmap, mfl_, ms, e_, T2, R, cap, vc, hyb=(v.text, v.rank_start))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert kernels.LAUNCHES["ranges_lca_hosts"] > 0

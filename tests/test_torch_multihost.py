@@ -218,9 +218,15 @@ def _check_shards(env, tag, nprocs, S, text, hosts, mode):
     N >= S, the shards o with o mod N = p for N < S), mapped every other
     one of its host from the process the routing rule names (over one
     host: process o mod N), had the others served in rounds (in every
-    stage of the mode's path), and left no file of them behind."""
+    stage of the mode's path; on the text index the hybrid's stages
+    "switch" and "text" ran too, but for -e 0, whose funnel never
+    switches: each with rounds in MEM, and "switch" with rounds in Greedy,
+    whose few last-level switches of these reads may find every text row
+    on their host), and left no file of them behind."""
     stages = ("extend", "variants", "walk") if mode == "greedy" else (
         "extend", "walk")  # no variant level at -e 0
+    hybrid = ("switch", "text") if text and mode != "greedy-e0" else ()
+    served = stages + (hybrid if mode == "mem" else hybrid[:1])
     arrays = {"rec", "sa_seq", "sa_off"} | ({"text"} if text else set())
     holders = set()
     for p in range(nprocs):
@@ -238,8 +244,8 @@ def _check_shards(env, tag, nprocs, S, text, hosts, mode):
                    for a in arrays)
         if len(set(hosts)) > 1:  # every stage ran rounds
             assert got["host"] == hosts[p]
-            assert {"seed", *stages} == set(got["rounds"])
-            assert all(got["rounds"][k]["rounds"] > 0 for k in stages), (
+            assert {"seed", *stages, *hybrid} == set(got["rounds"])
+            assert all(got["rounds"][k]["rounds"] > 0 for k in served), (
                 got["rounds"])
             assert got["rounds"]["seed"]["queries"] > 0
         else:
@@ -279,9 +285,10 @@ def test_mem_across_hosts_merges_to_the_single_process_tsv(env, nprocs, mesh,
                                                            ktx):
     """MEM with --mesh-index over processes labelled as several hosts: a
     shard that no process of a host holds is served by its owner in rounds
-    (the seed tables, O's steps, Q's walks); the merged TSV is the
-    single-process TSV and the ExactClassifier's, with and without a text
-    copy (the hybrid off across hosts)."""
+    (the seed tables, O's steps, Q's walks, and on the text index the
+    hybrid's walks and text rows, stages "switch" and "text", each of
+    which ran rounds); the merged TSV is the single-process TSV and the
+    ExactClassifier's, with and without a text copy."""
     single = _check_run(env, "mem", mesh, nprocs, by_env, ktx, hosts)
     if ktx == "ktx_text":
         assert single == _single(env, "mem")[0]
@@ -294,9 +301,10 @@ def test_greedy_across_hosts_merges_to_the_single_process_tsv(
     """Greedy (the default flags, -e 3) with --mesh-index over processes
     labelled as several hosts: the seed tables, O's steps, X's variant
     steps (each level's rounds) and Q's walks of a remote shard are served
-    by its owner in rounds; the merged TSV is the single-process TSV and
-    the ExactClassifier's, with and without a text copy (the hybrid off
-    across hosts)."""
+    by its owner in rounds, and on the text index the last level's
+    switched variants' walks and text rows (stages "switch" and "text",
+    each of which ran rounds); the merged TSV is the single-process TSV
+    and the ExactClassifier's, with and without a text copy."""
     single = _check_run(env, "greedy", mesh, nprocs, by_env, ktx, hosts)
     if ktx == "ktx_text":
         assert single == _single(env, "greedy")[0]

@@ -45,6 +45,7 @@ from kaiju_tpu_torch.tools import kaiju as tkaiju
 from conftest import make_db_records, write_nodes_dmp
 from readgen import make_reads, reverse_translate, write_fastq
 from test_exact_parity import _diff, _lowcomp_reads
+from test_torch_hybrid_hosts import text_view
 
 RANK_SHARDS = (2, 3, 4)  # 2 and 4 leave a padded last shard (nb = 27)
 EXTEND_SHARDS = (2, 4)
@@ -369,6 +370,32 @@ def test_sharded_pipeline_rows_match_sharded_classifier(env, tag):
         d, r = divmod(g, per)
         assert rows[g].tolist() == want[d, r].tolist(), reads[g][0]
     assert (rows[:, 1] > 0).sum() > 30
+
+
+def test_hosts_pipeline_rows_with_hybrid_match_sharded_classifier(env):
+    """Over a group on several hosts (shard 1 of 2 remote, its rows,
+    samples and text rows served in rounds by the in-process server of
+    tests/test_torch_hybrid_hosts.py), ShardedMemPipeline runs the hybrid
+    on the text index (O's stop, Y in stages "switch" and "text", C, W, Q,
+    W), and its device rows equal ShardedMemClassifier.classify's with the
+    hybrid, read by read."""
+    cfg = TorchConfig(mode="mem", seg=True, use_Evalue=False)
+    idx = env["index"]["text"]
+    view = text_view(ShardedIndex(idx, 2, "cpu"), (1,))
+    pipe = ShardedMemPipeline(idx, TorchTaxonomy(env["nodes"]), cfg, 2,
+                              kmer_cache_dir=_cache(env, "text"), view=view)
+    assert pipe._hyb is not None and pipe.dev.exchange is view.exchange
+    reads = env["reads"]
+    _reads, oflow, rows = pipe.submit_batch(reads)
+    rows = rows.numpy()
+    want = np.asarray(env["jax"]()["classify"]["text"])
+    per = len(reads) // N_DATA
+    assert not oflow.any()
+    for g in range(len(reads)):
+        d, r = divmod(g, per)
+        assert rows[g].tolist() == want[d, r].tolist(), reads[g][0]
+    assert view.exchange.stages.get("switch", 0) > 0
+    assert view.exchange.stages.get("text", 0) > 0
 
 
 @pytest.mark.parametrize("tag, shards", [("fmi", (1, 2)), ("text", (2, 4))],

@@ -32,11 +32,13 @@ from kaiju_tpu_torch.index import py_builder
 from kaiju_tpu_torch.io.taxonomy import Taxonomy as TorchTaxonomy
 from kaiju_tpu_torch.ops.greedy import FLAG_SCRATCH, FLAG_TIE_ORDER
 from kaiju_tpu_torch.parallel.sharded_fused import ShardedGreedyPipeline
+from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
 from kaiju_tpu_torch.tools import kaiju as tkaiju
 
 from conftest import make_db_records, write_nodes_dmp
 from readgen import make_reads, reverse_translate, write_fastq
 from test_exact_parity import _diff, _lowcomp_reads
+from test_torch_hybrid_hosts import text_view
 
 N_INDEX = 2  # index shards of the JAX classifier (mesh 4 x 2)
 MISMATCHES = 2
@@ -183,6 +185,36 @@ def test_sharded_greedy_rows_match_sharded_classifier(env, tag):
             assert list(_norm(res)) == want["results"][g], name
     assert (rows[:, 1] > 0).sum() > 30
     assert sum(res.classified for _n, res in results) > 25
+
+
+def test_hosts_greedy_rows_with_hybrid_match_sharded_classifier(env):
+    """Over a group on several hosts (shard 0 of N_INDEX remote, its rows,
+    samples and text rows served in rounds by the in-process server of
+    tests/test_torch_hybrid_hosts.py), ShardedGreedyPipeline runs the
+    hybrid on the text index (X's last-level stop, Y in stages "switch"
+    and "text", U's virtual tie rows, V, Q, W), and its device rows equal
+    ShardedGreedyClassifier's with the hybrid (the port's own flags
+    aside), read by read."""
+    cfg = TorchConfig(mode="greedy", mismatches=MISMATCHES)
+    idx = env["index"]["text"]
+    view = text_view(ShardedIndex(idx, N_INDEX, "cpu"), (0,))
+    pipe = ShardedGreedyPipeline(idx, TorchTaxonomy(env["nodes"]), cfg,
+                                 N_INDEX, kmer_cache_dir=_cache(env, "text"),
+                                 view=view)
+    assert pipe._hyb is not None and pipe.dev.exchange is view.exchange
+    reads = env["reads"]
+    rows = pipe.submit_batch(reads)[2].numpy()
+    want = env["jax"]()["text"]
+    per = want["per"]
+    for g in range(len(reads)):
+        d, r = divmod(g, per)
+        lca, best, flags, n_ids = rows[g].tolist()
+        if not flags & FLAG_SCRATCH:
+            w = want["rows"][d][r]
+            assert (lca, best, flags & 3, n_ids) == (
+                w[0], w[1], w[2] & 3, w[3]), reads[g][0]
+    assert (rows[:, 1] > 0).sum() > 30
+    assert view.exchange.stages.get("switch", 0) > 0
 
 
 def test_cli_mesh_index_greedy_tsv(env, monkeypatch):
