@@ -194,7 +194,9 @@ Phases, any failure exits non-zero:
      host's peak RSS;
   4j. processes on several hosts, rehearsed on one machine (each process
      given a host label through peer_shards.host_name; every host is this
-     machine and the transport gloo over loopback): tools.kaiju.main with
+     machine, and the rounds run card to card over NCCL where every slot
+     of the group has a card of its own, else over gloo on loopback):
+     tools.kaiju.main with
      the default flags (Greedy) with --mesh-index 2 as 2 processes on
      hosts a, b, Greedy and -a mem with --mesh-index 4 as 3 processes on
      a, a, b (and 4 processes on a, a, b, b where there are four cards),
@@ -210,8 +212,13 @@ Phases, any failure exits non-zero:
      one-host kernel that reads the index (no E, F, B, D or G), each card
      must hold, read, map and have served in rounds the shards of the slot
      rules, with rounds in every stage of the path on every card (the seed
-     tables' on card 0), each read must be written once by its owner and
-     the merged lines equal phase 4's lines of the mode; on db_text.ktx a
+     tables' on card 0) over the transport that the rule restated here
+     gives (transport_rule; no copy under NCCL), each read must be
+     written once by its owner and the merged lines equal phase 4's lines
+     of the mode; with --only-hosts and two cards or more, Greedy on
+     db_text.ktx at --mesh-index 2 on a, b (and 4 on a, a, b, b) is
+     followed by its twin over gloo, whose lines and rounds must be equal,
+     the pair's rates and seconds printed; on db_text.ktx a
      line counts the intervals switched to Y and the positions Q walked
      of those listed; process 0 holds
      each hosts kernel on the arguments of its first card's first rounds
@@ -334,6 +341,10 @@ HOST_READS = BATCH  # reads of each 4j run, its one-host reference's too
 # (the other runs compare them with their plain versions untimed)
 HOST_TIMED = ("text", 4, "aab", 1)
 HOST_INDEXES = {"greedy": ("text", "fmi"), "mem": ("text",)}
+# under --only-hosts with two cards or more, the runs (mode, index,
+# --mesh-index, hosts) that a twin over gloo follows (kaiju_worker's
+# --transport gloo replaces the rule), aabb where there are four cards
+HOST_TWINS = (("greedy", "text", 2, "ab"), ("greedy", "text", 4, "aabb"))
 # the runs of each mode (--mesh-index, hosts), and of Greedy on db.ktx
 HOST_MODE_RUNS = {"greedy": ((2, "ab"), (4, "aab")), "mem": ((4, "aab"),)}
 HOST_FMI_RUNS = ((4, "aab"), (4, "aabb"))
@@ -2455,7 +2466,10 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     NAME` first, the process's host label, and then process 0 checks the
     hosts kernels instead, check_hosts_calls, and the exchange's counts
     are reported; `--cards c0,c1` next gives main() those cards, else the
-    process takes its share of the machine's, multihost.process_cards).
+    process takes its share of the machine's, multihost.process_cards;
+    `--transport gloo` between them replaces the rule that picks the
+    rounds' transport, exchange.backend_for, as --host replaces
+    host_name: the gloo twin of an NCCL run).
     Right after set-up (the runner made, its seconds kept) every process
     waits for the others and reads the card's used memory; with
     --mesh-index it reports the shards each of its cards holds and maps
@@ -2480,6 +2494,9 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         host = argv[1]
         argv = argv[2:]
         peer_shards.host_name = lambda: host
+    if argv[:2] == ["--transport", "gloo"]:  # 4j: an NCCL run's twin
+        argv = argv[2:]
+        exchange.backend_for = lambda slots: "gloo"
     if argv[:1] == ["--cards"]:
         cards = argv[1].split(",")
         argv = argv[2:]
@@ -2532,6 +2549,8 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         info["rounds"] = exchange.COUNTS
         info["card_rounds"] = [p.dev.exchange.counts if p.dev.exchange
                                else {} for p in pipes]
+        info["backends"] = [p.dev.exchange.backend if p.dev.exchange
+                            else None for p in pipes]
         info["checks"] = check_hosts_calls(
             first, timed=os.environ.get("CHIP_SMOKE_TIMED") == "1")
     else:
@@ -2569,6 +2588,18 @@ def dealt_cards(p: int, nprocs: int) -> list:
         return [f"cuda:{p % n}"]
     k = n // nprocs
     return [f"cuda:{p * k + i}" for i in range(k)]
+
+
+def transport_rule(slots: list) -> str:
+    """The transport of the rounds of a group whose process p runs on the
+    cards slots[p] ("cuda:i" on this machine), restated from
+    exchange.backend_for: NCCL where every slot is a card and no two
+    slots share one, else gloo."""
+    cards = [c for cs in slots for c in cs]
+    if all(c.startswith("cuda:") for c in cards) and \
+            len(set(cards)) == len(cards):
+        return "nccl"
+    return "gloo"
 
 
 def slot_rule(g: int, hosts: str, per: int, n_shards: int):
@@ -3620,11 +3651,12 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
 
 
 def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
-                  timed: bool, per: int = 1):
+                  timed: bool, per: int = 1, transport=None):
     """len(hosts) processes of this script as --kaiju-worker, process p
     labelled host hosts[p] and on `per` cards (worker_cards; with one, its
     share of the machine's, dealt_cards), each with an empty seed-table
-    cache of its own, process 0 timing its checks where `timed`; returns
+    cache of its own, process 0 timing its checks where `timed`, the rule
+    of the rounds' transport replaced by `transport` where given; returns
     (outputs, counts files, logs, exit codes, wall seconds)."""
     coord = f"127.0.0.1:{free_port()}"
     outs, counts, logs, procs = [], [], [], []
@@ -3642,6 +3674,7 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--kaiju-worker",
                  counts[p], "--host", host,
+                 *(["--transport", transport] if transport else []),
                  *(["--cards", ",".join(cards)] if cards else []), *argv,
                  "-o", outs[p],
                  "--dist-nprocs", str(len(hosts)), "--dist-coordinator",
@@ -3659,7 +3692,7 @@ def start_workers(argv: list, hosts: str, tag: str, work: str, ktx: str,
 
 
 def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
-              tag, per=1):
+              tag, per=1, transport=None):
     """tools.kaiju.main in `mode` with --mesh-index n_shards as len(hosts)
     processes, process p labelled host hosts[p] (peer_shards.host_name)
     on `per` cards (worker_cards, dealt_cards), on the first HOST_READS
@@ -3667,31 +3700,40 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
     (HOST_PATHS) and no kernel of the one-host paths that reads the index,
     each card must hold, read, map and have served in rounds the shards of
     the slot rules (check_slots), with rounds in every stage of the path
-    on every card (the seed tables' on the first), and the lines merged by
+    on every card (the seed tables' on the first) over the transport of
+    the rule (transport_rule, or `transport` where given, which replaces
+    it: the gloo twin), with no copy under NCCL, and the lines merged by
     read must equal phase 4's of the mode (base_tsv).  Process 0 holds
     each hosts kernel on its first card's first rounds' arguments against
     its plain version (check_hosts_calls).  Returns (launch counts of all
-    the processes, each process's report, the stream's rate)."""
+    the processes, each process's report, the stream's rate, the merged
+    lines by read)."""
     import torch
 
     from kaiju_tpu_torch.parallel.multihost import local_rows
 
     work = os.path.dirname(ktx)
     name = (f"{mode} --mesh-index {n_shards} on hosts {','.join(hosts)} "
-            f"({tag}{', %d cards a process' % per if per > 1 else ''})")
+            f"({tag}{', %d cards a process' % per if per > 1 else ''}"
+            f"{', the gloo twin' if transport else ''})")
     argv = ["-t", nodes, "-f", ktx, "-i", mesh_fastq(reads, ktx, HOST_READS),
             *PATHS[mode][1], "--mesh-index", str(n_shards), "-b", str(BATCH)]
     gc.collect()
     torch.cuda.empty_cache()
     outs, counts, logs, rcs, wall = start_workers(
-        argv, hosts, f"{mode}_{tag}_{n_shards}_{hosts}_{per}", work, ktx,
-        (tag, n_shards, hosts, per) == HOST_TIMED, per)
+        argv, hosts, f"{mode}_{tag}_{n_shards}_{hosts}_{per}"
+        + (f"_{transport}" if transport else ""), work, ktx,
+        (tag, n_shards, hosts, per) == HOST_TIMED and not transport, per,
+        transport)
     if any(rcs):
         for p, fh in enumerate(logs):
             with open(fh.name) as f:
                 log(f"process {p} ({rcs[p]}): " + f.read()[-3000:])
         raise AssertionError(f"{name}: exit codes {rcs}")
     across = len(set(hosts)) > 1
+    backend = (transport or transport_rule(
+        [worker_cards(q, len(hosts), per) or dealt_cards(q, len(hosts))
+         for q in range(len(hosts))])) if across else None
 
     def served(c: int, per: int) -> bool:
         """Whether a slot of card index c has a shard served in rounds."""
@@ -3728,6 +3770,14 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
                 + f" ({json.dumps(lay['bytes_held'])} held, "
                 f"{json.dumps(lay['bytes_remote'])} served, bytes)")
         for c, rounds in enumerate(got["card_rounds"]):
+            took = got["backends"][c]
+            if across:
+                log(f"4j {name} process {p} card {c} ({got['cards'][c]}): "
+                    f"rounds over {took}, the rule {backend}")
+            if took != backend:
+                raise AssertionError(f"{name} process {p} card {c}: its "
+                                     f"exchange runs over {took}, the rule "
+                                     f"gives {backend}")
             for stage, k in sorted(rounds.items()):
                 r = max(k["rounds"], 1)
                 each = (f"{k['rounds'] / batches:.1f} a batch"
@@ -3735,9 +3785,12 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
                 log(f"4j rounds {name} process {p} card {c} {stage}: "
                     f"{k['rounds']} rounds ({each}), {k['queries'] / r:,.1f} "
                     f"queries and {k['sent'] / r:,.1f} sent to a peer a "
-                    f"round, {k['bytes'] / r:,.0f} bytes a round over gloo; "
-                    f"seconds: copies {k['copy_s']:.4f}, transport "
+                    f"round, {k['bytes'] / r:,.0f} bytes a round over "
+                    f"{took}; seconds: copies {k['copy_s']:.4f}, transport "
                     f"{k['transport_s']:.4f}, N {k['serve_s']:.4f}")
+                if took == "nccl" and k["copy_s"]:
+                    raise AssertionError(f"{name} process {p} card {c} "
+                                         f"{stage}: copies under NCCL")
             # card c's group runs rounds where a slot of card index c has
             # a remote shard (with one whole index a process, none does);
             # the seed tables' rounds run on card 0 alone
@@ -3813,7 +3866,7 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
         f"{max(r['setup'] for r in reports):.2f} s")
     if len(lines) != HOST_READS or same != HOST_READS:
         raise AssertionError(f"{name}: the merged lines differ from phase 4's")
-    return launches, reports, HOST_READS / stream
+    return launches, reports, HOST_READS / stream, lines
 
 
 # the kernels line's row of each hosts kernel: its forms on process 0's
@@ -3849,8 +3902,49 @@ HOST_ROWS = {
 }
 
 
+def run_twin(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
+             tag, first) -> dict:
+    """The gloo twin of an NCCL run (run_hosts with transport "gloo", the
+    same reads): its merged lines must equal the first run's (`first`, as
+    run_hosts returns it) and every card's rounds, queries, sent and bytes
+    in every stage; logs the pair's rates and process 0's seconds in the
+    transport, the copies and N.  Returns the twin's launch counts."""
+    counts, reports, rate, lines = run_hosts(
+        index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv, tag,
+        transport="gloo")
+    _c, first_reports, first_rate, first_lines = first
+    name = f"{mode} --mesh-index {n_shards} on hosts {','.join(hosts)} ({tag})"
+    if lines != first_lines:
+        raise AssertionError(f"{name}: the gloo twin's lines differ")
+    keep = ("rounds", "queries", "sent", "bytes")
+    for p, (a, b) in enumerate(zip(first_reports, reports)):
+        for c, (ra, rb) in enumerate(zip(a["card_rounds"], b["card_rounds"])):
+            if {st: [k[f] for f in keep] for st, k in ra.items()} != \
+                    {st: [k[f] for f in keep] for st, k in rb.items()}:
+                raise AssertionError(f"{name} process {p} card {c}: rounds "
+                                     f"{ra} over {a['backends'][c]}, {rb} "
+                                     f"over {b['backends'][c]}")
+
+    def seconds(rep):
+        return {f: sum(k[f] for r in rep["card_rounds"] for k in r.values())
+                for f in ("transport_s", "copy_s", "serve_s")}
+
+    for rep, r in ((first_reports, first_rate), (reports, rate)):
+        sec = seconds(rep[0])
+        log(f"4j pair {name}, over {rep[0]['backends'][0]}: {r:,.1f} reads/s "
+            f"(the stream after set-up, the slowest process); process 0's "
+            f"seconds over its cards and stages, the seed tables' rounds at "
+            f"set-up among them: transport {sec['transport_s']:.4f}, "
+            f"copies {sec['copy_s']:.4f}, N {sec['serve_s']:.4f}")
+    log(f"4j pair {name}: the lines and every card's rounds, queries, sent "
+        f"and bytes in every stage equal over "
+        f"{first_reports[0]['backends'][0]} and gloo; rate "
+        f"{first_rate / rate:.3f}x the twin's")
+    return counts
+
+
 def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
-                 smi: str) -> tuple[dict, dict]:
+                 smi: str, twins: bool = False) -> tuple[dict, dict]:
     """Phase 4j: Greedy and MEM with --mesh-index over processes labelled
     as several hosts (HOST_MODE_RUNS, and HOST_RUNS_4 where there are four
     cards) on each mode's indexes (HOST_INDEXES; db.ktx at HOST_FMI_RUNS
@@ -3858,7 +3952,8 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
     cards a process, with a one-host group of the same mode, first, as
     the reference rate (2 processes, --mesh-index 2, db_text.ktx, the same
     HOST_READS reads); base_tsvs: phase 4's TSV of each mode on the text
-    index.
+    index.  With `twins` and two cards or more, each run of HOST_TWINS is
+    followed by its gloo twin (run_twin).
     Returns (launch counts over all the runs, the
     kernels line's rows of the hosts kernels: (err, ms, plain_ms,
     bound_ms, note), from the text index's runs at S = 4 on hosts a, a, b,
@@ -3868,9 +3963,10 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
     cards = torch.cuda.device_count()
     log(f"4j: processes on hosts labelled by peer_shards.host_name, each on "
         f"its share of the {cards} card(s) or on the cards given (the run "
-        "of two cards a process); every host is this machine and the "
-        "transport gloo over loopback: no run spans two real hosts "
-        f"({smi})")
+        "of two cards a process); every host is this machine, and the "
+        "rounds go card to card over NCCL (NVLink or P2P here) where every "
+        "slot has a card of its own, else over gloo on loopback: no run "
+        f"spans two real hosts ({smi})")
     launches = {k: 0 for k in REPLACES}
     checks: dict = {}
     errs: dict = {}
@@ -3885,11 +3981,18 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
             for tag in tags:
                 if tag == "fmi" and (n_shards, hosts) not in HOST_FMI_RUNS:
                     continue
-                counts, reports, rate = run_hosts(
+                run = run_hosts(
                     indexes[tag], reads, ktx[tag], nodes, mode, n_shards,
                     hosts, base_tsvs[mode], tag, per)
+                counts, reports, rate, _lines = run
                 for k, c in counts.items():
                     launches[k] += c
+                if twins and cards >= 2 and per == 1 and \
+                        (mode, tag, n_shards, hosts) in HOST_TWINS:
+                    for k, c in run_twin(indexes[tag], reads, ktx[tag],
+                                         nodes, mode, n_shards, hosts,
+                                         base_tsvs[mode], tag, run).items():
+                        launches[k] += c
                 if len(set(hosts)) == 1:
                     ref = rate
                     continue
@@ -4492,7 +4595,8 @@ def run(args) -> int:
         if args.only_hosts:
             counts, rows = run_phase_4j(
                 indexes, reads, ktx, nodes,
-                {m: t["text"] for m, t in tsvs.items()}, lat_ns, smi)
+                {m: t["text"] for m, t in tsvs.items()}, lat_ns, smi,
+                twins=True)
             log_checks(rows, "4j, text index, 4 shards on hosts a, a, b")
             if any(v[0] for v in rows.values()):
                 raise AssertionError("a hosts kernel differs from its plain "

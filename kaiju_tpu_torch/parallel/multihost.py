@@ -45,9 +45,10 @@ the same capacity retry (sharded_fused.py:366-373), and the port has no
 capacity retry.  The group serves the rendezvous, the deal of the
 cards, the exchange of the shards' handles, one barrier at the end of
 each stream, so that no process tears the group down while a peer still
-writes, and the shards' teardown (``before_leave``); over several hosts,
-each card index has a group of its own for its rounds
-(``parallel.exchange``).
+writes, and the shards' teardown (``before_leave``).  Over several
+hosts each card index has a group of its own for its rounds
+(``card_groups``, ``parallel.exchange``): NCCL where every slot of the
+group has a card of its own, else gloo (``exchange.backend_for``).
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ def init_distributed(coordinator: str, nprocs: int, pid: int) -> None:
 
 
 _BEFORE_LEAVE: list = []
+_GROUPS: list = []  # the groups a card index (card_groups)
 
 
 def before_leave(fn) -> None:
@@ -88,8 +90,48 @@ def _leave() -> None:
 
     while _BEFORE_LEAVE:
         _BEFORE_LEAVE.pop()()
+    while _GROUPS:  # after the shards' teardown, before the world group
+        dist.destroy_process_group(_GROUPS.pop())
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def card_groups(group, cards: list, backend: str) -> list:
+    """One group of the processes of `group` (the world group; every
+    process calls it together) for each card index of this process's
+    `cards`, on `backend`, made in card order: card c's rounds run over
+    the c-th, of card c of every process.  With gloo and one card, `group`
+    itself.  Each NCCL communicator starts here, on this thread and in
+    card order, before any card thread runs: one all-reduce, and one
+    all-to-all of an element a process, which connects every pair of
+    processes as a round's all-to-alls do (NCCL connects them at their
+    first send), so that a fault, or the connections' seconds, show at
+    set-up and not in a round.  The groups are destroyed when the process
+    leaves, after the ``before_leave`` functions and before the world
+    group."""
+    import torch.distributed as dist
+
+    if backend == "gloo" and len(cards) == 1:
+        return [group]
+    n = dist.get_world_size(group)
+    ranks = list(range(n))
+    groups = []
+    for card in cards:
+        g = dist.new_group(ranks, backend=backend)
+        _GROUPS.append(g)
+        if backend == "nccl":
+            t = torch.ones(1, device=card)
+            dist.all_reduce(t, group=g)
+            got = torch.empty(n, dtype=torch.int64, device=card)
+            dist.all_to_all_single(got, torch.full(
+                (n,), dist.get_rank(group), dtype=torch.int64, device=card),
+                group=g)
+            if int(t.item()) != n or got.tolist() != ranks:
+                raise RuntimeError(
+                    f"the NCCL group of {card} summed {int(t.item())} of "
+                    f"{n} ones and exchanged {got.tolist()}")
+        groups.append(g)
+    return groups
 
 
 def deal_cards(machines: list, pid: int, cards: int) -> list[int]:

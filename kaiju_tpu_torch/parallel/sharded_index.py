@@ -35,9 +35,11 @@ it from a process of its host that holds it (``parallel.peer_shards``,
 CUDA IPC on the card): the same layout, only the pointers in the tables
 change.  Over a group whose processes lie on several hosts, a shard that
 no slot of this host holds is remote (``remote``: its part is None, its
-pointers 0): each card's ``exchange`` (``parallel.exchange.Exchange``)
-runs the rounds in which its owner serves its rows and samples, and only
-the hosts kernels (N, O, Q, W, U, X, V) read such a view.
+pointers 0): each card's ``exchange`` (``parallel.exchange.Exchange``,
+card to card over NCCL where every slot of the group has a card of its
+own, else over gloo) runs the rounds in which its owner serves its rows,
+samples and text rows, and only the hosts kernels (N, O, Q, W, U, X, V,
+Y) read such a view.
 """
 
 from __future__ import annotations
@@ -48,8 +50,7 @@ import torch
 from ..index.core import BLOCK, KaijuIndex
 from ..ops.device_index import (Shards, build_fused_records, extend_all,
                                 extend_all_plain, sa_lookup, sa_lookup_plain)
-from . import multihost, peer_shards
-from .exchange import Exchange
+from . import exchange, multihost, peer_shards
 from .peer_shards import PeerShards
 
 
@@ -140,10 +141,13 @@ class ShardedIndex:
         where the two cards differ (raises where they have none), and maps
         the shards of another process of its host; ``share`` (the group's
         ``PeerShards``, shared by the views) releases them.  Over several
-        hosts each card has an ``exchange`` of its own, over a gloo group
-        of the card index (D groups made in the same order in every
-        process: the D cards run their rounds at once).  The host records
-        are built once."""
+        hosts each card has an ``exchange`` of its own, over a group of
+        its card index (``multihost.card_groups``: D groups made in the
+        same order in every process, since the D cards run their rounds
+        at once) on the transport that every slot's physical card gives
+        (``exchange.transport``, from the slots gathered here, so that
+        every process decides alike): NCCL where no two slots share a
+        card, else gloo.  The host records are built once."""
         import torch.distributed as dist
 
         host = _Host(index, int(n_shards))
@@ -151,11 +155,12 @@ class ShardedIndex:
         share = PeerShards(cards, host.S, group)
         parts = share.parts(host.parts)
         D = len(cards)
-        groups = [group] * D
-        if share.spans_hosts and D > 1:  # a group of its own a card index
-            N = dist.get_world_size(group)
-            groups = [dist.new_group(list(range(N)), backend="gloo")
-                      for _c in range(D)]
+        if share.spans_hosts:  # rounds: the transport and its groups
+            slots = [None] * dist.get_world_size(group)
+            dist.all_gather_object(slots, [exchange.card_identity(c)
+                                           for c in cards], group=group)
+            backend = exchange.transport(slots)
+            groups = multihost.card_groups(group, cards, backend)
         shared: dict = {}
         views = []
         for c in range(D):
@@ -170,8 +175,9 @@ class ShardedIndex:
             view.host = share.hosts[share.pid]
             view.shared = shared
             if share.spans_hosts:  # the group's hosts differ: rounds
-                view.exchange = Exchange(view, groups[c], [
-                    view.remote.get(o, share.pid) for o in range(view.S)])
+                view.exchange = exchange.Exchange(view, groups[c], [
+                    view.remote.get(o, share.pid) for o in range(view.S)],
+                    backend)
             views.append(view)
         return views
 

@@ -392,6 +392,7 @@ def _check_slots(env, tag, S, text, hosts, mode):
                        for a in arrays)
             if across:
                 assert lay["host"] == hosts[p] and remote
+                assert lay["backend"] == "gloo"  # CPU slots: no NCCL
                 rounds = lay["card_rounds"]
                 assert set(rounds) == set(stages) | set(hybrid) | (
                     {"seed"} if c == 0 else set()), rounds
@@ -400,7 +401,7 @@ def _check_slots(env, tag, S, text, hosts, mode):
                     assert rounds["seed"]["queries"] > 0
             else:
                 assert not remote and not lay["rounds"]
-                assert "card_rounds" not in lay
+                assert "card_rounds" not in lay and lay["backend"] is None
             holders.update(mine)
             assert not os.path.exists(lay["run_dir"]), lay["run_dir"]
         if across and hybrid:

@@ -1162,6 +1162,88 @@ def test_sharded_kernels_read_shards_of_another_card(env, two_cards, S):
 
 
 @pytest.fixture(scope="module")
+def nccl_pair(tmp_path_factory):
+    """Two processes of tests/torch_exchange_worker.py on cuda:0 and
+    cuda:1, labelled hosts a and b, each with a hosts view at S = 4 whose
+    other host's shards are remote: its exchange over NCCL (a card a
+    slot), then a twin over gloo's staged form on the same inputs; the
+    two reports."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from kaiju_tpu_torch import kernels
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a process on each, over NCCL)")
+    for src in ("fm_serve", "walk_hosts", "peer"):  # built before the pair
+        kernels.load(src)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    work = tmp_path_factory.mktemp("nccl_pair")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests",
+                                      "torch_exchange_worker.py"),
+         coord, str(p), str(work / f"p{p}.json")], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(2)]
+    try:
+        logs = [proc.communicate(timeout=300)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert [proc.returncode for proc in procs] == [0, 0], "\n".join(
+        log[-3000:] for log in logs)
+    reports = []
+    for p in range(2):
+        with open(work / f"p{p}.json") as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def test_nccl_rounds_on_two_cards_answer_as_n_plain(nccl_pair):
+    """Every slot has a card of its own, so the exchange runs over NCCL,
+    with no copy: one round of N's four query kinds to every shard equals
+    N's plain version on the whole index."""
+    for p, rep in enumerate(nccl_pair):
+        r = rep["nccl"]
+        assert r["backend"] == "nccl" and not r["staged"]
+        assert r["remote"] == [o for o in range(4) if o % 2 != p]
+        assert r["serve_equal"], p
+        assert r["counts"]["seed"]["sent"] > 0
+        assert all(k["copy_s"] == 0 for k in r["counts"].values())
+
+
+def test_nccl_walks_on_two_cards_match_plain(nccl_pair):
+    """Q's walks in rounds over NCCL end where the plain SA walk on the
+    whole index ends."""
+    for p, rep in enumerate(nccl_pair):
+        r = rep["nccl"]
+        assert r["parked"] > 0 and r["counts"]["walk"]["rounds"] > 1
+        assert r["walk_equal"], p
+
+
+def test_nccl_rounds_on_two_cards_equal_the_staged_gloo_form(nccl_pair):
+    """The gloo twin (pinned host buffers) on the same inputs gives the
+    same answers in the same rounds, queries, sent and bytes."""
+    for p, rep in enumerate(nccl_pair):
+        g = rep["gloo"]
+        assert g["backend"] == "gloo" and g["staged"]
+        assert g["serve_equal"] and g["walk_equal"] and rep["same"], p
+        for stage, k in rep["nccl"]["counts"].items():
+            for f in ("rounds", "queries", "sent", "bytes"):
+                assert g["counts"][stage][f] == k[f], (p, stage, f)
+        assert g["counts"]["walk"]["copy_s"] > 0
+
+
+@pytest.fixture(scope="module")
 def big_dbs():
     """Two toy databases of the big-index layout (K17): one whose last
     shard is full at S = 2 (N = 128 x 2 x 196), one that leaves it

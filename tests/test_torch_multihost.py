@@ -222,7 +222,8 @@ def _check_shards(env, tag, nprocs, S, text, hosts, mode):
     "switch" and "text" ran too, but for -e 0, whose funnel never
     switches: each with rounds in MEM, and "switch" with rounds in Greedy,
     whose few last-level switches of these reads may find every text row
-    on their host), and left no file of them behind."""
+    on their host, over gloo, since CPU slots rule NCCL out), and left no
+    file of them behind."""
     stages = ("extend", "variants", "walk") if mode == "greedy" else (
         "extend", "walk")  # no variant level at -e 0
     hybrid = ("switch", "text") if text and mode != "greedy-e0" else ()
@@ -242,14 +243,16 @@ def _check_shards(env, tag, nprocs, S, text, hosts, mode):
         assert all(got["bytes_held"][a] > 0 for a in arrays)
         assert all((got["bytes_opened"][a] > 0) == bool(opened)
                    for a in arrays)
-        if len(set(hosts)) > 1:  # every stage ran rounds
+        if len(set(hosts)) > 1:  # every stage ran rounds, over gloo
             assert got["host"] == hosts[p]
+            assert got["backend"] == "gloo"  # CPU slots: no NCCL
             assert {"seed", *stages, *hybrid} == set(got["rounds"])
             assert all(got["rounds"][k]["rounds"] > 0 for k in served), (
                 got["rounds"])
             assert got["rounds"]["seed"]["queries"] > 0
         else:
             assert not remote and not got["rounds"]
+            assert got["backend"] is None
         holders.update(want)
         assert not os.path.exists(got["run_dir"]), got["run_dir"]
     assert holders == set(range(S))

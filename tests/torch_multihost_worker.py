@@ -8,7 +8,8 @@ processes on one machine rehearse a group on several hosts; `--slots K`
 runs the process on K CPU slots, device=["cpu"] * K, as a process on K
 cards.  With --mesh-index it also writes, beside its -o file as
 <out>.shards.json, the layout of its ShardedIndex (the shards it holds,
-maps and has served in rounds, with the rounds of the whole process) and
+maps and has served in rounds, with the rounds of the whole process and
+its exchange's transport, "gloo" or "nccl", None without rounds) and
 the run directory of the mapped shards, before the process leaves its
 group and the shards are released; with slots, a list of those layouts,
 one a slot, each with its own rounds."""
@@ -47,8 +48,10 @@ def main(argv) -> int:
             report = p.dev.layout()
             report["run_dir"] = p.dev.share.run_dir
             report["rounds"] = exchange.COUNTS
+            report["backend"] = None
             if p.dev.exchange is not None:
                 report["card_rounds"] = p.dev.exchange.counts
+                report["backend"] = p.dev.exchange.backend
             reports.append(report)
         with open(argv[argv.index("-o") + 1] + ".shards.json", "w") as fh:
             json.dump(reports if isinstance(pipe, CardShare) else reports[0],
