@@ -455,16 +455,18 @@ def cuda_ms(fn, reps: int = 15, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def launch_ms(fn, reps: int = 15, warm: int = 2) -> float:
+def launch_ms(fn, reps: int = 15, warm: int = 2, kernels=None) -> float:
     """Median milliseconds that a call of fn() spends in its kernels on the
-    card: CUDA events around each kernels.launch inside fn, summed over
-    the call, each launch behind a sleep kernel that keeps the stream busy
-    while the host enqueues it.  What fn does between its launches (a
-    count read back from the card, host work) is left out, where cuda_ms
-    holds it."""
+    card: CUDA events around each launch of the kernel loader `kernels`
+    (this checkout's by default; compare_kernels.py passes another
+    checkout's) inside fn, summed over the call, each launch behind a
+    sleep kernel that keeps the stream busy while the host enqueues it.
+    What fn does between its launches (a count read back from the card,
+    host work) is left out, where cuda_ms holds it."""
     import torch
 
-    from kaiju_tpu_torch import kernels
+    if kernels is None:
+        from kaiju_tpu_torch import kernels
 
     for _ in range(warm):
         fn()
@@ -2509,9 +2511,10 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
     first = {}
     if host is not None:  # every process: the hybrid's tallies
         info_work = tally_hosts_work()
-    if pid == 0 and host is not None:
+    if host is not None:  # every process counts its forms' launches
         first = spy_hosts_calls("mem" if "mem" in argv else "greedy",
-                                only=first_card)
+                                only=first_card if pid == 0
+                                else (lambda: False))
     elif mesh and pid == 0:
         first = spy_first_calls("mem" if "mem" in argv else "greedy",
                                 only=first_card)
@@ -2546,6 +2549,7 @@ def kaiju_worker(counts_path: str, argv: list) -> int:
         info["layout"] = [p.dev.layout() for p in pipes]
     if host is not None:
         info["work"] = dict(info_work)  # before the checks' launches
+        info["forms"] = dict(FORM_LAUNCHES)
         info["rounds"] = exchange.COUNTS
         info["card_rounds"] = [p.dev.exchange.counts if p.dev.exchange
                                else {} for p in pipes]
@@ -3329,6 +3333,12 @@ def on_its_card(x, found: dict):
     return x
 
 
+# the calls with work of each hosts kernel's form in this process, by
+# spy_hosts_calls' keys (run_hosts holds N's and O's sums to their
+# kernels' launch counts)
+FORM_LAUNCHES: dict = {}
+
+
 def spy_hosts_calls(mode: str, only=None) -> dict:
     """Wrap the hosts kernels' wrappers where the hosts path of `mode`
     looks them up (N in parallel.exchange; O, Q and W's two forms in
@@ -3336,7 +3346,9 @@ def spy_hosts_calls(mode: str, only=None) -> dict:
     ops.greedy for Greedy), so that each keeps a copy of the arguments of
     its first call with work (of the first for which only() is true, if
     given), by form: {form: (wrapper, plain version, args, kwargs)},
-    filled as the run goes; unspy() puts the wrappers back."""
+    filled as the run goes, and counts each form's calls with work, from
+    every thread, in FORM_LAUNCHES; unspy() puts the wrappers back."""
+    import threading
     from kaiju_tpu_torch.ops import (classify, device_index, greedy, hybrid,
                                      search)
     from kaiju_tpu_torch.parallel import exchange
@@ -3386,10 +3398,14 @@ def spy_hosts_calls(mode: str, only=None) -> dict:
                   (greedy, "ranges_lca_list", classify.ranges_lca_list_plain)]
     specs.append((where, "lca_resolved", classify.lca_resolved_plain))
     first = {}
+    lock = threading.Lock()
     for mod, name, plain in specs:
         def wrap(*args, _fn=getattr(mod, name), _plain=plain,
                  _key=form(name), **kw):
             key, work = _key(args, kw)
+            if work:
+                with lock:
+                    FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
             if work and key not in first and (only is None or only()):
                 first[key] = (_fn, _plain, _snapshot(args),
                               {k: _snapshot(v) for k, v in kw.items()})
@@ -3530,8 +3546,7 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
     Returns {form: {"err", "ms", "plain_ms", "bytes"
     (the distinct record rows the plain version read, with the other
     inputs and the outputs), "work" (queries, lanes, variants, walks or
-    reads), "chain" (the longest chain of dependent loads, where counted:
-    N, U, V, W and X; else None)}}."""
+    reads), "chain" (the longest chain of dependent loads)}}."""
     import torch
 
     out = {}
@@ -3557,8 +3572,7 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
         chain = None
         if name == "fm_serve":
             err = max_abs_err(got[0], want[0]) + int(got[1])
-            q = a1[4]
-            work = q.shape[0]
+            work = a1[4].shape[0]
             other = work * (8 + 4 * a1[5])
             chain = 1  # a query, then its record row
         elif name == "mem_extend_hosts":
@@ -3567,6 +3581,11 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
             work = (k1["parked"].shape[0] if "parked" in k1
                     else a1[5].shape[0])
             other = 13 * got[0].shape[1] + 32 * (got[1].shape[0] + work)
+            # B's: the seed row and the bitmap word (the start form) or
+            # the parked lane and its answer (resume), then one row pair
+            # a step
+            chain = dep["steps"] + (1 if "parked" in k1 else
+                                    1 + (k1.get("bloom") is not None))
         elif name == "greedy_variants_hosts":
             err = max(max_abs_err(a1[4], a2[4]),
                       max_abs_err(_by_lane(*got), _by_lane(*want)))
@@ -3617,6 +3636,9 @@ def check_hosts_calls(first: dict, timed: bool = True) -> dict:
                       max_abs_err(_by_lane(*got), _by_lane(*want)))
             work = (k1["parked"] if "parked" in k1 else k1["rows"]).shape[0]
             other = 8 * work + 16 * got[0].shape[0]
+            # the row (or the parked walk and its answer), each LF round,
+            # then the sample
+            chain = 2 + dep["walks"]
         elif name in ("read_lca_list", "ranges_lca_list"):
             err = max_abs_err(got, want)
             work = a1[0].shape[0] if name == "ranges_lca_list" else \
@@ -3806,6 +3828,12 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
         if idle or stray:
             raise AssertionError(f"{name} process {p}: kernels that did not "
                                  f"launch {idle}, others {stray}")
+        for k in ("fm_serve", "mem_extend_hosts"):  # the forms' launches
+            n = sum(c for f, c in got["forms"].items() if f.split()[0] == k)
+            if n != got["launches"][k]:
+                raise AssertionError(f"{name} process {p}: {k}'s forms "
+                                     f"counted {n} calls with work, the "
+                                     f"kernel {got['launches'][k]} launches")
         check_slots(name, p, got, hosts, per, n_shards)
         for k, c in got["checks"].items():
             log(f"4j kernel {k} [{name}, process 0]: max_abs_err {c['err']} "
@@ -3873,9 +3901,14 @@ def run_hosts(index, reads, ktx, nodes, mode, n_shards, hosts, base_tsv,
 # first rounds (the text index, S = 4, hosts a, a, b; W's resolved form
 # from the MEM run, which comes after Greedy's) and its note
 HOST_ROWS = {
-    "fm_serve": (("fm_serve w1",), "a round's queries, one record row each"),
-    "mem_extend_hosts": (("mem_extend_hosts start",),
-                         "B's pass 1 and the steps on this host's rows"),
+    "fm_serve": (("fm_serve w1", "fm_serve w2", "fm_serve w20",
+                  "fm_serve w32"),
+                 "a round's queries, one record row (or sample, or text "
+                 "row) each"),
+    "mem_extend_hosts": (("mem_extend_hosts start",
+                          "mem_extend_hosts resume"),
+                         "B's pass 1 and the steps on this host's rows; "
+                         "the parked lanes resumed from their answers"),
     "walk_hosts": (("walk_hosts start",),
                    "the walks' steps on this host's rows"),
     "read_lca_hosts": (("read_lca_list", "lca_resolved"),
@@ -3968,6 +4001,7 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
         "slot has a card of its own, else over gloo on loopback: no run "
         f"spans two real hosts ({smi})")
     launches = {k: 0 for k in REPLACES}
+    forms: dict = {}  # each hosts kernel form's launches over 4j's runs
     checks: dict = {}
     errs: dict = {}
     for mode in HOST_INDEXES:
@@ -3987,6 +4021,9 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
                 counts, reports, rate, _lines = run
                 for k, c in counts.items():
                     launches[k] += c
+                for r in reports:
+                    for k, c in r.get("forms", {}).items():
+                        forms[k] = forms.get(k, 0) + c
                 if twins and cards >= 2 and per == 1 and \
                         (mode, tag, n_shards, hosts) in HOST_TWINS:
                     for k, c in run_twin(indexes[tag], reads, ktx[tag],
@@ -4009,28 +4046,33 @@ def run_phase_4j(indexes, reads, ktx, nodes, base_tsvs: dict, lat_ns: float,
                     errs[name] = max(errs.get(name, 0), c["err"])
                 if (tag, n_shards, hosts, per) == HOST_TIMED:
                     checks.update(reports[0]["checks"])
-    rows = hosts_rows(checks, lat_ns)
+    rows = hosts_rows(checks, lat_ns, forms)
     for name, e in errs.items():
         rows[name] = (max(e, rows[name][0]), *rows[name][1:])
     return launches, rows
 
 
-def hosts_rows(checks: dict, lat_ns: float) -> dict:
+def hosts_rows(checks: dict, lat_ns: float, launches: dict) -> dict:
     """The kernels line's rows of the hosts kernels (HOST_ROWS) from
-    process 0's checks: N on a round of the extension (RANK, or the seed
-    tables' ROW where no RANK round ran), O, Q and X on their start forms,
-    U, V and W as their forms together; ms: their launches alone, the
-    wrappers' whole calls (with the count read back) in the note; bound:
-    the bytes at 3.35 TB/s, the note with the latency floor of the forms'
-    chains of dependent loads, one after another, where counted (N, U, V,
-    W, X)."""
+    process 0's checks: N's forms that ran (w1 the extension's rounds,
+    w2 the switch's, w20 the seed tables' ROW, w32 the text rows), O's
+    start and resume forms, Q and X on their start forms, U, V and W as
+    their forms together; ms: the forms' launches alone, one launch of
+    each, summed, the wrappers' whole calls (with the count read back) in
+    the note, beside each form's items, its launches over 4j's runs (of
+    every process, `launches`; the gloo twins' left out) and its ms;
+    bound: the bytes at 3.35 TB/s, the note with the latency floor of the
+    forms' chains of dependent loads, one after another."""
     rows = {}
     for name, (forms, note) in HOST_ROWS.items():
-        if name == "fm_serve" and "fm_serve w1" not in checks:
-            forms = ("fm_serve w20",)
+        forms = [f for f in forms if f in checks]
+        if not forms:
+            raise AssertionError(f"4j: no form of {name} was checked")
         cs = [checks[f] for f in forms]
         b = sum(c["bytes"] for c in cs)
-        work = ", ".join(f"{f} {c['work']:,}" for f, c in zip(forms, cs))
+        work = ", ".join(f"{f} {c['work']:,} items, "
+                         f"{launches.get(f, 0):,} launches, "
+                         f"{c['ms']:.4f} ms" for f, c in zip(forms, cs))
         if all(c["chain"] is not None for c in cs):
             note += ": " + floor_note(sum(c["chain"] for c in cs), lat_ns,
                                       "loads")

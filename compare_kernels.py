@@ -125,6 +125,13 @@ UNSHARDED = ("mem_extend (Greedy batch)", "sa_lookup (BatchRunner)",
 # the kernel a wrapper launches, where its name differs
 LAUNCHED = {"extend_rows": "extend_from"}
 SHARDS = 4  # phase 4e's widest split
+# kernels N and O on a hosts view of phase 3's text index: the index in
+# HOSTS_SHARDS shards, those of HOSTS_REMOTE on "another host", their rows
+# served in rounds within this process (tests/test_torch_hosts.py's way)
+HOSTS_SHARDS = 4
+HOSTS_REMOTE = (1, 3)
+N_WIDTHS = (1, 2, 20, 32)  # N's forms: the seed tables' ROW is w20, the
+# extension's and the walks' w1, the hybrid's switch w2 and text rows w32
 NLET = 20  # letters of the seed tables: A's letters form's rows
 
 
@@ -298,6 +305,248 @@ def big_calls(ix, reads) -> dict:
             "big_sa_walk": ((ix, kf), {})}
 
 
+def hosts_inputs(index, reads, nodes, ktx_dir, device=None):
+    """The arguments of kernels N and O on a hosts view of `index` (at
+    ktx_dir, whose cache holds its seed tables and bitmaps; a
+    ShardedIndex in HOSTS_SHARDS shards on the card, HOSTS_REMOTE remote):
+    the seed tables built by ROW rounds (KmerTables.build_hosts), then one
+    MEM batch of `reads` through ShardedMemPipeline on that view (with the
+    hybrid on a text index: rounds of the extension, the switch, the text
+    rows and the walks), every round answered by this checkout's N on the
+    whole index.  Returns (the whole index, [(form, its round's queries)]
+    of N: "fm_serve wW", the largest round of width W, and "fm_serve wW
+    (median round)", each round's queries split as Exchange.serve splits
+    them, (those to the remote shards, which their owner receives; this
+    process's own), [(form, (args, kwargs))] of O: "mem_extend_hosts
+    start", "mem_extend_hosts resume", the round with the most parked
+    lanes, "mem_extend_hosts resume (median round)" and the largest round
+    with each of its lanes 4 times, the lanes of a batch of 4 times the
+    reads (a lane's copies write the same results and park the same
+    queries)), each a copy taken when it was made.  device: the card (a
+    CPU rehearsal passes the CPU)."""
+    import copy
+
+    import torch
+
+    import chip_smoke as cs
+    from kaiju_tpu_torch.engine.pipeline import _bucket
+    from kaiju_tpu_torch.io.taxonomy import Taxonomy, parse_nodes_dmp
+    from kaiju_tpu_torch.ops import classify, search
+    from kaiju_tpu_torch.ops import device_index as tdev
+    from kaiju_tpu_torch.ops.kmer import KmerTables
+    from kaiju_tpu_torch.parallel.exchange import Exchange
+    from kaiju_tpu_torch.parallel.sharded_fused import ShardedMemPipeline
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    whole = ShardedIndex(index, HOSTS_SHARDS, device or torch.device("cuda"))
+    kept: dict = {}
+
+    class Rounds:
+        """A hosts view's rounds in this process: each round's queries
+        kept, split as the exchange splits them, and answered by N on
+        `whole`."""
+
+        rounds = Exchange.rounds
+
+        def parked_anywhere(self, n, stage):
+            return n > 0
+
+        def all_agree(self, flag):
+            return bool(flag)
+
+        def serve(self, queries, width, stage):
+            shard = tdev.query_shard(view.rec, view.sa_seq, queries,
+                                     view.text)
+            own = ~torch.isin(shard, torch.tensor(HOSTS_REMOTE,
+                                                  device=shard.device))
+            kept.setdefault(width, []).append((queries[~own].clone(),
+                                               queries[own].clone()))
+            ans, bad = tdev.fm_serve(whole.rec, whole.C, whole.sa_seq,
+                                     whole.sa_off, queries, width,
+                                     whole.text)
+            if int(bad):
+                raise RuntimeError(f"{int(bad)} queries of a round unread")
+            return ans
+
+    view = copy.copy(whole)
+    for name in ("rec", "sa_seq", "sa_off", "text"):
+        a = getattr(whole, name)
+        if a is not None:
+            setattr(view, name, tdev.Shards(
+                [None if o in HOSTS_REMOTE else part
+                 for o, part in enumerate(a.parts)],
+                a.per, a.shape[0], a.device, like=a.parts[0]))
+    view.remote = {o: 0 for o in HOSTS_REMOTE}
+    view.exchange = Rounds()
+    view.shared = {}
+    KmerTables.build_hosts(index, search.SEED_K, view)
+    calls: list = []  # O's calls: the start, then each resume
+    real = classify.mem_extend_hosts
+
+    def spy(*a, **kw):
+        calls.append((a, {k: v.clone() if isinstance(v, torch.Tensor)
+                          else v for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    pipe = ShardedMemPipeline(
+        index, Taxonomy(parse_nodes_dmp(nodes)), cs.cli_config("mem"),
+        HOSTS_SHARDS, kmer_cache_dir=ktx_dir, view=view)
+    flat, chars, frag_off, n_frags, _k, rf_rows, _o = pipe._fragmenter.run(
+        reads, pipe.S_SLOTS, _bucket)
+    batch = [torch.from_numpy(x.copy()).to(whole.device) for x in
+             (flat[:chars], frag_off[:n_frags + 1], rf_rows)]
+    classify.mem_extend_hosts = spy
+    try:
+        pipe._device_rows(*batch)
+    finally:
+        classify.mem_extend_hosts = real
+
+    def largest_and_median(rounds, size):
+        by = sorted((r for r in rounds if size(r)), key=size)
+        return (by[-1], by[(len(by) - 1) // 2]) if by else ()
+
+    n_forms = []
+    for w in N_WIDTHS:
+        for r, tag in zip(largest_and_median(
+                kept.get(w, []), lambda q: q[0].shape[0] + q[1].shape[0]),
+                          ("", " (median round)")):
+            n_forms.append((f"fm_serve w{w}{tag}", r))
+    o_forms = [("mem_extend_hosts start", calls[0])]
+    for r, tag in zip(largest_and_median(
+            calls[1:], lambda c: c[1]["parked"].shape[0]),
+            ("", " (median round)")):
+        o_forms.append((f"mem_extend_hosts resume{tag}", r))
+    if len(o_forms) > 1:  # a batch of 4 times the reads
+        a, kw = o_forms[1][1]
+        o_forms.append(("mem_extend_hosts resume (largest, its lanes 4x)",
+                        (a, {**kw, **{k: torch.cat([kw[k]] * 4)
+                                      for k in ("parked", "answers")}})))
+    return whole, n_forms, o_forms
+
+
+def hosts_calls(designs: dict, whole, form: str, inp):
+    """{design: (a call of kernel N's or O's form `form` through the
+    design's wrapper, the launches it makes, the map of its outputs to a
+    common form, outside the call)} and the plain version's call.  N
+    (inp: the round's queries as the exchange splits them, (received,
+    own)) answers the received queries, then the process's own where it
+    has any, a launch each, as Exchange.serve launches it; its outputs
+    joined.  O (inp: (args, kwargs)) maps its outputs to (out, the parked
+    lanes' (p, i, s0, s1) and their queries, both in lane order); its
+    resume form gets the parked records in the width the design's start
+    form gives them (the first four columns where it keeps four)."""
+    import torch
+
+    from kaiju_tpu_torch.ops import device_index as tdev
+    from kaiju_tpu_torch.ops import search
+
+    out: dict = {}
+    if form.startswith("fm_serve"):
+        width = int(form.split()[1][1:])
+        segs = [q for q in inp if q.shape[0]]
+        for tag, mods in designs.items():
+            fn = mods["ops.device_index"].fm_serve
+            idx = to_design((whole.rec, whole.C, whole.sa_seq, whole.sa_off),
+                            mods)
+            text = to_design(whole.text, mods)
+            out[tag] = ((lambda fn=fn, idx=idx, text=text:
+                         [fn(*idx, q, width, text) for q in segs]),
+                        len(segs),
+                        lambda o: (torch.cat([a for a, _b in o]),
+                                   sum(b for _a, b in o)))
+
+        def plain():
+            return tdev.fm_serve_plain(whole.rec, whole.C, whole.sa_seq,
+                                       whole.sa_off, torch.cat(segs), width,
+                                       text=whole.text)
+        return out, plain
+
+    args, kw = inp
+
+    def lanes(o):
+        park, qs = o[1], o[2]
+        order = park[:, 0].long().argsort()
+        return o[0], park[order][:, :4], qs[order]
+
+    resume = kw.get("parked") is not None
+    start_args = args
+    for tag, mods in designs.items():
+        fn = mods["ops.search"].mem_extend_hosts
+        a = to_design(tuple(args), mods)
+        k = {key: to_design(v, mods) for key, v in kw.items()}
+        if resume:
+            skw = {key: v for key, v in k.items()
+                   if key not in ("out", "parked", "answers")}
+            width = fn(*to_design(tuple(start_args), mods), **skw)[1].shape[1]
+            k["parked"] = kw["parked"][:, :width].contiguous()
+            k["out"] = kw["out"].clone()  # written in place, the same
+            # values each call
+        out[tag] = ((lambda fn=fn, a=a, k=k: fn(*a, **k)), 1, lanes)
+
+    def plain():
+        k = dict(kw)
+        if resume:
+            k["out"] = kw["out"].clone()
+        return lanes(search.mem_extend_hosts_plain(*args, **k))
+    return out, plain
+
+
+def compare_hosts(designs: dict, inputs, whole, where: str, smi: str, bad,
+                  repeats: int = 3):
+    """N's forms and O's two forms: this checkout's against its plain
+    version, each design against this checkout, each design's launches
+    counted by its own loader, then the designs timed in turns, `repeats`
+    times over (the others, this, this, the others reversed; their
+    launches alone, chip_smoke.launch_ms through each design's loader):
+    the median ms of each design, and the range of this/other over the
+    repeats."""
+    import statistics
+
+    import chip_smoke as cs
+
+    others = [t for t in designs if t != "this"]
+    for form, inp in inputs:
+        calls, plain = hosts_calls(designs, whole, form, inp)
+        want = calls["this"][2](calls["this"][0]())
+        err = cs.max_abs_err(plain(), want)
+        if err:
+            bad.append((form, where, "plain", err))
+        kname = form.split()[0]
+        for tag, (call, n, shaped) in calls.items():
+            before = {t: m["kernels"].LAUNCHES.get(kname, 0)
+                      for t, m in designs.items()}
+            e = cs.max_abs_err(shaped(call()), want)
+            moved = {t: m["kernels"].LAUNCHES.get(kname, 0) - before[t]
+                     for t, m in designs.items()}
+            if e or moved != {t: n * int(t == tag) for t in designs}:
+                bad.append((form, where, tag, e, moved))
+        if form.startswith("fm_serve"):
+            work = (f"{inp[0].shape[0] + inp[1].shape[0]:,} items "
+                    f"({inp[0].shape[0]:,} received, {inp[1].shape[0]:,} "
+                    f"own; {calls['this'][1]} launches)")
+        else:
+            lanes = (inp[1]["parked"] if "parked" in inp[1] else inp[0][5])
+            work = f"{lanes.shape[0]:,} items"
+        times = {tag: [] for tag in designs}
+        ratios = {o: [] for o in others}
+        for _ in range(repeats):
+            now = {tag: [] for tag in designs}
+            for tag in [*others, "this", "this", *others[::-1]]:
+                now[tag].append(cs.launch_ms(
+                    calls[tag][0], kernels=designs[tag]["kernels"]))
+            for tag, t in now.items():
+                times[tag] += t
+            for o in others:
+                ratios[o].append(sum(now["this"]) / sum(now[o]))
+        cs.log(f"compare {form} [{where}, {work}, launches alone, "
+               f"{repeats} repeats; the plain version's max_abs_err {err}]: "
+               + "; ".join(f"{tag} {statistics.median(t):.4f} ms"
+                           for tag, t in times.items())
+               + "".join(f"; this/{o} {statistics.median(r):.3f} "
+                         f"({min(r):.3f}-{max(r):.3f})"
+                         for o, r in ratios.items()) + f" ({smi})")
+
+
 def run(args) -> int:
     import torch
 
@@ -328,10 +577,13 @@ def run(args) -> int:
     cs.log(smi)
     lat_ns, dram_ns = cs.latency(smi)
     # phase 4g's DB builds beside the other kernels' comparisons
-    build = (None if args.big_dir or args.no_big
+    build = (None if args.big_dir or args.no_big or args.only_hosts
              else cs.start_big_build(cs.BIG_LETTERS))
     cases = []
-    if not args.only_big:
+    if args.only_hosts:
+        records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
+        reads = cs.make_reads(args.seed, records, cs.BATCH)
+    elif not args.only_big:
         records, nodes, ktx = cs.make_db(args.seed, args.db_letters)
         reads = cs.make_reads(args.seed, records, cs.BATCH)
         r_records, r_ktx, families = cs.make_repeats_db(args.seed)
@@ -409,9 +661,17 @@ def run(args) -> int:
                 compare(name, f"{where}, {SHARDS} shards", sa, skw, want)
         del inputs, sh
         torch.cuda.empty_cache()
+    if not args.only_big:  # N and O on a hosts view of the text index
+        where = (f"text, {HOSTS_SHARDS} shards, {list(HOSTS_REMOTE)} "
+                 "remote")
+        whole, n_forms, o_forms = hosts_inputs(
+            KaijuIndex.load(ktx["text"]), reads, nodes, ktx["text"])
+        compare_hosts(designs, n_forms + o_forms, whole, where, smi, bad)
+        del whole, n_forms, o_forms
+        torch.cuda.empty_cache()
     from kaiju_tpu_torch.tools import big_classify
 
-    if not args.no_big:
+    if not args.no_big and not args.only_hosts:
         ix, db = big_index(args.big_dir, build)
         where = f"big index, S = {ix.S}"
         for suffix, (n, seed) in BIG.items():
@@ -448,6 +708,8 @@ def main(argv=None) -> int:
                      help="compare L and M alone")
     big.add_argument("--no-big", action="store_true",
                      help="compare all but L and M")
+    big.add_argument("--only-hosts", action="store_true",
+                     help="compare N and O alone")
     ap.add_argument("--big-dir", default=None, help="the big index as "
                     "tools.big_classify --out saved it, from its default "
                     "seed (default: phase 4g's DB, built here)")

@@ -64,8 +64,12 @@
 // step count needs no room in the parked record: a lane at flat position
 // p whose next code is at q has taken p - K - q steps.  Its lanes' final
 // (i, s0, s1) are B's.  Bound: B's, plus one row a parked step at its
-// owner; design: B's block list in the start form, a group of kG threads
-// a parked lane in the resume form, one global atomic a parked lane.
+// owner.  Design: B's block list in the start form; a parked lane carries
+// q in its record (p, i, s0, s1, q; the record stays in the process, only
+// the queries travel), so the resume form starts stepping at once, with
+// no search over frag_off for the lane's fragment, and a group of kG
+// threads takes one parked lane, from its first step until it ends or
+// parks again; one global atomic a parked lane.
 #include "text_common.cuh"
 
 namespace {
@@ -75,6 +79,7 @@ constexpr int kPer = 2;     // positions a thread in pass 1
 constexpr int kG = 4;       // threads sharing a listed lane's rank pair
 constexpr int kPos = kThreads * kPer;   // positions a block
 constexpr int kOffCap = 512;            // fragment starts staged a block
+constexpr int kParked = 5;  // kernel O's parked record: p, i, s0, s1, q
 
 // The owning fragment of position p: the largest f < F with frag_off[f]
 // <= p (an empty fragment shares its start with the next one, which owns
@@ -245,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) mem_extend_kernel(
 // on this host (i > 0 on entry), and, with sw_steps > 0, until B's
 // hybrid stop after sw_steps steps (p - K - q of them taken); then its
 // result is written, or, at a row of a remote shard, the lane parks: (p,
-// i, a0, a1) to park [*n_park] with its rank-pair queries (kQRank c, a0),
-// (kQRank c, a1) to qry, its state written as its result for now.
+// i, a0, a1, q) to park [*n_park] with its rank-pair queries (kQRank c,
+// a0), (kQRank c, a1) to qry, its state written as its result for now.
 __device__ __forceinline__ void run_lane(
     const kt::HostIx& ix, const int* __restrict__ C,
     const uint8_t* __restrict__ flat, int K, int sw_steps, int p, int i,
@@ -261,7 +266,12 @@ __device__ __forceinline__ void run_lane(
         if (!ix.row_here(a0 >> 7) || !ix.row_here(a1 >> 7)) {
             if (gl == 0) {
                 const int s = atomicAdd(n_park, 1);
-                reinterpret_cast<int4*>(park)[s] = make_int4(p, i, a0, a1);
+                int* rec = park + kParked * (size_t)s;
+                rec[0] = p;
+                rec[1] = i;
+                rec[2] = a0;
+                rec[3] = a1;
+                rec[4] = q;
                 reinterpret_cast<int4*>(qry)[s] = make_int4(
                     kt::kQRank << 8 | c, a0, kt::kQRank << 8 | c, a1);
             }
@@ -311,24 +321,24 @@ __global__ void __launch_bounds__(kThreads) mem_extend_hosts_kernel(
     }
 }
 
-// The parked lanes park_in [L, 4] with their answers ans_in [L, 2] (the
-// rank pair): the step applied as B applies it, then run_lane on.
+// The parked lanes park_in [L, kParked] with their answers ans_in [L, 2]
+// (the rank pair), a group of kG threads a lane: the step applied as B
+// applies it, then run_lane on from the parked q, less one.
 __global__ void __launch_bounds__(kThreads) mem_extend_resume_kernel(
     const kt::HostIx ix, const int* __restrict__ C,
-    const uint8_t* __restrict__ flat, const int* __restrict__ frag_off,
-    int F, int K, int sw_steps, const int* __restrict__ park_in,
-    const int* __restrict__ ans_in,
-    int L, int* __restrict__ out_i, int* __restrict__ out_s0,
+    const uint8_t* __restrict__ flat, int K, int sw_steps,
+    const int* __restrict__ park_in, const int* __restrict__ ans_in, int L,
+    int* __restrict__ out_i, int* __restrict__ out_s0,
     int* __restrict__ out_s1, int* __restrict__ park,
     int* __restrict__ qry, int* __restrict__ n_park) {
-    const int g = (blockIdx.x * kThreads + threadIdx.x) / kG;
-    if (g >= L) return;  // whole groups leave together
+    const int t = (blockIdx.x * kThreads + threadIdx.x) / kG;
+    if (t >= L) return;  // whole groups leave together
     const int lane = threadIdx.x & 31, gl = lane % kG;
     const unsigned gmask = kt::group_mask<kG>(lane);
-    const int4 it = reinterpret_cast<const int4*>(park_in)[g];
-    const int n0 = __ldg(ans_in + 2 * (size_t)g);
-    const int n1 = __ldg(ans_in + 2 * (size_t)g + 1);
-    int i = it.y, a0 = it.z, a1 = it.w;
+    const int* rec = park_in + kParked * (size_t)t;
+    const int p = __ldg(rec), n0 = __ldg(ans_in + 2 * (size_t)t),
+              n1 = __ldg(ans_in + 2 * (size_t)t + 1);
+    int i = __ldg(rec + 1), a0 = __ldg(rec + 2), a1 = __ldg(rec + 3);
     const bool stepped = n0 < n1;  // else the interval emptied: it ends
     if (stepped) {
         a0 = n0;
@@ -336,14 +346,12 @@ __global__ void __launch_bounds__(kThreads) mem_extend_resume_kernel(
         --i;
     }
     if (stepped && i > 0) {
-        // the code before i: its fragment's start + i - 1
-        const int q = __ldg(frag_off + owner(frag_off, 0, F - 1, it.x)) + i - 1;
-        run_lane(ix, C, flat, K, sw_steps, it.x, i, a0, a1, q, gl, gmask,
-                 out_i, out_s0, out_s1, park, qry, n_park);
+        run_lane(ix, C, flat, K, sw_steps, p, i, a0, a1, __ldg(rec + 4) - 1,
+                 gl, gmask, out_i, out_s0, out_s1, park, qry, n_park);
     } else if (gl == 0) {
-        out_i[it.x] = i;
-        out_s0[it.x] = a0;
-        out_s1[it.x] = a1;
+        out_i[p] = i;
+        out_s0[p] = a0;
+        out_s1[p] = a1;
     }
 }
 
@@ -386,9 +394,10 @@ KT_EXPORT int kt_mem_extend_sharded(
 
 // Kernel O: the start form (park_in null) runs B's pass 1 and then pass 2
 // on kt::HostIx, parking the lanes that need a remote row; the resume form
-// takes the parked lanes park_in [L, 4] and their answers ans_in [L, 2].
-// Both append to park_out [*n_park, 4] and q_out [*n_park, 2, 2].
-// sw_steps: 0, or the steps after which the hybrid's narrow lanes stop.
+// takes the parked lanes park_in [L, 5] and their answers ans_in [L, 2]
+// (frag_off unread: a parked lane carries its q).  Both append to park_out
+// [*n_park, 5] and q_out [*n_park, 2, 2].  sw_steps: 0, or the steps
+// after which the hybrid's narrow lanes stop.
 KT_EXPORT int kt_mem_extend_hosts(
     KT_SHARD_PARAMS, const int* C, const int* seed_s0, const int* seed_s1,
     const int8_t* seed_d, int nseed, const uint8_t* flat, int P,
@@ -403,12 +412,12 @@ KT_EXPORT int kt_mem_extend_hosts(
             KT_HOST_IX, C, seed_s0, seed_s1, seed_d, nseed, flat, P,
             frag_off, F, K, j0, words, m, lb, sw_steps, out_i, out_s0,
             out_s1, park_out, q_out, n_park);
-    } else {
+    } else if (L > 0) {
         const long long threads = (long long)L * kG;
         mem_extend_resume_kernel<<<(int)((threads + kThreads - 1) / kThreads),
                                    kThreads, 0, stream>>>(
-            KT_HOST_IX, C, flat, frag_off, F, K, sw_steps, park_in, ans_in,
-            L, out_i, out_s0, out_s1, park_out, q_out, n_park);
+            KT_HOST_IX, C, flat, K, sw_steps, park_in, ans_in, L, out_i,
+            out_s0, out_s1, park_out, q_out, n_park);
     }
     return static_cast<int>(cudaGetLastError());
 }

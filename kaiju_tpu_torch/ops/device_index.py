@@ -561,10 +561,13 @@ def fm_serve(rec, C, sa_seq, sa_off, queries, width, text=None):
     (op, x); Q_RANK (c, k), Q_ROW k, Q_LF k, Q_SAMPLE slot, Q_TEXT row of
     ``text``, csrc/fm_serve.cu) answered: (ans int32 [Q, width], bad int32
     [1], the queries whose shard is not read here or whose kind or width
-    is wrong; the plain version raises on one instead).  The kernel's
-    launch waits for nothing on the host.
-    Kernel N (csrc/fm_serve.cu) for CUDA tensors, the plain version for CPU
-    tensors."""
+    is wrong; the plain version raises on one instead).  The words of an
+    answer that its kind does not write are 0.  The kernel's launch waits
+    for nothing on the host.
+    Kernel N (csrc/fm_serve.cu: a thread a query where width < 20, the
+    rounds of RANK, LF and SAMPLE; else a group of 8 lanes on two
+    neighbouring queries, one coalesced line a row) for CUDA tensors, the
+    plain version for CPU tensors."""
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     if queries.device.type == "cpu":

@@ -172,7 +172,7 @@ def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched, K=0,
     sw_steps, a lane stops where B stops it for the hybrid: after
     sw_steps steps (p - K - q of them taken) with at most SW_WCAP
     occurrences.  Writes out (int32 [3, P]) for every lane that ends or
-    parks and returns the parked (p, i, s0, s1) int32 [L, 4] and their
+    parks and returns the parked (p, i, s0, s1, q) int32 [L, 5] and their
     rank-pair queries int32 [L, 2, 2]."""
     c32 = flat.to(torch.int32)
     parked, queries = [], []
@@ -189,7 +189,8 @@ def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched, K=0,
         here = rec.here[rec.owner(s0 >> 7)] & rec.here[rec.owner(s1 >> 7)]
         stop = ~here
         parked.append(torch.stack([lanes[stop].to(torch.int32), i[stop],
-                                   s0[stop], s1[stop]], 1))
+                                   s0[stop], s1[stop],
+                                   q[stop].to(torch.int32)], 1))
         op = (Q_RANK << 8) | c[stop]
         queries.append(torch.stack([op, s0[stop], op, s1[stop]], 1))
         go = torch.nonzero(here).squeeze(1)
@@ -205,9 +206,9 @@ def _park_rows(rec, C, flat, lanes, out, i, s0, s1, q, touched, K=0,
         out[:, lanes[ended]] = torch.stack([i, s0, s1])[:, ended]
         keep = ~ended
         lanes, i, s0, s1, q = lanes[keep], i[keep], s0[keep], s1[keep], q[keep]
-    z = torch.zeros((0, 4), dtype=torch.int32, device=flat.device)
+    z = torch.zeros((0, 5), dtype=torch.int32, device=flat.device)
     return (torch.cat(parked) if parked else z,
-            (torch.cat(queries) if queries else z).view(-1, 2, 2))
+            (torch.cat(queries) if queries else z[:, :4]).view(-1, 2, 2))
 
 
 def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
@@ -226,8 +227,8 @@ def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
                                                  flat, frag_off, K, j0, bloom)
             out = torch.stack([i, s0, s1])
         i, s0, s1 = i[lanes], s0[lanes], s1[lanes]
-    else:
-        base = _lane_fragments(frag_off, P)[2]
+        q = (base[lanes] + i - 1).long()
+    else:  # a parked lane carries its q: the code of its pending step
         lanes = parked[:, 0].long()
         i, s0, s1 = (parked[:, t].clone() for t in (1, 2, 3))
         n0, n1 = answers[:, 0], answers[:, 1]
@@ -238,7 +239,7 @@ def mem_extend_hosts_plain(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off,
         out[:, lanes[ended]] = torch.stack([i, s0, s1])[:, ended]
         keep = ~ended
         lanes, i, s0, s1 = lanes[keep], i[keep], s0[keep], s1[keep]
-    q = (base[lanes] + i - 1).long()
+        q = parked[keep, 4].long() - 1
     parked, queries = _park_rows(rec, C, flat, lanes, out, i, s0, s1, q,
                                  touched, K, sw_steps)
     return out, parked, queries
@@ -252,13 +253,15 @@ def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
     that many steps (kernel Y finishes the lanes it stops, as G does on
     one host).  The start form (parked None) evaluates
     every flat position as B does and returns (out int32 [3, P] = (i, s0,
-    s1), parked int32 [L, 4] = (p, i, s0, s1), queries int32 [L, 2, 2],
-    the rank pair of each parked lane's next step, (Q_RANK c, s0) and
-    (Q_RANK c, s1)); the resume form takes out, the parked lanes and
-    their answers int32 [L, 2] and returns the same three, out updated
-    in place.  A parked lane's out row holds its state when it parked.
-    Once no lane is parked, out equals B's (i, s0, s1) with the same
-    sw_steps.  Kernel O for CUDA tensors, the plain version for CPU
+    s1), parked int32 [L, 5] = (p, i, s0, s1, q), q the flat index of the
+    code of the lane's next step, queries int32 [L, 2, 2], that step's
+    rank pair, (Q_RANK c, s0) and (Q_RANK c, s1)); the resume form takes
+    out, the parked lanes and their answers int32 [L, 2] and returns the
+    same three, out updated in place.  The parked records stay in the
+    process; only the queries go to the owners.  A parked lane's out row
+    holds its state when it parked.  Once no lane is parked, out equals
+    B's (i, s0, s1) with the same sw_steps.  Kernel O for CUDA tensors
+    (the resume form reads no frag_off), the plain version for CPU
     tensors."""
     if K < 1 or j0 < K - 1:
         raise ValueError(f"need K >= 1 and j0 >= K - 1 (K={K}, j0={j0})")
@@ -299,10 +302,12 @@ def mem_extend_hosts(rec, C, seed_s0, seed_s1, seed_d, flat, frag_off, K,
         kernels.check(out, "out", torch.int32, dev, 2)
         kernels.check(parked, "parked", torch.int32, dev, 2)
         kernels.check(answers, "answers", torch.int32, dev, 2)
-        if out.shape != (3, P) or answers.shape != (parked.shape[0], 2):
-            raise ValueError("out [3, P], answers [L, 2] expected")
+        if out.shape != (3, P) or parked.shape[1] != 5 or \
+                answers.shape != (parked.shape[0], 2):
+            raise ValueError("out [3, P], parked [L, 5], answers [L, 2] "
+                             "expected")
         n = parked.shape[0]
-    park = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    park = torch.empty((n, 5), dtype=torch.int32, device=dev)
     q = torch.empty((n, 2, 2), dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     if n:

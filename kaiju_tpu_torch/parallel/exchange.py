@@ -20,7 +20,8 @@ with its query (kernels O, X, Q and Y: ``ops.search.mem_extend_hosts``,
 - the counts, then the queries, go out with ``all_to_all_single``;
 - each process answers what it received with kernel N
   (``ops.device_index.fm_serve``), and its own queries the same way
-  without the transport;
+  without the transport (a launch only where it has any), its count of
+  queries it cannot answer read once;
 - the answers come back the same way, in the order the queries left;
 - the caller relaunches its round kernel on the parked lanes with their
   answers, which may park again.
@@ -258,11 +259,12 @@ class Exchange:
         t3 = time.perf_counter()
         recv = self._in(recv)
         t4 = time.perf_counter()
-        theirs, bad_t = fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, recv,
-                                 width, sh.text)
+        theirs, bad = fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, recv,
+                               width, sh.text)
+        # this process's own (a launch only where it asked its own shards)
         own, bad_o = fm_serve(sh.rec, sh.C, sh.sa_seq, sh.sa_off, qs[lo:hi],
                               width, sh.text)
-        bad = int(bad_t) + int(bad_o)  # synchronises
+        bad = int(bad + bad_o)  # synchronises: the round's one read
         t5 = time.perf_counter()
         if bad:
             raise RuntimeError(

@@ -26,6 +26,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -285,6 +286,28 @@ def test_a_failed_map_names_both_cards():
     assert not share._maps
 
 
+def test_a_coordinator_port_is_held_until_its_store_listens():
+    """_free_port's ports: distinct, refused to any other bind while held
+    (so that two concurrent groups never share a coordinator), and open
+    to the group's store, whose listener binds with SO_REUSEADDR."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    ports = [_free_port() for _ in range(8)]
+    assert len(set(ports)) == len(ports)
+    other = socket.socket()
+    with pytest.raises(OSError):
+        other.bind(("127.0.0.1", ports[0]))
+    other.close()
+    store = dist.TCPStore("127.0.0.1", ports[0], 1, True,
+                          timeout=datetime.timedelta(seconds=30))
+    store.set("k", "v")
+    assert store.get("k") == b"v"
+    del store
+
+
 # the runs of 2 processes x 2 slots: (mode, --mesh-index, hosts, index)
 RUNS = {"mem-flat": ("mem", 0, "aa", "ktx"),
         "greedy-flat": ("greedy", 0, "aa", "ktx"),
@@ -294,11 +317,19 @@ RUNS = {"mem-flat": ("mem", 0, "aa", "ktx"),
         "mem-mesh4-hosts-ab-text": ("mem", 4, "ab", "ktx_text")}
 
 
+# the seconds a run's workers may take, from their start (alone a run
+# takes ~15-30 s on 8 cores), and after them the seconds each worker's
+# faulthandler has to print its stacks once it is told to stop
+WAIT_S = 300
+STACKS_S = 20
+
+
 def _start(env, tag):
     """Start the 2 workers of RUNS[tag] on SLOTS CPU slots each, process p
     on host hosts[p], each with an empty seed-table cache of its own (so
     that no process waits on another's, and a group across hosts builds
-    its tables by rounds); returns (processes, outputs)."""
+    its tables by rounds), their stacks printed WAIT_S seconds after the
+    start if they are still running; returns (processes, outputs)."""
     mode, mesh, hosts, ktx = RUNS[tag]
     argv = ["-t", env["nodes_dmp"], "-f", env[ktx], "-i", env["fq"],
             *FLAGS[mode], "-b", str(BATCH)]
@@ -311,24 +342,44 @@ def _start(env, tag):
         outs.append(out)
         penv = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT
                     + os.pathsep + os.environ.get("PYTHONPATH", ""),
-                    KAIJU_TPU_CACHE=str(env["work"] / f"cache_{tag}_p{p}"))
+                    KAIJU_TPU_CACHE=str(env["work"] / f"cache_{tag}_p{p}"),
+                    KAIJU_TEST_STACKS_AFTER=str(WAIT_S))
         procs.append(subprocess.Popen(
             [sys.executable, WORKER, "--host", hosts[p], "--slots",
              str(SLOTS), *argv, "--dist-nprocs", str(NPROCS),
              "--dist-coordinator", coord, "--dist-pid", str(p), "-o", out],
-            cwd=ROOT, env=penv, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    return procs, outs
+            cwd=ROOT, env=penv, stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs, outs, time.monotonic()
 
 
-def _finish(procs, outs):
-    """(errors, each process's output lines) of one run's workers."""
+def _finish(procs, outs, t0):
+    """(errors, each process's output lines) of one run's workers, which
+    may run until WAIT_S seconds after t0.  A worker still running then is
+    stopped with SIGTERM, on which it prints every thread's stack, and
+    killed STACKS_S seconds later if it has not ended; each error carries
+    its worker's exit code and the tail of its stderr, the stacks
+    included."""
     errors = []
     for p, proc in enumerate(procs):
-        _o, err = proc.communicate(timeout=300)
+        try:
+            _o, err = proc.communicate(
+                timeout=max(1.0, WAIT_S + STACKS_S - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:  # the whole run: its peers wait on it
+                if q.poll() is None:
+                    q.terminate()
+            try:
+                _o, err = proc.communicate(timeout=STACKS_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _o, err = proc.communicate()
+            errors.append(f"process {p}: still running {WAIT_S} s after "
+                          f"the start, stopped; stderr:\n{err[-12000:]}")
+            continue
         if proc.returncode != 0:
             errors.append(f"process {p}: rc {proc.returncode}\n"
-                          f"{err[-2000:]}")
+                          f"{err[-12000:]}")
     lines = []
     if not errors:
         for out in outs:
@@ -341,16 +392,21 @@ def _finish(procs, outs):
 def runs(env):
     """Every run of RUNS started at once (one torch thread a process), the
     one-process TSVs made in this process meanwhile; {tag: (errors,
-    lines)}."""
+    lines)}.  A run that fails, or whose workers overrun, gives its own
+    errors, which fail only its own case (so does a failure of the
+    one-process TSVs, which each case makes again)."""
     started = {}
     try:
         for tag in RUNS:
             started[tag] = _start(env, tag)
         for mode in ("mem", "greedy"):
-            _single(env, mode)
+            try:
+                _single(env, mode)
+            except Exception:  # each case calls _single again and fails
+                pass
         yield {tag: _finish(*run) for tag, run in started.items()}
     finally:
-        for procs, _outs in started.values():
+        for procs, _outs, _t0 in started.values():
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()

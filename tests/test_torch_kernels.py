@@ -2518,6 +2518,144 @@ def test_greedy_hosts_batch_on_the_card_matches_b_e_f(env, cuda, mismatches,
         assert bool((want[:, 2] & greedy.FLAG_SCRATCH).any())
 
 
+def _serve_queries(idx, sh, W, seed):
+    """A round's queries for N at width W on the index `sh` (every kind
+    its width allows, in random order: RANK, LF, SAMPLE, ROW at W >= 20,
+    TEXT at W >= 32), with parked lanes' rank pairs (one letter, two ends)
+    next to each other, on one row and on two rows, some at an odd place."""
+    rng = np.random.default_rng(seed)
+    kinds = [tdev.Q_RANK, tdev.Q_LF, tdev.Q_SAMPLE]
+    kinds += [tdev.Q_ROW] if W >= 20 else []
+    kinds += [tdev.Q_TEXT] if W >= 32 else []
+    n = 4000
+    kind = rng.choice(kinds, n).astype(np.int32)
+    k = rng.integers(0, idx.length + 1, n).astype(np.int32)
+    k[:4] = [0, 128, idx.length, idx.length - 1]
+    c = rng.integers(1, idx.alen, n).astype(np.int32)
+    x = np.where(kind == tdev.Q_SAMPLE, k % sh.sa_seq.shape[0],
+                 np.where(kind == tdev.Q_LF, np.minimum(k, idx.length - 1),
+                          np.where(kind == tdev.Q_TEXT,
+                                   k % (sh.S * sh.ntb_s), k)))
+    op = kind << 8 | np.where(kind == tdev.Q_RANK, c, 0)
+    rows = [np.stack([op, x], 1)]
+    for t in range(600):  # the pairs: one row (a narrow interval), or two
+        a0 = int(rng.integers(0, idx.length))
+        a1 = (min(idx.length, (a0 | 127) + 1 - int(rng.integers(0, 4)))
+              if t % 3 else int(rng.integers(a0, idx.length + 1)))
+        a1 = max(a1, a0)
+        cc = int(rng.integers(1, idx.alen))
+        pair = [[tdev.Q_RANK << 8 | cc, a0], [tdev.Q_RANK << 8 | cc, a1]]
+        if t % 5 == 0:  # a lone query first: the pair at an odd place
+            pair.insert(0, [tdev.Q_LF << 8, a0])
+        rows.append(np.array(pair))
+    return torch.from_numpy(np.concatenate(rows).astype(np.int32))
+
+
+@pytest.mark.parametrize("count", ["even", "odd", "none"])
+@pytest.mark.parametrize("W", [1, 2, 20, 32])
+def test_fm_serve_round_matches_plain(env, cuda, W, count):
+    """N on a round of an even or odd count of queries (its groups take
+    two each), or none, every kind of the width in one round, parked
+    lanes' pairs on one row and on two: one launch (none for no query),
+    its answers its plain version's, `bad` 0; on a view with shard 1
+    remote, the queries to it count in bad, their answers 0, the rest
+    equal."""
+    from kaiju_tpu_torch import kernels
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    idx = env["idx"]
+    sh_c, sh_g = ShardedIndex(idx, 3, "cpu"), ShardedIndex(idx, 3, cuda)
+    q = _serve_queries(idx, sh_c, W, W)
+    even = q.shape[0] - q.shape[0] % 2
+    q = q[:{"even": even, "odd": even - 1, "none": 0}[count]]
+    want, _b = tdev.fm_serve_plain(sh_c.rec, sh_c.C, sh_c.sa_seq,
+                                   sh_c.sa_off, q, W, text=sh_c.text)
+    kernels.reset_counts()
+    qg = q.to(cuda)
+    got, bad = tdev.fm_serve(sh_g.rec, sh_g.C, sh_g.sa_seq, sh_g.sa_off,
+                             qg, W, sh_g.text)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_serve"] == int(q.shape[0] > 0)
+    assert int(bad) == 0 and torch.equal(got.cpu(), want)
+    if not q.shape[0]:
+        return
+    view = _hosts_view(sh_g, (1,))
+    got, bad = tdev.fm_serve(view.rec, view.C, view.sa_seq, view.sa_off,
+                             qg, W, view.text)
+    shard = tdev.query_shard(sh_c.rec, sh_c.sa_seq, q, sh_c.text)
+    far = shard == 1
+    torch.cuda.synchronize()
+    assert int(bad) == int(far.sum()) > 0
+    assert torch.equal(got.cpu()[~far], want[~far])
+    assert not got.cpu()[far].any()
+
+
+@pytest.mark.parametrize("sw", [0, 12], ids=["no_stop", "hybrid_stop"])
+@pytest.mark.parametrize("remote", [(1,), (0, 2)], ids=["one", "two"])
+def test_mem_extend_hosts_resume_matches_plain(env, cuda, remote, sw):
+    """O's resume form, round after round on the same answers as its plain
+    version (the lanes matched by position), equals it: out, and the lanes
+    parked again with their records (p, i, s0, s1, q) and queries.  Over
+    the rounds, resumed lanes end on the answer (the interval empties),
+    reach i = 0, stop at the hybrid's stop (sw), and park again."""
+    from kaiju_tpu_torch.ops import hybrid
+    from kaiju_tpu_torch.parallel.sharded_index import ShardedIndex
+
+    assert sw in (0, hybrid.S1_STEPS)
+    idx, dv = env["idx"], env["dv"]
+    views = {d: _hosts_view(ShardedIndex(idx, 3, d), remote)
+             for d in ("cpu", cuda)}
+    flat, frag_off, _rf = _batch(env, 16)
+    seed = env["seed"]
+    K = search.SEED_K
+
+    def ext(d, **kw):
+        v = views[d]
+        return search.mem_extend_hosts(
+            v.rec, v.C, *(a.to(d) for a in seed), flat.to(d),
+            frag_off.to(d), K, MIN_LEN - 1, sw_steps=sw, **kw)
+
+    out_c, pk_c, q_c = ext("cpu")
+    out_g, pk_g, q_g = ext(cuda)
+    base = search._lane_fragments(frag_off, flat.shape[0])[2]
+    seen = dict.fromkeys(("answer", "zero", "stop", "again"), 0)
+    rounds = 0
+    while pk_c.shape[0]:
+        rounds += 1
+        assert torch.equal(out_g.cpu(), out_c)
+        assert torch.equal(_sorted_rows(pk_g), _sorted_rows(pk_c))
+        order_g = torch.argsort(pk_g[:, 0].cpu().long())
+        order_c = torch.argsort(pk_c[:, 0].long())
+        assert torch.equal(q_g.cpu()[order_g], q_c[order_c])
+        ans = views["cpu"].exchange.serve(q_c.reshape(-1, 2), 1,
+                                          "extend").view(-1, 2)
+        ans_g = ans[order_c][torch.argsort(order_g)].to(cuda).contiguous()
+        before = pk_c.clone()
+        out_c, pk_c, q_c = ext("cpu", out=out_c, parked=pk_c, answers=ans)
+        out_g, pk_g, q_g = ext(cuda, out=out_g, parked=pk_g, answers=ans_g)
+        torch.cuda.synchronize()
+        again = set(pk_c[:, 0].tolist())
+        for (p, _i, _a0, _a1, _q), (n0, n1) in zip(before.tolist(),
+                                                   ans.tolist()):
+            i, s0, s1 = out_c[:, p].tolist()
+            if p in again:
+                seen["again"] += 1
+            elif n0 >= n1:
+                seen["answer"] += 1
+            elif i == 0:
+                seen["zero"] += 1
+            elif (p - int(base[p]) - K + 1 - i == sw
+                  and s1 - s0 <= search.SW_WCAP):  # the steps it took
+                seen["stop"] += 1
+    assert torch.equal(out_g.cpu(), out_c) and pk_g.shape[0] == 0
+    want = search.mem_extend_plain(dv.rec, dv.C, *seed, flat, frag_off, K,
+                                   MIN_LEN - 1, sw_steps=sw)
+    for g, w in zip(out_g, want):
+        assert torch.equal(g.cpu(), w)
+    assert rounds > 1 and seen["answer"] and seen["zero"] and seen["again"]
+    assert bool(seen["stop"]) == bool(sw), seen
+
+
 # ---------------------------------------------------------------------------
 # kernel Y and the hybrid's forms of N, O, X, U, V, W across hosts
 # ---------------------------------------------------------------------------

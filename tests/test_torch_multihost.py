@@ -92,10 +92,24 @@ def _single(env, mode, ktx="ktx"):
     return env[key]
 
 
+# the sockets that hold the coordinator ports _free_port gave out
+_HELD: list = []
+
+
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for a group's coordinator, held by this test process until
+    it exits: a socket bound to it with SO_REUSEADDR and not listening.
+    No other bind, of this process or another, gets the port then (a
+    port merely found free and let go can go to the next one who asks:
+    two groups of concurrent tests with one coordinator port, one group's
+    process 0 refused with EADDRINUSE and its peers waiting on a store
+    that is not theirs, for c10d's 30 minutes), while the group's process
+    0 still listens on it (c10d's store binds with SO_REUSEADDR)."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    _HELD.append(s)
+    return s.getsockname()[1]
 
 
 def _run(env, nprocs, by_env, argv, tag, hosts=None):

@@ -12,14 +12,33 @@ maps and has served in rounds, with the rounds of the whole process and
 its exchange's transport, "gloo" or "nccl", None without rounds) and
 the run directory of the mapped shards, before the process leaves its
 group and the shards are released; with slots, a list of those layouts,
-one a slot, each with its own rounds."""
+one a slot, each with its own rounds.
 
+The worker arms faulthandler: every thread's stack reaches its stderr on a
+fatal signal, on SIGTERM (which then ends it, as it would have), and, where
+KAIJU_TEST_STACKS_AFTER holds a number of seconds, once that long after the
+start, so that a run that fails or overruns shows where each thread was."""
+
+import faulthandler
 import json
+import os
+import signal
 import sys
 
 from kaiju_tpu_torch.engine.pipeline import CardShare
 from kaiju_tpu_torch.parallel import exchange, peer_shards
 from kaiju_tpu_torch.tools import kaiju
+
+
+def arm_stacks() -> None:
+    """Every thread's stack to stderr on a fatal signal, on SIGTERM (then
+    the default action, which ends the process) and, with
+    KAIJU_TEST_STACKS_AFTER set, that many seconds from now."""
+    faulthandler.enable()
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
+    after = os.environ.get("KAIJU_TEST_STACKS_AFTER")
+    if after:
+        faulthandler.dump_traceback_later(float(after))
 
 
 def main(argv) -> int:
@@ -60,4 +79,5 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    arm_stacks()
     sys.exit(main(sys.argv[1:]))
